@@ -42,16 +42,24 @@ def test_model_yamls_are_copies(name):
 
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     from xlstm_yolo_tpu_torch.engine.model import YOLO
+    from xlstm_yolo_tpu_torch.engine.steps import detect_trainer
     from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
     from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: YOLO("vil-det-tiny.yaml"),
                  lambda: build_detection_model("vil-det-tiny.yaml"),
+                 lambda: build_detection_model("vil-det-tiny.yaml", training=True),
+                 lambda: detect_trainer("vil-det-tiny.yaml"),
                  lambda: select_device()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     yolo = YOLO("vil-det-tiny.yaml", device="cpu")
     assert yolo.device == torch.device("cpu")
     model, _ = build_detection_model("vil-det-tiny.yaml", device="cpu")
-    assert next(model.parameters()).device == torch.device("cpu")
+    assert next(model.parameters()).device == torch.device("cpu") and not model.training
+    model, _ = build_detection_model("vil-det-tiny.yaml", device="cpu", training=True)
+    assert next(model.parameters()).device == torch.device("cpu") and model.training
+    model, state, step = detect_trainer("vil-det-tiny.yaml", device="cpu")
+    assert model.training and state.step == 0 and callable(step)
+    assert all(p.device == torch.device("cpu") for p in state.params.values())

@@ -1,20 +1,28 @@
-"""The port's CUDA chunkwise mLSTM kernel against its plain PyTorch version,
-on the card.  This file imports neither JAX nor the JAX package, so it runs
-on the GPU machine:
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the chunkwise mLSTM inference forward, train forward and backward (and the
+differentiable cell built from them), the epilogue backward and the FFN
+backward.  This file imports neither JAX nor the JAX package, so it runs on
+the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
 
 Without a CUDA device its tests skip.  Inputs are made with numpy from a
-seed.  Tolerances: float32, atol = rtol = 1e-4 (sums in another order);
-bfloat16 inputs (both sides see the same rounded values, the kernel rounds
-h once), atol = rtol = 2e-2.
+seed.  Tolerances:
+
+- float32: atol = rtol = 1e-4 for forward values (sums in another order);
+  gradients atol = 1e-4 times the largest |g| of the output, rtol = 1e-4
+  (the backward sums over up to S rows in another order);
+- bfloat16 inputs (both sides see the same rounded values): atol = rtol =
+  2e-2 for h; gradients atol = 2e-2 times the largest |g|, rtol = 2e-2 (the
+  kernels keep float32 where the plain version rounds intermediate products
+  to bfloat16, and round each output once).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from xlstm_yolo_tpu_torch.ops import chunkwise_v2
+from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -26,6 +34,16 @@ CASES = [  # (S, NH, DH, gates, initial states)
     (200, 4, 32, "open", True),     # several chunks, ragged tail
     (1000, 12, 32, "open", True),   # flagship heads, ragged S
 ]
+ROW_CASES = [  # (B, S, H, D, U, NH, mean offset): epilogue H, NH; FFN D, U
+    (2, 25, 64, 32, 96, 4, 0.0),        # one ragged row tile
+    (2, 100, 384, 192, 512, 12, 0.0),   # the flagship's widths, ragged tiles
+    (1, 1000, 384, 192, 512, 12, 50.0),  # |mean| >> std rows (centred variance)
+]
+
+
+def needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
 
 
 def make_inputs(seed, B, S, NH, DH, gates, states):
@@ -41,16 +59,27 @@ def make_inputs(seed, B, S, NH, DH, gates, states):
     return q, k, v, i, f, c0, n0
 
 
+def cu(a, dtype=torch.float32):
+    return None if a is None else torch.from_numpy(np.asarray(a)).to("cuda", dtype)
+
+
+def assert_grads_close(got, ref, dtype):
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        scale = max(b.abs().max().item(), 1e-30)
+        torch.testing.assert_close(a, b, atol=rel * scale, rtol=rel)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_gpu(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+    needs_cuda()
     dt = getattr(torch, dtype)
     tol = TOL if dt == torch.float32 else BF16_TOL
     for S, NH, DH, gates, states in CASES:
         q, k, v, i, f, c0, n0 = make_inputs(S, 2, S, NH, DH, gates, states)
-        cu = lambda a, d=torch.float32: None if a is None else torch.from_numpy(a).to("cuda", d)
         args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH, cu(c0), cu(n0))
         before = chunkwise_v2.LAUNCHES
         h, (c, n) = chunkwise_v2.mlstm_siging_chunkwise_fw(*args, eps=EPS, return_last_states=True)
@@ -62,3 +91,131 @@ def test_kernel_matches_plain_on_gpu(dtype):
         torch.testing.assert_close(h.float(), hp.float(), **tol)
         torch.testing.assert_close(c, cp, **TOL)
         torch.testing.assert_close(n, np_, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_forward_kernel_matches_plain_on_gpu(dtype):
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    tol = TOL if dt == torch.float32 else BF16_TOL
+    for S, NH, DH, gates, states in CASES:
+        q, k, v, i, f, c0, n0 = make_inputs(S + 1, 2, S, NH, DH, gates, states)
+        args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH, cu(c0), cu(n0))
+        before = chunkwise_v2.LAUNCHES_TRAIN
+        h, (c, n), (cs, ns, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+        torch.cuda.synchronize()
+        assert chunkwise_v2.LAUNCHES_TRAIN == before + 1
+        hp, (cp, np_), (csp, nsp, denp) = chunkwise_v2.mlstm_siging_chunkwise_fw_train_plain(
+            *args, eps=EPS)
+        torch.testing.assert_close(h.float(), hp.float(), **tol)
+        for a, b in ((c, cp), (n, np_), (cs, csp), (ns, nsp), (den, denp)):
+            torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_matches_plain_on_gpu(dtype):
+    """The same saved states and denominator go to both versions."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    for S, NH, DH, gates, states in CASES:
+        q, k, v, i, f, c0, n0 = make_inputs(S + 2, 2, S, NH, DH, gates, states)
+        rng = np.random.default_rng(S)
+        dh = cu(rng.normal(size=q.shape), dt)
+        dc_last = cu(rng.normal(size=(2, NH, DH, DH))) if states else None
+        args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH)
+        _, _, (cs, _, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(
+            *args, cu(c0), cu(n0), eps=EPS)
+        before = chunkwise_v2.LAUNCHES_BW
+        got = chunkwise_v2.mlstm_siging_chunkwise_bw(*args, cs, den, dh, dc_last, eps=EPS)
+        torch.cuda.synchronize()
+        assert chunkwise_v2.LAUNCHES_BW == before + 1
+        ref = chunkwise_v2.mlstm_siging_chunkwise_bw_plain(*args, cs, den, dh, dc_last, eps=EPS)
+        assert_grads_close(got[:3], ref[:3], dt)
+        assert_grads_close(got[3:], ref[3:], torch.float32 if dt == torch.float32 else dt)
+
+
+@pytest.mark.cuda
+def test_cell_function_matches_plain_on_gpu():
+    """The autograd Function on the card (both kernels, gate gradients in
+    PyTorch) against the same Function on the CPU (plain versions)."""
+    needs_cuda()
+    S, NH, DH = 300, 4, 32
+    q, k, v, i, f, c0, n0 = make_inputs(7, 2, S, NH, DH, "open", True)
+    w = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [torch.from_numpy(a).to(dev).requires_grad_(j != 6)
+             for j, a in enumerate((q, k, v, i, f, c0, n0))]
+        h = chunkwise_v2.mlstm_siging_chunkwise_train(*t[:5], NH, t[5], t[6], eps=EPS)
+        loss = (h * torch.from_numpy(w).to(dev)).sum()
+        out[dev] = [g.cpu() for g in torch.autograd.grad(loss, t[:6])]
+    assert_grads_close(out["cuda"], out["cpu"], torch.float32)
+
+
+def row_inputs(B, S, H, D, U, NH, offset, seed):
+    rng = np.random.default_rng(seed)
+    return dict(
+        h=rng.normal(offset, 1.0, (B, S, H)), x=rng.normal(size=(B, S, H)),
+        g_epi=rng.normal(size=(B, S, D)), ln_w=rng.normal(0, 0.1, H), ln_b=rng.normal(0, 0.1, H),
+        skip=rng.normal(1, 0.1, H), wd_epi=rng.normal(0, H ** -0.5, (D, H)),
+        xf=rng.normal(offset, 1.0, (B, S, D)), g_ffn=rng.normal(size=(B, S, D)),
+        wn=rng.normal(1, 0.1, D), wgz=rng.normal(0, D ** -0.5, (2 * U, D)),
+        bgz=rng.normal(0, 0.1, 2 * U), wd_ffn=rng.normal(0, U ** -0.5, (D, U)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,U,NH,offset", ROW_CASES)
+def test_epilogue_backward_kernel_matches_plain_on_gpu(B, S, H, D, U, NH, offset, dtype):
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    a = row_inputs(B, S, H, D, U, NH, offset, seed=S)
+    args = (cu(a["h"], dt), cu(a["x"], dt), cu(a["g_epi"], dt), cu(a["ln_w"]), cu(a["ln_b"]),
+            cu(a["skip"]), cu(a["wd_epi"]), NH)
+    before = epilogue.LAUNCHES
+    got = epilogue.epilogue_bwd(*args)
+    torch.cuda.synchronize()
+    assert epilogue.LAUNCHES == before + 1
+    ref = epilogue.epilogue_bwd_plain(*args)
+    assert_grads_close(got, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,D,U,NH,offset", ROW_CASES)
+def test_ffn_backward_kernel_matches_plain_on_gpu(B, S, H, D, U, NH, offset, dtype):
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    a = row_inputs(B, S, H, D, U, NH, offset, seed=S + 1)
+    x, wn, wgz, wd = cu(a["xf"], dt), cu(a["wn"]), cu(a["wgz"]), cu(a["wd_ffn"])
+    _, gz = ffn.ffn_forward(x, wn, wgz, cu(a["bgz"]), wd, torch.zeros(D, device="cuda"))
+    g = cu(a["g_ffn"], dt)
+    before = ffn.LAUNCHES
+    got = ffn.ffn_bwd(x, gz, g, wn, wgz, wd)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES == before + 1
+    ref = ffn.ffn_bwd_plain(x, gz, g, wn, wgz, wd)
+    assert_grads_close(got, ref, dt)
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    """CPU tensors go to the plain versions; a tensor on another device
+    is refused (the wrappers never fall back)."""
+    q, k, v, i, f, _, _ = make_inputs(0, 1, 30, 2, 16, "open", False)
+    t = [torch.from_numpy(a) for a in (q, k, v, i, f)]
+    before = chunkwise_v2.LAUNCHES_TRAIN
+    chunkwise_v2.mlstm_siging_chunkwise_fw_train(*t, 2)
+    assert chunkwise_v2.LAUNCHES_TRAIN == before
+    meta = [a.to("meta") for a in t]
+    with pytest.raises(ValueError, match="unsupported device"):
+        chunkwise_v2.mlstm_siging_chunkwise_fw_train(*meta, 2)
+    a = {k: torch.from_numpy(np.asarray(v, np.float32)).to("meta")
+         for k, v in row_inputs(1, 30, 64, 32, 96, 4, 0.0, seed=0).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        epilogue.epilogue_bwd(a["h"], a["x"], a["g_epi"], a["ln_w"], a["ln_b"], a["skip"],
+                              a["wd_epi"], 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ffn.ffn_bwd(a["xf"], torch.empty(1, 30, 192, device="meta"), a["g_ffn"], a["wn"],
+                    a["wgz"], a["wd_ffn"])

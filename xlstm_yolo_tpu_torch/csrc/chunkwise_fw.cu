@@ -1,8 +1,14 @@
-// Chunkwise sigmoid-input-gate mLSTM forward (inference) for Hopper, sm_90a.
+// Chunkwise sigmoid-input-gate mLSTM forward for Hopper, sm_90a: inference and
+// train variants.
 //
-// Replaces the TPU kernel `_fw_kernel_infer` (xlstm_yolo_tpu/ops/pallas/
-// chunkwise_v2.py:245, body `_fw_body` :130) and the host-side gate
-// packing `_pack_gates` (:259).  It computes what that kernel computes, with
+// Replaces the TPU kernels `_fw_kernel_infer` (xlstm_yolo_tpu/ops/pallas/
+// chunkwise_v2.py:245) and `_fw_kernel_train` (:238), body `_fw_body` :130,
+// and the host-side gate packing `_pack_gates` (:259).  The train variant
+// (SAVE) also stores, for the backward, the state before each chunk,
+// C (B, NC, NH, DH, DH) and n (B, NC, NH, DH), and the denominator
+// max(|n_inter + n_intra|, 1) of each row, den (B, NC, NH, L), in float32
+// (1 on rows past S).  C and n already live in shared memory, so each
+// chunk's state is one extra store: 39 MB per call at B = 8, S = 6400.  It computes what that kernel computes, with
 // the math of the plain version in xlstm_yolo_tpu_torch/ops/mlstm_chunkwise.py:
 //
 //   b = within-chunk cumsum of logsig(f),  a = (b_last - b) + logsig(i),
@@ -93,12 +99,13 @@ __device__ __forceinline__ void store_row(T* p, const float* x) {
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool SAVE>
 __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ ig, const float* __restrict__ fg,
     const float* __restrict__ c0, const float* __restrict__ n0,
     T* __restrict__ h, float* __restrict__ c_last, float* __restrict__ n_last,
+    float* __restrict__ c_states, float* __restrict__ n_states, float* __restrict__ den_out,
     int S, int NH, float qk_scale, float eps) {
   static_assert(DH == 16 || DH == 32, "head dim 16 or 32");
   constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
@@ -131,6 +138,11 @@ __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
   const int NC = (S + L - 1) / L;
   for (int c = 0; c < NC; ++c) {
     const int t0 = c * L;
+    const size_t chunk_bh = ((size_t)b * NC + c) * NH + hd;  // (b, c, head)
+    if constexpr (SAVE) {  // the state before this chunk
+      for (int e = tid; e < DH * DH; e += NT) c_states[chunk_bh * DH * DH + e] = sc[e / DH][e % DH];
+      if (tid < DH) n_states[chunk_bh * DH + tid] = sn[tid];
+    }
 
     // 1. tiles: 16-byte loads of each head row, out-of-range rows zeroed
     for (int e = tid; e < L * VPR; e += NT) {
@@ -258,7 +270,11 @@ __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
           acc[x + 3] = fmaf(s, vv.w, acc[x + 3]);
         }
       }
-      const float inv = 1.f / (fmaxf(fabsf(n_inter + n_intra), 1.f) + eps);
+      const float den = fmaxf(fabsf(n_inter + n_intra), 1.f);
+      if constexpr (SAVE) {
+        if (tid % 4 == 0) den_out[chunk_bh * L + l] = den;
+      }
+      const float inv = 1.f / (den + eps);
 #pragma unroll
       for (int x = 0; x < CPT; ++x) acc[x] *= inv;
       if (t0 + l < S) store_row<T, CPT>(h + row0 + (size_t)(t0 + l) * H + cc, acc);
@@ -292,13 +308,36 @@ __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
   if (tid < DH) n_last[(size_t)bh * DH + tid] = sn[tid];
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool SAVE>
 void launch(const void* q, const void* k, const void* v, const float* i, const float* f,
             const float* c0, const float* n0, void* h, float* c_last, float* n_last,
-            int B, int S, int NH, float qk_scale, float eps, cudaStream_t stream) {
-  chunkwise_fw_kernel<T, DH><<<B * NH, NT, 0, stream>>>(
+            float* c_states, float* n_states, float* den, int B, int S, int NH, float qk_scale,
+            float eps, cudaStream_t stream) {
+  chunkwise_fw_kernel<T, DH, SAVE><<<B * NH, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
-      c0, n0, static_cast<T*>(h), c_last, n_last, S, NH, qk_scale, eps);
+      c0, n0, static_cast<T*>(h), c_last, n_last, c_states, n_states, den, S, NH, qk_scale, eps);
+}
+
+template <bool SAVE>
+int dispatch(const void* q, const void* k, const void* v, const float* i, const float* f,
+             const float* c0, const float* n0, void* h, float* c_last, float* n_last,
+             float* c_states, float* n_states, float* den, int B, int S, int NH, int DH,
+             int dtype, float qk_scale, float eps, cudaStream_t st) {
+  if (dtype == 0 && DH == 32)
+    launch<float, 32, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
+                            B, S, NH, qk_scale, eps, st);
+  else if (dtype == 0 && DH == 16)
+    launch<float, 16, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
+                            B, S, NH, qk_scale, eps, st);
+  else if (dtype == 1 && DH == 32)
+    launch<__nv_bfloat16, 32, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states,
+                                    n_states, den, B, S, NH, qk_scale, eps, st);
+  else if (dtype == 1 && DH == 16)
+    launch<__nv_bfloat16, 16, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states,
+                                    n_states, den, B, S, NH, qk_scale, eps, st);
+  else
+    return 1000;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -310,16 +349,17 @@ extern "C" int chunkwise_fw(const void* q, const void* k, const void* v, const f
                             const float* f, const float* c0, const float* n0, void* h,
                             float* c_last, float* n_last, int B, int S, int NH, int DH,
                             int dtype, float qk_scale, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && DH == 32)
-    launch<float, 32>(q, k, v, i, f, c0, n0, h, c_last, n_last, B, S, NH, qk_scale, eps, st);
-  else if (dtype == 0 && DH == 16)
-    launch<float, 16>(q, k, v, i, f, c0, n0, h, c_last, n_last, B, S, NH, qk_scale, eps, st);
-  else if (dtype == 1 && DH == 32)
-    launch<__nv_bfloat16, 32>(q, k, v, i, f, c0, n0, h, c_last, n_last, B, S, NH, qk_scale, eps, st);
-  else if (dtype == 1 && DH == 16)
-    launch<__nv_bfloat16, 16>(q, k, v, i, f, c0, n0, h, c_last, n_last, B, S, NH, qk_scale, eps, st);
-  else
-    return 1000;
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, i, f, c0, n0, h, c_last, n_last, nullptr, nullptr, nullptr,
+                         B, S, NH, DH, dtype, qk_scale, eps, static_cast<cudaStream_t>(stream));
+}
+
+// The train variant: also c_states (B, NC, NH, DH, DH), n_states
+// (B, NC, NH, DH) and den (B, NC, NH, L), float32, NC = ceil(S / L).
+extern "C" int chunkwise_fw_train(const void* q, const void* k, const void* v, const float* i,
+                                  const float* f, const float* c0, const float* n0, void* h,
+                                  float* c_last, float* n_last, float* c_states,
+                                  float* n_states, float* den, int B, int S, int NH, int DH,
+                                  int dtype, float qk_scale, float eps, void* stream) {
+  return dispatch<true>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den, B,
+                        S, NH, DH, dtype, qk_scale, eps, static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,10 @@ Counterpart of ``xlstm_yolo_tpu/nn/head.py`` (``dfl_decode``,
 analytically (no frozen arange conv, so no extra state-dict entry).  At
 inference the end2end head runs only its one2one branch: the one2many
 branch feeds training alone (the JAX predict program drops it as dead
-code).
+code).  In training the head returns the raw level maps,
+``{"one2many": maps, "one2one": maps}`` for the end2end head (its one2one
+towers see detached features, so their loss trains only them), or the
+list of maps.
 """
 
 from __future__ import annotations
@@ -104,7 +107,12 @@ class Detect(nn.Module):
 
     def forward(self, feats, img_hw: tuple[int, int]):
         if self.training:
-            raise NotImplementedError("the training head is not ported yet")
+            one2many = self._branches(feats, self.cv2, self.cv3)
+            if not self.end2end:
+                return one2many
+            one2one = self._branches([x.detach() for x in feats], self.one2one_cv2,
+                                     self.one2one_cv3)
+            return {"one2many": one2many, "one2one": one2one}
         strides = tuple(img_hw[0] / x.shape[1] for x in feats)
         if self.end2end:
             maps = self._branches(feats, self.one2one_cv2, self.one2one_cv3)

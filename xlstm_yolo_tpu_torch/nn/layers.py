@@ -15,7 +15,11 @@ JAX package so the two can be held against each other:
 - initializers follow the JAX package's schemes and draw from an explicit
   ``torch.Generator`` (``reset_parameters(g)``).
 
-Only the inference path exists in this package so far.
+In training (``module.train()``) the ViL layers run the training path of
+the JAX package's TPU configuration at every S: the mLSTM cell through the
+train forward and backward kernels (the max(|.|, 1) denominator held
+constant in the gradient), the fused epilogue and FFN branches, BatchNorm
+on batch statistics, and activation checkpointing of long block pairs.
 """
 
 from __future__ import annotations
@@ -27,7 +31,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import mlstm_siging_chunkwise_fw
+from torch.utils.checkpoint import checkpoint
+
+from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import (
+    mlstm_siging_chunkwise_fw,
+    mlstm_siging_chunkwise_train,
+)
+from xlstm_yolo_tpu_torch.ops.epilogue import epilogue
+from xlstm_yolo_tpu_torch.ops.ffn import ffn
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 FORWARD = "rowwise_from_top_left"
@@ -167,7 +178,16 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis, float32 math."""
+    """BatchNorm over the last (channel) axis, float32 math: flax
+    ``nn.BatchNorm(momentum=0.97)``.
+
+    In training it normalises with the batch mean and the *biased*
+    variance in flax's fast form max(E[x^2] - E[x]^2, 0), and moves the
+    running statistics toward those same values (torch's ``batch_norm``
+    would move the variance toward the unbiased one).
+    """
+
+    MOMENTUM = 0.97  # flax's: running = 0.97 running + 0.03 batch statistic
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -184,8 +204,18 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (x.to(acc_dtype(x.dtype)) - self.running_mean) * scale + self.bias
+        xf = x.to(acc_dtype(x.dtype))
+        if not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            return ((xf - self.running_mean) * scale + self.bias).to(x.dtype)
+        dims = tuple(range(x.ndim - 1))
+        mean = xf.mean(dims)
+        var = torch.clamp(xf.square().mean(dims) - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
 
 
@@ -263,16 +293,33 @@ class LayerNorm(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth; the identity ``x + branch`` at inference."""
+    """Per-sample stochastic depth: ``x + mask * branch / keep`` in training,
+    ``x + branch`` at inference.  The mask is drawn on the CPU from
+    ``self.generator``, an explicit ``torch.Generator`` that the train step
+    sets (:func:`set_droppath_generator`); torch and JAX draw different
+    masks from one seed."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
         self.drop_prob = drop_prob
+        self.generator: torch.Generator | None = None
 
     def forward(self, x, branch):
-        if self.training and self.drop_prob > 0.0:
-            raise NotImplementedError("stochastic depth in training is not ported yet")
-        return x + branch
+        if not self.training or self.drop_prob == 0.0:
+            return x + branch
+        if self.generator is None:
+            raise RuntimeError("DropPath in training needs a generator (set_droppath_generator)")
+        keep = 1.0 - self.drop_prob
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = (torch.rand(shape, generator=self.generator) < keep).to(x.device, x.dtype)
+        return x + branch * (mask / keep)
+
+
+def set_droppath_generator(model: nn.Module, generator: torch.Generator | None) -> None:
+    """Give every DropPath of ``model`` the generator its masks come from."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +469,11 @@ class MatrixLSTMCell(nn.Module):
     The ifgate Dense maps concat(q, k, v) to 2*NH gate pre-activations
     (float32, soft-capped), the chunkwise kernel runs the recurrence on the
     (B, S, H) streams, and a MultiHeadLayerNorm normalises each head.
-    ``kernel`` is the cell function; it defaults to the kernel wrapper.
+    ``kernel`` is the cell function of inference (the inference kernel's
+    wrapper), ``train_kernel`` the differentiable cell of training.  In
+    training the cell returns the raw h (q's dtype) and the outnorm's
+    (weight, bias), which the layer's fused epilogue applies (the JAX
+    package's ``defer_outnorm``).
     """
 
     def __init__(self, dim: int, num_heads: int, gate_soft_cap: float = 15.0,
@@ -436,6 +487,7 @@ class MatrixLSTMCell(nn.Module):
         self.outnorm = MultiHeadLayerNorm(num_heads, dim // num_heads, eps=1e-6,
                                           use_bias=norm_bias)
         self.kernel = mlstm_siging_chunkwise_fw
+        self.train_kernel = mlstm_siging_chunkwise_train
 
     def forward(self, q, k, v):
         B, S, H = q.shape
@@ -444,8 +496,11 @@ class MatrixLSTMCell(nn.Module):
         if_preact = soft_cap(self.ifgate(gate_in), self.gate_soft_cap)
         i_pre, f_pre = (t.contiguous() for t in if_preact.split(NH, dim=-1))
         cd = self.compute_dtype or q.dtype
-        h = self.kernel(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
-                        _cast(v, cd).contiguous(), i_pre, f_pre, NH, eps=self.eps)
+        fn = self.train_kernel if self.training else self.kernel
+        h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
+               _cast(v, cd).contiguous(), i_pre, f_pre, NH, eps=self.eps)
+        if self.training:
+            return h.to(q.dtype), (self.outnorm.weight, self.outnorm.bias)
         h = self.outnorm(h.to(q.dtype).reshape(B, S, NH, H // NH))
         return h.reshape(B, S, H)
 
@@ -490,6 +545,8 @@ class ViLLayer(nn.Module):
         self.ffn = FeedForward(dim, ffn_proj_factor, ffn_round_up_to, proj_bias,
                                num_blocks, compute_dtype=cd)
         self.drop_path = DropPath(drop_path)
+        self.epilogue_fn = epilogue  # fused [outnorm -> + skip * x -> proj_down] of training
+        self.ffn_fn = ffn            # fused [ffn_norm -> FFN] of training
 
     def init_own_parameters(self, g):
         nn.init.ones_(self.learnable_skip)
@@ -501,16 +558,34 @@ class ViLLayer(nn.Module):
         x_qk_act = F.silu(self.conv(x_qk))
         q, k = self.qk_proj(x_qk_act).split(self.inner, dim=-1)
         v = self.v_proj(x_v)
-        h = self.mlstm_cell(q, k, v)
-        h = h + self.learnable_skip.to(h.dtype) * x_qk_act
-        out = self.proj_down(h)
+        if self.training:
+            h_raw, (ln_w, ln_b) = self.mlstm_cell(q, k, v)
+            wd, bd = self.proj_down.weight, self.proj_down.bias
+            out = self.epilogue_fn(
+                h_raw.contiguous(), x_qk_act.contiguous(), ln_w,
+                ln_b if ln_b is not None else torch.zeros_like(ln_w), self.learnable_skip,
+                wd, bd if bd is not None else wd.new_zeros(wd.shape[0]),
+                self.mlstm_cell.num_heads, 1e-6)
+        else:
+            h = self.mlstm_cell(q, k, v)
+            h = h + self.learnable_skip.to(h.dtype) * x_qk_act
+            out = self.proj_down(h)
         if self.direction == BACKWARD:
             out = out.flip(1)
         return out
 
+    def _ffn_branch(self, x):
+        if not (self.training and self.ffn_norm.weight is not None):
+            return self.ffn(self.ffn_norm(x))
+        up, down = self.ffn.proj_up_gate_z, self.ffn.proj_down
+        bgz = up.bias if up.bias is not None else up.weight.new_zeros(up.weight.shape[0])
+        bd = down.bias if down.bias is not None else down.weight.new_zeros(down.weight.shape[0])
+        return self.ffn_fn(x.contiguous(), self.ffn_norm.weight, up.weight, bgz, down.weight,
+                           bd, 1e-6)
+
     def forward(self, x):
         x = self.drop_path(x, self._mlstm_branch(self.norm(x)))
-        return self.drop_path(x, self.ffn(self.ffn_norm(x)))
+        return self.drop_path(x, self._ffn_branch(x))
 
 
 class ViLBlock(nn.Module):
@@ -523,12 +598,43 @@ class ViLBlock(nn.Module):
 
 
 class ViLBlockPair(nn.Module):
-    """Forward-traversal block, then the flipped-traversal block."""
+    """Forward-traversal block, then the flipped-traversal block.
+
+    In training, pairs at S >= ``ckpt_thresh`` (80 * 80) are rematerialised
+    with ``torch.utils.checkpoint``, as the JAX package remats them: the
+    backward pass recomputes the pair's forward.  The DropPath generators
+    are rewound for that recompute, so it draws the same masks.
+    """
+
+    ckpt_thresh = 80 * 80
 
     def __init__(self, dim: int, **kw):
         super().__init__()
         self.rowwise_from_top_left = ViLBlock(dim, FORWARD, **kw)
         self.rowwise_from_bot_right = ViLBlock(dim, BACKWARD, **kw)
 
-    def forward(self, x):
+    def _pair(self, x):
         return self.rowwise_from_bot_right(self.rowwise_from_top_left(x))
+
+    def forward(self, x):
+        if not (self.training and x.shape[1] >= self.ckpt_thresh and torch.is_grad_enabled()):
+            return self._pair(x)
+        gens = {id(m.generator): m.generator for m in self.modules()
+                if isinstance(m, DropPath) and m.generator is not None}.values()
+        start = [(g, g.get_state()) for g in gens]
+        recompute = False
+
+        def run(x):
+            nonlocal recompute
+            if not recompute:
+                recompute = True
+                return self._pair(x)
+            now = [(g, g.get_state()) for g, _ in start]
+            for g, state in start:  # draw the forward's masks again
+                g.set_state(state)
+            out = self._pair(x)
+            for g, state in now:  # and leave the generators where the step left them
+                g.set_state(state)
+            return out
+
+        return checkpoint(run, x, use_reentrant=False)

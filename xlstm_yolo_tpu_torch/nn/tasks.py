@@ -180,7 +180,8 @@ class DetectionModel(nn.Module):
 
     Input: NHWC float images in [0, 1].  Output at inference:
     (decoded (B, max_det, 6) or, with ``decode_only``, (B, A, 4+nc);
-    dict of the head's level maps).
+    dict of the head's level maps).  In training (``train()``): the head's
+    raw level maps, ``{"one2many": [...], "one2one": [...]}``.
     """
 
     def __init__(self, specs: Sequence[dict], save: Sequence[int], nc: int = 80,
@@ -209,10 +210,10 @@ class DetectionModel(nn.Module):
 def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
                           compute_dtype: torch.dtype | None = None,
                           decode_only: bool = False, device: str | torch.device = "cuda",
-                          generator: torch.Generator | None = None):
-    """Compile a model YAML into an eval-mode DetectionModel on ``device``,
-    initialised from ``generator`` (default: seed 0).  Returns
-    (model, resolved cfg dict)."""
+                          generator: torch.Generator | None = None, training: bool = False):
+    """Compile a model YAML into a DetectionModel on ``device``, in eval
+    mode, or in train mode with ``training``, initialised from
+    ``generator`` (default: seed 0).  Returns (model, resolved cfg dict)."""
     dev = select_device(device)
     p = Path(cfg) if not isinstance(cfg, dict) else None
     if p is not None and not p.exists() and (CFG_MODELS / p.name).exists():
@@ -225,4 +226,4 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
                            img_size=int(d.get("imgsz", 640)), decode_only=decode_only)
     reset_parameters(model, generator if generator is not None
                      else torch.Generator().manual_seed(0))
-    return model.to(dev).eval(), d
+    return model.to(dev).train(training), d

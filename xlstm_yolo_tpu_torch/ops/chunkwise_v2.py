@@ -1,92 +1,67 @@
-"""Chunkwise siging mLSTM forward in the (B, S, H) layout: the CUDA kernel,
-its wrapper and its plain PyTorch version.
+"""Chunkwise siging mLSTM in the (B, S, H) layout: the CUDA kernels, their
+wrappers, their plain PyTorch versions and the autograd Function.
 
-Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py`` ``_fw`` with
-``save_states=False`` (the inference kernel ``_fw_kernel_infer``).  The
-kernel is ``csrc/chunkwise_fw.cu``, compiled with ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface at first use and loaded
-with ``ctypes``.
+Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
 
-:func:`mlstm_siging_chunkwise_fw` launches the kernel for CUDA tensors and
-raises on anything the kernel does not take; for CPU tensors it runs
-:func:`mlstm_siging_chunkwise_fw_plain`, the same function in plain
-PyTorch.  ``LAUNCHES`` counts kernel launches.
+- :func:`mlstm_siging_chunkwise_fw` — the inference forward
+  (``_fw_kernel_infer``), kernel ``chunkwise_fw`` in ``csrc/chunkwise_fw.cu``;
+- :func:`mlstm_siging_chunkwise_fw_train` — the forward that also saves the
+  state before each chunk and the denominator per row
+  (``_fw_kernel_train``), kernel ``chunkwise_fw_train`` in the same file;
+- :func:`mlstm_siging_chunkwise_bw` — the fused backward: reverse dC scan
+  with dq, dk, dv per chunk and dC0 (``_bw_fused_kernel`` and its
+  transposed twin ``_bw_fused_kernel_t``), ``csrc/chunkwise_bw.cu``;
+- :func:`mlstm_siging_chunkwise_train` — the differentiable cell
+  (``_chunkwise_core_v2`` with ``_core_fwd`` / ``_core_bwd``).  Its
+  gradient holds the max(|.|, 1) denominator constant, at every S.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+``*_plain`` version for CPU tensors.  ``LAUNCHES``, ``LAUNCHES_TRAIN`` and
+``LAUNCHES_BW`` count kernel launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-
 import torch
 
+from xlstm_yolo_tpu_torch.ops import cuda_build
+from xlstm_yolo_tpu_torch.ops.cuda_build import F, I, P
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = [
     "LAUNCHES",
-    "build_kernel",
+    "LAUNCHES_BW",
+    "LAUNCHES_TRAIN",
+    "gate_grads",
+    "mlstm_siging_chunkwise_bw",
+    "mlstm_siging_chunkwise_bw_plain",
     "mlstm_siging_chunkwise_fw",
     "mlstm_siging_chunkwise_fw_plain",
+    "mlstm_siging_chunkwise_fw_train",
+    "mlstm_siging_chunkwise_fw_train_plain",
+    "mlstm_siging_chunkwise_train",
+    "mlstm_siging_chunkwise_train_plain",
 ]
 
-LAUNCHES = 0  # kernel launches made by mlstm_siging_chunkwise_fw
+LAUNCHES = 0        # launches of the inference forward kernel
+LAUNCHES_TRAIN = 0  # launches of the train forward kernel
+LAUNCHES_BW = 0     # launches of the backward kernel
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "chunkwise_fw.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CHUNK_SIZE = 64  # the kernel's chunk length (csrc/chunkwise_fw.cu, L)
+CHUNK_SIZE = 64  # the kernels' chunk length (L in csrc/chunkwise_*.cu)
 HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+
+def _declare_fw(lib):
+    lib.chunkwise_fw.argtypes = [P] * 10 + [I] * 5 + [F, F, P]
+    lib.chunkwise_fw_train.argtypes = [P] * 13 + [I] * 5 + [F, F, P]
+    lib.chunkwise_fw.restype = lib.chunkwise_fw_train.restype = I
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found: the chunkwise kernel cannot be built")
-    return found
-
-
-def build_kernel() -> tuple[Path, str]:
-    """Compile ``csrc/chunkwise_fw.cu`` unless a library of this source
-    exists.  Returns the library path and the compiler's output (empty
-    when the library was already built).  Raises if the build fails."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"chunkwise_fw-{digest}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        path, _ = build_kernel()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.chunkwise_fw
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _declare_bw(lib):
+    lib.chunkwise_bw.argtypes = [P] * 13 + [I] * 5 + [F, F, P]
+    lib.chunkwise_bw.restype = I
 
 
 def _check(q, k, v, i, f, num_heads, c_initial, n_initial):
@@ -120,6 +95,28 @@ def _check(q, k, v, i, f, num_heads, c_initial, n_initial):
     return B, S, H, DH, tensors
 
 
+def _check_cuda(q, DH, tensors):
+    """Raise unless the kernels take these inputs."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q/k/v dtype {q.dtype} not supported by the kernel "
+                        "(float32 or bfloat16)")
+    if DH not in HEAD_DIMS:
+        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
+    cuda_build.check_kernel_inputs(*tensors)
+
+
+def _heads(x, NH):
+    B, S, H = x.shape
+    return x.reshape(B, S, NH, H // NH).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# inference forward
+# ---------------------------------------------------------------------------
+
+
 def mlstm_siging_chunkwise_fw_plain(q, k, v, i, f, num_heads: int, c_initial=None,
                                     n_initial=None, eps: float = 1e-6,
                                     qk_scale: float | None = None,
@@ -127,17 +124,11 @@ def mlstm_siging_chunkwise_fw_plain(q, k, v, i, f, num_heads: int, c_initial=Non
     """Plain PyTorch version of the kernel: same interface, any device, and
     float64 streams too (with float64 gates and states), for a reference."""
     B, S, H, DH, _ = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
-    NH = num_heads
-
-    def heads(x):
-        return x.reshape(B, S, NH, DH).transpose(1, 2)
-
-    out = mlstm_siging_chunkwise(
-        heads(q), heads(k), heads(v), i.transpose(1, 2), f.transpose(1, 2),
-        chunk_size=CHUNK_SIZE, c_initial=c_initial, n_initial=n_initial,
-        qk_scale=qk_scale, return_last_states=True, eps=eps,
-    )
-    h, state = out
+    h, state = mlstm_siging_chunkwise(
+        _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
+        i.transpose(1, 2), f.transpose(1, 2), chunk_size=CHUNK_SIZE,
+        c_initial=c_initial, n_initial=n_initial, qk_scale=qk_scale,
+        return_last_states=True, eps=eps)
     h = h.transpose(1, 2).reshape(B, S, H)
     return (h, state) if return_last_states else h
 
@@ -161,35 +152,231 @@ def mlstm_siging_chunkwise_fw(q, k, v, i, f, num_heads: int, c_initial=None,
         return mlstm_siging_chunkwise_fw_plain(
             q, k, v, i, f, num_heads, c_initial, n_initial, eps=eps,
             qk_scale=qk_scale, return_last_states=return_last_states)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"q/k/v dtype {q.dtype} not supported by the kernel "
-                        "(float32 or bfloat16)")
     B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
-    if DH not in HEAD_DIMS:
-        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
+    _check_cuda(q, DH, tensors)
     if qk_scale is None:
         qk_scale = DH ** -0.5
-    lib = _library()
+    lib = cuda_build.load("chunkwise_fw", _declare_fw)
     h = torch.empty_like(q)
     c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
     n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.chunkwise_fw(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), i.data_ptr(), f.data_ptr(),
-            c_initial.data_ptr() if c_initial is not None else None,
-            n_initial.data_ptr() if n_initial is not None else None,
-            h.data_ptr(), c_last.data_ptr(), n_last.data_ptr(),
-            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"chunkwise_fw launch failed: CUDA error {err}")
+        cuda_build.launch(
+            lib.chunkwise_fw, "chunkwise_fw",
+            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, h, c_last, n_last),
+            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
     LAUNCHES += 1
     return (h, (c_last, n_last)) if return_last_states else h
+
+
+# ---------------------------------------------------------------------------
+# train forward: also the state before each chunk and the denominator
+# ---------------------------------------------------------------------------
+
+
+def mlstm_siging_chunkwise_fw_train_plain(q, k, v, i, f, num_heads: int, c_initial=None,
+                                          n_initial=None, eps: float = 1e-6,
+                                          qk_scale: float | None = None):
+    """Plain version of the train forward; see
+    :func:`mlstm_siging_chunkwise_fw_train`."""
+    B, S, H, DH, _ = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+    h, last, (c_prev, n_prev, den) = mlstm_siging_chunkwise(
+        _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
+        i.transpose(1, 2), f.transpose(1, 2), chunk_size=CHUNK_SIZE,
+        c_initial=c_initial, n_initial=n_initial, qk_scale=qk_scale,
+        return_last_states=True, eps=eps, return_chunk_states=True)
+    h = h.transpose(1, 2).reshape(B, S, H)
+    states = (c_prev.transpose(1, 2).contiguous(), n_prev.transpose(1, 2).contiguous(),
+              den.transpose(1, 2).contiguous())
+    return h, last, states
+
+
+def mlstm_siging_chunkwise_fw_train(q, k, v, i, f, num_heads: int, c_initial=None,
+                                    n_initial=None, eps: float = 1e-6,
+                                    qk_scale: float | None = None):
+    """The forward of training.
+
+    Returns ``h, (c_last, n_last), (c_states, n_states, den)``: h as
+    :func:`mlstm_siging_chunkwise_fw` does, and in float32 the state
+    before each chunk of L = 64 rows, c_states (B, NC, NH, DH, DH) and
+    n_states (B, NC, NH, DH), and the denominator max(|n . q|, 1) of each
+    row, den (B, NC, NH, L) (1 on the rows past S).
+    """
+    global LAUNCHES_TRAIN
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_fw_train_plain(
+            q, k, v, i, f, num_heads, c_initial, n_initial, eps=eps, qk_scale=qk_scale)
+    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+    _check_cuda(q, DH, tensors)
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    NC = -(-S // CHUNK_SIZE)
+    lib = cuda_build.load("chunkwise_fw", _declare_fw)
+    dev = q.device
+    h = torch.empty_like(q)
+    c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=dev)
+    n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=dev)
+    c_states = torch.empty(B, NC, num_heads, DH, DH, dtype=torch.float32, device=dev)
+    n_states = torch.empty(B, NC, num_heads, DH, dtype=torch.float32, device=dev)
+    den = torch.empty(B, NC, num_heads, CHUNK_SIZE, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda_build.launch(
+            lib.chunkwise_fw_train, "chunkwise_fw_train",
+            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, h, c_last, n_last,
+                                 c_states, n_states, den),
+            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    LAUNCHES_TRAIN += 1
+    return h, (c_last, n_last), (c_states, n_states, den)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _check_bw(q, num_heads, c_states, den, dh, dc_last):
+    B, S, H = q.shape
+    DH = H // num_heads
+    NC = -(-S // CHUNK_SIZE)
+    acc = acc_dtype(q.dtype)
+    if dh.shape != q.shape or dh.dtype != q.dtype or dh.device != q.device:
+        raise ValueError(f"dh must be {q.dtype} {tuple(q.shape)} on {q.device}")
+    if c_states.shape != (B, NC, num_heads, DH, DH) or c_states.dtype != acc:
+        raise ValueError(f"c_states must be {acc} {(B, NC, num_heads, DH, DH)}")
+    if den.shape != (B, NC, num_heads, CHUNK_SIZE) or den.dtype != acc:
+        raise ValueError(f"den must be {acc} {(B, NC, num_heads, CHUNK_SIZE)}")
+    if dc_last is not None and (dc_last.shape != (B, num_heads, DH, DH) or dc_last.dtype != acc):
+        raise ValueError(f"dc_last must be {acc} {(B, num_heads, DH, DH)}")
+
+
+def mlstm_siging_chunkwise_bw_plain(q, k, v, i, f, num_heads: int, c_states, den, dh,
+                                    dc_last=None, eps: float = 1e-6,
+                                    qk_scale: float | None = None):
+    """Plain version of the backward: autograd through the plain forward
+    with the saved denominator held constant (stop-grad), from the saved
+    initial state ``c_states[:, 0]``."""
+    _check(q, k, v, i, f, num_heads, None, None)
+    _check_bw(q, num_heads, c_states, den, dh, dc_last)
+    B, S, H = q.shape
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        c0 = c_states[:, 0].detach().clone().requires_grad_()
+        h, (c_last, _) = mlstm_siging_chunkwise(
+            _heads(qq, num_heads), _heads(kk, num_heads), _heads(vv, num_heads),
+            i.detach().transpose(1, 2), f.detach().transpose(1, 2), chunk_size=CHUNK_SIZE,
+            c_initial=c0, qk_scale=qk_scale, return_last_states=True, eps=eps,
+            den=den.transpose(1, 2))
+        outs, grads = [h.transpose(1, 2).reshape(B, S, H)], [dh]
+        if dc_last is not None:
+            outs.append(c_last)
+            grads.append(dc_last)
+        dq, dk, dv, dc0 = torch.autograd.grad(outs, [qq, kk, vv, c0], grads)
+    return dq, dk, dv, dc0
+
+
+def mlstm_siging_chunkwise_bw(q, k, v, i, f, num_heads: int, c_states, den, dh,
+                              dc_last=None, eps: float = 1e-6,
+                              qk_scale: float | None = None):
+    """The fused backward of the cell, the denominator held constant.
+
+    Takes the forward's inputs, its saved ``c_states`` and ``den`` (see
+    :func:`mlstm_siging_chunkwise_fw_train`), the upstream gradient ``dh``
+    (B, S, H) in q's dtype and optionally that of the last C state.
+    Returns dq, dk, dv in q's dtype and dC0 (B, NH, DH, DH) float32, the
+    gradient of the state before the first chunk.
+    """
+    global LAUNCHES_BW
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_bw_plain(q, k, v, i, f, num_heads, c_states, den, dh,
+                                               dc_last, eps=eps, qk_scale=qk_scale)
+    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, None, None)
+    _check_bw(q, num_heads, c_states, den, dh, dc_last)
+    _check_cuda(q, DH, tensors + [c_states, den, dh, dc_last])
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    lib = cuda_build.load("chunkwise_bw", _declare_bw)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dc0 = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_build.launch(
+            lib.chunkwise_bw, "chunkwise_bw",
+            *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0),
+            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    LAUNCHES_BW += 1
+    return dq, dk, dv, dc0
+
+
+def gate_grads(q, k, dq, dk, i, f, num_heads: int):
+    """Gradients of the gate pre-activations from dq and dk, as the JAX
+    package computes them beside its kernel (``chunkwise_v2._bw``):
+    df = reverse-cumsum(q.dq - k.dk) * sigmoid(-f), di = k.dk * sigmoid(-i),
+    with the dot products per head."""
+    B, S, H = q.shape
+    acc = acc_dtype(q.dtype)
+
+    def rowdot(a, b):
+        return (a.to(acc) * b.to(acc)).reshape(B, S, num_heads, H // num_heads).sum(-1)
+
+    kdk = rowdot(k, dk)
+    dfbar = rowdot(q, dq) - kdk
+    dfrev = dfbar.flip(1).cumsum(1).flip(1)
+    return kdk * torch.sigmoid(-i), dfrev * torch.sigmoid(-f)
+
+
+class _ChunkwiseCell(torch.autograd.Function):
+    """The cell with the kernels' forward and backward (``_core_fwd`` /
+    ``_core_bwd``).  dn0 is zero and dC0 is returned when initial states
+    were given; the gradient of n_last is dropped, as in the JAX VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, f, c_initial, n_initial, num_heads, eps, qk_scale):
+        h, (c_last, n_last), (c_states, _, den) = mlstm_siging_chunkwise_fw_train(
+            q, k, v, i, f, num_heads, c_initial, n_initial, eps=eps, qk_scale=qk_scale)
+        ctx.save_for_backward(q, k, v, i, f, c_states, den)
+        ctx.num_heads, ctx.eps, ctx.qk_scale = num_heads, eps, qk_scale
+        ctx.n_initial_shape = None if n_initial is None else n_initial.shape
+        ctx.mark_non_differentiable(n_last)
+        ctx.set_materialize_grads(False)
+        return h, c_last, n_last
+
+    @staticmethod
+    def backward(ctx, dh, dc_last, _dn_last):
+        q, k, v, i, f, c_states, den = ctx.saved_tensors
+        dh = torch.zeros_like(q) if dh is None else dh.contiguous()
+        dc_last = None if dc_last is None else dc_last.contiguous()
+        dq, dk, dv, dc0 = mlstm_siging_chunkwise_bw(
+            q, k, v, i, f, ctx.num_heads, c_states, den, dh, dc_last,
+            eps=ctx.eps, qk_scale=ctx.qk_scale)
+        di, df = gate_grads(q, k, dq, dk, i, f, ctx.num_heads)
+        had_init = ctx.n_initial_shape is not None
+        dni = dc0.new_zeros(ctx.n_initial_shape) if had_init else None
+        return dq, dk, dv, di, df, dc0 if had_init else None, dni, None, None, None
+
+
+def mlstm_siging_chunkwise_train(q, k, v, i, f, num_heads: int, c_initial=None,
+                                 n_initial=None, eps: float = 1e-6,
+                                 qk_scale: float | None = None,
+                                 return_last_states: bool = False):
+    """The differentiable cell of training: the train forward kernel and the
+    backward kernel (plain versions on CPU tensors).  Same interface and
+    forward values as :func:`mlstm_siging_chunkwise_fw`."""
+    h, c_last, n_last = _ChunkwiseCell.apply(q, k, v, i, f, c_initial, n_initial,
+                                             num_heads, eps, qk_scale)
+    return (h, (c_last, n_last)) if return_last_states else h
+
+
+def mlstm_siging_chunkwise_train_plain(q, k, v, i, f, num_heads: int, c_initial=None,
+                                       n_initial=None, eps: float = 1e-6,
+                                       qk_scale: float | None = None,
+                                       return_last_states: bool = False):
+    """Plain version of :func:`mlstm_siging_chunkwise_train` on any device
+    (float64 too): autograd through the plain forward with the denominator
+    held constant."""
+    B, S, H, DH, _ = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+    h, state = mlstm_siging_chunkwise(
+        _heads(q, num_heads), _heads(k, num_heads), _heads(v, num_heads),
+        i.transpose(1, 2), f.transpose(1, 2), chunk_size=CHUNK_SIZE,
+        c_initial=c_initial, n_initial=n_initial, qk_scale=qk_scale,
+        return_last_states=True, eps=eps, stopgrad_norm=True)
+    h = h.transpose(1, 2).reshape(B, S, H)
+    return (h, state) if return_last_states else h

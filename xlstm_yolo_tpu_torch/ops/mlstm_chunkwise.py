@@ -80,12 +80,24 @@ def mlstm_siging_chunkwise(
     qk_scale: float | None = None,
     return_last_states: bool = False,
     eps: float = 1e-6,
+    stopgrad_norm: bool = False,
+    den: torch.Tensor | None = None,
+    return_chunk_states: bool = False,
 ):
     """Chunkwise siging mLSTM over (B, NH, S, DH) heads, any S.
 
     q/k: (B, NH, S, DHQK), v: (B, NH, S, DHHV), i/f: (B, NH, S).  The
     arithmetic runs in float32 (float64 for float64 inputs); ``h`` is
     returned in q's dtype and the last states ``(C, n)`` in that type.
+
+    ``stopgrad_norm`` detaches the max(|.|, 1) denominator, as the kernel's
+    backward and the JAX package's Pallas VJP do; without it autograd
+    differentiates through it (the JAX ``chunkwise--native_autograd``).
+    ``den`` (B, NH, NC, L) replaces the computed denominator by a given
+    constant (the backward's recompute from saved forward values).
+    ``return_chunk_states`` appends ``(C_prev, n_prev, den)``: the state
+    before each chunk (B, NH, NC, DHQK, DHHV) / (B, NH, NC, DHQK) and the
+    denominator per row (B, NH, NC, L), 1 on padded rows.
     """
     B, NH, S, DHQK = q.shape
     DHHV = v.shape[-1]
@@ -137,10 +149,16 @@ def mlstm_siging_chunkwise(
 
     qbar = qc * torch.exp(vecB)[..., None] * qk_scale
     num = torch.einsum("bhnld,bhndv->bhnlv", qbar, C_prev) + matSD @ vc
-    den_raw = torch.einsum("bhnld,bhnd->bhnl", qbar, n_prev) + matSD.sum(-1)
-    den = torch.clamp(den_raw.abs(), min=1.0)
+    if den is None:
+        den_raw = torch.einsum("bhnld,bhnd->bhnl", qbar, n_prev) + matSD.sum(-1)
+        den = torch.clamp(den_raw.abs(), min=1.0)
+        if stopgrad_norm:
+            den = den.detach()
+    else:
+        den = den.to(acc)
     h = (num / (den[..., None] + eps)).reshape(B, NH, NC * L, DHHV)[:, :, :S]
     h = h.to(q.dtype)
-    if return_last_states:
-        return h, (C, n)
-    return h
+    out = (h, (C, n)) if return_last_states else h
+    if return_chunk_states:
+        out = (*(out if return_last_states else (out,)), (C_prev, n_prev, den))
+    return out

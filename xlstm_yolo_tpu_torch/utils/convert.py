@@ -94,3 +94,34 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
             raise KeyError(f"two JAX leaves map to {name}")
         out[name] = torch.tensor(t)
     return out
+
+
+def jax_leaf_names(model: torch.nn.Module) -> dict[str, str]:
+    """The JAX leaf name of each of ``model``'s parameters, the inverse of
+    :func:`jax_path_to_name` on the leaf: a ``weight`` is flax's ``kernel``
+    on a dense, conv or patch projection, its ``scale`` on a BatchNorm or
+    LayerNorm, and ``weight`` on the RMS and per-head norms."""
+    from xlstm_yolo_tpu_torch.nn import layers
+
+    kernel_owners = (layers.Dense, layers.Conv, layers.SequenceConv2d, layers._PatchProj)
+    scale_owners = (layers.BatchNorm, layers.LayerNorm)
+    modules = dict(model.named_modules())
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        if leaf == "weight" and isinstance(modules[owner], kernel_owners):
+            leaf = "kernel"
+        elif leaf == "weight" and isinstance(modules[owner], scale_owners):
+            leaf = "scale"
+        out[name] = leaf
+    return out
+
+
+def jax_train_state_to_torch(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                             ema_params: Mapping[str, Any]):
+    """A JAX ``TrainState``'s trees (nested dicts of numpy arrays) -> the
+    port's ``(state_dict, ema)``: the model's parameters and BatchNorm
+    statistics, and the EMA's copy of each parameter, by state-dict name."""
+    state_dict = jax_variables_to_state_dict({"params": params, "batch_stats": batch_stats})
+    ema = jax_variables_to_state_dict({"params": ema_params})
+    return state_dict, ema
