@@ -4,7 +4,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. setup     - print the card's name and power limit; build the four CUDA
+1. setup     - print the card's name and power limit; build the six CUDA
                sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time and what ptxas
                reports;
@@ -47,17 +47,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and its items are finite, parameters and EMA move, and each
                step launches each kernel exactly the derived number of times
                (phase_train);
-9. times     - CUDA-event medians (and every window) of each kernel and its
-               plain version at each S; the end-to-end predict rate and the
-               train step's time (windows after a warm-up, SM clock and power
-               sampled); torch.profiler traces of three forwards and of one
-               train step: device time by kernel and the device's busy share
-               of that same window.
+9. v1_kernels - the v1 route's three kernels (forward, dC scan, dq/dk/dv)
+               against their plain versions at the flagship shapes (B 8,
+               NH 12, DH 32) and every (S, L) the route gives them (the
+               inference segments with initial states and dC_last, the
+               training lengths padded to whole chunks, and a case with
+               closed forget gates): float32 streams and products to 1e-4,
+               the route's bfloat16 streams and products to 2e-2;
+10. v1_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=V1).predict() on
+               the images of phase 4: v1 forward launches exactly as derived
+               from the wrappers' segment plan (v1_plan), no v2 launch;
+11. v1_train - detect_trainer(..., chunkwise_kernel=V1): 3 bf16 steps, the
+               loss finite, parameters and EMA moved, and per step exactly
+               the derived v1 forward, dC-scan and dq/dk/dv launches (and the
+               epilogue and FFN backwards, no v2 cell kernel);
+12. times    - CUDA-event medians (and every window) of each kernel and its
+               plain version at each S (v1: each (S, L)); the end-to-end
+               predict rate on both routes (windows after a warm-up, SM clock
+               and power sampled); torch.profiler traces of three forwards;
+               the v1 and v2 backward designs on the same work (L = 64); the
+               v2- and v1-route train steps in turns (v2, v1, v1, v2), each
+               with the device's busy share from a trace of one step.
 
-Output: JSON lines per phase, the nvidia-smi line, one {"kernels": [...]}
-line, and last {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the package beside this script, it exits non-zero and prints no
-result.
+Each phase prints its seconds on a line of its own.  Output: JSON lines per
+phase, the nvidia-smi line, one {"kernels": [...]} line (eight kernels),
+and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+the package beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -739,9 +754,9 @@ def phase_train(cw, epi, ffn, steps):
     return model, state, step, batches[0], total
 
 
-def phase_train_times(cw, epi, ffn, card: str, model, state, step, batch):
+def phase_train_times(cw, epi, ffn, card: str):
     """Per-call times of the four training kernels at each S (bf16) with
-    their plain versions, and the train step's time and breakdown."""
+    their plain versions (the train step's time is phase_v1_times')."""
     import torch
 
     per = {k: {} for k in KERNELS}
@@ -773,10 +788,219 @@ def phase_train_times(cw, epi, ffn, card: str, model, state, step, batch):
                   "dtype": "bfloat16", **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
         del args, cs, den, dh, e_args, f_args, pairs
 
-    # the train step: windows of 2 steps after a warm-up of >= 3 s, clocks sampled
+    return per
+
+
+V1 = "chunkwise--pallas_xl_chunk_siging"
+V1_KERNELS = ("chunkwise_v1_fw", "chunkwise_v1_bw_dc", "chunkwise_v1_bw_dqkv")
+
+
+def v1_plan(model) -> dict:
+    """The v1 route's kernel calls, derived from the model's layers and the
+    wrappers' own plan: per forward in inference, each segment of
+    ``chunk_plan(S, chunk)`` (one forward call each) and the tails left to
+    the recurrent sequence function; per train step, one forward, dC scan
+    and dq/dk/dv call per layer at S padded to whole chunks, and one more
+    forward per layer of a rematerialised pair.  Returns
+    {"infer": {(S, L): calls}, "tails": n, "train": {(S, L): calls},
+    "remat": {(S, L): calls}}."""
+    from xlstm_yolo_tpu_torch.nn.layers import ViLBlockPair
+    from xlstm_yolo_tpu_torch.ops.wrappers import chunk_plan
+
+    out = {"infer": {}, "tails": 0, "train": {}, "remat": {}}
+    for m in model.modules():
+        if not isinstance(m, ViLBlockPair):
+            continue
+        layer = m.rowwise_from_top_left.layer
+        h, w = layer.conv.seqlens
+        S, L = h * w, layer.mlstm_cell.chunk_size
+        plan, tail = chunk_plan(S, L)
+        for _, seg, cs in plan:
+            out["infer"][(seg, cs)] = out["infer"].get((seg, cs), 0) + 2
+        out["tails"] += 2 * (tail > 0)
+        key = (-(-S // L) * L, L)
+        out["train"][key] = out["train"].get(key, 0) + 2
+        if S >= m.ckpt_thresh:
+            out["remat"][key] = out["remat"].get(key, 0) + 2
+    return out
+
+
+def v1_expected_step(plan) -> dict:
+    n = sum(plan["train"].values())
+    return {"chunkwise_v1_fw": n + sum(plan["remat"].values()), "chunkwise_v1_bw_dc": n,
+            "chunkwise_v1_bw_dqkv": n}
+
+
+def v1_counts(v1) -> dict:
+    return {"chunkwise_v1_fw": v1.LAUNCHES_FW, "chunkwise_v1_bw_dc": v1.LAUNCHES_BW_DC,
+            "chunkwise_v1_bw_dqkv": v1.LAUNCHES_BW_DQKV}
+
+
+def v1_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
+    """Flagship-width (B, NH, S, DH) streams, (B, NH, S) gates, states, dh
+    and dC_last on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cu = lambda t, d=torch.float32: None if t is None else t.to(device, d)  # noqa: E731
+    q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
+    i = cu(torch.randn(B, NH, S, generator=g))
+    f = cu(torch.randn(B, NH, S, generator=g) + 2 if gates == "open"
+           else torch.rand(B, NH, S, generator=g) * 40 - 60)
+    c0, n0, dcl = (cu(torch.randn(*s, generator=g)) if states else None
+                   for s in ((B, NH, DH, DH), (B, NH, DH), (B, NH, DH, DH)))
+    return (q, k, v, i, f, c0, n0), dh, dcl
+
+
+def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False):
+    """Least time for one call of a v1 kernel at batch B in ms: each input
+    read once and each output written once over HBM bandwidth, against the
+    causal products at the bf16 peak (PERF.md).  ``states``: the forward
+    reads initial states (the inference segments)."""
+    NC = S // L
+    rows, st = B * NH * S, B * NH * (DH * DH + DH) * 4
+    stream, gate = rows * DH * itemsize, rows * 4
+    if name == "chunkwise_v1_fw":  # q, k, v, i, f in; h, den, C/n per chunk, last C/n out
+        nbytes = 4 * stream + 3 * gate + B * NC * NH * (DH * DH + DH) * 4 + st * (1 + states)
+        flops = rows * (2 * DH * (L + 1) + 4 * DH * DH)
+    elif name == "chunkwise_v1_bw_dc":  # q, dh, f, den in; dC per chunk and dC0 out
+        nbytes = 2 * stream + 2 * gate + B * NH * (NC + 1) * DH * DH * 4
+        flops = rows * 2 * DH * DH
+    else:  # q, k, v, dh, i, f, den, C and dC per chunk in; dq, dk, dv (float32) out
+        nbytes = 4 * stream + 3 * gate + 2 * B * NH * NC * DH * DH * 4 + 3 * rows * DH * 4
+        flops = rows * (5 * DH * (L + 1) + 6 * DH * DH)
+    return _bound(nbytes, flops)
+
+
+def phase_v1_kernels(v1, shapes, device="cuda"):
+    """The three v1 kernels against their plain versions at the flagship
+    shapes (B 8, NH 12, DH 32) and every (S, L) the route gives them:
+    float32 streams with float32 products (1e-4), and the route's own
+    bfloat16 streams and products (2e-2), relative to each output's
+    largest |value|; initial states and dC_last on the inference segments,
+    closed forget gates on one case."""
+    import torch
+
+    worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in V1_KERNELS}
+    cases = [(S, L, "open", states) for (S, L), states in shapes] + [(2048, 512, "closed", True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        rel = GRAD_REL[key]
+        for S, L, gates, states in cases:
+            args, dh, dcl = v1_inputs(S, dtype, gates, states, seed=S + L, device=device)
+            kw = dict(chunk_size=L, eps=EPS, compute_dtype=dtype)
+            got = v1.chunkwise_fw(*args, **kw)
+            torch.cuda.synchronize()
+            ref = v1.chunkwise_fw_plain(*args, **kw)
+            e_fw = compare_outputs(f"v1 fw S={S} L={L} {key}", got, ref, rel)
+            q, k, v, i, f = args[:5]
+            _, den, cs = ref[:3]
+            dcs, dc0 = v1.chunkwise_bw_dc(q, f, dh, den, dcl, **kw)
+            torch.cuda.synchronize()
+            rdcs, rdc0 = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw)
+            e_dc = compare_outputs(f"v1 bw_dc S={S} L={L} {key}", (dcs, dc0), (rdcs, rdc0), rel)
+            got_b = v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, rdcs, **kw)
+            torch.cuda.synchronize()
+            ref_b = v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw)
+            e_qkv = compare_outputs(f"v1 bw_dqkv S={S} L={L} {key}", got_b, ref_b, rel)
+            for name, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv)):
+                worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
+            emit({"phase": "v1_kernels", "S": S, "L": L, "dtype": key, "compute_dtype": key,
+                  "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
+                  **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))}})
+            del args, dh, dcl, got, ref, got_b, ref_b, dcs, rdcs
+    return worst
+
+
+def phase_v1_predict(v1, cw, yolo):
+    """The predict path on the v1 route: YOLO(..., chunkwise_kernel=V1)
+    on the images of phase_predict, held to the derived launch count."""
+    import numpy as np
+
+    plan = v1_plan(yolo.model)
+    per_forward = sum(plan["infer"].values())
+    images = synthetic_images(10, seed=5)  # batches of 8 and 2: two forwards
+    forwards = -(-len(images) // B)
+    cw.LAUNCHES = v1.LAUNCHES_FW = v1.LAUNCHES_BW_DC = v1.LAUNCHES_BW_DQKV = 0
+    results = yolo.predict(images, batch=B, conf=0.0)
+    launches, v2_launches = v1.LAUNCHES_FW, cw.LAUNCHES
+    ok = len(results) == len(images) and all(
+        np.isfinite(r.boxes.data).all() and r.orig_img.shape == im.shape
+        for r, im in zip(results, images))
+    emit({"phase": "v1_predict", "cfg": "vil-det-192", "chunkwise_kernel": V1,
+          "dtype": "bfloat16", "images": len(images), "batch": B, "launches": launches,
+          "forwards": forwards, "expected": forwards * per_forward, "per_forward": per_forward,
+          "segments_per_forward": {f"{S}@{L}": n for (S, L), n in sorted(plan["infer"].items())},
+          "sequence_tails_per_forward": plan["tails"], "v2_launches": v2_launches,
+          "boxes_per_image": [len(r) for r in results]})
+    if not ok:
+        raise AssertionError("v1 predict: non-finite result or wrong original shape")
+    if launches != forwards * per_forward or v2_launches != 0:
+        raise AssertionError(f"v1 predict made {launches} v1 forward launches (expected "
+                             f"{forwards * per_forward}) and {v2_launches} v2 ones")
+    return launches
+
+
+def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, device="cuda"):
+    """The training path on the v1 route: detect_trainer(..., chunkwise_kernel
+    =V1), TRAIN_STEPS bf16 steps, exact launches per step."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
+
+    model, state, step = steps.detect_trainer(
+        cfg, device=device, compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0), chunkwise_kernel=V1, **TRAIN_OPT)
+    perturb_ifgates(model, seed=7)
+    state.ema = opt_lib.ema_init(list(state.params.values()))
+    expected = v1_expected_step(v1_plan(model))
+    layers = expected["chunkwise_v1_bw_dc"]
+    p0 = [p.detach().clone() for p in state.params.values()]
+    e0 = [e.clone() for e in state.ema.params]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(8)
+    all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1)}  # noqa: E731
+    zero_counts(cw, epi, ffn)
+    v1.LAUNCHES_FW = v1.LAUNCHES_BW_DC = v1.LAUNCHES_BW_DQKV = 0
+    per_step, metrics_log = [], []
+    for batch in batches:
+        before = all_counts()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        after = all_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics_log.append({k: v.item() for k, v in metrics.items()})
+    total = v1_counts(v1)
+    moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
+    ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
+    emit({"phase": "v1_train", "cfg": "vil-det-192", "chunkwise_kernel": V1, "batch": B,
+          "imgsz": 640, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
+          "param_max_change": moved, "ema_max_change": ema_moved})
+    for m in metrics_log:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"v1 train: non-finite loss items {m}")
+    if not (moved > 0 and ema_moved > 0):
+        raise AssertionError("v1 train: the parameters or the EMA did not move")
+    for s in per_step:
+        other = {"chunkwise_fw": 0, "chunkwise_fw_train": 0, "chunkwise_bw": 0,
+                 "epilogue_bw": layers, "ffn_bw": layers}
+        if any(s[k] != n for k, n in {**expected, **other}.items()):
+            raise AssertionError(f"v1 train step launches {s}, expected {expected} and {other}")
+    return model, state, step, batches[0], total
+
+
+def time_step(step, state, batch, windows: int):
+    """Median ms of a train step over ``windows`` windows of 2 steps after
+    a warm-up of >= 3 s (host clock ending in a synchronise), the windows,
+    the peak memory, the clocks, and a torch.profiler trace of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    box = [state]
+
     def one_step():
-        nonlocal state
-        state, _ = step(state, batch, torch.Generator().manual_seed(9))
+        box[0], _ = step(box[0], batch, torch.Generator().manual_seed(9))
 
     t0, n = time.perf_counter(), 0
     while n < 3 or time.perf_counter() - t0 < 3.0:
@@ -786,34 +1010,132 @@ def phase_train_times(cw, epi, ffn, card: str, model, state, step, batch):
     runs = []
     torch.cuda.reset_peak_memory_stats()
     with ClockSampler() as clocks:
-        for _ in range(5):
+        for _ in range(windows):
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(2):
                 one_step()
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t) / 2 * 1e3)
-    step_ms = statistics.median(runs)
-    emit({"phase": "times", "what": "train_step", "card": card, "cfg": "vil-det-192",
-          "imgsz": 640, "batch": B, "compute_dtype": "bfloat16", "step_ms": step_ms,
-          "step_ms_runs": runs, "img_per_s": B / step_ms * 1e3,
-          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "clocks_during_step_timing": clocks.summary, "clock_samples": clocks.summary_n,
-          "note": "host clock around 2 steps ending in a synchronise, 5 windows after "
-                  f"{n} warm-up steps (>= 3 s); one step = forward, E2E loss, backward, "
-                  "clip, AdEMAMix, EMA on a device-resident uint8 batch"})
-
-    from torch.profiler import ProfilerActivity, profile
-
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         one_step()
         end.record()
         torch.cuda.synchronize()
-    emit({"phase": "times", "what": "train_step_breakdown", "card": card, "steps": 1,
-          "step_ms_unprofiled": step_ms, **device_busy(prof, start.elapsed_time(end))})
-    return per
+    return {"step_ms": statistics.median(runs), "step_ms_runs": runs, "warmup_steps": n,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "clocks_during_step_timing": clocks.summary, "clock_samples": clocks.summary_n,
+            **device_busy(prof, start.elapsed_time(end))}
+
+
+def phase_v1_times(v1, cw, card: str, plan, yolo_v1, v1_train, v2_train, device="cuda"):
+    """Per-call times of the v1 kernels (bf16) at each (S, L) of the route
+    beside their plain versions and bounds; the two backward designs at the
+    same chunk, L = 64 (v1: the dC scan, then chunk-parallel dq/dk/dv; v2:
+    one serial pass); the v1 predict forward on device input; and the
+    v1-route train step beside the v2-route one, in turns (v2, v1, v1, v2)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+
+    shapes = sorted(set(plan["train"]) | set(plan["infer"]))
+    per = {k: {} for k in V1_KERNELS}
+    for S, L in shapes:
+        infer = (S, L) in plan["infer"]
+        args, dh, _ = v1_inputs(S, torch.bfloat16, states=infer, seed=S, device=device)
+        kw = dict(chunk_size=L, eps=EPS)
+        _, den, cs, *_ = v1.chunkwise_fw(*args, **kw)
+        q, k, v, i, f = args[:5]
+        dcs, _ = v1.chunkwise_bw_dc(q, f, dh, den, **kw)
+        pairs = {"chunkwise_v1_fw": (lambda: v1.chunkwise_fw(*args, **kw),
+                                     lambda: v1.chunkwise_fw_plain(*args, **kw))}
+        if (S, L) in plan["train"]:
+            pairs["chunkwise_v1_bw_dc"] = (
+                lambda: v1.chunkwise_bw_dc(q, f, dh, den, **kw),
+                lambda: v1.chunkwise_bw_dc_plain(q, f, dh, den, **kw))
+            pairs["chunkwise_v1_bw_dqkv"] = (
+                lambda: v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, dcs, **kw),
+                lambda: v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, dcs, **kw))
+        for name, (kern, plain) in pairs.items():
+            t_plain = time_cuda(plain, iters=2, reps=2)
+            t_kern = time_cuda(kern, iters=10, reps=3) + time_cuda(kern, iters=10, reps=3)
+            t_plain += time_cuda(plain, iters=2, reps=2)
+            row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                   **dict(zip(("bound_ms", "bound_by"),
+                              v1_bound(name, S, L, states=infer and name == "chunkwise_v1_fw")))}
+            per[name][(S, L)] = row
+            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S, "L": L,
+                  "dtype": "bfloat16", "calls_per_forward": plan["infer"].get((S, L), 0),
+                  "calls_per_step": (plan["train"].get((S, L), 0)
+                                     + (plan["remat"].get((S, L), 0) if "fw" in name else 0)),
+                  **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
+        del args, dh, den, cs, dcs, pairs
+
+    # the same work on both backward designs at L = 64 (448: 400 padded to whole chunks)
+    for S in (6400, 1600, 448):
+        args, dh, _ = v1_inputs(S, torch.bfloat16, seed=S + 1, device=device)
+        kw = dict(chunk_size=64, eps=EPS)
+        _, den, cs, *_ = v1.chunkwise_fw(*args, **kw)
+        q, k, v, i, f = args[:5]
+        bsh = lambda x: x.transpose(1, 2).reshape(B, S, H).contiguous()  # noqa: E731
+        qb, kb, vb, dhb = map(bsh, (q, k, v, dh))
+        ib, fb = i.transpose(1, 2).contiguous(), f.transpose(1, 2).contiguous()
+        _, _, (cs2, _, den2) = cw.mlstm_siging_chunkwise_fw_train(qb, kb, vb, ib, fb, NH, eps=EPS)
+
+        dcs, _ = v1.chunkwise_bw_dc(q, f, dh, den, **kw)
+
+        def v1_bw():
+            v1_dc()
+            v1_dqkv()
+
+        def v1_dc():
+            v1.chunkwise_bw_dc(q, f, dh, den, **kw)
+
+        def v1_dqkv():
+            v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, dcs, **kw)
+
+        def v2_bw():
+            cw.mlstm_siging_chunkwise_bw(qb, kb, vb, ib, fb, NH, cs2, den2, dhb, eps=EPS)
+
+        t = {"v2": time_cuda(v2_bw, iters=10, reps=3), "v1": time_cuda(v1_bw, iters=10, reps=3)}
+        t["v1"] += time_cuda(v1_bw, iters=10, reps=3)
+        t["v2"] += time_cuda(v2_bw, iters=10, reps=3)
+        split = {"v1_dc_scan_ms": statistics.median(time_cuda(v1_dc, iters=10, reps=3)),
+                 "v1_dqkv_ms": statistics.median(time_cuda(v1_dqkv, iters=10, reps=3))}
+        emit({"phase": "times", "what": "backward_designs_at_L64", "card": card, "B": B, "S": S,
+              "L": 64, "dtype": "bfloat16", "v1_chunk_parallel_ms": statistics.median(t["v1"]),
+              "v2_serial_ms": statistics.median(t["v2"]), **split, "v1_runs": t["v1"],
+              "v2_runs": t["v2"],
+              "note": "v1: chunkwise_v1_bw_dc + chunkwise_v1_bw_dqkv (f32 dq/dk/dv; the gate "
+                      "gradients and casts not included); v2: chunkwise_bw (dq/dk/dv in bf16)"})
+        del args, dh, den, cs, dcs, qb, kb, vb, dhb, ib, fb, cs2, den2
+
+    predictor = DetectionPredictor({"imgsz": yolo_v1.imgsz, "batch": B}, yolo_v1.model,
+                                   yolo_v1.names)
+    batch = predictor.preprocess(synthetic_images(B, seed=6))
+    with ClockSampler() as clocks:
+        runs = time_cuda(lambda: predictor.forward(batch), iters=3, reps=5, warm_s=2.0)
+    emit({"phase": "times", "what": "predict_v1", "card": card, "cfg": "vil-det-192",
+          "chunkwise_kernel": V1, "imgsz": 640, "batch": B, "dtype": "bfloat16",
+          "forward_ms": statistics.median(runs), "forward_ms_runs": runs,
+          "img_per_s_device_input": B / statistics.median(runs) * 1e3,
+          "clocks_during_forward_timing": clocks.summary, "clock_samples": clocks.summary_n,
+          "note": "normalise + forward + top-k on a letterboxed uint8 batch on the card, 5 "
+                  "windows of 3 forwards after 2 s of warm-up"})
+
+    steps_ms = {}
+    for route, (_, state, step, batch) in (("v2", v2_train), ("v1", v1_train), ("v1", v1_train),
+                                           ("v2", v2_train)):
+        r = time_step(step, state, batch, windows=2)
+        steps_ms.setdefault(route, []).append(r)
+        emit({"phase": "times", "what": "train_step", "route": route, "card": card,
+              "cfg": "vil-det-192", "imgsz": 640, "batch": B, "compute_dtype": "bfloat16",
+              **{k: v for k, v in r.items() if k != "top"}, "top": r.get("top", [])[:8],
+              "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
+                      ">= 3 s warm-up; busy share from a torch.profiler trace of one step; "
+                      "routes timed in turns v2, v1, v1, v2"})
+    return per, steps_ms
 
 
 def phase_times(cw, yolo, card: str):
@@ -886,6 +1208,7 @@ def main() -> int:
     try:
         from xlstm_yolo_tpu_torch.engine import steps
         from xlstm_yolo_tpu_torch.engine.model import YOLO
+        from xlstm_yolo_tpu_torch.ops import chunkwise as v1
         from xlstm_yolo_tpu_torch.ops import chunkwise_v2 as cw
         from xlstm_yolo_tpu_torch.ops import cuda_build
         from xlstm_yolo_tpu_torch.ops import epilogue as epi
@@ -911,19 +1234,37 @@ def main() -> int:
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "registers" in ln]
                     for k, v in built.items()}})
 
-    worst = phase_kernel(cw)
-    phase_model(cw, "vil-det-192.yaml", B, 640, launches_expected=20)
-    phase_model(cw, "vil-det-tiny.yaml", 2, 160, launches_expected=14)
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        emit({"phase": name, "seconds": time.perf_counter() - t})
+        return out
+
+    worst = timed("kernel", phase_kernel, cw)
+    timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
+    timed("model", phase_model, cw, "vil-det-tiny.yaml", 2, 160, launches_expected=14)
     yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
     perturb_ifgates(yolo.model, seed=8)
-    launches = phase_predict(cw, yolo)
-    worst_train = phase_train_kernels(cw, epi, ffn)
-    phase_replay(cw, epi, ffn, steps)
-    phase_e2e_grads(steps)
-    model, state, step, batch, train_launches = phase_train(cw, epi, ffn, steps)
-    per_s = phase_times(cw, yolo, card)
+    launches = timed("predict", phase_predict, cw, yolo)
+    worst_train = timed("train_kernels", phase_train_kernels, cw, epi, ffn)
+    timed("replay", phase_replay, cw, epi, ffn, steps)
+    timed("e2e_grads", phase_e2e_grads, steps)
+    model, state, step, batch, train_launches = timed("train", phase_train, cw, epi, ffn, steps)
+    yolo_v1 = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16,
+                   chunkwise_kernel=V1)
+    perturb_ifgates(yolo_v1.model, seed=8)
+    plan = v1_plan(yolo_v1.model)
+    shapes = [(k, True) for k in sorted(plan["infer"])] + [(k, False) for k in sorted(plan["train"])]
+    worst_v1 = timed("v1_kernels", phase_v1_kernels, v1, shapes)
+    v1_predict_launches = timed("v1_predict", phase_v1_predict, v1, cw, yolo_v1)
+    v1_model, v1_state, v1_step, v1_batch, v1_launches = timed(
+        "v1_train", phase_v1_train, v1, cw, epi, ffn, steps)
+    per_s = timed("times", phase_times, cw, yolo, card)
     del yolo
-    per_train = phase_train_times(cw, epi, ffn, card, model, state, step, batch)
+    per_train = timed("train_times", phase_train_times, cw, epi, ffn, card)
+    per_v1, steps_ms = timed("v1_times", phase_v1_times, v1, cw, card, plan, yolo_v1,
+                             (v1_model, v1_state, v1_step, v1_batch),
+                             (model, state, step, batch))
 
     per_fwd = lambda key: sum(LAUNCHES_PER_S[S] * per_s[S][key] for S in SEQ_LENS)
     calls = expected_step_launches(model)
@@ -969,6 +1310,44 @@ def main() -> int:
                     "kernel-vs-plain error over all outputs (max_rel_err: over the output's "
                     "largest |value|)",
         })
+    v1_sources = {"chunkwise_v1_fw": ("chunkwise_v1_fw.cu", f"{pallas}/chunkwise.py:96"),
+                  "chunkwise_v1_bw_dc": ("chunkwise_v1_bw.cu", f"{pallas}/chunkwise.py:271"),
+                  "chunkwise_v1_bw_dqkv": ("chunkwise_v1_bw.cu", f"{pallas}/chunkwise.py:316")}
+    step_calls = {"chunkwise_v1_fw": {k: n + plan["remat"].get(k, 0)
+                                      for k, n in plan["train"].items()},
+                  "chunkwise_v1_bw_dc": plan["train"], "chunkwise_v1_bw_dqkv": plan["train"]}
+    per_v1_step = lambda name, key: sum(n * per_v1[name][k][key]  # noqa: E731
+                                    for k, n in step_calls[name].items())
+    v1_fwd = lambda key: sum(n * per_v1["chunkwise_v1_fw"][k][key]  # noqa: E731
+                             for k, n in plan["infer"].items())
+    for name in V1_KERNELS:
+        src, replaces = v1_sources[name]
+        big = max(step_calls[name])
+        extra = (f"; per vil-det-192 forward in predict ({sum(plan['infer'].values())} calls "
+                 f"at {sorted(plan['infer'])}): {v1_fwd('ms'):.4g} ms, plain "
+                 f"{v1_fwd('plain_ms'):.4g}, bound {v1_fwd('bound_ms'):.4g}; launches: "
+                 f"{v1_predict_launches} in the v1 predict of 10 images + "
+                 f"{v1_launches[name]} in {TRAIN_STEPS} v1 train steps"
+                 if name == "chunkwise_v1_fw" else "")
+        rows.append({
+            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": v1_launches[name] + (v1_predict_launches if name == "chunkwise_v1_fw"
+                                             else 0),
+            "max_abs_err": worst_v1[name]["bfloat16"][0],
+            "ms": per_v1_step(name, "ms"), "plain_ms": per_v1_step(name, "plain_ms"),
+            "bound_ms": per_v1_step(name, "bound_ms"), "bound_by": per_v1[name][big]["bound_by"],
+            "library_ms": None,
+            "max_rel_err": worst_v1[name]["bfloat16"][1],
+            "max_rel_err_float32": worst_v1[name]["float32"][1],
+            "note": f"v1 route (chunkwise_kernel={V1}); times per vil-det-192 train step at "
+                    f"batch 8, bf16: the calls at each (S, L) ({step_calls[name]}) summed"
+                    + extra,
+        })
+    step_line = {route: [r["step_ms"] for r in rs] for route, rs in steps_ms.items()}
+    busy_line = {route: [r.get("busy_share") for r in rs] for route, rs in steps_ms.items()}
+    emit({"phase": "times", "what": "train_step_v1_vs_v2", "card": card, "step_ms": step_line,
+          "busy_share": busy_line})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

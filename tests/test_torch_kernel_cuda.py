@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the chunkwise mLSTM inference forward, train forward and backward (and the
-differentiable cell built from them), the epilogue backward and the FFN
-backward.  This file imports neither JAX nor the JAX package, so it runs on
-the GPU machine:
+differentiable cell built from them), the epilogue backward, the FFN
+backward, and the v1 route's forward, dC scan and dq/dk/dv kernels at every
+chunk length.  This file imports neither JAX nor the JAX package, so it
+runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
 
@@ -15,13 +16,19 @@ seed.  Tolerances:
 - bfloat16 inputs (both sides see the same rounded values): atol = rtol =
   2e-2 for h; gradients atol = 2e-2 times the largest |g|, rtol = 2e-2 (the
   kernels keep float32 where the plain version rounds intermediate products
-  to bfloat16, and round each output once).
+  to bfloat16, and round each output once);
+- the v1 kernels round the operands of their products to the compute type
+  at the same points as their plain versions: each output within 1e-4 of
+  its largest |value| with compute float32, 2e-2 with compute bfloat16
+  (a float32 sum in another order can flip the rounding of an operand by
+  one bfloat16 step).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -219,3 +226,80 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         ffn.ffn_bwd(a["xf"], torch.empty(1, 30, 192, device="meta"), a["g_ffn"], a["wn"],
                     a["wgz"], a["wd_ffn"])
+
+
+V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
+    (16, 3, 3, 16, "open", True),
+    (32, 2, 2, 32, "closed", False),
+    (64, 2, 4, 16, "open", False),
+    (128, 2, 2, 32, "open", True),
+    (256, 2, 2, 16, "closed", True),
+    (512, 2, 2, 32, "open", False),
+]
+V1_TYPES = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+
+
+def v1_inputs(seed, L, chunks, NH, DH, gates, states, dt):
+    """(B, NH, S, DH) streams, (B, NH, S) gates, states, dh and dC_last."""
+    rng = np.random.default_rng(seed)
+    S = L * chunks
+    q, k, v, dh = (cu(rng.normal(size=(2, NH, S, DH)), dt) for _ in range(4))
+    i = cu(rng.normal(0, 1, (2, NH, S)))
+    f = cu(rng.normal(2, 1, (2, NH, S)) if gates == "open" else rng.uniform(-60, -20, (2, NH, S)))
+    c0, n0, dcl = (cu(rng.normal(size=s)) if states else None
+                   for s in ((2, NH, DH, DH), (2, NH, DH), (2, NH, DH, DH)))
+    return (q, k, v, i, f, c0, n0), dh, dcl
+
+
+def assert_rel_close(got, ref, rel):
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, atol=rel * max(b.abs().max().item(), 1e-30), rtol=rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", V1_TYPES)
+def test_v1_kernels_match_plain_on_gpu(dtype, compute):
+    """The forward, the dC scan and dq/dk/dv each against its plain version
+    on the same inputs (the backward kernels on the plain forward's saved
+    states)."""
+    needs_cuda()
+    dt, cd = getattr(torch, dtype), getattr(torch, compute)
+    rel = 1e-4 if cd == torch.float32 else 2e-2
+    for L, chunks, NH, DH, gates, states in V1_CASES:
+        args, dh, dcl = v1_inputs(L + DH, L, chunks, NH, DH, gates, states, dt)
+        kw = dict(chunk_size=L, eps=EPS, compute_dtype=cd)
+        before = (v1.LAUNCHES_FW, v1.LAUNCHES_BW_DC, v1.LAUNCHES_BW_DQKV)
+        got = v1.chunkwise_fw(*args, **kw)
+        torch.cuda.synchronize()
+        ref = v1.chunkwise_fw_plain(*args, **kw)
+        assert_rel_close(got, ref, rel)
+        q, k, v, i, f = args[:5]
+        _, den, cs = ref[:3]
+        dcs, dc0 = v1.chunkwise_bw_dc(q, f, dh, den, dcl, **kw)
+        torch.cuda.synchronize()
+        rdcs, rdc0 = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw)
+        assert_rel_close((dcs, dc0), (rdcs, rdc0), rel)
+        got = v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, rdcs, **kw)
+        torch.cuda.synchronize()
+        assert_rel_close(got, v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw),
+                         rel)
+        assert (v1.LAUNCHES_FW, v1.LAUNCHES_BW_DC, v1.LAUNCHES_BW_DQKV) == tuple(
+            n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_v1_function_matches_plain_on_gpu():
+    """The v1 autograd Function on the card (three kernels, gate gradients
+    in PyTorch) against the same Function on the CPU (plain versions),
+    compute float32."""
+    needs_cuda()
+    args, dh, _ = v1_inputs(9, 64, 3, 4, 32, "open", True, torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [a.to(dev).requires_grad_(j != 6) for j, a in enumerate(args)]
+        h = v1.mlstm_siging_chunkwise_v1(*t[:5], chunk_size=64, c_initial=t[5], n_initial=t[6],
+                                         eps=EPS, compute_dtype=torch.float32)
+        out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t[:6])]
+    assert_grads_close(out["cuda"], out["cpu"], torch.float32)

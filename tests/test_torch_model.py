@@ -12,9 +12,21 @@ on these inputs the JAX float32 forward deviates from it by up to 0.26 px
 in decoded boxes and 7.6e-4 in scores, the port's by 0.18 px and 9.2e-4.
 So the two float32 forwards are held to atol = 1 px (rtol = 1e-3) in boxes
 and atol = 3e-3 in scores; a wiring fault moves them by O(1).
+
+The v1 route (``chunkwise_kernel="chunkwise--pallas_xl_chunk_siging"``)
+rounds the operands of every cell product to bfloat16, in a float32 model
+too.  On this network that turns float32 noise into one-step bfloat16
+flips, which its depth amplifies: the port's own float32 and float64
+forwards then differ by ~100 px and 0.3 in scores, and so do JAX's and the
+port's.  So the route is held two ways: as it runs, against the float64
+arbiter only; and with float32 products on both sides (its registry entry
+given ``compute_dtype=float32`` in the JAX package's registry and the
+port's, for the test), at the tolerances above and, for the gradients of
+an E2E-loss step with open gates, at the tolerance stated there.
 """
 
 import copy
+import functools
 from pathlib import Path
 
 import jax
@@ -23,22 +35,32 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train_step import leaves_by_name, make_batch
 from xlstm_yolo_tpu.data.augment import LetterBox as JaxLetterBox
 from xlstm_yolo_tpu.nn.head import dfl_decode as jax_dfl_decode
 from xlstm_yolo_tpu.nn.head import topk_postprocess as jax_topk
 from xlstm_yolo_tpu.nn.tasks import build_detection_model as jax_build
+from xlstm_yolo_tpu.ops import backend as jax_backend
+from xlstm_yolo_tpu.ops.pallas.chunkwise import mlstm_siging_chunkwise_pallas
 from xlstm_yolo_tpu.utils import ops as jax_ops
 from xlstm_yolo_tpu.utils import tal as jax_tal
+from xlstm_yolo_tpu.utils.loss import e2e_detect_loss as jax_e2e_loss
 from xlstm_yolo_tpu_torch.data.augment import LetterBox
+from xlstm_yolo_tpu_torch.engine import steps
 from xlstm_yolo_tpu_torch.engine.model import YOLO
 from xlstm_yolo_tpu_torch.nn.head import dfl_decode, topk_postprocess
+from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell
 from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+from xlstm_yolo_tpu_torch.ops import backend
+from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.utils import ops, tal
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
 CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu" / "cfg" / "models"
 BOX_TOL = dict(atol=1.0, rtol=1e-3)
 SCORE_ATOL = 3e-3
+V1 = "chunkwise--pallas_xl_chunk_siging"
+V1_GRAD_REL = 1e-2
 
 
 def perturb_ifgates(variables, rng):
@@ -259,3 +281,110 @@ def test_flagship_decode_only_matches_jax(imgsz, tmp_path):
     assert y_ref.shape == (1, g * g + (g // 2) ** 2 + (g // 4) ** 2 + (g // 8) ** 2, 84)
     model = port_detector(cfg, variables, decode_only=True)
     assert_close_to_float64_arbiter(y_ref, model, x)
+
+
+def use_float32_products(mp):
+    """Both registries' v1 entry with float32 products (float64 in the
+    port's float64 arbiter), for the duration of ``mp``."""
+    mp.setitem(jax_backend._CHUNKWISE_REGISTRY, "pallas_xl_chunk_siging",
+               functools.partial(mlstm_siging_chunkwise_pallas, compute_dtype=jnp.float32))
+
+    def port_v1(q, *args, **kw):
+        cd = torch.float64 if q.dtype == torch.float64 else torch.float32
+        return v1.mlstm_siging_chunkwise_v1(q, *args, compute_dtype=cd, **kw)
+    mp.setitem(backend._REGISTRY["chunkwise"], "pallas_xl_chunk_siging", port_v1)
+
+
+@pytest.fixture(scope="module")
+def tiny_v1(tiny):
+    """JAX's v1 route on ``tiny``'s variables (perturbed, open gates): the
+    decode-only output as the route runs, and with float32 products the
+    decode-only output and the loss and gradients of one E2E-loss step."""
+    cfg, x = CFG / "vil-det-tiny.yaml", jnp.asarray(tiny["x"])
+    out = {"y_route": np.asarray(jax.jit(jax_build(cfg, decode_only=True, chunkwise_kernel=V1)[0]
+                                         .apply)(tiny["variables"], x)[0])}
+    batch = make_batch(1)
+    with pytest.MonkeyPatch.context() as mp:
+        use_float32_products(mp)
+        jm_dec, _ = jax_build(cfg, decode_only=True, chunkwise_kernel=V1)
+        out["y_f32"] = np.asarray(jax.jit(jm_dec.apply)(tiny["variables"], x)[0])
+        jm, _ = jax_build(cfg, training=True, chunkwise_kernel=V1)
+        stats = tiny["variables"]["batch_stats"]
+
+        def loss(params, b):
+            img = b["img"].astype(jnp.float32) / 255.0
+            maps, _ = jm.apply({"params": params, "batch_stats": stats}, img,
+                               mutable=["batch_stats"], rngs={"droppath": jax.random.PRNGKey(3)})
+            strides = [img.shape[1] / f.shape[1] for f in maps["one2many"]]
+            return jax_e2e_loss(maps, b["cls"], b["bboxes"], b["mask"], strides, nc=80)[0]
+
+        value, grads = jax.jit(jax.value_and_grad(loss))(
+            tiny["variables"]["params"], {k: jnp.asarray(v) for k, v in batch.items()})
+    return dict(out, batch=batch, loss=float(value), grads=leaves_by_name(grads))
+
+
+def test_tiny_v1_route_strict_load_and_decode_against_float64_arbiter(tiny, tiny_v1):
+    """The route as it runs (bfloat16 products): the strict load of JAX's
+    variables, and JAX's output no further from the port's float64 forward
+    than twice the port's float32 one (both ~100 px off it here, so this
+    holds the wiring only loosely; the next test holds it tightly)."""
+    model, _ = build_detection_model("vil-det-tiny.yaml", decode_only=True, device="cpu",
+                                     chunkwise_kernel=V1)
+    model.load_state_dict(jax_variables_to_state_dict(tiny["variables"]), strict=True)
+    assert all(m.chunkwise_kernel == V1 for m in model.modules() if isinstance(m, MatrixLSTMCell))
+    assert_close_to_float64_arbiter(tiny_v1["y_route"], model, tiny["x"])
+
+
+def test_tiny_v1_route_decode_only_matches_jax_with_float32_products(tiny, tiny_v1, monkeypatch):
+    use_float32_products(monkeypatch)
+    model = build_detection_model("vil-det-tiny.yaml", decode_only=True, device="cpu",
+                                  chunkwise_kernel=V1)[0]
+    model.load_state_dict(jax_variables_to_state_dict(tiny["variables"]), strict=True)
+    with torch.no_grad():
+        y = model(torch.from_numpy(tiny["x"]))[0].numpy()
+    y_ref = tiny_v1["y_f32"]
+    np.testing.assert_allclose(y[..., :4], y_ref[..., :4], **BOX_TOL)
+    np.testing.assert_allclose(y[..., 4:], y_ref[..., 4:], atol=SCORE_ATOL)
+    assert_close_to_float64_arbiter(y_ref, model, tiny["x"])
+
+
+def test_tiny_v1_route_gradients_match_jax_with_open_gates(tiny, tiny_v1, monkeypatch):
+    """One E2E-loss step of the training model under the v1 route, with
+    open gates (a fifth of the denominators do not clamp): the JAX
+    gradient goes through the Pallas custom VJP, which holds max(|.|, 1)
+    constant, as the port's kernels do, so the two agree away from the
+    clamp.  Float32 products on both sides.
+
+    Tolerance: loss rtol 1e-4; gradients atol = V1_GRAD_REL of each leaf's
+    largest |g| + 1e-6 of the largest |g| of all leaves, rtol = V1_GRAD_REL.
+    With open gates this network amplifies float32 rounding further than at
+    the default init: the worst leaf was 2.5e-3 of its largest |g| off, and
+    the port's float32 gradient is as far from its float64 one (measured on
+    the CPU); the biases ahead of a BatchNorm, whose true gradient is 0,
+    hold only rounding."""
+    use_float32_products(monkeypatch)
+    dens = []
+    fw = v1.chunkwise_fw
+
+    def recording_fw(*args, **kw):
+        out = fw(*args, **kw)
+        dens.append(out[1])
+        return out
+    monkeypatch.setattr(v1, "chunkwise_fw", recording_fw)
+    model, _ = build_detection_model("vil-det-tiny.yaml", device="cpu", training=True,
+                                     chunkwise_kernel=V1)
+    model.load_state_dict(jax_variables_to_state_dict(tiny["variables"]), strict=True)
+    loss, _ = steps.detect_loss(model, {k: torch.from_numpy(v) for k, v in
+                                        tiny_v1["batch"].items()})
+    names = [n for n, _ in model.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    assert len(dens) == 14  # one cell call per ViL layer, each padded to whole chunks
+    assert 0.1 < float(torch.cat([d.flatten() for d in dens]).gt(1).float().mean()) < 0.9
+    np.testing.assert_allclose(loss.item(), tiny_v1["loss"], rtol=1e-4)
+    ref = tiny_v1["grads"]
+    assert set(ref) == set(grads)
+    g_max = max(np.abs(g).max() for g in ref.values())
+    for name, g_ref in ref.items():
+        atol = V1_GRAD_REL * np.abs(g_ref).max() + 1e-6 * g_max
+        np.testing.assert_allclose(grads[name].numpy(), g_ref, atol=atol, rtol=V1_GRAD_REL,
+                                   err_msg=name)

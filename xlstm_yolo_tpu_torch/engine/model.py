@@ -2,10 +2,12 @@
 
 Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` in
 ``xlstm_yolo_tpu/engine/model.py``.  The model runs on the GPU unless the
-caller passes ``device="cpu"``.  It is built from the YAML with random
-weights from seed 0, as the JAX facade's ``PRNGKey(0)`` (checkpoint
-loading is not ported yet: load a state dict into ``YOLO.model`` for
-trained weights, or call ``build_detection_model(generator=...)``).
+caller passes ``device="cpu"``, its mLSTM cells on ``chunkwise_kernel``
+(``"auto"``: the v2 kernels; ``nn.tasks.resolve_chunkwise_kernel``).  It is
+built from the YAML with random weights from seed 0, as the JAX facade's
+``PRNGKey(0)`` (checkpoint loading is not ported yet: load a state dict
+into ``YOLO.model`` for trained weights, or call
+``build_detection_model(generator=...)``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class YOLO:
 
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, chunkwise_kernel: str = "auto"):
         if task != "detect":
             raise NotImplementedError(f"task {task!r} is not ported yet")
         self.task = task
@@ -54,7 +56,7 @@ class YOLO:
         self.model_cfg = self._resolve(model)
         self.model, d = build_detection_model(
             self.model_cfg, compute_dtype=compute_dtype, device=self.device,
-            generator=torch.Generator().manual_seed(0))
+            generator=torch.Generator().manual_seed(0), chunkwise_kernel=chunkwise_kernel)
         self.imgsz = int(d.get("imgsz", 640))
 
     @staticmethod

@@ -98,14 +98,17 @@ def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
 
 def detect_trainer(cfg="vil-det-192.yaml", device: str | torch.device = "cuda",
                    compute_dtype: torch.dtype | None = torch.bfloat16,
-                   generator: torch.Generator | None = None, **optimizer_kw):
+                   generator: torch.Generator | None = None, chunkwise_kernel: str = "auto",
+                   **optimizer_kw):
     """The training entry point: the detector of ``cfg`` in train mode on
-    ``device`` (the GPU unless the caller passes ``device="cpu"``), float32
+    ``device`` (the GPU unless the caller passes ``device="cpu"``), its
+    mLSTM cells on ``chunkwise_kernel`` (``"auto"``: the v2 kernels), float32
     parameters with ``compute_dtype`` activations, its AdEMAMix transform
     (``optimizer_kw`` go to :func:`opt_lib.build_optimizer`), the state and
     the step.  Returns ``(model, state, train_step)``."""
     model, d = build_detection_model(cfg, compute_dtype=compute_dtype, device=device,
-                                     generator=generator, training=True)
+                                     generator=generator, training=True,
+                                     chunkwise_kernel=chunkwise_kernel)
     tx, _, _ = opt_lib.build_optimizer(optimizer_leaves(model), **optimizer_kw)
     state = TrainState.create(model, tx)
     return model, state, make_train_step(model, tx, nc=int(d.get("nc", 80)))

@@ -26,6 +26,7 @@ from xlstm_yolo_tpu_torch.nn.layers import (
     grid_of,
     normal_init,
 )
+from xlstm_yolo_tpu_torch.ops.backend import V2_KERNEL
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 
@@ -103,15 +104,17 @@ class VitPosEmbedBlock(nn.Module):
 
 
 class ViLBlockPairBlock(nn.Module):
-    def __init__(self, dim: int, seqlens: Sequence[int], qkv_block_size: int = 16,
-                 conv_kind: str = "2d", conv_kernel_size: int = 3, proj_bias: bool = True,
-                 norm_bias: bool = True, drop_path: float = 0.0, num_blocks: int = 1,
+    def __init__(self, dim: int, seqlens: Sequence[int], chunk_size: int = 256,
+                 qkv_block_size: int = 16, conv_kind: str = "2d", conv_kernel_size: int = 3,
+                 proj_bias: bool = True, norm_bias: bool = True, drop_path: float = 0.0,
+                 num_blocks: int = 1, chunkwise_kernel: str = V2_KERNEL,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.module = ViLBlockPair(
             dim, drop_path=drop_path, conv_kind=conv_kind,
             conv_kernel_size=conv_kernel_size, proj_bias=proj_bias, norm_bias=norm_bias,
-            seqlens=tuple(seqlens), num_blocks=num_blocks, qkv_block_size=qkv_block_size,
+            seqlens=tuple(seqlens), num_blocks=num_blocks, chunk_size=chunk_size,
+            qkv_block_size=qkv_block_size, chunkwise_kernel=chunkwise_kernel,
             compute_dtype=compute_dtype)
 
     def forward(self, x):
@@ -191,9 +194,10 @@ class RGBlock(nn.Module):
 class ViLFusionBlock(nn.Module):
     """FPN fusion block: 1x1 in_proj + LSBlock + RMSNorm + ViLBlockPair + RGBlock."""
 
-    def __init__(self, c1: int, dim: int, seqlens: Sequence[int], qkv_block_size: int = 16,
-                 mlp_ratio: float = 4.0, n: int = 1, drop_path: float = 0.0,
-                 conv_kind: str = "2d", compute_dtype: torch.dtype | None = None):
+    def __init__(self, c1: int, dim: int, seqlens: Sequence[int], chunk_size: int = 256,
+                 qkv_block_size: int = 16, mlp_ratio: float = 4.0, n: int = 1,
+                 drop_path: float = 0.0, conv_kind: str = "2d",
+                 chunkwise_kernel: str = V2_KERNEL, compute_dtype: torch.dtype | None = None):
         super().__init__()
         cd = compute_dtype
         self.in_proj = None
@@ -203,7 +207,8 @@ class ViLFusionBlock(nn.Module):
         self.lsblock = LSBlock(dim, cd)
         self.norm = RMSNorm(dim, eps=1e-3)
         self.vil = nn.ModuleList(
-            ViLBlockPairBlock(dim, seqlens, qkv_block_size, conv_kind, drop_path=drop_path,
+            ViLBlockPairBlock(dim, seqlens, chunk_size, qkv_block_size, conv_kind,
+                              drop_path=drop_path, chunkwise_kernel=chunkwise_kernel,
                               compute_dtype=cd)
             for _ in range(n))
         self.mlp = None

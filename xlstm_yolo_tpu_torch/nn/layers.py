@@ -17,9 +17,11 @@ JAX package so the two can be held against each other:
 
 In training (``module.train()``) the ViL layers run the training path of
 the JAX package's TPU configuration at every S: the mLSTM cell through the
-train forward and backward kernels (the max(|.|, 1) denominator held
-constant in the gradient), the fused epilogue and FFN branches, BatchNorm
-on batch statistics, and activation checkpointing of long block pairs.
+train forward and backward kernels of its route (the max(|.|, 1)
+denominator held constant in the gradient), the fused epilogue and FFN
+branches, BatchNorm on batch statistics, and activation checkpointing of
+long block pairs.  ``chunkwise_kernel`` picks the cell's route (see
+:class:`MatrixLSTMCell`); the parameters do not depend on it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from xlstm_yolo_tpu_torch.ops.backend import (
+    V2_KERNEL,
+    get_mlstm_kernel,
+    make_backend,
+    mLSTMBackendConfig,
+)
 from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import (
     mlstm_siging_chunkwise_fw,
     mlstm_siging_chunkwise_train,
@@ -467,21 +475,37 @@ class MatrixLSTMCell(nn.Module):
     """Gate projection + chunkwise mLSTM + per-head out-norm.
 
     The ifgate Dense maps concat(q, k, v) to 2*NH gate pre-activations
-    (float32, soft-capped), the chunkwise kernel runs the recurrence on the
-    (B, S, H) streams, and a MultiHeadLayerNorm normalises each head.
-    ``kernel`` is the cell function of inference (the inference kernel's
-    wrapper), ``train_kernel`` the differentiable cell of training.  In
-    training the cell returns the raw h (q's dtype) and the outnorm's
-    (weight, bias), which the layer's fused epilogue applies (the JAX
-    package's ``defer_outnorm``).
+    (float32, soft-capped), the chunkwise kernel runs the recurrence, and a
+    MultiHeadLayerNorm normalises each head.  ``chunkwise_kernel`` picks
+    the route:
+
+    - the v2 name (what ``"auto"`` resolves to): the v2 kernels on the
+      (B, S, H) streams at every S, ``kernel`` in inference (the inference
+      kernel's wrapper) and ``train_kernel`` in training (the
+      differentiable cell); ``chunk_size`` and ``mode`` do not apply;
+    - any other registry name: the JAX package's registry route. Heads
+      are split to (B, NH, S, DH), the gates moved to (B, NH, S), and
+      :func:`make_backend` runs the kernel in ``mode`` (default
+      ``train_with_padding`` in training, ``inference`` in eval) at the
+      layer's ``chunk_size``, zero-padding to whole chunks for the v1
+      kernels, whose chunk is part of their function.
+
+    In training the cell returns the raw h (B, S, H) in q's dtype and the
+    outnorm's (weight, bias), which the layer's fused epilogue applies (the
+    JAX package's ``defer_outnorm``): on both routes, at every S, the
+    port keeps the fused epilogue, the same function as the JAX v1 route's
+    unfused [outnorm -> + skip * x -> proj_down].
     """
 
     def __init__(self, dim: int, num_heads: int, gate_soft_cap: float = 15.0,
                  norm_bias: bool = True, eps: float = 5e-5,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, chunk_size: int = 64,
+                 mode: str | None = None, chunkwise_kernel: str = V2_KERNEL):
         super().__init__()
         self.num_heads, self.gate_soft_cap, self.eps = num_heads, gate_soft_cap, eps
         self.compute_dtype = compute_dtype
+        self.chunk_size, self.mode, self.chunkwise_kernel = chunk_size, mode, chunkwise_kernel
+        get_mlstm_kernel(chunkwise_kernel)  # an unknown name fails here, not in a forward
         self.ifgate = Dense(3 * dim, 2 * num_heads, True, zeros_init,
                             ifgate_bias_init(num_heads))
         self.outnorm = MultiHeadLayerNorm(num_heads, dim // num_heads, eps=1e-6,
@@ -494,15 +518,34 @@ class MatrixLSTMCell(nn.Module):
         NH = self.num_heads
         gate_in = torch.cat([q, k, v], dim=-1).to(acc_dtype(q.dtype))
         if_preact = soft_cap(self.ifgate(gate_in), self.gate_soft_cap)
-        i_pre, f_pre = (t.contiguous() for t in if_preact.split(NH, dim=-1))
+        i_pre, f_pre = if_preact.split(NH, dim=-1)
         cd = self.compute_dtype or q.dtype
-        fn = self.train_kernel if self.training else self.kernel
-        h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
-               _cast(v, cd).contiguous(), i_pre, f_pre, NH, eps=self.eps)
+        if self.chunkwise_kernel == V2_KERNEL:
+            fn = self.train_kernel if self.training else self.kernel
+            h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
+                   _cast(v, cd).contiguous(), i_pre.contiguous(), f_pre.contiguous(), NH,
+                   eps=self.eps)
+            h = h.reshape(B, S, NH, H // NH)
+        else:
+            h = self._registry_route(q, k, v, i_pre, f_pre, cd).transpose(1, 2)
         if self.training:
-            return h.to(q.dtype), (self.outnorm.weight, self.outnorm.bias)
-        h = self.outnorm(h.to(q.dtype).reshape(B, S, NH, H // NH))
-        return h.reshape(B, S, H)
+            return h.reshape(B, S, H).to(q.dtype), (self.outnorm.weight, self.outnorm.bias)
+        return self.outnorm(h.to(q.dtype)).reshape(B, S, H)
+
+    def _registry_route(self, q, k, v, i_pre, f_pre, cd):
+        """h (B, NH, S, DH) of the registry kernel ``chunkwise_kernel``."""
+        B, S, H = q.shape
+        NH = self.num_heads
+
+        def heads(x):
+            return _cast(x, cd).reshape(B, S, NH, H // NH).transpose(1, 2).contiguous()
+
+        mode = self.mode or ("train_with_padding" if self.training else "inference")
+        fn = make_backend(mLSTMBackendConfig(
+            chunkwise_kernel=self.chunkwise_kernel, mode=mode, chunk_size=self.chunk_size,
+            eps=self.eps, auto_divisor_chunking="pallas" not in self.chunkwise_kernel))
+        return fn(heads(q), heads(k), heads(v), i_pre.transpose(1, 2).contiguous(),
+                  f_pre.transpose(1, 2).contiguous())
 
 
 class ViLLayer(nn.Module):
@@ -512,7 +555,8 @@ class ViLLayer(nn.Module):
     v: v_proj) -> mLSTM cell -> + learnable_skip * conv_act -> proj_down
     -> + residual; ffn_norm -> FeedForward -> + residual.  The BACKWARD
     direction flips the sequence before the branch and flips the branch
-    output back.
+    output back.  ``chunk_size`` and ``chunkwise_kernel`` go to the cell
+    (see :class:`MatrixLSTMCell`).
     """
 
     def __init__(self, dim: int, direction: str = FORWARD, expansion: int = 2,
@@ -520,8 +564,8 @@ class ViLLayer(nn.Module):
                  conv_bias: bool = True, conv_kernel_size: int = 3, conv_kind: str = "2d",
                  seqlens: Sequence[int] | None = None, num_blocks: int = 1,
                  gate_soft_cap: float = 15.0, ffn_proj_factor: float = 2.6667,
-                 ffn_round_up_to: int = 64, drop_path: float = 0.0,
-                 compute_dtype: torch.dtype | None = None):
+                 ffn_round_up_to: int = 64, drop_path: float = 0.0, chunk_size: int = 64,
+                 chunkwise_kernel: str = V2_KERNEL, compute_dtype: torch.dtype | None = None):
         super().__init__()
         if conv_kind != "2d":
             raise NotImplementedError(f"conv_kind={conv_kind!r} is not ported yet")
@@ -537,7 +581,9 @@ class ViLLayer(nn.Module):
         self.conv = SequenceConv2d(inner, conv_kernel_size, seqlens, conv_bias, cd)
         self.qk_proj = Dense(inner, 2 * inner, proj_bias, small_init(dim), compute_dtype=cd)
         self.v_proj = Dense(inner, inner, proj_bias, small_init(dim), compute_dtype=cd)
-        self.mlstm_cell = MatrixLSTMCell(inner, nh, gate_soft_cap, norm_bias, compute_dtype=cd)
+        self.mlstm_cell = MatrixLSTMCell(inner, nh, gate_soft_cap, norm_bias, compute_dtype=cd,
+                                         chunk_size=chunk_size,
+                                         chunkwise_kernel=chunkwise_kernel)
         self.learnable_skip = nn.Parameter(torch.empty(inner))
         self.proj_down = Dense(inner, dim, proj_bias, wang_init(dim, num_blocks),
                                compute_dtype=cd)
@@ -589,9 +635,9 @@ class ViLLayer(nn.Module):
 
 
 class ViLBlock(nn.Module):
-    def __init__(self, dim: int, direction: str, **kw):
+    def __init__(self, dim: int, direction: str, chunk_size: int = 256, **kw):
         super().__init__()
-        self.layer = ViLLayer(dim, direction, **kw)
+        self.layer = ViLLayer(dim, direction, chunk_size=chunk_size, **kw)
 
     def forward(self, x):
         return self.layer(x)

@@ -22,9 +22,23 @@ from torch import nn
 from xlstm_yolo_tpu_torch.nn import blocks as B
 from xlstm_yolo_tpu_torch.nn import head as H
 from xlstm_yolo_tpu_torch.nn.layers import reset_parameters
+from xlstm_yolo_tpu_torch.ops.backend import V2_KERNEL, get_mlstm_kernel
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
 CFG_MODELS = Path(__file__).resolve().parents[1] / "cfg" / "models"
+DEFAULT_CHUNKWISE_KERNEL = "auto"
+
+
+def resolve_chunkwise_kernel(name: str) -> str:
+    """``"auto"`` is the v2 kernels (``chunkwise--pallas_xl_chunk_siging_v2``)
+    on every device; any other name is checked against the registry and
+    kept.  The JAX package resolves ``"auto"`` by platform (v2 on a TPU,
+    ``chunkwise--native_autograd`` elsewhere), a choice made for the TPU:
+    the port never picks a kernel by device."""
+    if name == "auto":
+        return V2_KERNEL
+    get_mlstm_kernel(name)
+    return name
 
 
 def yaml_model_load(path_or_dict) -> dict:
@@ -120,6 +134,7 @@ def parse_model_specs(d: dict, ch: int = 3):
 def _vil_config(cfg: dict) -> dict:
     return dict(
         seqlens=tuple(cfg["seqlens"]),
+        chunk_size=int(cfg.get("chunk_size", 256)),
         qkv_block_size=int(cfg.get("qkv_block_size", 16)),
         conv_kind=cfg.get("conv_kind", "2d"),
         drop_path=float(cfg.get("drop_path", 0.0)),
@@ -127,7 +142,7 @@ def _vil_config(cfg: dict) -> dict:
 
 
 def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
-                 decode_only: bool = False) -> nn.Module:
+                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL) -> nn.Module:
     """Instantiate the module of one layer spec."""
     name, args, kw = spec["module"], spec["args"], spec["kwargs"]
     cd = compute_dtype
@@ -139,13 +154,14 @@ def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
         return B.VitPosEmbedBlock(c2, tuple(seqlens))
     if name == "ViLBlockPairBlock":
         _, c2, cfg = args
-        return B.ViLBlockPairBlock(c2, **_vil_config(cfg), compute_dtype=cd)
+        return B.ViLBlockPairBlock(c2, **_vil_config(cfg), chunkwise_kernel=chunkwise_kernel,
+                                   compute_dtype=cd)
     if name == "ViLFusionBlock":
         c1, c2, cfg = args
         cfg = dict(cfg)
         mlp_ratio = float(cfg.pop("mlp_ratio", 4.0))
         return B.ViLFusionBlock(c1, c2, mlp_ratio=mlp_ratio, **_vil_config(cfg),
-                                compute_dtype=cd)
+                                chunkwise_kernel=chunkwise_kernel, compute_dtype=cd)
     if name == "PatchMerger":
         dim, m_out = args
         return B.PatchMerger(dim, m_out)
@@ -186,12 +202,13 @@ class DetectionModel(nn.Module):
 
     def __init__(self, specs: Sequence[dict], save: Sequence[int], nc: int = 80,
                  compute_dtype: torch.dtype | None = None, img_size: int = 640,
-                 decode_only: bool = False):
+                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL):
         super().__init__()
         self.specs, self.save, self.nc = list(specs), set(save), nc
         self.compute_dtype, self.img_size = compute_dtype, img_size
         self.model = nn.ModuleList(
-            build_module(s, nc, compute_dtype, img_size, decode_only) for s in self.specs)
+            build_module(s, nc, compute_dtype, img_size, decode_only, chunkwise_kernel)
+            for s in self.specs)
 
     def forward(self, x):
         img_hw = (x.shape[1], x.shape[2])
@@ -210,10 +227,13 @@ class DetectionModel(nn.Module):
 def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
                           compute_dtype: torch.dtype | None = None,
                           decode_only: bool = False, device: str | torch.device = "cuda",
-                          generator: torch.Generator | None = None, training: bool = False):
+                          generator: torch.Generator | None = None, training: bool = False,
+                          chunkwise_kernel: str = DEFAULT_CHUNKWISE_KERNEL):
     """Compile a model YAML into a DetectionModel on ``device``, in eval
     mode, or in train mode with ``training``, initialised from
-    ``generator`` (default: seed 0).  Returns (model, resolved cfg dict)."""
+    ``generator`` (default: seed 0), its mLSTM cells on ``chunkwise_kernel``
+    (:func:`resolve_chunkwise_kernel`).  The parameters do not depend on the
+    kernel.  Returns (model, resolved cfg dict)."""
     dev = select_device(device)
     p = Path(cfg) if not isinstance(cfg, dict) else None
     if p is not None and not p.exists() and (CFG_MODELS / p.name).exists():
@@ -223,7 +243,8 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
         d["nc"] = nc
     specs, save, _ = parse_model_specs(d, ch=ch)
     model = DetectionModel(specs, save, nc=d.get("nc", 80), compute_dtype=compute_dtype,
-                           img_size=int(d.get("imgsz", 640)), decode_only=decode_only)
+                           img_size=int(d.get("imgsz", 640)), decode_only=decode_only,
+                           chunkwise_kernel=resolve_chunkwise_kernel(chunkwise_kernel))
     reset_parameters(model, generator if generator is not None
                      else torch.Generator().manual_seed(0))
     return model.to(dev).train(training), d

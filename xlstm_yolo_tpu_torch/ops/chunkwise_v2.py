@@ -13,7 +13,9 @@ Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
   transposed twin ``_bw_fused_kernel_t``), ``csrc/chunkwise_bw.cu``;
 - :func:`mlstm_siging_chunkwise_train` — the differentiable cell
   (``_chunkwise_core_v2`` with ``_core_fwd`` / ``_core_bwd``).  Its
-  gradient holds the max(|.|, 1) denominator constant, at every S.
+  gradient holds the max(|.|, 1) denominator constant, at every S;
+- :func:`mlstm_siging_chunkwise_v2_heads` — the registry's entry
+  (``mlstm_siging_chunkwise_pallas_v2``) on (B, NH, S, DH) operands.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 ``*_plain`` version for CPU tensors.  ``LAUNCHES``, ``LAUNCHES_TRAIN`` and
@@ -42,6 +44,7 @@ __all__ = [
     "mlstm_siging_chunkwise_fw_train_plain",
     "mlstm_siging_chunkwise_train",
     "mlstm_siging_chunkwise_train_plain",
+    "mlstm_siging_chunkwise_v2_heads",
 ]
 
 LAUNCHES = 0        # launches of the inference forward kernel
@@ -363,6 +366,30 @@ def mlstm_siging_chunkwise_train(q, k, v, i, f, num_heads: int, c_initial=None,
     h, c_last, n_last = _ChunkwiseCell.apply(q, k, v, i, f, c_initial, n_initial,
                                              num_heads, eps, qk_scale)
     return (h, (c_last, n_last)) if return_last_states else h
+
+
+def mlstm_siging_chunkwise_v2_heads(q, k, v, i, f, chunk_size: int = 64, c_initial=None,
+                                    n_initial=None, qk_scale: float | None = None,
+                                    return_last_states: bool = False, eps: float = 1e-6):
+    """The registry's ``chunkwise--pallas_xl_chunk_siging_v2``: the kernels
+    of this module on (B, NH, S, DH) streams and (B, NH, S) gates, any S
+    (``handles_ragged``).  The kernels hold their own chunk of 64 rows,
+    so ``chunk_size`` does not change the function.  With a gradient to
+    take it runs the differentiable cell, else the inference forward."""
+    B, NH, S, DH = q.shape
+    to_bsh = lambda x: x.transpose(1, 2).reshape(B, S, NH * DH).contiguous()  # noqa: E731
+    grads = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, i, f, c_initial, n_initial))
+    fn = mlstm_siging_chunkwise_train if grads else mlstm_siging_chunkwise_fw
+    out = fn(to_bsh(q), to_bsh(k), to_bsh(v), i.transpose(1, 2).contiguous(),
+             f.transpose(1, 2).contiguous(), NH, c_initial, n_initial, eps=eps,
+             qk_scale=qk_scale, return_last_states=return_last_states)
+    h, state = out if return_last_states else (out, None)
+    h = h.reshape(B, S, NH, DH).transpose(1, 2)
+    return (h, state) if return_last_states else h
+
+
+mlstm_siging_chunkwise_v2_heads.handles_ragged = True
 
 
 def mlstm_siging_chunkwise_train_plain(q, k, v, i, f, num_heads: int, c_initial=None,

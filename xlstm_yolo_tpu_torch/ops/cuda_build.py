@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, ``build/<name>-<digest>.so``,
-where the digest covers the source and the flags.  A library is built at
+where the digest covers the source, the headers of ``csrc/`` and the
+flags.  A library is built at
 its first use, or ahead of time with :func:`build_all`, which starts one
 ``nvcc`` per source at once.  A failed build raises.
 """
@@ -23,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw")
+SOURCES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "chunkwise_v1_fw",
+           "chunkwise_v1_bw")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -37,6 +39,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
