@@ -4,7 +4,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. setup     - print the card's name and power limit; build the six CUDA
+1. setup     - print the card's name and power limit; build the eight CUDA
                sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time and what ptxas
                reports;
@@ -61,23 +61,46 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                loss finite, parameters and EMA moved, and per step exactly
                the derived v1 forward, dC-scan and dq/dk/dv launches (and the
                epilogue and FFN backwards, no v2 cell kernel);
-12. times    - CUDA-event medians (and every window) of each kernel and its
-               plain version at each S (v1: each (S, L)); the end-to-end
-               predict rate on both routes (windows after a warm-up, SM clock
+12. exp_kernels - the exp route's three kernels (forward with the m
+               stabilizer, dC scan, dq/dk/dv) against their plain versions at
+               the flagship shapes and every (S, L) the route gives them (the
+               inference segments with initial (C, n, m) and dC_last, the
+               training lengths padded to whole chunks), and two more gate
+               regimes, closed forget gates and large input gates (i in
+               [5, 15]: m far from 0): float32 products to 1e-4, the route's
+               bfloat16 to 2e-2 (phase_exp_kernels);
+13. exp_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=EXP).predict()
+               on the images of phase 4: exact exp forward launches, no v1
+               or v2 cell launch;
+14. exp_train - detect_trainer(..., chunkwise_kernel=EXP): 3 bf16 steps,
+               exact exp forward, dC-scan and dq/dk/dv launches per step;
+15. exp_grads - vil-det-tiny on the exp route, float32 products: every exp
+               kernel call of a float32 train step replayed through its
+               kernel and its plain version (GRAD_REL); and the float32
+               gradients of that step with the kernels, and with their plain
+               versions, against a float64 step on the plain versions (as
+               e2e_grads, at EXP_E2E_FACTOR);
+16. times    - CUDA-event medians (and every window) of each kernel and its
+               plain version at each S (v1, exp: each (S, L)); the end-to-end
+               predict rate on every route (windows after a warm-up, SM clock
                and power sampled); torch.profiler traces of three forwards;
                the v1 and v2 backward designs on the same work (L = 64); the
-               v2- and v1-route train steps in turns (v2, v1, v1, v2), each
-               with the device's busy share from a trace of one step.
+               exp route's predict forward and the share of its recurrent
+               tails; the v2-, v1- and exp-route train steps in turns (v2, v1,
+               exp, exp, v1, v2), each with the device's busy share from a
+               trace of one step.
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
-phase, the nvidia-smi line, one {"kernels": [...]} line (eight kernels),
+phase, the nvidia-smi line, one {"kernels": [...]} line (eleven kernels),
 and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import statistics
 import subprocess
@@ -104,6 +127,13 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 # forward may be at most E2E_FACTOR times as far from it as the plain one
 E2E_FACTOR = 2.0
 E2E_ATOL = {"boxes": 1e-3, "scores": 1e-5}
+# phase_exp_grads: the float32 gradients of the random tiny model on the exp
+# route hold float32 rounding amplified through its depth (at some ifgate
+# perturbations both paths are ~1e-2 from float64 and their ratio is noise);
+# the replay of every exp kernel call of the step is the tight check, this
+# factor catches a wiring fault, which moves a leaf by O(1)
+EXP_E2E_FACTOR = 3.0
+EXP_GRADS_SEED = 7
 E2E_GRAD_ATOL = 1e-5  # relative to each leaf's largest float64 |g|
 TRAIN_OPT = dict(name="AdEMAMix", lr=0.01, momentum=0.937, weight_decay=5e-4,
                  warmup_steps=100, iterations=10000, clip_norm=10.0)
@@ -852,22 +882,39 @@ def v1_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
     return (q, k, v, i, f, c0, n0), dh, dcl
 
 
-def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False):
-    """Least time for one call of a v1 kernel at batch B in ms: each input
-    read once and each output written once over HBM bandwidth, against the
-    causal products at the bf16 peak (PERF.md).  ``states``: the forward
-    reads initial states (the inference segments)."""
+def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False,
+             save: bool = True):
+    """Least time for one call of a v1 or exp kernel at batch B in ms: each
+    input read once and each output written once over HBM bandwidth,
+    against the causal products at the bf16 peak (PERF.md).  ``states``:
+    the forward reads initial states (the inference segments); ``save``:
+    the exp forward writes its saved rows (training), else h and the last
+    states only (predict).  The exp kernels move m_comb per row (f32) and m
+    (forward) or [m_prev, gbar | m_new] (backward) per chunk besides, and
+    write dq, dk, dv in the input dtype."""
     NC = S // L
     rows, st = B * NH * S, B * NH * (DH * DH + DH) * 4
     stream, gate = rows * DH * itemsize, rows * 4
+    m_chunk = B * NH * NC * 4
     if name == "chunkwise_v1_fw":  # q, k, v, i, f in; h, den, C/n per chunk, last C/n out
         nbytes = 4 * stream + 3 * gate + B * NC * NH * (DH * DH + DH) * 4 + st * (1 + states)
+        flops = rows * (2 * DH * (L + 1) + 4 * DH * DH)
+    elif name == "chunkwise_exp_fw":  # + m; saved: den, m_comb, C and m per chunk
+        st_m = st + B * NH * 4
+        saved = 2 * gate + B * NC * NH * DH * DH * 4 + m_chunk if save else 0
+        nbytes = 4 * stream + 2 * gate + saved + st_m * (1 + states)
         flops = rows * (2 * DH * (L + 1) + 4 * DH * DH)
     elif name == "chunkwise_v1_bw_dc":  # q, dh, f, den in; dC per chunk and dC0 out
         nbytes = 2 * stream + 2 * gate + B * NH * (NC + 1) * DH * DH * 4
         flops = rows * 2 * DH * DH
-    else:  # q, k, v, dh, i, f, den, C and dC per chunk in; dq, dk, dv (float32) out
+    elif name == "chunkwise_exp_bw_dc":  # + m_comb per row, [m_prev, gbar] per chunk
+        nbytes = 2 * stream + 3 * gate + B * NH * (NC + 1) * DH * DH * 4 + 2 * m_chunk
+        flops = rows * 2 * DH * DH
+    elif name == "chunkwise_v1_bw_dqkv":  # q, k, v, dh, i, f, den, C, dC in; f32 dq, dk, dv
         nbytes = 4 * stream + 3 * gate + 2 * B * NH * NC * DH * DH * 4 + 3 * rows * DH * 4
+        flops = rows * (5 * DH * (L + 1) + 6 * DH * DH)
+    else:  # exp dq/dk/dv: + m_comb per row, [m_prev, m_new] per chunk; dq, dk, dv as q
+        nbytes = 7 * stream + 4 * gate + 2 * B * NH * NC * DH * DH * 4 + 2 * m_chunk
         flops = rows * (5 * DH * (L + 1) + 6 * DH * DH)
     return _bound(nbytes, flops)
 
@@ -990,6 +1037,309 @@ def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, d
     return model, state, step, batches[0], total
 
 
+EXP = "chunkwise--pallas_xl_chunk"
+EXP_KERNELS = ("chunkwise_exp_fw", "chunkwise_exp_bw_dc", "chunkwise_exp_bw_dqkv")
+EXP_REGIMES = ((6656, 512, False), (1536, 512, True), (128, 64, False))  # closed / large i
+
+
+def exp_counts(ex) -> dict:
+    return {"chunkwise_exp_fw": ex.LAUNCHES_FW, "chunkwise_exp_bw_dc": ex.LAUNCHES_BW_DC,
+            "chunkwise_exp_bw_dqkv": ex.LAUNCHES_BW_DQKV}
+
+
+def zero_route_counts(v1, ex):
+    v1.LAUNCHES_FW = v1.LAUNCHES_BW_DC = v1.LAUNCHES_BW_DQKV = 0
+    ex.LAUNCHES_FW = ex.LAUNCHES_BW_DC = ex.LAUNCHES_BW_DQKV = 0
+
+
+def exp_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
+    """Flagship-width (B, NH, S, DH) streams, (B, NH, S) gates (open: i ~
+    N(0, 1), f ~ N(2, 1); closed: f ~ U(-60, -20); large_i: i ~ U(5, 15)),
+    initial (C, n, m), dh and dC_last on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cu = lambda t, d=torch.float32: None if t is None else t.to(device, d)  # noqa: E731
+    q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
+    i = cu(torch.rand(B, NH, S, generator=g) * 10 + 5 if gates == "large_i"
+           else torch.randn(B, NH, S, generator=g))
+    f = cu(torch.rand(B, NH, S, generator=g) * 40 - 60 if gates == "closed"
+           else torch.randn(B, NH, S, generator=g) + 2)
+    c0, n0, dcl = (cu(torch.randn(*s, generator=g)) if states else None
+                   for s in ((B, NH, DH, DH), (B, NH, DH), (B, NH, DH, DH)))
+    m0 = cu(torch.randn(B, NH, generator=g) * 3) if states else None
+    return (q, k, v, i, f, c0, n0, m0), dh, dcl
+
+
+def phase_exp_kernels(ex, shapes, device="cuda"):
+    """The three exp kernels against their plain versions at the flagship
+    shapes (B 8, NH 12, DH 32) and every (S, L) the route gives them, open
+    gates, with initial (C, n, m) and dC_last on the inference segments; and
+    at EXP_REGIMES with closed forget gates and with large input gates.
+    float32 streams and products (1e-4) and the route's bfloat16 (2e-2),
+    relative to each output's largest |value|.  h is held as its numerator
+    h (den + eps) beside den: once m is large the floor e^{-m_comb} of the
+    denominator is tiny, and a row whose terms nearly cancel turns a float32
+    rounding of den into a large relative change of h (its own error is
+    reported as h_max_rel_err).  The predict variant's h and last states
+    must equal the training variant's bit for bit."""
+    import torch
+
+    worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in EXP_KERNELS}
+    cases = [(S, L, "open", states) for (S, L), states in shapes] + [
+        (S, L, gates, states) for gates in ("closed", "large_i") for S, L, states in EXP_REGIMES]
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        rel = GRAD_REL[key]
+        for S, L, gates, states in cases:
+            args, dh, dcl = exp_inputs(S, dtype, gates, states, seed=S + L + 1, device=device)
+            kw = dict(chunk_size=L, eps=EPS, compute_dtype=dtype)
+            got = ex.chunkwise_exp_fw(*args, **kw)
+            got_p = ex.chunkwise_exp_fw(*args, save_states=False, **kw)
+            torch.cuda.synchronize()
+            ref = ex.chunkwise_exp_fw_plain(*args, **kw)
+            num = lambda out: out[0].float() * (out[1] + EPS)[..., None]  # noqa: E731
+            e_fw = compare_outputs(f"exp fw S={S} L={L} {gates} {key}",
+                                   [num(got), *got[1:5], *got[5]], [num(ref), *ref[1:5], *ref[5]],
+                                   rel)
+            h_rel = ((got[0].float() - ref[0].float()).abs().max()
+                     / ref[0].float().abs().max()).item()
+            if not (torch.equal(got_p[0], got[0])
+                    and all(torch.equal(a, b) for a, b in zip(got_p[5], got[5]))):
+                raise AssertionError(f"exp fw S={S} L={L}: the predict variant differs")
+            q, k, v, i, f = args[:5]
+            _, den, mc, cs, ms, (_, _, m_last) = ref
+            mrow_dc, mrow_qkv = ex.m_rows(f, ms, m_last, L)
+            dcs, dc0 = ex.chunkwise_exp_bw_dc(q, f, dh, den, mc, mrow_dc, dcl, **kw)
+            torch.cuda.synchronize()
+            rdcs, rdc0 = ex.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, dcl, **kw)
+            e_dc = compare_outputs(f"exp bw_dc S={S} L={L} {gates} {key}", (dcs, dc0),
+                                   (rdcs, rdc0), rel)
+            got_b = ex.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
+            torch.cuda.synchronize()
+            ref_b = ex.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs,
+                                                   **kw)
+            e_qkv = compare_outputs(f"exp bw_dqkv S={S} L={L} {gates} {key}", got_b, ref_b, rel)
+            for name, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv)):
+                worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
+            emit({"phase": "exp_kernels", "S": S, "L": L, "dtype": key, "compute_dtype": key,
+                  "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
+                  "m_last_range": [m_last.min().item(), m_last.max().item()],
+                  "h_max_rel_err": h_rel,
+                  **{f"{n}_max_rel_err": e[1] for n, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv))}})
+            del args, dh, dcl, got, got_p, ref, got_b, ref_b, dcs, rdcs
+    return worst
+
+
+def phase_exp_predict(ex, v1, cw, yolo):
+    """The predict path on the exp route: YOLO(..., chunkwise_kernel=EXP)
+    on the images of phase_predict, held to the launch count derived from
+    the wrappers' segment plan (the v1 route's plan), no v1 or v2 launch."""
+    import numpy as np
+
+    plan = v1_plan(yolo.model)
+    per_forward = sum(plan["infer"].values())
+    images = synthetic_images(10, seed=5)  # batches of 8 and 2: two forwards
+    forwards = -(-len(images) // B)
+    cw.LAUNCHES = 0
+    zero_route_counts(v1, ex)
+    results = yolo.predict(images, batch=B, conf=0.0)
+    launches, others = ex.LAUNCHES_FW, cw.LAUNCHES + sum(v1_counts(v1).values())
+    ok = len(results) == len(images)
+    for r, im in zip(results, images):
+        h, w = im.shape[:2]
+        d = r.boxes.data
+        ok &= bool(r.orig_img.shape == im.shape and np.isfinite(d).all()
+                   and (d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all()
+                   and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= h).all())
+    emit({"phase": "exp_predict", "cfg": "vil-det-192", "chunkwise_kernel": EXP,
+          "dtype": "bfloat16", "images": len(images), "batch": B, "launches": launches,
+          "forwards": forwards, "expected": forwards * per_forward, "per_forward": per_forward,
+          "segments_per_forward": {f"{S}@{L}": n for (S, L), n in sorted(plan["infer"].items())},
+          "sequence_tails_per_forward": plan["tails"], "v1_v2_launches": others,
+          "bw_launches": ex.LAUNCHES_BW_DC + ex.LAUNCHES_BW_DQKV,
+          "boxes_per_image": [len(r) for r in results]})
+    if not ok:
+        raise AssertionError("exp predict: non-finite result, wrong original shape or boxes "
+                             "outside the image")
+    if launches != forwards * per_forward or others != 0:
+        raise AssertionError(f"exp predict made {launches} exp forward launches (expected "
+                             f"{forwards * per_forward}) and {others} v1/v2 ones")
+    return launches
+
+
+def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640,
+                    device="cuda"):
+    """The training path on the exp route: detect_trainer(...,
+    chunkwise_kernel=EXP), TRAIN_STEPS bf16 steps, exact launches per step."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
+
+    model, state, step = steps.detect_trainer(
+        cfg, device=device, compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0), chunkwise_kernel=EXP, **TRAIN_OPT)
+    perturb_ifgates(model, seed=7)
+    state.ema = opt_lib.ema_init(list(state.params.values()))
+    plan = v1_plan(model)
+    n = sum(plan["train"].values())
+    expected = {"chunkwise_exp_fw": n + sum(plan["remat"].values()), "chunkwise_exp_bw_dc": n,
+                "chunkwise_exp_bw_dqkv": n}
+    other = {"chunkwise_fw": 0, "chunkwise_fw_train": 0, "chunkwise_bw": 0, "epilogue_bw": n,
+             "ffn_bw": n, **{k: 0 for k in V1_KERNELS}}
+    p0 = [p.detach().clone() for p in state.params.values()]
+    e0 = [e.clone() for e in state.ema.params]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(8)
+    all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1), **exp_counts(ex)}  # noqa: E731
+    zero_counts(cw, epi, ffn)
+    zero_route_counts(v1, ex)
+    per_step, metrics_log = [], []
+    for batch in batches:
+        before = all_counts()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        after = all_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics_log.append({k: v.item() for k, v in metrics.items()})
+    total = exp_counts(ex)
+    moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
+    ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
+    emit({"phase": "exp_train", "cfg": "vil-det-192", "chunkwise_kernel": EXP, "batch": B,
+          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
+          "param_max_change": moved, "ema_max_change": ema_moved})
+    for m in metrics_log:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"exp train: non-finite loss items {m}")
+    if not (moved > 0 and ema_moved > 0):
+        raise AssertionError("exp train: the parameters or the EMA did not move")
+    for s_ in per_step:
+        if any(s_[k] != c for k, c in {**expected, **other}.items()):
+            raise AssertionError(f"exp train step launches {s_}, expected {expected} and {other}")
+    return model, state, step, batches[0], total, expected
+
+
+@contextlib.contextmanager
+def exp_entry(fn):
+    """The registry's exp entry replaced by ``fn`` for the ``with`` block."""
+    from xlstm_yolo_tpu_torch.ops import backend
+
+    reg = backend._REGISTRY["chunkwise"]
+    old = reg["pallas_xl_chunk"]
+    reg["pallas_xl_chunk"] = fn
+    try:
+        yield
+    finally:
+        reg["pallas_xl_chunk"] = old
+
+
+@contextlib.contextmanager
+def plain_exp_kernels(ex):
+    """The exp route's kernel wrappers replaced by their plain versions
+    (any device and dtype) for the ``with`` block; the autograd Function
+    and ``chunkwise_exp_bw`` call them by name."""
+    plains = {"chunkwise_exp_fw": ex.chunkwise_exp_fw_plain,
+              "chunkwise_exp_bw_dc": ex.chunkwise_exp_bw_dc_plain,
+              "chunkwise_exp_bw_dqkv": ex.chunkwise_exp_bw_dqkv_plain}
+    old = {name: getattr(ex, name) for name in plains}
+    try:
+        for name, fn in plains.items():
+            setattr(ex, name, fn)
+        yield
+    finally:
+        for name, fn in old.items():
+            setattr(ex, name, fn)
+
+
+def phase_exp_grads(ex, steps, device="cuda"):
+    """vil-det-tiny on the exp route, perturbed ifgates, float32 products
+    (the route's bfloat16 products make this random model chaotic).  Every
+    exp kernel call of a float32 train step is recorded and replayed through
+    its kernel and its plain version, within GRAD_REL["float32"] of each
+    output's largest |value| (the forward's h as its numerator h (den +
+    eps), as in phase_exp_kernels).  And the float32 gradients of that step
+    with the exp kernels, and with the same route on their plain versions
+    (the autograd Function unchanged; the epilogue and FFN plain too), are
+    each held against a float64 step on the plain versions (float64
+    products); the kernel path may be at most EXP_E2E_FACTOR times as far
+    from float64 as the plain path, per leaf relative to its largest
+    float64 |g| (floored as in phase_e2e_grads)."""
+    import inspect
+
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+
+    def entry(q, *args, **kw):
+        cd = torch.float64 if q.dtype == torch.float64 else torch.float32
+        return ex.mlstm_chunkwise_exp(q, *args, compute_dtype=cd, **kw)
+
+    model, _ = build_detection_model("vil-det-tiny.yaml", device=device, training=True,
+                                     generator=torch.Generator().manual_seed(0),
+                                     chunkwise_kernel=EXP)
+    perturb_ifgates(model, seed=EXP_GRADS_SEED)
+    batch = train_batch(2, 160, seed=6, device=device)
+    batch["img"] = batch["img"].float() / 255.0
+    originals = {name: getattr(ex, name) for name in EXP_KERNELS}
+    plains = {name: getattr(ex, f"{name}_plain") for name in EXP_KERNELS}
+    calls = {name: [] for name in EXP_KERNELS}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return originals[name](*args, **kw)
+        return call
+
+    before = exp_counts(ex)
+    with exp_entry(entry):
+        try:
+            for name in EXP_KERNELS:
+                setattr(ex, name, recorder(name))
+            loss_k, g_k = grads_of_step(model, batch, steps)
+        finally:
+            for name, fn in originals.items():
+                setattr(ex, name, fn)
+        launches = {k: exp_counts(ex)[k] - before[k] for k in before}
+        plain = copy.deepcopy(model)
+        use_plain_training_ops(plain)
+        with plain_exp_kernels(ex):
+            loss_p, g_p = grads_of_step(plain, batch, steps)
+            batch64 = dict(batch, img=batch["img"].double(), bboxes=batch["bboxes"].double())
+            loss_64, g_64 = grads_of_step(plain.double(), batch64, steps)
+    replay = {}
+    for name in EXP_KERNELS:
+        worst = 0.0
+        for args, kw in calls[name]:
+            got, ref = originals[name](*args, **kw), plains[name](*args, **kw)
+            if name == "chunkwise_exp_fw":
+                eps = inspect.signature(plains[name]).bind(*args, **kw).arguments["eps"]
+                got, ref = ([x[0].float() * (x[1] + eps)[..., None], *x[1:5], *x[5]]
+                            for x in (got, ref))
+            worst = max(worst, compare_outputs(f"exp_grads replay {name} S={args[0].shape[2]}",
+                                               got, ref, GRAD_REL["float32"])[1])
+            del got, ref
+        replay[name] = {"calls": len(calls[name]), "max_rel_err": worst}
+    top = max(g.abs().max().item() for g in g_64)
+    err_k = err_p = 0.0
+    for a, p, r in zip(g_k, g_p, g_64):
+        scale = max(r.abs().max().item(), 1e-3 * top)
+        err_k = max(err_k, (a.double() - r).abs().max().item() / scale)
+        err_p = max(err_p, (p.double() - r).abs().max().item() / scale)
+    ok = err_k <= EXP_E2E_FACTOR * err_p + E2E_GRAD_ATOL and all(
+        bool(torch.isfinite(g).all()) for g in g_k) and (
+        device == "cpu" or min(launches.values()) > 0)
+    emit({"phase": "exp_grads", "cfg": "vil-det-tiny", "chunkwise_kernel": EXP, "batch": 2,
+          "imgsz": 160, "products": "float32", "loss_kernel": loss_k, "loss_plain": loss_p,
+          "loss_f64": loss_64, "kernel_vs_f64_rel": err_k, "plain_vs_f64_rel": err_p,
+          "factor": EXP_E2E_FACTOR, "ifgate_seed": EXP_GRADS_SEED, "atol_rel": E2E_GRAD_ATOL,
+          "leaves": len(g_k), "replay": replay, "replay_rel_tol": GRAD_REL["float32"],
+          "exp_launches": launches})
+    if not ok:
+        raise AssertionError("vil-det-tiny exp route: the kernel gradients are further from "
+                             "float64 than allowed (or no exp kernel ran)")
+
+
 def time_step(step, state, batch, windows: int):
     """Median ms of a train step over ``windows`` windows of 2 steps after
     a warm-up of >= 3 s (host clock ending in a synchronise), the windows,
@@ -1029,12 +1379,11 @@ def time_step(step, state, batch, windows: int):
             **device_busy(prof, start.elapsed_time(end))}
 
 
-def phase_v1_times(v1, cw, card: str, plan, yolo_v1, v1_train, v2_train, device="cuda"):
+def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
     """Per-call times of the v1 kernels (bf16) at each (S, L) of the route
     beside their plain versions and bounds; the two backward designs at the
     same chunk, L = 64 (v1: the dC scan, then chunk-parallel dq/dk/dv; v2:
-    one serial pass); the v1 predict forward on device input; and the
-    v1-route train step beside the v2-route one, in turns (v2, v1, v1, v2)."""
+    one serial pass); and the v1 predict forward on device input."""
     import torch
 
     from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
@@ -1124,9 +1473,126 @@ def phase_v1_times(v1, cw, card: str, plan, yolo_v1, v1_train, v2_train, device=
           "note": "normalise + forward + top-k on a letterboxed uint8 batch on the card, 5 "
                   "windows of 3 forwards after 2 s of warm-up"})
 
+    return per
+
+
+def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
+    """Per-call times of the exp kernels (bf16) at each (S, L) of the route
+    beside their plain versions and bounds (the predict variant of the
+    forward at the inference segments, the training variant at the padded
+    training lengths); the exp and v2 predict forwards on device input in
+    turns (v2, exp, exp, v2); a trace of three exp forwards (busy share); and
+    the share of the exp forward taken by its recurrent tails (each tail
+    timed between two synchronises, in an instrumented forward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from xlstm_yolo_tpu_torch.ops import backend
+
+    shapes = sorted(set(plan["train"]) | set(plan["infer"]))
+    per = {k: {} for k in EXP_KERNELS}
+    for S, L in shapes:
+        infer = (S, L) in plan["infer"]
+        args, dh, _ = exp_inputs(S, torch.bfloat16, states=infer, seed=S, device=device)
+        kw = dict(chunk_size=L, eps=EPS)
+        _, den, mc, cs, ms, (_, _, m_last) = ex.chunkwise_exp_fw(*args, **kw)
+        q, k, v, i, f = args[:5]
+        mrow_dc, mrow_qkv = ex.m_rows(f, ms, m_last, L)
+        dcs, _ = ex.chunkwise_exp_bw_dc(q, f, dh, den, mc, mrow_dc, **kw)
+        fw_kw = dict(kw, save_states=not infer)
+        pairs = {"chunkwise_exp_fw": (lambda: ex.chunkwise_exp_fw(*args, **fw_kw),
+                                      lambda: ex.chunkwise_exp_fw_plain(*args, **fw_kw))}
+        if (S, L) in plan["train"]:
+            pairs["chunkwise_exp_bw_dc"] = (
+                lambda: ex.chunkwise_exp_bw_dc(q, f, dh, den, mc, mrow_dc, **kw),
+                lambda: ex.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, **kw))
+            pairs["chunkwise_exp_bw_dqkv"] = (
+                lambda: ex.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, dcs,
+                                                 **kw),
+                lambda: ex.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc, mrow_qkv, dh,
+                                                       dcs, **kw))
+        for name, (kern, plain) in pairs.items():
+            t_plain = time_cuda(plain, iters=2, reps=2)
+            t_kern = time_cuda(kern, iters=10, reps=3) + time_cuda(kern, iters=10, reps=3)
+            t_plain += time_cuda(plain, iters=2, reps=2)
+            fw = name == "chunkwise_exp_fw"
+            row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                   **dict(zip(("bound_ms", "bound_by"),
+                              v1_bound(name, S, L, states=infer and fw, save=not infer)))}
+            per[name][(S, L)] = row
+            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S, "L": L,
+                  "dtype": "bfloat16", "variant": ("predict" if infer else "train") if fw else "",
+                  "calls_per_forward": plan["infer"].get((S, L), 0),
+                  "calls_per_step": (plan["train"].get((S, L), 0)
+                                     + (plan["remat"].get((S, L), 0) if fw else 0)),
+                  **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
+        del args, dh, den, mc, cs, ms, dcs, pairs
+
+    preds = {route: DetectionPredictor({"imgsz": y.imgsz, "batch": B}, y.model, y.names)
+             for route, y in (("v2", yolo_v2), ("exp", yolo_exp))}
+    batch = preds["exp"].preprocess(synthetic_images(B, seed=6))
+    fwd_ms = {}
+    with ClockSampler() as clocks:
+        for route in ("v2", "exp", "exp", "v2"):
+            fwd_ms.setdefault(route, []).extend(
+                time_cuda(lambda: preds[route].forward(batch), iters=3, reps=3, warm_s=1.0))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(3):
+            preds["exp"].forward(batch)
+        end.record()
+        torch.cuda.synchronize()
+    busy = device_busy(prof, start.elapsed_time(end))
+
+    reg = backend._REGISTRY["sequence"]
+    seq, tails = reg["native"], []
+
+    def timed_tail(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = seq(*a, **kw)
+        torch.cuda.synchronize()
+        tails.append((time.perf_counter() - t) * 1e3)
+        return out
+    reg["native"] = timed_tail
+    try:
+        fwd_instr = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            preds["exp"].forward(batch)
+            torch.cuda.synchronize()
+            fwd_instr.append((time.perf_counter() - t) * 1e3)
+    finally:
+        reg["native"] = seq
+    n_tails = len(tails) // 3
+    tail_ms = [sum(tails[j * n_tails:(j + 1) * n_tails]) for j in range(3)]
+    out = {"forward_ms": {r: statistics.median(t) for r, t in fwd_ms.items()},
+           "forward_ms_runs": fwd_ms,
+           "img_per_s_device_input": {r: B / statistics.median(t) * 1e3 for r, t in fwd_ms.items()},
+           "tails_per_forward": n_tails, "tail_ms_per_forward": tail_ms,
+           "instrumented_forward_ms": fwd_instr,
+           "tail_share": statistics.median(a / b for a, b in zip(tail_ms, fwd_instr)),
+           "exp_trace": {k: v for k, v in busy.items() if k != "top"},
+           "exp_trace_top": busy.get("top", [])[:10]}
+    emit({"phase": "times", "what": "predict_exp", "card": card, "cfg": "vil-det-192",
+          "chunkwise_kernel": EXP, "imgsz": 640, "batch": B, "dtype": "bfloat16", **out,
+          "clocks_during_forward_timing": clocks.summary, "clock_samples": clocks.summary_n,
+          "note": "normalise + forward + top-k on a letterboxed uint8 batch on the card; "
+                  "routes in turns v2, exp, exp, v2, 3 windows of 3 forwards each after 1 s of "
+                  "warm-up; busy share from a trace of 3 exp forwards; tails timed between "
+                  "synchronises in 3 instrumented forwards"})
+    return per, out
+
+
+def phase_step_times(card: str, routes):
+    """The train step of each route in turns (v2, v1, exp, exp, v1, v2),
+    each with the device's busy share from a trace of one step."""
     steps_ms = {}
-    for route, (_, state, step, batch) in (("v2", v2_train), ("v1", v1_train), ("v1", v1_train),
-                                           ("v2", v2_train)):
+    for route in ("v2", "v1", "exp", "exp", "v1", "v2"):
+        _, state, step, batch = routes[route]
         r = time_step(step, state, batch, windows=2)
         steps_ms.setdefault(route, []).append(r)
         emit({"phase": "times", "what": "train_step", "route": route, "card": card,
@@ -1134,8 +1600,8 @@ def phase_v1_times(v1, cw, card: str, plan, yolo_v1, v1_train, v2_train, device=
               **{k: v for k, v in r.items() if k != "top"}, "top": r.get("top", [])[:8],
               "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
                       ">= 3 s warm-up; busy share from a torch.profiler trace of one step; "
-                      "routes timed in turns v2, v1, v1, v2"})
-    return per, steps_ms
+                      "routes timed in turns v2, v1, exp, exp, v1, v2"})
+    return steps_ms
 
 
 def phase_times(cw, yolo, card: str):
@@ -1209,6 +1675,7 @@ def main() -> int:
         from xlstm_yolo_tpu_torch.engine import steps
         from xlstm_yolo_tpu_torch.engine.model import YOLO
         from xlstm_yolo_tpu_torch.ops import chunkwise as v1
+        from xlstm_yolo_tpu_torch.ops import chunkwise_exp as ex
         from xlstm_yolo_tpu_torch.ops import chunkwise_v2 as cw
         from xlstm_yolo_tpu_torch.ops import cuda_build
         from xlstm_yolo_tpu_torch.ops import epilogue as epi
@@ -1259,12 +1726,24 @@ def main() -> int:
     v1_predict_launches = timed("v1_predict", phase_v1_predict, v1, cw, yolo_v1)
     v1_model, v1_state, v1_step, v1_batch, v1_launches = timed(
         "v1_train", phase_v1_train, v1, cw, epi, ffn, steps)
+    yolo_exp = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16,
+                    chunkwise_kernel=EXP)
+    perturb_ifgates(yolo_exp.model, seed=8)
+    if v1_plan(yolo_exp.model) != plan:
+        raise AssertionError("the exp route's segment plan differs from the v1 route's")
+    worst_exp = timed("exp_kernels", phase_exp_kernels, ex, shapes)
+    exp_predict_launches = timed("exp_predict", phase_exp_predict, ex, v1, cw, yolo_exp)
+    exp_model, exp_state, exp_step, exp_batch, exp_launches, exp_per_step = timed(
+        "exp_train", phase_exp_train, ex, v1, cw, epi, ffn, steps)
+    timed("exp_grads", phase_exp_grads, ex, steps)
     per_s = timed("times", phase_times, cw, yolo, card)
+    per_exp, exp_fwd = timed("exp_times", phase_exp_times, ex, card, plan, yolo_exp, yolo)
     del yolo
     per_train = timed("train_times", phase_train_times, cw, epi, ffn, card)
-    per_v1, steps_ms = timed("v1_times", phase_v1_times, v1, cw, card, plan, yolo_v1,
-                             (v1_model, v1_state, v1_step, v1_batch),
-                             (model, state, step, batch))
+    per_v1 = timed("v1_times", phase_v1_times, v1, cw, card, plan, yolo_v1)
+    steps_ms = timed("step_times", phase_step_times, card, {
+        "v2": (model, state, step, batch), "v1": (v1_model, v1_state, v1_step, v1_batch),
+        "exp": (exp_model, exp_state, exp_step, exp_batch)})
 
     per_fwd = lambda key: sum(LAUNCHES_PER_S[S] * per_s[S][key] for S in SEQ_LENS)
     calls = expected_step_launches(model)
@@ -1344,10 +1823,51 @@ def main() -> int:
                     f"batch 8, bf16: the calls at each (S, L) ({step_calls[name]}) summed"
                     + extra,
         })
+    exp_sources = {"chunkwise_exp_fw": ("chunkwise_exp_fw.cu", f"{pallas}/chunkwise_exp.py:55"),
+                   "chunkwise_exp_bw_dc": ("chunkwise_exp_bw.cu",
+                                           f"{pallas}/chunkwise_exp.py:284"),
+                   "chunkwise_exp_bw_dqkv": ("chunkwise_exp_bw.cu",
+                                             f"{pallas}/chunkwise_exp.py:330")}
+    step_calls_exp = {name: {k: n + (plan["remat"].get(k, 0) if name == "chunkwise_exp_fw"
+                                     else 0) for k, n in plan["train"].items()}
+                      for name in EXP_KERNELS}
+    per_exp_step = lambda name, key: sum(n * per_exp[name][k][key]  # noqa: E731
+                                         for k, n in step_calls_exp[name].items())
+    exp_fwd_sum = lambda key: sum(n * per_exp["chunkwise_exp_fw"][k][key]  # noqa: E731
+                                  for k, n in plan["infer"].items())
+    for name in EXP_KERNELS:
+        src, replaces = exp_sources[name]
+        big = max(step_calls_exp[name])
+        fw = name == "chunkwise_exp_fw"
+        extra = (f"; per vil-det-192 forward in predict ({sum(plan['infer'].values())} calls "
+                 f"of the predict variant at {sorted(plan['infer'])}): {exp_fwd_sum('ms'):.4g} ms, "
+                 f"plain {exp_fwd_sum('plain_ms'):.4g}, bound {exp_fwd_sum('bound_ms'):.4g}; "
+                 f"launches: {exp_predict_launches} calls (two launches each: the state scan "
+                 f"and h) in the exp predict of 10 images + {exp_launches[name]} in "
+                 f"{TRAIN_STEPS} exp train steps" if fw else "")
+        rows.append({
+            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": exp_launches[name] + (exp_predict_launches if fw else 0),
+            "max_abs_err": worst_exp[name]["bfloat16"][0],
+            "ms": per_exp_step(name, "ms"), "plain_ms": per_exp_step(name, "plain_ms"),
+            "bound_ms": per_exp_step(name, "bound_ms"),
+            "bound_by": per_exp[name][big]["bound_by"], "library_ms": None,
+            "max_rel_err": worst_exp[name]["bfloat16"][1],
+            "max_rel_err_float32": worst_exp[name]["float32"][1],
+            "note": f"exp route (chunkwise_kernel={EXP}); times per vil-det-192 train step at "
+                    f"batch 8, bf16: the calls at each (S, L) ({step_calls_exp[name]}; "
+                    f"{exp_per_step[name]} per step) summed" + extra
+                    + ("; the forward's errors are of h (den + eps), den, m_comb and the states"
+                       if fw else ""),
+        })
     step_line = {route: [r["step_ms"] for r in rs] for route, rs in steps_ms.items()}
     busy_line = {route: [r.get("busy_share") for r in rs] for route, rs in steps_ms.items()}
-    emit({"phase": "times", "what": "train_step_v1_vs_v2", "card": card, "step_ms": step_line,
-          "busy_share": busy_line})
+    emit({"phase": "times", "what": "train_step_routes", "card": card, "step_ms": step_line,
+          "busy_share": busy_line,
+          "device_ms": {route: [r.get("kernel_ms_total") for r in rs]
+                        for route, rs in steps_ms.items()},
+          "predict_forward_ms": exp_fwd["forward_ms"], "exp_tail_share": exp_fwd["tail_share"]})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,13 @@ every (S, chunk) of ``vil-det-192.yaml`` and ``vil-det-tiny.yaml``.  The
 wrappers themselves are compared on numpy inputs from a seed, float32:
 with the native kernels on both sides (atol = rtol = 1e-4, float32 sums in
 another order), and the pad-zeros wrapper with the v1 kernels on both sides
-(compute bfloat16: 2e-2 of the largest |h|).
+(compute bfloat16: 2e-2 of the largest |h|).  On the exp route the
+inference wrapper threads the stabilizer m between its segments; JAX's
+drops it at the recurrent tail, and the port mirrors that (the tail-fault
+test pins it).
 """
 
+import functools
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -22,12 +26,20 @@ import yaml
 from xlstm_yolo_tpu.ops import backend as jax_backend
 from xlstm_yolo_tpu.ops import wrappers as jax_wrappers
 from xlstm_yolo_tpu_torch.nn.tasks import resolve_chunkwise_kernel
-from xlstm_yolo_tpu_torch.ops import backend, chunkwise, chunkwise_v2, wrappers
-from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
-from xlstm_yolo_tpu_torch.ops.mlstm_parallel import mlstm_siging_parallel
+from xlstm_yolo_tpu_torch.ops import backend, chunkwise, chunkwise_exp, chunkwise_v2, wrappers
+from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import (
+    mlstm_chunkwise_stabilized,
+    mlstm_siging_chunkwise,
+)
+from xlstm_yolo_tpu_torch.ops.mlstm_parallel import (
+    mlstm_parallel_stabilized,
+    mlstm_siging_parallel,
+)
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import (
+    mlstm_recurrent_sequence_stabilized,
     mlstm_siging_recurrent_sequence,
     mlstm_siging_step,
+    mlstm_step_stabilized,
 )
 
 CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu" / "cfg" / "models"
@@ -156,11 +168,16 @@ def test_pad_zeros_wrapper_picks_a_divisor_chunk_for_the_native_kernel():
 
 REGISTERED = {
     "chunkwise--native_autograd": mlstm_siging_chunkwise,
+    "chunkwise--native_stablef": mlstm_chunkwise_stabilized,
+    "chunkwise--pallas_xl_chunk": chunkwise_exp.mlstm_chunkwise_exp,
     "chunkwise--pallas_xl_chunk_siging": chunkwise.mlstm_siging_chunkwise_v1,
     "chunkwise--pallas_xl_chunk_siging_v2": chunkwise_v2.mlstm_siging_chunkwise_v2_heads,
     "parallel--native_siging": mlstm_siging_parallel,
+    "parallel--native_stablef": mlstm_parallel_stabilized,
     "sequence--native": mlstm_siging_recurrent_sequence,
+    "sequence--native_stablef": mlstm_recurrent_sequence_stabilized,
     "step--native": mlstm_siging_step,
+    "step--native_stablef": mlstm_step_stabilized,
 }
 
 
@@ -171,8 +188,8 @@ def test_registry_resolves_every_registered_name(name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("chunkwise--native_stablef", "Queue 1 item 2"),
-    ("chunkwise--pallas_xl_chunk", "Queue 2 item 8"),
+    ("sequence--pallas", "unknown"),
+    ("chunkwise--pallas_xl_chunk_stablef", "unknown"),
     ("step--pallas", "Queue 2 item 7"),
     ("parallel--pallas_limit_headdim", "Queue 2 item 9"),
     ("chunkwise--no_such_kernel", "unknown"),
@@ -218,8 +235,9 @@ def test_auto_is_the_v2_kernels_on_every_device(cuda, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
     assert resolve_chunkwise_kernel("auto") == backend.V2_KERNEL
     assert resolve_chunkwise_kernel(backend.V1_KERNEL) == backend.V1_KERNEL
-    with pytest.raises(ValueError, match="Queue 2 item 8"):
-        resolve_chunkwise_kernel("chunkwise--pallas_xl_chunk")
+    assert resolve_chunkwise_kernel(backend.EXP_KERNEL) == backend.EXP_KERNEL
+    with pytest.raises(ValueError, match="Queue 2 item 9"):
+        resolve_chunkwise_kernel("parallel--pallas_limit_headdim")
 
 
 def test_yaml_chunk_sizes_reach_every_cell():
@@ -263,3 +281,84 @@ def test_cell_mode_overrides_the_default():
     torch.testing.assert_close(outs[0], outs[1], atol=0, rtol=0)
     with pytest.raises(ValueError, match="unknown mode"):
         MatrixLSTMCell(32, 2, mode="decode", chunkwise_kernel=backend.V1_KERNEL)(q, k, v)
+
+
+EXP_NAMES = ("chunkwise--pallas_xl_chunk", "sequence--native", "step--native")
+
+
+@pytest.mark.parametrize("S,chunk,states", [(25, 16, False), (100, 64, True), (400, 256, False),
+                                            (72, 32, True)])
+def test_arbitrary_length_wrapper_matches_jax_on_the_exp_route(S, chunk, states):
+    """The inference wrapper with the exp kernels (bfloat16 products, the
+    entry's default), the recurrent sequence and step on both sides, at the
+    YAML (S, chunk) pairs and at (72, 32): the segments thread (C, n, m),
+    and every plan but (400, 256) leaves a recurrent tail.  h and the last
+    (C, n), 2e-2 of each one's largest |value|."""
+    args, c0, n0 = make_inputs(S + 2, S, states=states)
+    ref = jax_wrappers.wrap_chunkwise_arbitrary_sequence_length(
+        *(jax_backend.get_mlstm_kernel(n) for n in EXP_NAMES), *map(jx, args), c_initial=jx(c0),
+        n_initial=jx(n0), chunk_size=chunk, eps=EPS)
+    got = wrappers.wrap_chunkwise_arbitrary_sequence_length(
+        *(backend.get_mlstm_kernel(n) for n in EXP_NAMES), *map(pt, args), c_initial=pt(c0),
+        n_initial=pt(n0), chunk_size=chunk, eps=EPS)
+    assert len(got[1]) == 2
+    for a, b in zip((got[0], *got[1]), (ref[0], *ref[1])):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, atol=2e-2 * np.abs(b).max(), rtol=2e-2)
+
+
+@pytest.mark.parametrize("gates", ["init", "open"])
+@pytest.mark.parametrize("name", ["chunkwise--native_stablef", "chunkwise--pallas_xl_chunk"])
+def test_exp_route_tail_drops_m_as_the_jax_wrapper_does(name, gates, monkeypatch):
+    """The JAX inference wrapper hands the stabilizer m to the recurrent
+    tail only if the sequence function takes it (``ops/wrappers.py:149-153``);
+    with ``sequence--native`` (the cell's choice) the siging recurrence
+    continues from C and n stored relative to the dropped m.  B 2, NH 3,
+    S 72, DH 16, chunk 32: a 64-token prefix in two segments, then an
+    8-token tail, against ``mlstm_recurrent_sequence_stabilized`` over all
+    72 tokens, at init-like input gates (i ~ -10 + N(0, 0.1)) and open ones
+    (i ~ N(0, 1)).  Both wrappers agree with each other, and with it on the
+    prefix, and both differ from it on the tail; with
+    ``sequence--native_stablef`` both agree with it everywhere.  The exp
+    kernel entry runs with float32 products in both registries here (its
+    bfloat16 ones alone move h by a few percent of its largest |value| over
+    64 open-gate tokens); tolerance 1e-4 of the largest |h|."""
+    rng = np.random.default_rng(11)
+    B, NH, S, DH, chunk, prefix = 2, 3, 72, 16, 32, 64
+    q, k, v = (rng.normal(size=(B, NH, S, DH)).astype(np.float32) for _ in range(3))
+    i = (rng.normal(-10, 0.1, (B, NH, S)) if gates == "init"
+         else rng.normal(0, 1, (B, NH, S))).astype(np.float32)
+    f = rng.normal(3, 1, (B, NH, S)).astype(np.float32)
+    args = (q, k, v, i, f)
+    if name == backend.EXP_KERNEL:
+        jax_backend.get_mlstm_kernel(name)  # registers the Pallas kernels first
+        monkeypatch.setitem(jax_backend._CHUNKWISE_REGISTRY, "pallas_xl_chunk", functools.partial(
+            jax_backend.get_mlstm_kernel(name), compute_dtype=jnp.float32))
+        monkeypatch.setitem(backend._REGISTRY["chunkwise"], "pallas_xl_chunk", functools.partial(
+            chunkwise_exp.mlstm_chunkwise_exp, compute_dtype=torch.float32))
+    rel = 1e-4
+    ref = mlstm_recurrent_sequence_stabilized(*map(pt, args), eps=EPS).numpy()
+    scale = np.abs(ref).max()
+    out = {}
+    for seq in ("sequence--native", "sequence--native_stablef"):
+        names = (name, seq, "step--native")
+        h_jax = np.asarray(jax_wrappers.wrap_chunkwise_arbitrary_sequence_length(
+            *(jax_backend.get_mlstm_kernel(n) for n in names), *map(jx, args), chunk_size=chunk,
+            eps=EPS, return_last_states=False))
+        h_port = wrappers.wrap_chunkwise_arbitrary_sequence_length(
+            *(backend.get_mlstm_kernel(n) for n in names), *map(pt, args), chunk_size=chunk,
+            eps=EPS, return_last_states=False).numpy()
+        np.testing.assert_allclose(h_port, h_jax, atol=rel * scale, rtol=rel)
+        out[seq] = (h_jax, h_port)
+    sizes = {}
+    for side, h in zip(("jax", "port"), out["sequence--native"]):
+        err_prefix = np.abs(h[:, :, :prefix] - ref[:, :, :prefix]).max()
+        err_tail = np.abs(h[:, :, prefix:] - ref[:, :, prefix:]).max()
+        sizes[side] = dict(prefix_err=err_prefix, tail_err=err_tail,
+                           max_tail_h=np.abs(ref[:, :, prefix:]).max(), max_h=scale)
+        assert err_prefix <= rel * scale, sizes
+        assert err_tail > 0.1 * np.abs(ref[:, :, prefix:]).max(), sizes
+    for side, h in zip(("jax", "port"), out["sequence--native_stablef"]):
+        err = np.abs(h - ref).max()
+        assert err <= rel * scale, (side, err, scale, sizes)
+    print(f"{name} {gates}: {sizes}")

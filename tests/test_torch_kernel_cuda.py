@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the chunkwise mLSTM inference forward, train forward and backward (and the
 differentiable cell built from them), the epilogue backward, the FFN
-backward, and the v1 route's forward, dC scan and dq/dk/dv kernels at every
-chunk length.  This file imports neither JAX nor the JAX package, so it
+backward, and the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
+at every chunk length.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
@@ -17,11 +17,14 @@ seed.  Tolerances:
   2e-2 for h; gradients atol = 2e-2 times the largest |g|, rtol = 2e-2 (the
   kernels keep float32 where the plain version rounds intermediate products
   to bfloat16, and round each output once);
-- the v1 kernels round the operands of their products to the compute type
-  at the same points as their plain versions: each output within 1e-4 of
-  its largest |value| with compute float32, 2e-2 with compute bfloat16
-  (a float32 sum in another order can flip the rounding of an operand by
-  one bfloat16 step).
+- the v1 and exp kernels round the operands of their products to the
+  compute type at the same points as their plain versions: each output
+  within 1e-4 of its largest |value| with compute float32, 2e-2 with compute
+  bfloat16 (a float32 sum in another order can flip the rounding of an
+  operand by one bfloat16 step).  The exp forward's h is held as its
+  numerator h (den + eps) beside den: the floor e^{-m_comb} of its
+  denominator is tiny once m is large, so a row whose terms nearly cancel
+  turns a float32 rounding of den into a large relative change of h.
 """
 
 import numpy as np
@@ -29,6 +32,7 @@ import pytest
 import torch
 
 from xlstm_yolo_tpu_torch.ops import chunkwise as v1
+from xlstm_yolo_tpu_torch.ops import chunkwise_exp as exp
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -301,5 +305,88 @@ def test_v1_function_matches_plain_on_gpu():
         t = [a.to(dev).requires_grad_(j != 6) for j, a in enumerate(args)]
         h = v1.mlstm_siging_chunkwise_v1(*t[:5], chunk_size=64, c_initial=t[5], n_initial=t[6],
                                          eps=EPS, compute_dtype=torch.float32)
+        out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t[:6])]
+    assert_grads_close(out["cuda"], out["cpu"], torch.float32)
+
+
+EXP_CASES = [  # (L, chunks, NH, DH, gates, initial (C, n, m) and dC_last)
+    (16, 3, 3, 16, "large_i", True),
+    (32, 2, 2, 32, "closed", False),
+    (64, 2, 4, 16, "open", False),
+    (128, 2, 2, 32, "large_i", True),
+    (256, 2, 2, 16, "closed", True),
+    (512, 2, 2, 32, "large_i", False),
+]
+
+
+def exp_inputs(seed, L, chunks, NH, DH, gates, states, dt, qk_mean=0.0):
+    """(B, NH, S, DH) streams (q, k ~ N(qk_mean, 1)), (B, NH, S) gates
+    (open: i ~ N(0, 1), f ~ N(2, 1); large_i: i ~ U(5, 15); closed: f ~
+    U(-60, -20)), (C, n, m), dh and dC_last."""
+    rng = np.random.default_rng(seed)
+    S = L * chunks
+    q, k, v, dh = (cu(rng.normal(size=(2, NH, S, DH)) + (qk_mean if j < 2 else 0.0), dt)
+                   for j in range(4))
+    i = cu(rng.uniform(5, 15, (2, NH, S)) if gates == "large_i" else rng.normal(0, 1, (2, NH, S)))
+    f = cu(rng.uniform(-60, -20, (2, NH, S)) if gates == "closed" else rng.normal(2, 1, (2, NH, S)))
+    c0, n0, dcl = (cu(rng.normal(size=s)) if states else None
+                   for s in ((2, NH, DH, DH), (2, NH, DH), (2, NH, DH, DH)))
+    m0 = cu(rng.normal(0, 3, (2, NH))) if states else None
+    return (q, k, v, i, f, c0, n0, m0), dh, dcl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", V1_TYPES)
+def test_exp_kernels_match_plain_on_gpu(dtype, compute):
+    """The exp forward (both variants), the dC scan and dq/dk/dv each against
+    its plain version on the same inputs (the backward kernels on the plain
+    forward's saved rows)."""
+    needs_cuda()
+    dt, cd = getattr(torch, dtype), getattr(torch, compute)
+    rel = 1e-4 if cd == torch.float32 else 2e-2
+    for L, chunks, NH, DH, gates, states in EXP_CASES:
+        args, dh, dcl = exp_inputs(L + DH + 7, L, chunks, NH, DH, gates, states, dt)
+        kw = dict(chunk_size=L, eps=EPS, compute_dtype=cd)
+        before = (exp.LAUNCHES_FW, exp.LAUNCHES_BW_DC, exp.LAUNCHES_BW_DQKV)
+        got = exp.chunkwise_exp_fw(*args, **kw)
+        torch.cuda.synchronize()
+        ref = exp.chunkwise_exp_fw_plain(*args, **kw)
+        num = lambda out: out[0].float() * (out[1] + EPS)[..., None]  # noqa: E731
+        assert_rel_close([num(got), *got[1:5], *got[5]], [num(ref), *ref[1:5], *ref[5]], rel)
+        got_p = exp.chunkwise_exp_fw(*args, save_states=False, **kw)
+        assert got_p[1:5] == (None,) * 4
+        assert torch.equal(got_p[0], got[0])  # the same arithmetic, fewer stores
+        assert all(torch.equal(a, b) for a, b in zip(got_p[5], got[5]))
+        q, k, v, i, f = args[:5]
+        _, den, mc, cs, ms, (_, _, m_last) = ref
+        mrow_dc, mrow_qkv = exp.m_rows(f, ms, m_last, L)
+        dcs, dc0 = exp.chunkwise_exp_bw_dc(q, f, dh, den, mc, mrow_dc, dcl, **kw)
+        torch.cuda.synchronize()
+        rdcs, rdc0 = exp.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, dcl, **kw)
+        assert_rel_close((dcs, dc0), (rdcs, rdc0), rel)
+        got = exp.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
+        torch.cuda.synchronize()
+        assert all(g.dtype == dt for g in got)
+        assert_rel_close(got, exp.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc,
+                                                              mrow_qkv, dh, rdcs, **kw), rel)
+        assert (exp.LAUNCHES_FW, exp.LAUNCHES_BW_DC, exp.LAUNCHES_BW_DQKV) == (
+            before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_exp_function_matches_plain_on_gpu():
+    """The exp autograd Function on the card (three kernels, gate gradients
+    in PyTorch) against the same Function on the CPU (plain versions),
+    compute float32, large input gates and initial (C, n, m).  q and k share
+    a positive mean and n_initial is positive, so no denominator cancels
+    (each device computes its own)."""
+    needs_cuda()
+    args, dh, _ = exp_inputs(10, 64, 3, 4, 32, "large_i", True, torch.float32, qk_mean=1.0)
+    args = (*args[:6], args[6].abs(), args[7])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [a.to(dev).requires_grad_(j < 6) for j, a in enumerate(args)]
+        h = exp.mlstm_chunkwise_exp(*t[:5], chunk_size=64, c_initial=t[5], n_initial=t[6],
+                                    m_initial=t[7], eps=EPS, compute_dtype=torch.float32)
         out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t[:6])]
     assert_grads_close(out["cuda"], out["cpu"], torch.float32)

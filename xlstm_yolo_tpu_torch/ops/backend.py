@@ -6,11 +6,16 @@ Counterpart of ``xlstm_yolo_tpu/ops/backend.py``, with the same
 
     chunkwise--native_autograd           plain chunkwise siging, autograd
                                          through the max(|.|, 1) denominator
+    chunkwise--native_stablef            plain chunkwise exp gate, autograd
     chunkwise--pallas_xl_chunk_siging    the v1 kernels (ops/chunkwise.py)
     chunkwise--pallas_xl_chunk_siging_v2 the v2 kernels (ops/chunkwise_v2.py)
+    chunkwise--pallas_xl_chunk           the exp kernels (ops/chunkwise_exp.py)
     parallel--native_siging              the quadratic siging oracle
-    sequence--native                     the recurrent sequence
-    step--native                         one recurrent step
+    parallel--native_stablef             the quadratic exp-gate oracle
+    sequence--native                     the recurrent siging sequence
+    sequence--native_stablef             the recurrent exp-gate sequence
+    step--native                         one recurrent siging step
+    step--native_stablef                 one recurrent exp-gate step
 
 A name the JAX package has but the port does not raises and names the
 ROADMAP item that ports it; any other name raises too.
@@ -23,31 +28,36 @@ from typing import Callable, Literal
 
 from xlstm_yolo_tpu_torch.ops import wrappers
 from xlstm_yolo_tpu_torch.ops.chunkwise import mlstm_siging_chunkwise_v1
+from xlstm_yolo_tpu_torch.ops.chunkwise_exp import mlstm_chunkwise_exp
 from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import mlstm_siging_chunkwise_v2_heads
-from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
-from xlstm_yolo_tpu_torch.ops.mlstm_parallel import mlstm_siging_parallel
+from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import (
+    mlstm_chunkwise_stabilized,
+    mlstm_siging_chunkwise,
+)
+from xlstm_yolo_tpu_torch.ops.mlstm_parallel import (
+    mlstm_parallel_stabilized,
+    mlstm_siging_parallel,
+)
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import (
+    mlstm_recurrent_sequence_stabilized,
     mlstm_siging_recurrent_sequence,
     mlstm_siging_step,
+    mlstm_step_stabilized,
 )
 
-__all__ = ["V1_KERNEL", "V2_KERNEL", "get_mlstm_kernel", "mLSTMBackendConfig", "make_backend",
-           "register_kernel"]
+__all__ = ["EXP_KERNEL", "V1_KERNEL", "V2_KERNEL", "get_mlstm_kernel", "mLSTMBackendConfig",
+           "make_backend", "register_kernel"]
 
 ModeName = Literal["train", "train_with_padding", "inference"]
 V1_KERNEL = "chunkwise--pallas_xl_chunk_siging"
 V2_KERNEL = "chunkwise--pallas_xl_chunk_siging_v2"
+EXP_KERNEL = "chunkwise--pallas_xl_chunk"
 
 _REGISTRY: dict[str, dict[str, Callable]] = {
     "chunkwise": {}, "sequence": {}, "step": {}, "parallel": {}}
 
 # names of the JAX package's registry that the port does not have yet
 _NOT_PORTED = {
-    "chunkwise--native_stablef": "ROADMAP Queue 1 item 2 (mlstm_chunkwise_stabilized)",
-    "parallel--native_stablef": "ROADMAP Queue 1 item 2 (the stabilized quadratic oracle)",
-    "sequence--native_stablef": "ROADMAP Queue 1 item 2 (the exp-gate recurrence)",
-    "step--native_stablef": "ROADMAP Queue 1 item 2 (the exp-gate recurrence)",
-    "chunkwise--pallas_xl_chunk": "ROADMAP Queue 2 item 8",
     "step--pallas": "ROADMAP Queue 2 item 7",
     "parallel--pallas_limit_headdim": "ROADMAP Queue 2 item 9",
 }
@@ -63,11 +73,16 @@ def register_kernel(kind: str, name: str, fn: Callable | None = None):
 
 
 register_kernel("chunkwise", "native_autograd", mlstm_siging_chunkwise)
+register_kernel("chunkwise", "native_stablef", mlstm_chunkwise_stabilized)
 register_kernel("chunkwise", "pallas_xl_chunk_siging", mlstm_siging_chunkwise_v1)
 register_kernel("chunkwise", "pallas_xl_chunk_siging_v2", mlstm_siging_chunkwise_v2_heads)
+register_kernel("chunkwise", "pallas_xl_chunk", mlstm_chunkwise_exp)
 register_kernel("parallel", "native_siging", mlstm_siging_parallel)
+register_kernel("parallel", "native_stablef", mlstm_parallel_stabilized)
 register_kernel("sequence", "native", mlstm_siging_recurrent_sequence)
+register_kernel("sequence", "native_stablef", mlstm_recurrent_sequence_stabilized)
 register_kernel("step", "native", mlstm_siging_step)
+register_kernel("step", "native_stablef", mlstm_step_stabilized)
 
 
 def get_mlstm_kernel(name: str) -> Callable:
@@ -101,7 +116,8 @@ def make_backend(config: mLSTMBackendConfig) -> Callable:
     and (B, NH, S) gates.  ``train`` calls the chunkwise kernel as it is,
     ``train_with_padding`` through the pad-zeros wrapper (h only),
     ``inference`` through the arbitrary-length wrapper, which threads
-    (C, n) and takes any S."""
+    (C, n) (and an exp-gate kernel's m between its segments) and takes any
+    S."""
     cw = get_mlstm_kernel(config.chunkwise_kernel)
     seq = get_mlstm_kernel(config.sequence_kernel)
     step = get_mlstm_kernel(config.step_kernel)

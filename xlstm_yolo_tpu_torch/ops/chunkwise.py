@@ -117,7 +117,9 @@ def _check_saved(q, chunk_size, **saved):
     NC = S // chunk_size
     acc = acc_dtype(q.dtype)
     want = {"den": (B, NH, S), "c_states": (B, NH, NC, DH, DH),
-            "dc_states": (B, NH, NC, DH, DH), "dc_last": (B, NH, DH, DH)}
+            "dc_states": (B, NH, NC, DH, DH), "dc_last": (B, NH, DH, DH),
+            "m_comb": (B, NH, S), "m_states": (B, NH, NC), "m_last": (B, NH),
+            "mrow": (B, NH, NC, 2)}
     for name, t in saved.items():
         if name == "dh":
             if t.shape != q.shape or t.dtype != q.dtype:

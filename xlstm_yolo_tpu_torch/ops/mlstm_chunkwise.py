@@ -1,7 +1,9 @@
-"""Chunkwise-parallel sigmoid-input-gate mLSTM in plain PyTorch.
+"""Chunkwise-parallel mLSTM in plain PyTorch.
 
-Counterpart of ``xlstm_yolo_tpu/ops/mlstm_chunkwise.py`` (the siging
-variant).  The sequence is split into chunks of length L; the recurrent
+Counterpart of ``xlstm_yolo_tpu/ops/mlstm_chunkwise.py``: the sigmoid
+input gate (:func:`mlstm_siging_chunkwise`, below) and the exponential
+input gate with the max stabilizer (:func:`mlstm_chunkwise_stabilized`, the
+registry's ``chunkwise--native_stablef``).  The sequence is split into chunks of length L; the recurrent
 state ``C`` (DHQK x DHHV) and normalizer ``n`` (DHQK) are carried across
 chunk boundaries while everything inside a chunk is a dense product.
 
@@ -30,7 +32,8 @@ import torch.nn.functional as F
 
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
-__all__ = ["ChunkGates", "chunkwise_log_gates", "mlstm_siging_chunkwise"]
+__all__ = ["ChunkGates", "chunkwise_log_gates", "mlstm_chunkwise_stabilized",
+           "mlstm_siging_chunkwise"]
 
 
 class ChunkGates(NamedTuple):
@@ -162,3 +165,94 @@ def mlstm_siging_chunkwise(
     if return_chunk_states:
         out = (*(out if return_last_states else (out,)), (C_prev, n_prev, den))
     return out
+
+
+def mlstm_chunkwise_stabilized(q, k, v, i, f, chunk_size: int = 64, c_initial=None,
+                               n_initial=None, m_initial=None, qk_scale: float | None = None,
+                               return_last_states: bool = False, eps: float = 1e-6,
+                               stopgrad_norm: bool = False):
+    """Chunkwise mLSTM with the exponential input gate and a running max m
+    per (batch, head), C and n stored relative to it.  q/k: (B, NH, S, DHQK),
+    v: (B, NH, S, DHHV), i/f: (B, NH, S), S a multiple of ``chunk_size``;
+    optional m_initial (B, NH).
+
+    Per chunk, with b, g as in the siging form and a_l = sum_{t>l} logsig(f_t)
+    + i_l (the raw i):
+        m_k    = max(g + m_{k-1}, max_l a_l)
+        C_k    = e^{g + m_{k-1} - m_k} C_{k-1} + (e^{a - m_k} k)^T v,  n_k likewise
+        m_comb = max(b_l + m_{k-1}, max_{j <= l} (b_l - b_j + i_j))   per row
+        h_l    = (e^{b_l + m_{k-1} - m_comb} qs_l C_{k-1}
+                  + sum_j e^{logD[l, j] - m_comb} (qs_l . k_j) v_j) / (den + eps)
+        den    = max(|the same with n and ones|, e^{-m_comb})
+
+    The score products round q, k to q's dtype when it is bfloat16 or
+    float16, and the (L, L) tile times [v, 1] (one product gives the
+    numerator and the intra-chunk normaliser) rounds both, as the JAX
+    function does; the state updates stay unrounded.  ``stopgrad_norm``
+    detaches the denominator and both stabilizers (m, m_comb), the
+    constants of the kernels' backward.  Returns h in q's dtype, and
+    (C, n, m) with ``return_last_states``.
+    """
+    B, NH, S, DHQK = q.shape
+    DHHV = v.shape[-1]
+    L = chunk_size
+    if S % L:
+        raise ValueError(f"S={S} not divisible by chunk_size={L}")
+    NC = S // L
+    if qk_scale is None:
+        qk_scale = DHQK ** -0.5
+    dev = q.device
+    acc = acc_dtype(q.dtype)
+    cd = q.dtype if q.dtype in (torch.bfloat16, torch.float16) else acc
+
+    def R(x):
+        return x.to(cd).to(acc)
+
+    sg = (lambda x: x.detach()) if stopgrad_norm else (lambda x: x)
+    logf = F.logsigmoid(f.to(acc)).reshape(B, NH, NC, L)
+    ic = i.to(acc).reshape(B, NH, NC, L)
+    vecB = torch.cumsum(logf, dim=-1)
+    rev = logf.flip(-1).cumsum(-1).flip(-1)
+    vecA = torch.cat([rev[..., 1:], logf.new_zeros(B, NH, NC, 1)], dim=-1) + ic
+    scaG = vecB[..., -1]
+    qc, kc, vc = (x.to(acc).reshape(B, NH, NC, L, x.shape[-1]) for x in (q, k, v))
+
+    C = (c_initial.to(acc) if c_initial is not None
+         else torch.zeros(B, NH, DHQK, DHHV, dtype=acc, device=dev))
+    n = (n_initial.to(acc) if n_initial is not None
+         else torch.zeros(B, NH, DHQK, dtype=acc, device=dev))
+    m = (m_initial.to(acc) if m_initial is not None
+         else torch.zeros(B, NH, dtype=acc, device=dev))
+    vecA_max = vecA.amax(-1)
+    C_prev, n_prev, m_prev = [], [], []
+    for c in range(NC):  # inter-chunk recurrence; emits the state before chunk c
+        C_prev.append(C)
+        n_prev.append(n)
+        m_prev.append(m)
+        g = scaG[..., c]
+        m_new = sg(torch.maximum(g + m, vecA_max[..., c]))
+        gbar = torch.exp(g + m - m_new)
+        kbar = kc[:, :, c] * torch.exp(vecA[:, :, c] - m_new[..., None])[..., None]
+        C = gbar[..., None, None] * C + torch.einsum("bhld,bhlv->bhdv", kbar, vc[:, :, c])
+        n = gbar[..., None] * n + kbar.sum(-2)
+        m = m_new
+    C_prev = torch.stack(C_prev, dim=2)
+    n_prev = torch.stack(n_prev, dim=2)
+    m_prev = torch.stack(m_prev, dim=2)  # (B, NH, NC)
+
+    causal = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
+    logD = vecB[..., :, None] - vecB[..., None, :] + ic[..., None, :]
+    logD = torch.where(causal, logD, torch.full((), -torch.inf, dtype=acc, device=dev))
+    b_inter = vecB + m_prev[..., None]
+    m_comb = sg(torch.maximum(b_inter, logD.amax(-1)))
+    matSD = R((R(qc) @ R(kc).transpose(-1, -2)) * qk_scale
+              * torch.exp(logD - m_comb[..., None]))
+    qbar = qc * torch.exp(b_inter - m_comb)[..., None] * qk_scale
+    h_ext = matSD @ torch.cat([R(vc), vc.new_ones(B, NH, NC, L, 1)], dim=-1)
+    num = R(qbar) @ R(C_prev) + h_ext[..., :DHHV]
+    den_raw = torch.einsum("bhnld,bhnd->bhnl", qbar, n_prev) + h_ext[..., DHHV]
+    den = sg(torch.maximum(den_raw.abs(), torch.exp(-m_comb)))
+    h = (num / (den[..., None] + eps)).reshape(B, NH, S, DHHV).to(q.dtype)
+    if return_last_states:
+        return h, (C, n, m)
+    return h

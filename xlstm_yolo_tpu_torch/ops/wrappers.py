@@ -11,11 +11,13 @@ chunks the JAX package gives it.
 - :func:`wrap_chunkwise_arbitrary_sequence_length` (inference): the
   chunkwise kernel over the segments of :func:`chunk_plan` (greedy
   halving of the chunk), the rest through the recurrent sequence
-  function, (C, n) threaded across every boundary.
+  function, (C, n) threaded across every boundary, and the stabilizer m
+  of an exp-gate kernel between its segments.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import torch
@@ -25,10 +27,6 @@ from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = ["chunk_plan", "pick_chunk_size", "wrap_chunkwise_arbitrary_sequence_length",
            "wrap_chunkwise_pad_zeros"]
-
-_EXP_GATES = ("kernels with an m stabilizer state (exp input gate) are not ported yet "
-              "(ROADMAP Queue 2 item 8)")
-
 
 def pick_chunk_size(S: int, target: int, strict: bool = False, min_chunk: int = 16) -> int:
     """Largest divisor of S that is <= target (>= min_chunk), else target.
@@ -94,7 +92,12 @@ def wrap_chunkwise_arbitrary_sequence_length(chunkwise_kernel: Callable, sequenc
     S = 1 is one step of ``step_kernel``.  Otherwise the chunkwise kernel
     runs each segment of :func:`chunk_plan` from the state the previous
     one left (zeros or the initial state first), and ``sequence_kernel``
-    runs the tail.
+    runs the tail.  A kernel that returns (C, n, m) (exp input gate) gets
+    m back as ``m_initial`` from its second segment on (the first starts
+    from m = 0), and the tail gets it only if ``sequence_kernel`` takes an
+    ``m_initial``: the siging recurrence continues from C and n, which are
+    stored relative to the dropped m, as in the JAX wrapper.  Returns h,
+    and (C, n) with ``return_last_states``.
     """
     B, NH, S, DH = q.shape
     C, n = _zeros_like_state(c_initial, n_initial, q, v)
@@ -105,21 +108,25 @@ def wrap_chunkwise_arbitrary_sequence_length(chunkwise_kernel: Callable, sequenc
         return (h, (C, n)) if return_last_states else h
 
     plan, remaining = chunk_plan(S, chunk_size)
-    h_parts = []
+    h_parts, m = [], None  # m: the running max of an exp-gate kernel
     for start, seg, seg_cs in plan:
         sl = slice(start, start + seg)
         h_seg, st = chunkwise_kernel(q[:, :, sl], k[:, :, sl], v[:, :, sl], i[:, :, sl],
                                      f[:, :, sl], chunk_size=seg_cs, c_initial=C, n_initial=n,
-                                     return_last_states=True, eps=eps, **kwargs)
-        if len(st) > 2:
-            raise NotImplementedError(_EXP_GATES)
-        C, n = st
+                                     return_last_states=True, eps=eps,
+                                     **({"m_initial": m} if m is not None else {}), **kwargs)
+        C, n = st[0], st[1]
+        m = st[2] if len(st) > 2 else None
         h_parts.append(h_seg)
     if remaining > 0:
         sl = slice(S - remaining, S)
-        h_tail, (C, n) = sequence_kernel(q[:, :, sl], k[:, :, sl], v[:, :, sl], i[:, :, sl],
-                                         f[:, :, sl], c_initial=C, n_initial=n, eps=eps,
-                                         return_last_states=True)
+        seq_kw = {}
+        if m is not None and "m_initial" in inspect.signature(sequence_kernel).parameters:
+            seq_kw["m_initial"] = m
+        h_tail, st = sequence_kernel(q[:, :, sl], k[:, :, sl], v[:, :, sl], i[:, :, sl],
+                                     f[:, :, sl], c_initial=C, n_initial=n, eps=eps,
+                                     return_last_states=True, **seq_kw)
+        C, n = st[0], st[1]
         h_parts.append(h_tail)
     h = h_parts[0] if len(h_parts) == 1 else torch.cat(h_parts, dim=2)
     return (h, (C, n)) if return_last_states else h
