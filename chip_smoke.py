@@ -4,7 +4,7 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. setup     - print the card's name and power limit; build the eight CUDA
+1. setup     - print the card's name and power limit; build the eleven CUDA
                sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time and what ptxas
                reports;
@@ -80,18 +80,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                gradients of that step with the kernels, and with their plain
                versions, against a float64 step on the plain versions (as
                e2e_grads, at EXP_E2E_FACTOR);
-16. times    - CUDA-event medians (and every window) of each kernel and its
-               plain version at each S (v1, exp: each (S, L)); the end-to-end
+16. parallel_kernels - the quadratic route's three kernels (forward, dq,
+               dk/dv) against their plain versions (run over slices of batch *
+               head) at the flagship shapes and every S the route pads the
+               flagship's sequences to (6656, 2048, 512, 128), float32 and
+               bfloat16 (products likewise), open and closed forget gates
+               (phase_parallel_kernels);
+17. parallel_train - detect_trainer(..., chunkwise_kernel=PAR): 3 bf16
+               steps, exact forward, dq and dk/dv launches per step, no v1,
+               v2 or exp cell launch;
+18. parallel_grads - vil-det-tiny on the quadratic route, float32 products:
+               every quadratic kernel call of a float32 train step replayed
+               through its kernel and its plain version, and the gradients
+               against float64 (as exp_grads);
+19. step_kernel - the one-token step kernel against mlstm_siging_step at
+               B 8, NH 12, DH 32, float32 and bfloat16 q/k/v, open and closed
+               forget gates;
+20. decode   - MatrixLSTMCell(384, 12, step_kernel="step--pallas") decodes 64
+               tokens one at a time with state=, exactly one step launch
+               each, against one stateful call over the 64 tokens; us per
+               token and the step kernel's time per call;
+21. refusal  - YOLO(..., chunkwise_kernel=PAR).predict raises the port's
+               ValueError (the route has no predict path, as in JAX);
+22. times    - CUDA-event medians (and every window) of each kernel and its
+               plain version at each S (v1, exp: each (S, L); quadratic: each
+               padded S); the end-to-end
                predict rate on every route (windows after a warm-up, SM clock
                and power sampled); torch.profiler traces of three forwards;
                the v1 and v2 backward designs on the same work (L = 64); the
                exp route's predict forward and the share of its recurrent
-               tails; the v2-, v1- and exp-route train steps in turns (v2, v1,
-               exp, exp, v1, v2), each with the device's busy share from a
-               trace of one step.
+               tails; the v2-, v1-, exp- and quadratic-route train steps in
+               turns (v2, v1, exp, parallel, parallel, exp, v1, v2), each
+               with the device's busy share from a trace of one step.
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
-phase, the nvidia-smi line, one {"kernels": [...]} line (eleven kernels),
+phase, the nvidia-smi line, one {"kernels": [...]} line (fifteen kernels),
 and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -1221,69 +1244,70 @@ def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=6
 
 
 @contextlib.contextmanager
-def exp_entry(fn):
-    """The registry's exp entry replaced by ``fn`` for the ``with`` block."""
+def registry_entry(name: str, fn):
+    """The registry's entry ``name`` ("<kind>--<backend>") replaced by
+    ``fn`` for the ``with`` block."""
     from xlstm_yolo_tpu_torch.ops import backend
 
-    reg = backend._REGISTRY["chunkwise"]
-    old = reg["pallas_xl_chunk"]
-    reg["pallas_xl_chunk"] = fn
+    kind, _, key = name.partition("--")
+    reg = backend._REGISTRY[kind]
+    old = reg[key]
+    reg[key] = fn
     try:
         yield
     finally:
-        reg["pallas_xl_chunk"] = old
+        reg[key] = old
 
 
 @contextlib.contextmanager
-def plain_exp_kernels(ex):
-    """The exp route's kernel wrappers replaced by their plain versions
-    (any device and dtype) for the ``with`` block; the autograd Function
-    and ``chunkwise_exp_bw`` call them by name."""
-    plains = {"chunkwise_exp_fw": ex.chunkwise_exp_fw_plain,
-              "chunkwise_exp_bw_dc": ex.chunkwise_exp_bw_dc_plain,
-              "chunkwise_exp_bw_dqkv": ex.chunkwise_exp_bw_dqkv_plain}
-    old = {name: getattr(ex, name) for name in plains}
+def plain_kernels(mod, names):
+    """The kernel wrappers ``names`` of ``mod`` replaced by their plain
+    versions (``<name>_plain``, any device and dtype) for the ``with``
+    block; the autograd Functions and the backward helpers call them by
+    name."""
+    old = {name: getattr(mod, name) for name in names}
     try:
-        for name, fn in plains.items():
-            setattr(ex, name, fn)
+        for name in names:
+            setattr(mod, name, getattr(mod, f"{name}_plain"))
         yield
     finally:
         for name, fn in old.items():
-            setattr(ex, name, fn)
+            setattr(mod, name, fn)
 
 
-def phase_exp_grads(ex, steps, device="cuda"):
-    """vil-det-tiny on the exp route, perturbed ifgates, float32 products
-    (the route's bfloat16 products make this random model chaotic).  Every
-    exp kernel call of a float32 train step is recorded and replayed through
-    its kernel and its plain version, within GRAD_REL["float32"] of each
-    output's largest |value| (the forward's h as its numerator h (den +
-    eps), as in phase_exp_kernels).  And the float32 gradients of that step
-    with the exp kernels, and with the same route on their plain versions
-    (the autograd Function unchanged; the epilogue and FFN plain too), are
-    each held against a float64 step on the plain versions (float64
-    products); the kernel path may be at most EXP_E2E_FACTOR times as far
-    from float64 as the plain path, per leaf relative to its largest
-    float64 |g| (floored as in phase_e2e_grads)."""
-    import inspect
-
+def phase_route_grads(phase: str, route: str, mod, kernels, entry, counts_of, steps,
+                      compared=None, device="cuda"):
+    """vil-det-tiny on a registry route (``route``, whose entry is ``entry``
+    of ``mod``), perturbed ifgates (seed EXP_GRADS_SEED), float32 products
+    (the routes' bfloat16 products make this random model chaotic).  Every
+    call of the route's kernel wrappers ``kernels`` in a float32 train step
+    is recorded and replayed through the kernel and its plain version, each
+    output within GRAD_REL["float32"] of its largest |value| (``compared``
+    maps a wrapper's name, its arguments and its outputs to the outputs
+    compared).  And the float32 gradients of that step with the kernels,
+    and with the same route on their plain versions (the autograd Function
+    unchanged; the epilogue and FFN plain too), are each held against a
+    float64 step on the plain versions (float64 products); the kernel path
+    may be at most EXP_E2E_FACTOR times as far from float64 as the plain
+    path, per leaf relative to its largest float64 |g| (floored as in
+    phase_e2e_grads)."""
     import torch
 
     from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
 
-    def entry(q, *args, **kw):
+    def entry_f32(q, *args, **kw):
         cd = torch.float64 if q.dtype == torch.float64 else torch.float32
-        return ex.mlstm_chunkwise_exp(q, *args, compute_dtype=cd, **kw)
+        return entry(q, *args, compute_dtype=cd, **kw)
 
     model, _ = build_detection_model("vil-det-tiny.yaml", device=device, training=True,
                                      generator=torch.Generator().manual_seed(0),
-                                     chunkwise_kernel=EXP)
+                                     chunkwise_kernel=route)
     perturb_ifgates(model, seed=EXP_GRADS_SEED)
     batch = train_batch(2, 160, seed=6, device=device)
     batch["img"] = batch["img"].float() / 255.0
-    originals = {name: getattr(ex, name) for name in EXP_KERNELS}
-    plains = {name: getattr(ex, f"{name}_plain") for name in EXP_KERNELS}
-    calls = {name: [] for name in EXP_KERNELS}
+    originals = {name: getattr(mod, name) for name in kernels}
+    plains = {name: getattr(mod, f"{name}_plain") for name in kernels}
+    calls = {name: [] for name in kernels}
 
     def recorder(name):
         def call(*args, **kw):
@@ -1291,32 +1315,31 @@ def phase_exp_grads(ex, steps, device="cuda"):
             return originals[name](*args, **kw)
         return call
 
-    before = exp_counts(ex)
-    with exp_entry(entry):
+    before = counts_of()
+    with registry_entry(route, entry_f32):
         try:
-            for name in EXP_KERNELS:
-                setattr(ex, name, recorder(name))
+            for name in kernels:
+                setattr(mod, name, recorder(name))
             loss_k, g_k = grads_of_step(model, batch, steps)
         finally:
             for name, fn in originals.items():
-                setattr(ex, name, fn)
-        launches = {k: exp_counts(ex)[k] - before[k] for k in before}
+                setattr(mod, name, fn)
+        launches = {k: counts_of()[k] - before[k] for k in before}
         plain = copy.deepcopy(model)
         use_plain_training_ops(plain)
-        with plain_exp_kernels(ex):
+        with plain_kernels(mod, kernels):
             loss_p, g_p = grads_of_step(plain, batch, steps)
             batch64 = dict(batch, img=batch["img"].double(), bboxes=batch["bboxes"].double())
             loss_64, g_64 = grads_of_step(plain.double(), batch64, steps)
     replay = {}
-    for name in EXP_KERNELS:
+    for name in kernels:
         worst = 0.0
         for args, kw in calls[name]:
             got, ref = originals[name](*args, **kw), plains[name](*args, **kw)
-            if name == "chunkwise_exp_fw":
-                eps = inspect.signature(plains[name]).bind(*args, **kw).arguments["eps"]
-                got, ref = ([x[0].float() * (x[1] + eps)[..., None], *x[1:5], *x[5]]
-                            for x in (got, ref))
-            worst = max(worst, compare_outputs(f"exp_grads replay {name} S={args[0].shape[2]}",
+            got, ref = ((x,) if torch.is_tensor(x) else x for x in (got, ref))
+            if compared is not None:
+                got, ref = (compared(name, args, kw, x) for x in (got, ref))
+            worst = max(worst, compare_outputs(f"{phase} replay {name} S={args[0].shape[2]}",
                                                got, ref, GRAD_REL["float32"])[1])
             del got, ref
         replay[name] = {"calls": len(calls[name]), "max_rel_err": worst}
@@ -1329,15 +1352,380 @@ def phase_exp_grads(ex, steps, device="cuda"):
     ok = err_k <= EXP_E2E_FACTOR * err_p + E2E_GRAD_ATOL and all(
         bool(torch.isfinite(g).all()) for g in g_k) and (
         device == "cpu" or min(launches.values()) > 0)
-    emit({"phase": "exp_grads", "cfg": "vil-det-tiny", "chunkwise_kernel": EXP, "batch": 2,
+    emit({"phase": phase, "cfg": "vil-det-tiny", "chunkwise_kernel": route, "batch": 2,
           "imgsz": 160, "products": "float32", "loss_kernel": loss_k, "loss_plain": loss_p,
           "loss_f64": loss_64, "kernel_vs_f64_rel": err_k, "plain_vs_f64_rel": err_p,
           "factor": EXP_E2E_FACTOR, "ifgate_seed": EXP_GRADS_SEED, "atol_rel": E2E_GRAD_ATOL,
           "leaves": len(g_k), "replay": replay, "replay_rel_tol": GRAD_REL["float32"],
-          "exp_launches": launches})
+          "launches": launches})
     if not ok:
-        raise AssertionError("vil-det-tiny exp route: the kernel gradients are further from "
-                             "float64 than allowed (or no exp kernel ran)")
+        raise AssertionError(f"vil-det-tiny on {route}: the kernel gradients are further from "
+                             "float64 than allowed (or no kernel of the route ran)")
+
+
+def phase_exp_grads(ex, steps, device="cuda"):
+    """phase_route_grads on the exp route.  The forward's h is compared as
+    its numerator h (den + eps), as in phase_exp_kernels."""
+    import inspect
+
+    def compared(name, args, kw, out):
+        if name != "chunkwise_exp_fw":
+            return out
+        eps = inspect.signature(ex.chunkwise_exp_fw_plain).bind(*args, **kw).arguments["eps"]
+        return [out[0].float() * (out[1] + eps)[..., None], *out[1:5], *out[5]]
+
+    phase_route_grads("exp_grads", EXP, ex, EXP_KERNELS, ex.mlstm_chunkwise_exp,
+                      lambda: exp_counts(ex), steps, compared, device)
+
+
+PAR = "parallel--pallas_limit_headdim"
+PAR_KERNELS = ("parallel_fw", "parallel_bw_dq", "parallel_bw_dkv")
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
+PLAIN_SLICE_BYTES = 1.5e9  # the plain versions' (S, S) matrices, per slice of batch * head
+DECODE_TOKENS = 64
+
+
+def par_counts(pk) -> dict:
+    return {"parallel_fw": pk.LAUNCHES_FW, "parallel_bw_dq": pk.LAUNCHES_BW_DQ,
+            "parallel_bw_dkv": pk.LAUNCHES_BW_DKV}
+
+
+def zero_par_counts(pk):
+    pk.LAUNCHES_FW = pk.LAUNCHES_BW_DQ = pk.LAUNCHES_BW_DKV = 0
+
+
+def par_inputs(S, dtype, gates="open", seed=0, device="cuda"):
+    """Flagship-width (B, NH, S, DH) streams and dh, (B, NH, S) gates (open:
+    i ~ N(0, 1), f ~ U(3, 6), the flagship's forget-gate bias range; closed:
+    f ~ U(-60, -20)) on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cu = lambda t, d=torch.float32: t.to(device, d)  # noqa: E731
+    q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
+    i = cu(torch.randn(B, NH, S, generator=g))
+    f = cu(torch.rand(B, NH, S, generator=g) * 3 + 3 if gates == "open"
+           else torch.rand(B, NH, S, generator=g) * 40 - 60)
+    return (q, k, v, i, f), dh
+
+
+def parallel_bound(name: str, S: int, itemsize: int = 2) -> tuple[float, str]:
+    """Least time for one call of a quadratic kernel at batch B in ms: each
+    input read once and each output written once over HBM bandwidth (the
+    forward: q, k, v, i, f in, h, den out; dq: k, v, dh, i, f, den in, dq
+    out; dk/dv: q, k, v, dh, i, f, den in, dk, dv out), against the
+    products over the S (S + 1) / 2 causal pairs at the bf16 peak (2 DH
+    flop a pair per product: the forward and dq two products, dk/dv
+    four)."""
+    rows = B * NH * S
+    stream, gate = rows * DH * itemsize, rows * 4
+    pairs = B * NH * S * (S + 1) / 2
+    streams, products = {"parallel_fw": (4, 2), "parallel_bw_dq": (4, 2),
+                         "parallel_bw_dkv": (6, 4)}[name]
+    return _bound(streams * stream + 3 * gate, products * 2 * DH * pairs)
+
+
+def step_bound(itemsize: int) -> tuple[float, str]:
+    """Least time for one step-kernel call at B 8, NH 12, DH 32 in ms: q, k,
+    v, i, f, C, n read and h, C', n' written once over HBM bandwidth,
+    against 6 DH^2 + 6 DH float32 operations a head (the C update 4 DH^2,
+    q C' 2 DH^2, n and q . n' 6 DH) at the float32 peak."""
+    heads = B * NH
+    nbytes = heads * (4 * DH * itemsize + 2 * 4 + 2 * (DH * DH + DH) * 4)
+    flops = heads * (6 * DH * DH + 6 * DH)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def plain_in_slices(fn, args, S):
+    """``fn`` (a plain version) over slices of batch * head, so that its
+    (S, S) matrices fit on the card, and the slices' outputs joined back to
+    (B, NH, ...).  ``args``: the (B, NH, ...) tensors it takes."""
+    import torch
+
+    n = max(1, min(B * NH, int(PLAIN_SLICE_BYTES // (S * S * 4))))
+    flat = [a.reshape(B * NH, 1, *a.shape[2:]) for a in args]
+    outs = [fn(*(a[j:j + n] for a in flat)) for j in range(0, B * NH, n)]
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    joined = [torch.cat(parts).reshape(B, NH, *parts[0].shape[2:]) for parts in zip(*outs)]
+    return joined if len(joined) > 1 else joined[0]
+
+
+def phase_parallel_kernels(pk, lengths):
+    """The three quadratic kernels against their plain versions at the
+    flagship shapes (B 8, NH 12, DH 32) and at each S the route pads the
+    flagship's sequences to, float32 (products float32) and bfloat16
+    (products bfloat16), with open and with closed forget gates; the plain
+    versions run over slices of batch * head (plain_in_slices).  Each
+    output within GRAD_REL of its largest |value|; the backward kernels on
+    the forward kernel's den, given to both sides."""
+    import torch
+
+    worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in PAR_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        rel = GRAD_REL[key]
+        for S in lengths:
+            for gates in ("open", "closed"):
+                args, dh = par_inputs(S, dtype, gates, seed=S + (gates == "closed"))
+                kw = dict(eps=EPS, compute_dtype=dtype)
+                h, den = pk.parallel_fw(*args, **kw)
+                dq = pk.parallel_bw_dq(*args, den, dh, **kw)
+                dk, dv = pk.parallel_bw_dkv(*args, den, dh, **kw)
+                torch.cuda.synchronize()
+                plain = {name: functools.partial(getattr(pk, f"{name}_plain"), **kw)
+                         for name in PAR_KERNELS}
+                errs = {
+                    "parallel_fw": compare_outputs(
+                        f"parallel fw S={S} {gates} {key}", (h, den),
+                        plain_in_slices(plain["parallel_fw"], args, S), rel),
+                    "parallel_bw_dq": compare_outputs(
+                        f"parallel dq S={S} {gates} {key}", (dq,),
+                        (plain_in_slices(plain["parallel_bw_dq"], (*args, den, dh), S),), rel),
+                    "parallel_bw_dkv": compare_outputs(
+                        f"parallel dkv S={S} {gates} {key}", (dk, dv),
+                        plain_in_slices(plain["parallel_bw_dkv"], (*args, den, dh), S), rel)}
+                for name, e in errs.items():
+                    worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
+                emit({"phase": "parallel_kernels", "S": S, "dtype": key, "compute_dtype": key,
+                      "gates": gates, "rel_tol": rel,
+                      "den_gt_1_share": (den > 1).float().mean().item(),
+                      **{f"{n}_max_rel_err": e[1] for n, e in errs.items()}})
+                del args, dh, h, den, dq, dk, dv
+    return worst
+
+
+def phase_parallel_train(pk, ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640,
+                         device="cuda"):
+    """The training path on the quadratic route: detect_trainer(...,
+    chunkwise_kernel=PAR), TRAIN_STEPS bf16 steps, exact launches per step:
+    one forward, dq and dk/dv call per layer at S padded to whole chunks of
+    the layer's chunk (the pad wrapper's), one more forward per layer of a
+    rematerialised pair; no v1, v2 or exp cell launch."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
+
+    model, state, step = steps.detect_trainer(
+        cfg, device=device, compute_dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(0), chunkwise_kernel=PAR, **TRAIN_OPT)
+    perturb_ifgates(model, seed=7)
+    state.ema = opt_lib.ema_init(list(state.params.values()))
+    plan = v1_plan(model)
+    n = sum(plan["train"].values())
+    expected = {"parallel_fw": n + sum(plan["remat"].values()), "parallel_bw_dq": n,
+                "parallel_bw_dkv": n}
+    other = {"chunkwise_fw": 0, "chunkwise_fw_train": 0, "chunkwise_bw": 0, "epilogue_bw": n,
+             "ffn_bw": n, **{k: 0 for k in V1_KERNELS + EXP_KERNELS}}
+    p0 = [p.detach().clone() for p in state.params.values()]
+    e0 = [e.clone() for e in state.ema.params]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    gen = torch.Generator().manual_seed(8)
+    all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1), **exp_counts(ex),  # noqa: E731
+                          **par_counts(pk)}
+    zero_counts(cw, epi, ffn)
+    zero_route_counts(v1, ex)
+    zero_par_counts(pk)
+    per_step, metrics_log = [], []
+    for batch in batches:
+        before = all_counts()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        after = all_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        metrics_log.append({k: v.item() for k, v in metrics.items()})
+    total = par_counts(pk)
+    moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
+    ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
+    emit({"phase": "parallel_train", "cfg": "vil-det-192", "chunkwise_kernel": PAR, "batch": B,
+          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+          "padded_lengths_per_step": {f"{S}@{L}": c for (S, L), c in sorted(plan["train"].items())},
+          "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
+          "param_max_change": moved, "ema_max_change": ema_moved})
+    for m in metrics_log:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"parallel train: non-finite loss items {m}")
+    if not (moved > 0 and ema_moved > 0):
+        raise AssertionError("parallel train: the parameters or the EMA did not move")
+    for s_ in per_step:
+        if any(s_[k] != c for k, c in {**expected, **other}.items()):
+            raise AssertionError(f"parallel train step launches {s_}, expected {expected} and "
+                                 f"{other}")
+    return model, state, step, batches[0], total, expected
+
+
+def phase_parallel_grads(pk, steps, device="cuda"):
+    """phase_route_grads on the quadratic route."""
+    phase_route_grads("parallel_grads", PAR, pk, PAR_KERNELS, pk.mlstm_siging_parallel_kernel,
+                      lambda: par_counts(pk), steps, device=device)
+
+
+def step_inputs(dtype, gates, seed):
+    """One token at the flagship's heads: q, k, v (B, NH, DH), gates (B,
+    NH) (open: i ~ N(0, 2), f ~ N(2, 1); closed: f ~ U(-60, -20)), C, n."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, NH, DH, generator=g).to("cuda", dtype) for _ in range(3))
+    i = (torch.randn(B, NH, generator=g) * 2).cuda()
+    f = (torch.randn(B, NH, generator=g) + 2 if gates == "open"
+         else torch.rand(B, NH, generator=g) * 40 - 60).cuda()
+    c, n = torch.randn(B, NH, DH, DH, generator=g).cuda(), torch.randn(B, NH, DH, generator=g).cuda()
+    return q, k, v, i, f, c, n
+
+
+def phase_step_kernel(stp):
+    """The step kernel against ``mlstm_siging_step`` at B 8, NH 12, DH 32:
+    q, k, v float32 and bfloat16, C and n float32, open and closed forget
+    gates; h within GRAD_REL of its largest |value|, (C', n') within
+    GRAD_REL["float32"]."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
+
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[-1]
+        for gates in ("open", "closed"):
+            args = step_inputs(dtype, gates, seed=3 + (gates == "closed"))
+            h, (c, n) = stp.mlstm_siging_step_kernel(*args, eps=EPS)
+            torch.cuda.synchronize()
+            hp, (cp, np_) = mlstm_siging_step(*args, eps=EPS)
+            e_h = compare_outputs(f"step h {gates} {key}", (h,), (hp,), GRAD_REL[key])
+            e_s = compare_outputs(f"step state {gates} {key}", (c, n), (cp, np_),
+                                  GRAD_REL["float32"])
+            worst[key] = [max(a, b, c_) for a, b, c_ in zip(worst[key], e_h, e_s)]
+            emit({"phase": "step_kernel", "dtype": key, "gates": gates, "B": B, "NH": NH,
+                  "DH": DH, "h_max_rel_err": e_h[1], "state_max_rel_err": e_s[1],
+                  "rel_tol": {"h": GRAD_REL[key], "state": GRAD_REL["float32"]}})
+    return worst
+
+
+def phase_decode(stp, card: str):
+    """The stateful cell's decode: MatrixLSTMCell(384, 12, step_kernel=
+    "step--pallas") of vil-det-192's width, in eval, weights from seed 0,
+    perturbed ifgates, float32.  DECODE_TOKENS tokens one at a time with
+    ``state=`` from zeros, each exactly one step-kernel launch; h of every
+    token and the final (C, n) against one stateful call over the tokens
+    (GRAD_REL["float32"] of each output's largest |value|).  Then the time
+    of a decode per token (host clock around the loop, ending in a
+    synchronise), and the kernel's and the plain step's time per call."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell, reset_parameters
+    from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
+
+    cell = MatrixLSTMCell(H, NH, step_kernel="step--pallas")
+    reset_parameters(cell, torch.Generator().manual_seed(0))
+    perturb_ifgates(cell, seed=9)
+    cell = cell.cuda().eval()
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(B, DECODE_TOKENS, H, generator=g).cuda() for _ in range(3))
+    zeros = (torch.zeros(B, NH, DH, DH, device="cuda"), torch.zeros(B, NH, DH, device="cuda"))
+
+    def decode():
+        hs, st = [], zeros
+        for t in range(DECODE_TOKENS):
+            h, st = cell(q[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], state=st)
+            hs.append(h)
+        return torch.cat(hs, 1), st
+
+    with torch.inference_mode():
+        stp.LAUNCHES = 0
+        h_dec, (c_dec, n_dec) = decode()
+        torch.cuda.synchronize()
+        launches = stp.LAUNCHES
+        h_all, (c_all, n_all) = cell(q, k, v, state=zeros)
+        errs = compare_outputs("decode vs the stateful forward", (h_dec, c_dec, n_dec),
+                               (h_all, c_all, n_all), GRAD_REL["float32"])
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / DECODE_TOKENS * 1e6)
+    per_call = {}
+    for key, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = step_inputs(dtype, "open", seed=11)
+        kern = lambda: stp.mlstm_siging_step_kernel(*args, eps=EPS)  # noqa: E731
+        plain = lambda: mlstm_siging_step(*args, eps=EPS)  # noqa: E731
+        t_plain = time_cuda(plain, iters=50, reps=3)
+        t_kern = time_cuda(kern, iters=200, reps=3) + time_cuda(kern, iters=200, reps=3)
+        t_plain += time_cuda(plain, iters=50, reps=3)
+        per_call[key] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                         **dict(zip(("bound_ms", "bound_by"), step_bound(dtype.itemsize))),
+                         "ms_runs": t_kern, "plain_ms_runs": t_plain}
+    out = {"launches": launches, "max_abs_err": errs[0], "max_rel_err": errs[1],
+           "us_per_token": statistics.median(runs), "us_per_token_runs": runs,
+           "per_call": per_call}
+    emit({"phase": "decode", "card": card, "cell": f"MatrixLSTMCell({H}, {NH})",
+          "step_kernel": "step--pallas", "batch": B, "tokens": DECODE_TOKENS,
+          "dtype": "float32", **out, "rel_tol": GRAD_REL["float32"],
+          "note": "us_per_token: host clock around a decode of 64 tokens (the whole cell: "
+                  "ifgate, heads, step kernel, outnorm) ending in a synchronise, 5 runs; "
+                  "per_call: CUDA events around 200 step-kernel calls (50 plain calls), "
+                  "in turns plain, kernel, kernel, plain"})
+    if launches != DECODE_TOKENS:
+        raise AssertionError(f"the decode made {launches} step-kernel launches, expected "
+                             f"{DECODE_TOKENS}")
+    return out
+
+
+def phase_refusal(pk):
+    """The quadratic route has no predict path (the JAX package's inference
+    wrapper fails on it): YOLO(..., chunkwise_kernel=PAR).predict raises the
+    port's ValueError naming the kernel, and nothing else."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    yolo = YOLO("vil-det-tiny.yaml", device="cuda", compute_dtype=torch.bfloat16,
+                chunkwise_kernel=PAR)
+    try:
+        yolo.predict(synthetic_images(2, seed=12), batch=2)
+    except ValueError as exc:
+        if "mlstm_siging_parallel_kernel returned no (h, state) pair" not in str(exc):
+            raise
+        emit({"phase": "refusal", "chunkwise_kernel": PAR, "error": str(exc)})
+        return
+    raise AssertionError("predict on the quadratic route was not refused")
+
+
+def phase_parallel_times(pk, card: str, plan):
+    """Per-call times of the three quadratic kernels (bf16 streams and
+    products) at each padded S of the route beside their plain versions (in
+    slices of batch * head, plain_in_slices, timed as a whole) and bounds,
+    in turns plain, kernel, kernel, plain."""
+    import torch
+
+    per = {k: {} for k in PAR_KERNELS}
+    for S in sorted({S for S, _ in plan["train"]}):
+        args, dh = par_inputs(S, torch.bfloat16, seed=S + 2)
+        _, den = pk.parallel_fw(*args)
+        bw = (*args, den, dh)
+        pairs = {"parallel_fw": (lambda: pk.parallel_fw(*args),
+                                 lambda: plain_in_slices(pk.parallel_fw_plain, args, S)),
+                 "parallel_bw_dq": (lambda: pk.parallel_bw_dq(*bw),
+                                    lambda: plain_in_slices(pk.parallel_bw_dq_plain, bw, S)),
+                 "parallel_bw_dkv": (lambda: pk.parallel_bw_dkv(*bw),
+                                     lambda: plain_in_slices(pk.parallel_bw_dkv_plain, bw, S))}
+        for name, (kern, plain) in pairs.items():
+            t_plain = time_cuda(plain, iters=1, reps=2, warm_s=0.0)
+            t_kern = time_cuda(kern, iters=3, reps=3, warm_s=0.2) + time_cuda(kern, iters=3, reps=3,
+                                                                              warm_s=0.0)
+            t_plain += time_cuda(plain, iters=1, reps=2, warm_s=0.0)
+            row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                   **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S)))}
+            per[name][S] = row
+            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S,
+                  "dtype": "bfloat16", "calls_per_step": sum(
+                      n for (s, _), n in plan["train"].items() if s == S) + (sum(
+                          n for (s, _), n in plan["remat"].items() if s == S)
+                          if name == "parallel_fw" else 0),
+                  **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
+        del args, dh, den, bw, pairs
+    return per
 
 
 def time_step(step, state, batch, windows: int):
@@ -1588,10 +1976,11 @@ def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
 
 
 def phase_step_times(card: str, routes):
-    """The train step of each route in turns (v2, v1, exp, exp, v1, v2),
-    each with the device's busy share from a trace of one step."""
+    """The train step of each route in turns (v2, v1, exp, parallel,
+    parallel, exp, v1, v2), each with the device's busy share from a trace
+    of one step."""
     steps_ms = {}
-    for route in ("v2", "v1", "exp", "exp", "v1", "v2"):
+    for route in ("v2", "v1", "exp", "parallel", "parallel", "exp", "v1", "v2"):
         _, state, step, batch = routes[route]
         r = time_step(step, state, batch, windows=2)
         steps_ms.setdefault(route, []).append(r)
@@ -1600,7 +1989,7 @@ def phase_step_times(card: str, routes):
               **{k: v for k, v in r.items() if k != "top"}, "top": r.get("top", [])[:8],
               "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
                       ">= 3 s warm-up; busy share from a torch.profiler trace of one step; "
-                      "routes timed in turns v2, v1, exp, exp, v1, v2"})
+                      "routes timed in turns v2, v1, exp, parallel, parallel, exp, v1, v2"})
     return steps_ms
 
 
@@ -1680,6 +2069,8 @@ def main() -> int:
         from xlstm_yolo_tpu_torch.ops import cuda_build
         from xlstm_yolo_tpu_torch.ops import epilogue as epi
         from xlstm_yolo_tpu_torch.ops import ffn
+        from xlstm_yolo_tpu_torch.ops import parallel as pk
+        from xlstm_yolo_tpu_torch.ops import step as stp
     except ImportError as exc:
         print(f"chip_smoke: the xlstm_yolo_tpu_torch package is missing ({exc})",
               file=sys.stderr)
@@ -1736,14 +2127,26 @@ def main() -> int:
     exp_model, exp_state, exp_step, exp_batch, exp_launches, exp_per_step = timed(
         "exp_train", phase_exp_train, ex, v1, cw, epi, ffn, steps)
     timed("exp_grads", phase_exp_grads, ex, steps)
+    par_lengths = sorted({S for S, _ in plan["train"]})
+    worst_par = timed("parallel_kernels", phase_parallel_kernels, pk, par_lengths)
+    par_model, par_state, par_step, par_batch, par_launches, par_per_step = timed(
+        "parallel_train", phase_parallel_train, pk, ex, v1, cw, epi, ffn, steps)
+    if v1_plan(par_model)["train"] != plan["train"]:
+        raise AssertionError("the quadratic route's padded lengths differ from the v1 route's")
+    timed("parallel_grads", phase_parallel_grads, pk, steps)
+    worst_step = timed("step_kernel", phase_step_kernel, stp)
+    decode = timed("decode", phase_decode, stp, card)
+    timed("refusal", phase_refusal, pk)
     per_s = timed("times", phase_times, cw, yolo, card)
     per_exp, exp_fwd = timed("exp_times", phase_exp_times, ex, card, plan, yolo_exp, yolo)
     del yolo
     per_train = timed("train_times", phase_train_times, cw, epi, ffn, card)
     per_v1 = timed("v1_times", phase_v1_times, v1, cw, card, plan, yolo_v1)
+    per_par = timed("parallel_times", phase_parallel_times, pk, card, plan)
     steps_ms = timed("step_times", phase_step_times, card, {
         "v2": (model, state, step, batch), "v1": (v1_model, v1_state, v1_step, v1_batch),
-        "exp": (exp_model, exp_state, exp_step, exp_batch)})
+        "exp": (exp_model, exp_state, exp_step, exp_batch),
+        "parallel": (par_model, par_state, par_step, par_batch)})
 
     per_fwd = lambda key: sum(LAUNCHES_PER_S[S] * per_s[S][key] for S in SEQ_LENS)
     calls = expected_step_launches(model)
@@ -1861,6 +2264,45 @@ def main() -> int:
                     + ("; the forward's errors are of h (den + eps), den, m_comb and the states"
                        if fw else ""),
         })
+    par_sources = {"parallel_fw": ("parallel_fw.cu", f"{pallas}/parallel.py:48"),
+                   "parallel_bw_dq": ("parallel_bw.cu", f"{pallas}/parallel.py:84"),
+                   "parallel_bw_dkv": ("parallel_bw.cu", f"{pallas}/parallel.py:117")}
+    par_calls = {name: {S: sum(n for (s, _), n in plan["train"].items() if s == S)
+                        + (sum(n for (s, _), n in plan["remat"].items() if s == S)
+                           if name == "parallel_fw" else 0) for S in par_lengths}
+                 for name in PAR_KERNELS}
+    per_par_step = lambda name, key: sum(n * per_par[name][S][key]  # noqa: E731
+                                         for S, n in par_calls[name].items())
+    for name in PAR_KERNELS:
+        src, replaces = par_sources[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": par_launches[name],
+            "max_abs_err": worst_par[name]["bfloat16"][0],
+            "ms": per_par_step(name, "ms"), "plain_ms": per_par_step(name, "plain_ms"),
+            "bound_ms": per_par_step(name, "bound_ms"),
+            "bound_by": per_par[name][max(par_lengths)]["bound_by"], "library_ms": None,
+            "max_rel_err": worst_par[name]["bfloat16"][1],
+            "max_rel_err_float32": worst_par[name]["float32"][1],
+            "note": f"quadratic route (chunkwise_kernel={PAR}); times per vil-det-192 train "
+                    f"step at batch 8, bf16: the calls at each padded S ({par_calls[name]}; "
+                    f"{par_per_step[name]} per step) summed; the plain version runs in slices "
+                    "of batch * head; no single PyTorch call computes the function (its "
+                    "max(|.|, 1) denominator is no softmax)",
+        })
+    step32 = decode["per_call"]["float32"]
+    rows.append({
+        "name": "mlstm_step", "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/step.cu",
+        "replaces": f"{pallas}/step.py:31", "launches": decode["launches"],
+        "max_abs_err": worst_step["bfloat16"][0], "ms": step32["ms"],
+        "plain_ms": step32["plain_ms"], "bound_ms": step32["bound_ms"],
+        "bound_by": step32["bound_by"], "library_ms": None,
+        "max_rel_err": worst_step["bfloat16"][1], "max_rel_err_float32": worst_step["float32"][1],
+        "note": f"step--pallas; launches: one per token of the decode of {DECODE_TOKENS} tokens "
+                f"(MatrixLSTMCell({H}, {NH}), batch 8, float32); times per call at B 8, NH 12, "
+                f"DH 32, float32 (bfloat16: {decode['per_call']['bfloat16']['ms']:.4g} ms); the "
+                f"decode takes {decode['us_per_token']:.4g} us per token through the whole cell",
+    })
     step_line = {route: [r["step_ms"] for r in rs] for route, rs in steps_ms.items()}
     busy_line = {route: [r.get("busy_share") for r in rs] for route, rs in steps_ms.items()}
     emit({"phase": "times", "what": "train_step_routes", "card": card, "step_ms": step_line,

@@ -26,7 +26,15 @@ import yaml
 from xlstm_yolo_tpu.ops import backend as jax_backend
 from xlstm_yolo_tpu.ops import wrappers as jax_wrappers
 from xlstm_yolo_tpu_torch.nn.tasks import resolve_chunkwise_kernel
-from xlstm_yolo_tpu_torch.ops import backend, chunkwise, chunkwise_exp, chunkwise_v2, wrappers
+from xlstm_yolo_tpu_torch.ops import (
+    backend,
+    chunkwise,
+    chunkwise_exp,
+    chunkwise_v2,
+    parallel,
+    step,
+    wrappers,
+)
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import (
     mlstm_chunkwise_stabilized,
     mlstm_siging_chunkwise,
@@ -174,10 +182,12 @@ REGISTERED = {
     "chunkwise--pallas_xl_chunk_siging_v2": chunkwise_v2.mlstm_siging_chunkwise_v2_heads,
     "parallel--native_siging": mlstm_siging_parallel,
     "parallel--native_stablef": mlstm_parallel_stabilized,
+    "parallel--pallas_limit_headdim": parallel.mlstm_siging_parallel_kernel,
     "sequence--native": mlstm_siging_recurrent_sequence,
     "sequence--native_stablef": mlstm_recurrent_sequence_stabilized,
     "step--native": mlstm_siging_step,
     "step--native_stablef": mlstm_step_stabilized,
+    "step--pallas": step.mlstm_siging_step_kernel,
 }
 
 
@@ -190,8 +200,6 @@ def test_registry_resolves_every_registered_name(name):
 @pytest.mark.parametrize("name,match", [
     ("sequence--pallas", "unknown"),
     ("chunkwise--pallas_xl_chunk_stablef", "unknown"),
-    ("step--pallas", "Queue 2 item 7"),
-    ("parallel--pallas_limit_headdim", "Queue 2 item 9"),
     ("chunkwise--no_such_kernel", "unknown"),
     ("nothing--native", "unknown kernel module"),
 ])
@@ -236,8 +244,7 @@ def test_auto_is_the_v2_kernels_on_every_device(cuda, monkeypatch):
     assert resolve_chunkwise_kernel("auto") == backend.V2_KERNEL
     assert resolve_chunkwise_kernel(backend.V1_KERNEL) == backend.V1_KERNEL
     assert resolve_chunkwise_kernel(backend.EXP_KERNEL) == backend.EXP_KERNEL
-    with pytest.raises(ValueError, match="Queue 2 item 9"):
-        resolve_chunkwise_kernel("parallel--pallas_limit_headdim")
+    assert resolve_chunkwise_kernel(backend.PARALLEL_KERNEL) == backend.PARALLEL_KERNEL
 
 
 def test_yaml_chunk_sizes_reach_every_cell():

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the chunkwise mLSTM inference forward, train forward and backward (and the
 differentiable cell built from them), the epilogue backward, the FFN
-backward, and the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
-at every chunk length.  This file imports neither JAX nor the JAX package, so it
+backward, the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
+at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
+one-token step.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
@@ -33,7 +34,9 @@ import torch
 
 from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.ops import chunkwise_exp as exp
-from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn
+from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn, step
+from xlstm_yolo_tpu_torch.ops import parallel as par
+from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
@@ -390,3 +393,87 @@ def test_exp_function_matches_plain_on_gpu():
                                     m_initial=t[7], eps=EPS, compute_dtype=torch.float32)
         out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t[:6])]
     assert_grads_close(out["cuda"], out["cpu"], torch.float32)
+
+
+PAR_CASES = [  # (S, NH, DH, gates): one tile, ragged tiles, several tiles
+    (64, 3, 16, "open"),
+    (200, 2, 32, "closed"),
+    (448, 2, 32, "open"),
+]
+
+
+def par_inputs(seed, S, NH, DH, gates, dt):
+    """(B, NH, S, DH) streams and dh, (B, NH, S) gates (open: i ~ N(0, 1),
+    f ~ N(3, 1); closed: f ~ U(-60, -20))."""
+    rng = np.random.default_rng(seed)
+    q, k, v, dh = (cu(rng.normal(size=(2, NH, S, DH)), dt) for _ in range(4))
+    i = cu(rng.normal(0, 1, (2, NH, S)))
+    f = cu(rng.normal(3, 1, (2, NH, S)) if gates == "open" else rng.uniform(-60, -20, (2, NH, S)))
+    return (q, k, v, i, f), dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", V1_TYPES)
+def test_parallel_kernels_match_plain_on_gpu(dtype, compute):
+    """The quadratic forward, dq and dk/dv kernels each against its plain
+    version on the same inputs (the backward kernels on the plain forward's
+    den), each output in the storage type."""
+    needs_cuda()
+    dt, cd = getattr(torch, dtype), getattr(torch, compute)
+    rel = 1e-4 if cd == torch.float32 else 2e-2
+    for S, NH, DH, gates in PAR_CASES:
+        args, dh = par_inputs(S + DH, S, NH, DH, gates, dt)
+        kw = dict(eps=EPS, compute_dtype=cd)
+        before = (par.LAUNCHES_FW, par.LAUNCHES_BW_DQ, par.LAUNCHES_BW_DKV)
+        got = par.parallel_fw(*args, **kw)
+        torch.cuda.synchronize()
+        ref = par.parallel_fw_plain(*args, **kw)
+        assert got[0].dtype == dt
+        assert_rel_close(got, ref, rel)
+        den = ref[1]
+        dq = par.parallel_bw_dq(*args, den, dh, **kw)
+        dkv = par.parallel_bw_dkv(*args, den, dh, **kw)
+        torch.cuda.synchronize()
+        assert all(g.dtype == dt for g in (dq, *dkv))
+        assert_rel_close([dq], [par.parallel_bw_dq_plain(*args, den, dh, **kw)], rel)
+        assert_rel_close(dkv, par.parallel_bw_dkv_plain(*args, den, dh, **kw), rel)
+        assert (par.LAUNCHES_FW, par.LAUNCHES_BW_DQ, par.LAUNCHES_BW_DKV) == tuple(
+            n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_parallel_function_matches_plain_on_gpu():
+    """The quadratic autograd Function on the card (three kernels, gate
+    gradients in PyTorch) against the same Function on the CPU (plain
+    versions), compute float32."""
+    needs_cuda()
+    args, dh = par_inputs(11, 300, 4, 32, "open", torch.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [a.to(dev).requires_grad_() for a in args]
+        h = par.mlstm_siging_parallel_kernel(*t, eps=EPS, compute_dtype=torch.float32)
+        out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t)]
+    assert_grads_close(out["cuda"], out["cpu"], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_kernel_matches_plain_on_gpu(dtype):
+    """The step kernel against ``mlstm_siging_step`` at the flagship's heads
+    (B 8, NH 12, DH 32) and at DH 16, open and closed forget gates: h in
+    the storage type, (C', n') float32."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    for NH, DH, gates in ((12, 32, "open"), (12, 32, "closed"), (3, 16, "open")):
+        rng = np.random.default_rng(NH + DH)
+        q, k, v = (cu(rng.normal(size=(8, NH, DH)), dt) for _ in range(3))
+        i = cu(rng.normal(0, 2, (8, NH)))
+        f = cu(rng.normal(2, 1, (8, NH)) if gates == "open" else rng.uniform(-60, -20, (8, NH)))
+        c, n = cu(rng.normal(size=(8, NH, DH, DH))), cu(rng.normal(size=(8, NH, DH)))
+        before = step.LAUNCHES
+        h, (c1, n1) = step.mlstm_siging_step_kernel(q, k, v, i, f, c, n, eps=EPS)
+        torch.cuda.synchronize()
+        assert step.LAUNCHES == before + 1 and h.dtype == dt
+        hp, (cp, np_) = mlstm_siging_step(q, k, v, i, f, c, n, eps=EPS)
+        assert_rel_close([h], [hp], 1e-4 if dt == torch.float32 else 2e-2)
+        assert_rel_close([c1, n1], [cp, np_], 1e-4)

@@ -35,7 +35,6 @@
 #pragma once
 
 #include <math_constants.h>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -581,27 +580,7 @@ __global__ void __launch_bounds__(NT) dqkv_kernel(
   }
 }
 
-// Calls f(T{}, CT{}, std::integral_constant<int, DH>{}) for the storage
-// type (0 float32, 1 bfloat16), the compute type (same codes) and the head
-// dim; 1000 for a combination the kernels do not take.
-template <typename F>
-int dispatch(int dtype, int cdtype, int DH, F&& f) {
-  using D16 = std::integral_constant<int, 16>;
-  using D32 = std::integral_constant<int, 32>;
-  using bf16 = __nv_bfloat16;
-  const int key = dtype * 100 + cdtype * 10 + (DH == 32 ? 1 : DH == 16 ? 0 : 9);
-  switch (key) {
-    case 0: return f(float{}, float{}, D16{});
-    case 1: return f(float{}, float{}, D32{});
-    case 10: return f(float{}, bf16{}, D16{});
-    case 11: return f(float{}, bf16{}, D32{});
-    case 100: return f(bf16{}, float{}, D16{});
-    case 101: return f(bf16{}, float{}, D32{});
-    case 110: return f(bf16{}, bf16{}, D16{});
-    case 111: return f(bf16{}, bf16{}, D32{});
-    default: return 1000;
-  }
-}
+using port::dispatch;
 
 inline bool chunk_ok(int S, int L) {
   return L >= 16 && L <= LMAX && (L & (L - 1)) == 0 && S > 0 && S % L == 0;

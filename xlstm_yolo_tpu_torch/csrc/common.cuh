@@ -11,12 +11,15 @@
 //   (M, N) activations, split over row ranges, one partial per range;
 // - reduce_kernel: sums the rows of a (rows, cols) partial array in a
 //   fixed order, so that gradients are the same from run to run (no
-//   atomics).
+//   atomics);
+// - dispatch: the storage type, compute type and head dim of a launcher's
+//   arguments as template parameters.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace port {
 
@@ -162,6 +165,28 @@ cudaError_t launch_wgrad(const T* X, const T* Y, float* part, float* out, int M,
   if (err != cudaSuccess) return err;
   reduce_kernel<<<cdiv((long long)P * N, 32), NT, 0, st>>>(part, out, used, P * N);
   return cudaGetLastError();
+}
+
+// Calls f(T{}, CT{}, std::integral_constant<int, DH>{}) for the storage
+// type (0 float32, 1 bfloat16), the compute type (same codes) and the head
+// dim; 1000 for a combination the kernels do not take.
+template <typename F>
+int dispatch(int dtype, int cdtype, int DH, F&& f) {
+  using D16 = std::integral_constant<int, 16>;
+  using D32 = std::integral_constant<int, 32>;
+  using bf16 = __nv_bfloat16;
+  const int key = dtype * 100 + cdtype * 10 + (DH == 32 ? 1 : DH == 16 ? 0 : 9);
+  switch (key) {
+    case 0: return f(float{}, float{}, D16{});
+    case 1: return f(float{}, float{}, D32{});
+    case 10: return f(float{}, bf16{}, D16{});
+    case 11: return f(float{}, bf16{}, D32{});
+    case 100: return f(bf16{}, float{}, D16{});
+    case 101: return f(bf16{}, float{}, D32{});
+    case 110: return f(bf16{}, bf16{}, D16{});
+    case 111: return f(bf16{}, bf16{}, D32{});
+    default: return 1000;
+  }
 }
 
 }  // namespace port

@@ -495,17 +495,29 @@ class MatrixLSTMCell(nn.Module):
     JAX package's ``defer_outnorm``): on both routes, at every S, the
     port keeps the fused epilogue, the same function as the JAX v1 route's
     unfused [outnorm -> + skip * x -> proj_down].
+
+    With a ``state`` (C (B, NH, DH, DH), n (B, NH, DH), float32) the cell
+    runs in inference mode only and returns (h, (C, n)) after the S tokens,
+    as the JAX cell does: the v2 name at S >= 1024 runs the v2 kernel from
+    the state; otherwise (the v2 name below 1024 tokens on
+    ``chunkwise--native_autograd``, as in JAX) the inference wrapper of
+    :func:`make_backend`, so S = 1 is one call of ``step_kernel`` on every
+    route, and the rest goes through ``chunkwise_kernel`` and
+    ``sequence_kernel``.
     """
 
     def __init__(self, dim: int, num_heads: int, gate_soft_cap: float = 15.0,
                  norm_bias: bool = True, eps: float = 5e-5,
                  compute_dtype: torch.dtype | None = None, chunk_size: int = 64,
-                 mode: str | None = None, chunkwise_kernel: str = V2_KERNEL):
+                 mode: str | None = None, chunkwise_kernel: str = V2_KERNEL,
+                 sequence_kernel: str = "sequence--native", step_kernel: str = "step--native"):
         super().__init__()
         self.num_heads, self.gate_soft_cap, self.eps = num_heads, gate_soft_cap, eps
         self.compute_dtype = compute_dtype
         self.chunk_size, self.mode, self.chunkwise_kernel = chunk_size, mode, chunkwise_kernel
-        get_mlstm_kernel(chunkwise_kernel)  # an unknown name fails here, not in a forward
+        self.sequence_kernel, self.step_kernel = sequence_kernel, step_kernel
+        for name in (chunkwise_kernel, sequence_kernel, step_kernel):
+            get_mlstm_kernel(name)  # an unknown name fails here, not in a forward
         self.ifgate = Dense(3 * dim, 2 * num_heads, True, zeros_init,
                             ifgate_bias_init(num_heads))
         self.outnorm = MultiHeadLayerNorm(num_heads, dim // num_heads, eps=1e-6,
@@ -513,13 +525,16 @@ class MatrixLSTMCell(nn.Module):
         self.kernel = mlstm_siging_chunkwise_fw
         self.train_kernel = mlstm_siging_chunkwise_train
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, state=None):
         B, S, H = q.shape
         NH = self.num_heads
         gate_in = torch.cat([q, k, v], dim=-1).to(acc_dtype(q.dtype))
         if_preact = soft_cap(self.ifgate(gate_in), self.gate_soft_cap)
         i_pre, f_pre = if_preact.split(NH, dim=-1)
         cd = self.compute_dtype or q.dtype
+        if state is not None:
+            h, new_state = self._stateful(q, k, v, i_pre, f_pre, cd, state)
+            return self.outnorm(h.to(q.dtype)).reshape(B, S, H), new_state
         if self.chunkwise_kernel == V2_KERNEL:
             fn = self.train_kernel if self.training else self.kernel
             h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
@@ -532,20 +547,44 @@ class MatrixLSTMCell(nn.Module):
             return h.reshape(B, S, H).to(q.dtype), (self.outnorm.weight, self.outnorm.bias)
         return self.outnorm(h.to(q.dtype)).reshape(B, S, H)
 
-    def _registry_route(self, q, k, v, i_pre, f_pre, cd):
-        """h (B, NH, S, DH) of the registry kernel ``chunkwise_kernel``."""
+    def _mode(self) -> str:
+        return self.mode or ("train_with_padding" if self.training else "inference")
+
+    def _registry_route(self, q, k, v, i_pre, f_pre, cd, chunkwise_kernel=None, state=None):
+        """h (B, NH, S, DH) of the registry kernel ``chunkwise_kernel`` (the
+        cell's by default); with ``state``, (h, (C, n)) of the inference
+        wrapper from it."""
         B, S, H = q.shape
         NH = self.num_heads
+        ck = chunkwise_kernel or self.chunkwise_kernel
 
         def heads(x):
             return _cast(x, cd).reshape(B, S, NH, H // NH).transpose(1, 2).contiguous()
 
-        mode = self.mode or ("train_with_padding" if self.training else "inference")
         fn = make_backend(mLSTMBackendConfig(
-            chunkwise_kernel=self.chunkwise_kernel, mode=mode, chunk_size=self.chunk_size,
-            eps=self.eps, auto_divisor_chunking="pallas" not in self.chunkwise_kernel))
+            chunkwise_kernel=ck, sequence_kernel=self.sequence_kernel,
+            step_kernel=self.step_kernel, mode=self._mode(), chunk_size=self.chunk_size,
+            eps=self.eps, return_last_states=state is not None,
+            auto_divisor_chunking="pallas" not in ck))
+        states = {} if state is None else dict(c_initial=state[0], n_initial=state[1])
         return fn(heads(q), heads(k), heads(v), i_pre.transpose(1, 2).contiguous(),
-                  f_pre.transpose(1, 2).contiguous())
+                  f_pre.transpose(1, 2).contiguous(), **states)
+
+    def _stateful(self, q, k, v, i_pre, f_pre, cd, state):
+        """(h (B, S, NH, DH), (C, n)) from ``state`` in inference mode."""
+        B, S, H = q.shape
+        NH = self.num_heads
+        if self._mode() != "inference":
+            raise ValueError(f"a state is threaded in inference mode only, not {self._mode()!r}")
+        if self.chunkwise_kernel == V2_KERNEL and S >= 1024:
+            h, new_state = self.kernel(
+                _cast(q, cd).contiguous(), _cast(k, cd).contiguous(), _cast(v, cd).contiguous(),
+                i_pre.contiguous(), f_pre.contiguous(), NH, state[0], state[1], eps=self.eps,
+                return_last_states=True)
+            return h.reshape(B, S, NH, H // NH), new_state
+        ck = "chunkwise--native_autograd" if self.chunkwise_kernel == V2_KERNEL else None
+        h, new_state = self._registry_route(q, k, v, i_pre, f_pre, cd, ck, state)
+        return h.transpose(1, 2), new_state
 
 
 class ViLLayer(nn.Module):

@@ -12,13 +12,15 @@ Counterpart of ``xlstm_yolo_tpu/ops/backend.py``, with the same
     chunkwise--pallas_xl_chunk           the exp kernels (ops/chunkwise_exp.py)
     parallel--native_siging              the quadratic siging oracle
     parallel--native_stablef             the quadratic exp-gate oracle
+    parallel--pallas_limit_headdim       the quadratic kernels (ops/parallel.py)
     sequence--native                     the recurrent siging sequence
     sequence--native_stablef             the recurrent exp-gate sequence
     step--native                         one recurrent siging step
     step--native_stablef                 one recurrent exp-gate step
+    step--pallas                         the step kernel (ops/step.py)
 
-A name the JAX package has but the port does not raises and names the
-ROADMAP item that ports it; any other name raises too.
+These are all the names of the JAX package's registry; any other name
+raises.
 """
 
 from __future__ import annotations
@@ -44,23 +46,21 @@ from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import (
     mlstm_siging_step,
     mlstm_step_stabilized,
 )
+from xlstm_yolo_tpu_torch.ops.parallel import mlstm_siging_parallel_kernel
+from xlstm_yolo_tpu_torch.ops.step import mlstm_siging_step_kernel
 
-__all__ = ["EXP_KERNEL", "V1_KERNEL", "V2_KERNEL", "get_mlstm_kernel", "mLSTMBackendConfig",
-           "make_backend", "register_kernel"]
+__all__ = ["EXP_KERNEL", "PARALLEL_KERNEL", "STEP_KERNEL", "V1_KERNEL", "V2_KERNEL",
+           "get_mlstm_kernel", "mLSTMBackendConfig", "make_backend", "register_kernel"]
 
 ModeName = Literal["train", "train_with_padding", "inference"]
 V1_KERNEL = "chunkwise--pallas_xl_chunk_siging"
 V2_KERNEL = "chunkwise--pallas_xl_chunk_siging_v2"
 EXP_KERNEL = "chunkwise--pallas_xl_chunk"
+PARALLEL_KERNEL = "parallel--pallas_limit_headdim"
+STEP_KERNEL = "step--pallas"
 
 _REGISTRY: dict[str, dict[str, Callable]] = {
     "chunkwise": {}, "sequence": {}, "step": {}, "parallel": {}}
-
-# names of the JAX package's registry that the port does not have yet
-_NOT_PORTED = {
-    "step--pallas": "ROADMAP Queue 2 item 7",
-    "parallel--pallas_limit_headdim": "ROADMAP Queue 2 item 9",
-}
 
 
 def register_kernel(kind: str, name: str, fn: Callable | None = None):
@@ -79,23 +79,23 @@ register_kernel("chunkwise", "pallas_xl_chunk_siging_v2", mlstm_siging_chunkwise
 register_kernel("chunkwise", "pallas_xl_chunk", mlstm_chunkwise_exp)
 register_kernel("parallel", "native_siging", mlstm_siging_parallel)
 register_kernel("parallel", "native_stablef", mlstm_parallel_stabilized)
+register_kernel("parallel", "pallas_limit_headdim", mlstm_siging_parallel_kernel)
 register_kernel("sequence", "native", mlstm_siging_recurrent_sequence)
 register_kernel("sequence", "native_stablef", mlstm_recurrent_sequence_stabilized)
 register_kernel("step", "native", mlstm_siging_step)
 register_kernel("step", "native_stablef", mlstm_step_stabilized)
+register_kernel("step", "pallas", mlstm_siging_step_kernel)
 
 
 def get_mlstm_kernel(name: str) -> Callable:
     """The kernel registered as ``"<module>--<backend>"``; raises for any
-    other name, naming the ROADMAP item of one the JAX package has."""
+    other name."""
     kind, _, backend = name.partition("--")
     reg = _REGISTRY.get(kind)
     if reg is None:
         raise ValueError(f"unknown kernel module '{kind}' in '{name}'")
     if backend not in reg:
-        why = (f"not ported yet ({_NOT_PORTED[name]})" if name in _NOT_PORTED
-               else "unknown")
-        raise ValueError(f"{kind} kernel '{backend}' is {why}; available: {sorted(reg)}")
+        raise ValueError(f"{kind} kernel '{backend}' is unknown; available: {sorted(reg)}")
     return reg[backend]
 
 

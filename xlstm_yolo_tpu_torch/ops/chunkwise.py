@@ -52,6 +52,7 @@ __all__ = [
     "chunkwise_bw_dqkv_plain",
     "chunkwise_fw",
     "chunkwise_fw_plain",
+    "gate_grad_terms",
     "mlstm_siging_chunkwise_v1",
 ]
 
@@ -379,12 +380,18 @@ def chunkwise_bw(q, k, v, i, f, den, c_states, dh, dc_last=None, chunk_size: int
     kw = dict(chunk_size=chunk_size, qk_scale=qk_scale, eps=eps, compute_dtype=compute_dtype)
     dc_states, dc0 = chunkwise_bw_dc(q, f, dh, den, dc_last, **kw)
     dq, dk, dv = chunkwise_bw_dqkv(q, k, v, i, f, c_states, den, dh, dc_states, **kw)
-    acc = dq.dtype
-    kdk = (k.to(acc) * dk).sum(-1)
-    dfbar = (q.to(acc) * dq).sum(-1) - kdk
-    df = dfbar.flip(-1).cumsum(-1).flip(-1) * torch.sigmoid(-f)
-    di = kdk * torch.sigmoid(-i)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), di, df, dc0
+    kdk, df = gate_grad_terms(q, k, dq, dk, f)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), kdk * torch.sigmoid(-i), df, dc0
+
+
+def gate_grad_terms(q, k, dq, dk, f):
+    """The gate-gradient terms of the chunkwise and quadratic VJPs, from dq
+    and dk as their kernels return them, in the accumulation type: k.dk of
+    each row, and df = revcumsum(q.dq - k.dk) sigmoid(-f)."""
+    acc = acc_dtype(q.dtype)
+    kdk = (k.to(acc) * dk.to(acc)).sum(-1)
+    dfbar = (q.to(acc) * dq.to(acc)).sum(-1) - kdk
+    return kdk, dfbar.flip(-1).cumsum(-1).flip(-1) * torch.sigmoid(-f)
 
 
 class _ChunkwiseV1(torch.autograd.Function):

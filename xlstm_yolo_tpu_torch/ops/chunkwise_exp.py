@@ -54,6 +54,7 @@ from xlstm_yolo_tpu_torch.ops.chunkwise import (
     _chunks,
     _codes,
     _rounder,
+    gate_grad_terms,
 )
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
 from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
@@ -369,10 +370,7 @@ def chunkwise_exp_bw(q, k, v, i, f, den, m_comb, c_states, m_states, m_last, dh,
     dc_states, dc0 = chunkwise_exp_bw_dc(q, f, dh, den, m_comb, mrow_dc, dc_last, **kw)
     dq, dk, dv = chunkwise_exp_bw_dqkv(q, k, v, i, f, c_states, den, m_comb, mrow_qkv, dh,
                                        dc_states, **kw)
-    acc = acc_dtype(q.dtype)
-    kdk = (k.to(acc) * dk.to(acc)).sum(-1)
-    dfbar = (q.to(acc) * dq.to(acc)).sum(-1) - kdk
-    df = dfbar.flip(-1).cumsum(-1).flip(-1) * torch.sigmoid(-f)
+    kdk, df = gate_grad_terms(q, k, dq, dk, f)
     return dq, dk, dv, kdk, df, dc0
 
 

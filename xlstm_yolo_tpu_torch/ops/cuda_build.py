@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "chunkwise_v1_fw",
-           "chunkwise_v1_bw", "chunkwise_exp_fw", "chunkwise_exp_bw")
+           "chunkwise_v1_bw", "chunkwise_exp_fw", "chunkwise_exp_bw", "parallel_fw",
+           "parallel_bw", "step")
 
 _libs: dict[str, ctypes.CDLL] = {}
 

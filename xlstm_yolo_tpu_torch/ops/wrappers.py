@@ -98,6 +98,11 @@ def wrap_chunkwise_arbitrary_sequence_length(chunkwise_kernel: Callable, sequenc
     ``m_initial``: the siging recurrence continues from C and n, which are
     stored relative to the dropped m, as in the JAX wrapper.  Returns h,
     and (C, n) with ``return_last_states``.
+
+    A chunkwise kernel that returns no (h, state) pair (the quadratic
+    ``parallel--pallas_limit_headdim`` returns h only) raises a ValueError
+    naming it.  The JAX wrapper unpacks such an h along its batch axis
+    instead: it fails unless B = 2, and at B = 2 reads h[1] as the state.
     """
     B, NH, S, DH = q.shape
     C, n = _zeros_like_state(c_initial, n_initial, q, v)
@@ -111,10 +116,16 @@ def wrap_chunkwise_arbitrary_sequence_length(chunkwise_kernel: Callable, sequenc
     h_parts, m = [], None  # m: the running max of an exp-gate kernel
     for start, seg, seg_cs in plan:
         sl = slice(start, start + seg)
-        h_seg, st = chunkwise_kernel(q[:, :, sl], k[:, :, sl], v[:, :, sl], i[:, :, sl],
-                                     f[:, :, sl], chunk_size=seg_cs, c_initial=C, n_initial=n,
-                                     return_last_states=True, eps=eps,
-                                     **({"m_initial": m} if m is not None else {}), **kwargs)
+        out = chunkwise_kernel(q[:, :, sl], k[:, :, sl], v[:, :, sl], i[:, :, sl], f[:, :, sl],
+                               chunk_size=seg_cs, c_initial=C, n_initial=n,
+                               return_last_states=True, eps=eps,
+                               **({"m_initial": m} if m is not None else {}), **kwargs)
+        if not (isinstance(out, tuple) and len(out) == 2):
+            name = getattr(chunkwise_kernel, "__name__", repr(chunkwise_kernel))
+            raise ValueError(f"the chunkwise kernel {name} returned no (h, state) pair: it "
+                             "cannot run the inference wrapper, which threads (C, n) between "
+                             "segments")
+        h_seg, st = out
         C, n = st[0], st[1]
         m = st[2] if len(st) > 2 else None
         h_parts.append(h_seg)
