@@ -102,7 +102,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                token and the step kernel's time per call;
 21. refusal  - YOLO(..., chunkwise_kernel=PAR).predict raises the port's
                ValueError (the route has no predict path, as in JAX);
-22. times    - CUDA-event medians (and every window) of each kernel and its
+22. wide_kernels - phases 2, 5, 9, 12, 16 and 19 again at the widths of
+               vil-det-256 (NH 8, DH 64, H 512, D 256, U 704) and vil-det-384
+               (NH 6, DH 128, H 768, D 384, U 1024), batch 8: every mLSTM
+               kernel and the epilogue and FFN backwards against their plain
+               versions at the same lengths, gates, states and tolerances;
+23. outnorm  - the inference forward with the per-head LayerNorm fused in
+               against its plain version at DH 32, 64 and 128, and
+               MatrixLSTMCell(768, 6, fuse_outnorm=True) against the unfused
+               cell, one fused launch per call (phase_outnorm);
+24. predict_384 - YOLO("vil-det-384.yaml").predict() on the images of phase
+               4 (40 launches), one batch of vil-det-256 (predict_256), and
+               one batch of vil-det-384 on the v1 and on the exp route, each
+               with exact launches;
+25. train_384 - 3 bf16 steps of detect_trainer("vil-det-384.yaml") as phase
+               8, one step of vil-det-256 (train_256), and one step of
+               vil-det-384 on each of the v1, exp and quadratic routes, each
+               with exact launches; then a 64-token decode through
+               MatrixLSTMCell(768, 6, step_kernel="step--pallas");
+26. wide_grads - a ViLBlockPair of vil-det-384's widths at S = 1600: its
+               float32 gradients with the kernels against float64, as
+               e2e_grads (phase_wide_grads);
+27. times    - CUDA-event medians (and every window) of each kernel and its
                plain version at each S (v1, exp: each (S, L); quadratic: each
                padded S); the end-to-end
                predict rate on every route (windows after a warm-up, SM clock
@@ -111,11 +132,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                exp route's predict forward and the share of its recurrent
                tails; the v2-, v1-, exp- and quadratic-route train steps in
                turns (v2, v1, exp, parallel, parallel, exp, v1, v2), each
-               with the device's busy share from a trace of one step.
+               with the device's busy share from a trace of one step; every
+               kernel's per-call times at the widths of vil-det-256 and
+               vil-det-384 (wide_times); vil-det-384's predict rate and train
+               step with busy share, clocks and peak memory.
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
-phase, the nvidia-smi line, one {"kernels": [...]} line (fifteen kernels),
-and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+phase, the nvidia-smi line, one {"kernels": [...]} line (sixteen kernels,
+each with its numbers on the vil-det-192 paths and, under "vil_det_384",
+on vil-det-384's), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -129,12 +154,36 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
-B, NH, DH = 8, 12, 32
-H = NH * DH
-D, U = 192, 512  # vil-det-192's embedding and FFN widths
+
+
+class Widths(NamedTuple):
+    """The batch and widths of one detector's layers: B, NH heads of DH
+    (the cell width H = NH * DH), the embedding D and the FFN width U."""
+
+    cfg: str
+    B: int
+    NH: int
+    DH: int
+    D: int
+    U: int
+
+    @property
+    def H(self) -> int:
+        return self.NH * self.DH
+
+    @property
+    def dims(self) -> tuple:
+        return self.B, self.NH, self.DH, self.H, self.D, self.U
+
+
+FLAGSHIP = Widths("vil-det-192.yaml", 8, 12, 32, 192, 512)
+WIDE = (Widths("vil-det-256.yaml", 8, 8, 64, 256, 704),
+        Widths("vil-det-384.yaml", 8, 6, 128, 384, 1024))
+B, NH, DH, H, D, U = FLAGSHIP.dims  # the flagship's, where a phase takes no Widths
 L = 64           # the kernels' chunk length
 SEQ_LENS = (6400, 1600, 400, 100)
 LAUNCHES_PER_S = {6400: 4, 1600: 6, 400: 6, 100: 4}  # per vil-det-192 forward
@@ -190,6 +239,26 @@ def time_cuda(fn, iters: int, reps: int = 5, warm_s: float = 0.5) -> list[float]
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / iters)
     return out
+
+
+def iters_for(ws, n: int) -> int:
+    """Calls per timing window: ``n`` at the flagship's widths, a quarter
+    (at least 2) at the wider ones, whose calls take longer."""
+    return n if ws == FLAGSHIP else max(2, n // 4)
+
+
+def in_turns(kern, plain, iters: int, plain_iters: int, plain_reps: int = 3, kern_reps: int = 3,
+             ws=FLAGSHIP) -> tuple[list, list]:
+    """Per-call ms windows of ``kern`` and ``plain`` (time_cuda), timed in
+    turns plain, kernel, kernel, plain, so that a drift of the card shows
+    as a spread; after 0.5 s of warm-up at the flagship's widths, 0.1 s at
+    the wider ones (whose calls are longer; three calls come first)."""
+    warm = 0.5 if ws == FLAGSHIP else 0.1
+    t_plain = time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=warm)
+    t_kern = [t for _ in range(2) for t in time_cuda(kern, iters=iters, reps=kern_reps,
+                                                       warm_s=warm)]
+    t_plain += time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=warm)
+    return t_kern, t_plain
 
 
 class ClockSampler:
@@ -267,9 +336,10 @@ def device_busy(prof, window_ms: float) -> dict:
                      "share": us / total_us} for name, (us, c) in top[:15]]}
 
 
-def kernel_inputs(S, dtype, gates="open", states=False, seed=0):
+def kernel_inputs(S, dtype, gates="open", states=False, seed=0, ws=FLAGSHIP):
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(B, S, H, generator=g) for _ in range(3))
     i = torch.rand(B, S, NH, generator=g) * 10 - 6  # U(-6, 4): far from inert
@@ -283,13 +353,14 @@ def kernel_inputs(S, dtype, gates="open", states=False, seed=0):
     return (cu(q, dtype), cu(k, dtype), cu(v, dtype), cu(i), cu(f), NH, cu(c0), cu(n0))
 
 
-def row_inputs(S, dtype, offset=0.0, seed=0):
+def row_inputs(S, dtype, offset=0.0, seed=0, ws=FLAGSHIP):
     """Flagship-width inputs of the epilogue (h, x, g, ln_w, ln_b, skip, wd)
     and of the FFN backward (x, gz, g, wn, wgz, wd), bd/bgz for gz."""
     import torch
 
     from xlstm_yolo_tpu_torch.ops import ffn
 
+    B, NH, DH, H, D, U = ws.dims
     gen = torch.Generator().manual_seed(seed)
     r = lambda *s, scale=1.0, mean=0.0: torch.randn(*s, generator=gen) * scale + mean  # noqa: E731
     cu = lambda t, d=torch.float32: t.to("cuda", d)  # noqa: E731
@@ -302,12 +373,15 @@ def row_inputs(S, dtype, offset=0.0, seed=0):
     return epi, (x, gz, cu(r(B, S, D), dtype), wn, wgz, wd)
 
 
-def bound(S: int, itemsize: int = 2) -> tuple[float, str]:
+def bound(S: int, itemsize: int = 2, ws=FLAGSHIP, fused_ln: bool = False) -> tuple[float, str]:
     """Least time for one inference-forward call in ms, and what sets it: q,
     k, v read and h written once, the gates read once, the last states
-    written once, over HBM bandwidth; against 4*B*NH*S*DH*(L+DH) chunkwise
-    FLOP at the bf16 peak."""
+    written once (``fused_ln``: and the LayerNorm's weight and bias read
+    once), over HBM bandwidth; against 4*B*NH*S*DH*(L+DH) chunkwise FLOP
+    at the bf16 peak."""
+    B, NH, DH, H, D, U = ws.dims
     nbytes = 4 * B * S * H * itemsize + 2 * B * S * NH * 4 + B * NH * (DH * DH + DH) * 4
+    nbytes += 2 * H * 4 if fused_ln else 0
     flops = 4 * B * NH * S * DH * (L + DH)
     return _bound(nbytes, flops)
 
@@ -317,10 +391,11 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def train_bound(name: str, S: int, itemsize: int = 2) -> tuple[float, str]:
+def train_bound(name: str, S: int, itemsize: int = 2, ws=FLAGSHIP) -> tuple[float, str]:
     """Least time for one call of a training kernel at batch B in ms, each
     input read once and each output written once, against its products at
     the bf16 peak (see PERF.md for the derivation)."""
+    B, NH, DH, H, D, U = ws.dims
     NC = -(-S // L)
     M = B * S
     states = B * NC * NH * (DH * DH + DH) * 4 + B * NC * NH * L * 4  # C, n per chunk; den
@@ -378,15 +453,16 @@ def use_plain_training_ops(model):
             m.ffn_fn = lambda *a: ffn.ffn_forward(*a)[0]
 
 
-def phase_kernel(cw):
+def phase_kernel(cw, ws=FLAGSHIP):
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(S, "open", False) for S in SEQ_LENS] + [
         (1000, "open", True), (1600, "closed", False)]
     for dtype in (torch.float32, torch.bfloat16):
         for S, gates, states in cases:
-            args = kernel_inputs(S, dtype, gates, states, seed=S)
+            args = kernel_inputs(S, dtype, gates, states, seed=S, ws=ws)
             h, (c, n) = cw.mlstm_siging_chunkwise_fw(*args, eps=EPS, return_last_states=True)
             torch.cuda.synchronize()
             hp, (cp, np_) = cw.mlstm_siging_chunkwise_fw_plain(
@@ -395,7 +471,7 @@ def phase_kernel(cw):
             err = (h.float() - hp.float()).abs().max().item()
             err_state = max((c - cp).abs().max().item(), (n - np_).abs().max().item())
             finite = bool(torch.isfinite(h.float()).all())
-            emit({"phase": "kernel", "S": S, "dtype": str(dtype).split(".")[-1],
+            emit({"phase": "kernel", "widths": ws.cfg, "S": S, "dtype": str(dtype).split(".")[-1],
                   "gates": gates, "initial_states": states, "max_abs_err_h": err,
                   "max_abs_err_states": err_state, "tol": tol, "finite": finite})
             torch.testing.assert_close(h.float(), hp.float(), atol=tol, rtol=tol)
@@ -487,10 +563,26 @@ def synthetic_images(n: int, seed: int):
             for j in range(n)]
 
 
-def phase_predict(cw, yolo):
+def cfg_name(yolo) -> str:
+    from pathlib import Path
+
+    return Path(yolo.model_cfg).stem
+
+
+def cells_of(model) -> int:
+    from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell
+
+    return sum(isinstance(m, MatrixLSTMCell) for m in model.modules())
+
+
+def phase_predict(cw, yolo, n_images: int = 10):
+    """YOLO(...).predict() on ``n_images`` synthetic images (10: batches of
+    8 and 2, the tail padded): finite results in original image
+    coordinates, and one inference-kernel launch per cell and forward."""
     import numpy as np
 
-    images = synthetic_images(10, seed=5)  # batches of 8 and 2 (tail padded)
+    images = synthetic_images(n_images, seed=5)
+    expected = -(-n_images // B) * cells_of(yolo.model)
     cw.LAUNCHES = 0
     results = yolo.predict(images, batch=B, conf=0.0)
     launches = cw.LAUNCHES
@@ -506,11 +598,11 @@ def phase_predict(cw, yolo):
                 and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= h).all()):
             raise AssertionError(f"boxes outside the original {w}x{h} image")
         n_boxes.append(len(r))
-    emit({"phase": "predict", "cfg": "vil-det-192", "dtype": "bfloat16", "images": len(images),
+    emit({"phase": "predict", "cfg": cfg_name(yolo), "dtype": "bfloat16", "images": len(images),
           "shapes": sorted({tuple(im.shape[:2]) for im in images}), "batch": B,
-          "boxes_per_image": n_boxes, "launches": launches})
-    if launches != 2 * 20:
-        raise AssertionError(f"predict made {launches} kernel launches, expected 40")
+          "boxes_per_image": n_boxes, "launches": launches, "expected": expected})
+    if launches != expected:
+        raise AssertionError(f"predict made {launches} kernel launches, expected {expected}")
     return launches
 
 
@@ -557,11 +649,12 @@ def to64(args):
                  for a in args)
 
 
-def phase_train_kernels(cw, epi, ffn):
+def phase_train_kernels(cw, epi, ffn, ws=FLAGSHIP):
     """The four training kernels against their plain versions at the
     flagship shapes, float32 and bfloat16."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in KERNELS}
 
     def note(name, key, errs):
@@ -573,7 +666,7 @@ def phase_train_kernels(cw, epi, ffn):
         key = str(dtype).split(".")[-1]
         rel = GRAD_REL[key]
         for S, gates, states in cases:
-            args = kernel_inputs(S, dtype, gates, states, seed=S + 1)
+            args = kernel_inputs(S, dtype, gates, states, seed=S + 1, ws=ws)
             got = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
             torch.cuda.synchronize()
             ref = cw.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
@@ -590,13 +683,13 @@ def phase_train_kernels(cw, epi, ffn):
             rb = cw.mlstm_siging_chunkwise_bw_plain(*bw_args, eps=EPS)
             e_bw = compare_outputs(f"bw S={S} {key}", gb, rb, rel)
             note("chunkwise_bw", key, e_bw)
-            emit({"phase": "train_kernels", "S": S, "dtype": key, "gates": gates,
+            emit({"phase": "train_kernels", "widths": ws.cfg, "S": S, "dtype": key, "gates": gates,
                   "initial_states": states, "dc_last": states, "rel_tol": rel,
                   "fw_train_max_abs_err": e_fw[0], "fw_train_max_rel_err": e_fw[1],
                   "bw_max_abs_err": e_bw[0], "bw_max_rel_err": e_bw[1]})
             del args, got, ref, gb, rb, bw_args
         for S, offset in [(S, 0.0) for S in SEQ_LENS] + [(1000, 0.0), (1600, 30.0)]:
-            e_args, f_args = row_inputs(S, dtype, offset, seed=S + 3)
+            e_args, f_args = row_inputs(S, dtype, offset, seed=S + 3, ws=ws)
             ge = epi.epilogue_bwd(*e_args)
             gf = ffn.ffn_bwd(*f_args)
             torch.cuda.synchronize()
@@ -605,7 +698,8 @@ def phase_train_kernels(cw, epi, ffn):
             e_ffn = compare_outputs(f"ffn S={S} {key}", gf, ffn.ffn_bwd_plain(*f_args), rel)
             note("epilogue_bw", key, e_epi)
             note("ffn_bw", key, e_ffn)
-            emit({"phase": "train_kernels", "S": S, "dtype": key, "mean_offset": offset,
+            emit({"phase": "train_kernels", "widths": ws.cfg, "S": S, "dtype": key,
+                  "mean_offset": offset,
                   "rel_tol": rel, "epilogue_max_abs_err": e_epi[0],
                   "epilogue_max_rel_err": e_epi[1], "ffn_max_abs_err": e_ffn[0],
                   "ffn_max_rel_err": e_ffn[1]})
@@ -763,21 +857,21 @@ def zero_counts(cw, epi, ffn):
     epi.LAUNCHES = ffn.LAUNCHES = 0
 
 
-def phase_train(cw, epi, ffn, steps):
-    """The slice's path: detect_trainer on vil-det-192, TRAIN_STEPS steps."""
+def phase_train(cw, epi, ffn, steps, cfg="vil-det-192.yaml", n_steps=TRAIN_STEPS):
+    """The training path: detect_trainer on ``cfg``, ``n_steps`` steps."""
     import torch
 
     from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
 
     model, state, step = steps.detect_trainer(
-        "vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16,
+        cfg, device="cuda", compute_dtype=torch.bfloat16,
         generator=torch.Generator().manual_seed(0), **TRAIN_OPT)
     perturb_ifgates(model, seed=7)
     state.ema = opt_lib.ema_init(list(state.params.values()))  # of the perturbed model
     expected = expected_step_launches(model)
     p0 = [p.detach().clone() for p in state.params.values()]
     e0 = [e.clone() for e in state.ema.params]
-    batches = [train_batch(B, 640, seed=10 + j) for j in range(TRAIN_STEPS)]
+    batches = [train_batch(B, 640, seed=10 + j) for j in range(n_steps)]
     gen = torch.Generator().manual_seed(8)
     per_step, metrics_log = [], []
     zero_counts(cw, epi, ffn)
@@ -791,9 +885,9 @@ def phase_train(cw, epi, ffn, steps):
     total = counts(cw, epi, ffn)
     moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
     ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
-    emit({"phase": "train", "cfg": "vil-det-192", "batch": B, "imgsz": 640,
+    emit({"phase": "train", "cfg": cfg, "batch": B, "imgsz": 640,
           "compute_dtype": "bfloat16", "param_dtype": "float32", "optimizer": TRAIN_OPT,
-          "ema": True, "steps": TRAIN_STEPS, "state_step": state.step, "metrics": metrics_log,
+          "ema": True, "steps": n_steps, "state_step": state.step, "metrics": metrics_log,
           "launches_per_step": per_step, "expected_per_step": expected,
           "param_max_change": moved, "ema_max_change": ema_moved})
     for m in metrics_log:
@@ -807,18 +901,19 @@ def phase_train(cw, epi, ffn, steps):
     return model, state, step, batches[0], total
 
 
-def phase_train_times(cw, epi, ffn, card: str):
+def phase_train_times(cw, epi, ffn, card: str, ws=FLAGSHIP):
     """Per-call times of the four training kernels at each S (bf16) with
     their plain versions (the train step's time is phase_v1_times')."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     per = {k: {} for k in KERNELS}
     for S in SEQ_LENS:
-        args = kernel_inputs(S, torch.bfloat16, seed=S)
+        args = kernel_inputs(S, torch.bfloat16, seed=S, ws=ws)
         _, _, (cs, _, den) = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
         dh = torch.randn(B, S, H, generator=torch.Generator().manual_seed(S)).to(
             "cuda", torch.bfloat16)
-        e_args, f_args = row_inputs(S, torch.bfloat16, seed=S)
+        e_args, f_args = row_inputs(S, torch.bfloat16, seed=S, ws=ws)
         pairs = {
             "chunkwise_fw_train": (
                 lambda: cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS),
@@ -831,13 +926,12 @@ def phase_train_times(cw, epi, ffn, card: str):
             "ffn_bw": (lambda: ffn.ffn_bwd(*f_args), lambda: ffn.ffn_bwd_plain(*f_args)),
         }
         for name, (kern, plain) in pairs.items():
-            t_plain = time_cuda(plain, iters=3, reps=3)
-            t_kern = time_cuda(kern, iters=10, reps=3) + time_cuda(kern, iters=10, reps=3)
-            t_plain += time_cuda(plain, iters=3, reps=3)
+            n = iters_for(ws, 10)
+            t_kern, t_plain = in_turns(kern, plain, n, 3, ws=ws)
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                   **dict(zip(("bound_ms", "bound_by"), train_bound(name, S)))}
+                   **dict(zip(("bound_ms", "bound_by"), train_bound(name, S, ws=ws)))}
             per[name][S] = row
-            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S,
+            emit({"phase": "times", "widths": ws.cfg, "what": name, "card": card, "B": B, "S": S,
                   "dtype": "bfloat16", **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
         del args, cs, den, dh, e_args, f_args, pairs
 
@@ -889,11 +983,12 @@ def v1_counts(v1) -> dict:
             "chunkwise_v1_bw_dqkv": v1.LAUNCHES_BW_DQKV}
 
 
-def v1_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
+def v1_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda", ws=FLAGSHIP):
     """Flagship-width (B, NH, S, DH) streams, (B, NH, S) gates, states, dh
     and dC_last on the card."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     g = torch.Generator().manual_seed(seed)
     cu = lambda t, d=torch.float32: None if t is None else t.to(device, d)  # noqa: E731
     q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
@@ -906,7 +1001,7 @@ def v1_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
 
 
 def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False,
-             save: bool = True):
+             save: bool = True, ws=FLAGSHIP):
     """Least time for one call of a v1 or exp kernel at batch B in ms: each
     input read once and each output written once over HBM bandwidth,
     against the causal products at the bf16 peak (PERF.md).  ``states``:
@@ -915,6 +1010,7 @@ def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False,
     states only (predict).  The exp kernels move m_comb per row (f32) and m
     (forward) or [m_prev, gbar | m_new] (backward) per chunk besides, and
     write dq, dk, dv in the input dtype."""
+    B, NH, DH, H, D, U = ws.dims
     NC = S // L
     rows, st = B * NH * S, B * NH * (DH * DH + DH) * 4
     stream, gate = rows * DH * itemsize, rows * 4
@@ -942,22 +1038,23 @@ def v1_bound(name: str, S: int, L: int, itemsize: int = 2, states: bool = False,
     return _bound(nbytes, flops)
 
 
-def phase_v1_kernels(v1, shapes, device="cuda"):
+def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
     """The three v1 kernels against their plain versions at the flagship
-    shapes (B 8, NH 12, DH 32) and every (S, L) the route gives them:
+    shapes (B 8, NH 12, DH 32; or ``ws``) and every (S, L) the route gives them:
     float32 streams with float32 products (1e-4), and the route's own
     bfloat16 streams and products (2e-2), relative to each output's
     largest |value|; initial states and dC_last on the inference segments,
     closed forget gates on one case."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in V1_KERNELS}
     cases = [(S, L, "open", states) for (S, L), states in shapes] + [(2048, 512, "closed", True)]
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
         rel = GRAD_REL[key]
         for S, L, gates, states in cases:
-            args, dh, dcl = v1_inputs(S, dtype, gates, states, seed=S + L, device=device)
+            args, dh, dcl = v1_inputs(S, dtype, gates, states, seed=S + L, device=device, ws=ws)
             kw = dict(chunk_size=L, eps=EPS, compute_dtype=dtype)
             got = v1.chunkwise_fw(*args, **kw)
             torch.cuda.synchronize()
@@ -975,21 +1072,22 @@ def phase_v1_kernels(v1, shapes, device="cuda"):
             e_qkv = compare_outputs(f"v1 bw_dqkv S={S} L={L} {key}", got_b, ref_b, rel)
             for name, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv)):
                 worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
-            emit({"phase": "v1_kernels", "S": S, "L": L, "dtype": key, "compute_dtype": key,
+            emit({"phase": "v1_kernels", "widths": ws.cfg, "S": S, "L": L, "dtype": key,
+                  "compute_dtype": key,
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
                   **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))}})
             del args, dh, dcl, got, ref, got_b, ref_b, dcs, rdcs
     return worst
 
 
-def phase_v1_predict(v1, cw, yolo):
+def phase_v1_predict(v1, cw, yolo, n_images: int = 10):
     """The predict path on the v1 route: YOLO(..., chunkwise_kernel=V1)
     on the images of phase_predict, held to the derived launch count."""
     import numpy as np
 
     plan = v1_plan(yolo.model)
     per_forward = sum(plan["infer"].values())
-    images = synthetic_images(10, seed=5)  # batches of 8 and 2: two forwards
+    images = synthetic_images(n_images, seed=5)  # 10: batches of 8 and 2, two forwards
     forwards = -(-len(images) // B)
     cw.LAUNCHES = v1.LAUNCHES_FW = v1.LAUNCHES_BW_DC = v1.LAUNCHES_BW_DQKV = 0
     results = yolo.predict(images, batch=B, conf=0.0)
@@ -997,7 +1095,7 @@ def phase_v1_predict(v1, cw, yolo):
     ok = len(results) == len(images) and all(
         np.isfinite(r.boxes.data).all() and r.orig_img.shape == im.shape
         for r, im in zip(results, images))
-    emit({"phase": "v1_predict", "cfg": "vil-det-192", "chunkwise_kernel": V1,
+    emit({"phase": "v1_predict", "cfg": cfg_name(yolo), "chunkwise_kernel": V1,
           "dtype": "bfloat16", "images": len(images), "batch": B, "launches": launches,
           "forwards": forwards, "expected": forwards * per_forward, "per_forward": per_forward,
           "segments_per_forward": {f"{S}@{L}": n for (S, L), n in sorted(plan["infer"].items())},
@@ -1011,9 +1109,10 @@ def phase_v1_predict(v1, cw, yolo):
     return launches
 
 
-def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, device="cuda"):
+def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, device="cuda",
+                   n_steps=TRAIN_STEPS):
     """The training path on the v1 route: detect_trainer(..., chunkwise_kernel
-    =V1), TRAIN_STEPS bf16 steps, exact launches per step."""
+    =V1), n_steps bf16 steps, exact launches per step."""
     import torch
 
     from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
@@ -1027,7 +1126,7 @@ def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, d
     layers = expected["chunkwise_v1_bw_dc"]
     p0 = [p.detach().clone() for p in state.params.values()]
     e0 = [e.clone() for e in state.ema.params]
-    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(n_steps)]
     gen = torch.Generator().manual_seed(8)
     all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1)}  # noqa: E731
     zero_counts(cw, epi, ffn)
@@ -1043,8 +1142,8 @@ def phase_v1_train(v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640, d
     total = v1_counts(v1)
     moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
     ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
-    emit({"phase": "v1_train", "cfg": "vil-det-192", "chunkwise_kernel": V1, "batch": B,
-          "imgsz": 640, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+    emit({"phase": "v1_train", "cfg": cfg, "chunkwise_kernel": V1, "batch": B,
+          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": n_steps,
           "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
           "param_max_change": moved, "ema_max_change": ema_moved})
     for m in metrics_log:
@@ -1075,12 +1174,13 @@ def zero_route_counts(v1, ex):
     ex.LAUNCHES_FW = ex.LAUNCHES_BW_DC = ex.LAUNCHES_BW_DQKV = 0
 
 
-def exp_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
+def exp_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda", ws=FLAGSHIP):
     """Flagship-width (B, NH, S, DH) streams, (B, NH, S) gates (open: i ~
     N(0, 1), f ~ N(2, 1); closed: f ~ U(-60, -20); large_i: i ~ U(5, 15)),
     initial (C, n, m), dh and dC_last on the card."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     g = torch.Generator().manual_seed(seed)
     cu = lambda t, d=torch.float32: None if t is None else t.to(device, d)  # noqa: E731
     q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
@@ -1094,9 +1194,9 @@ def exp_inputs(S, dtype, gates="open", states=False, seed=0, device="cuda"):
     return (q, k, v, i, f, c0, n0, m0), dh, dcl
 
 
-def phase_exp_kernels(ex, shapes, device="cuda"):
+def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
     """The three exp kernels against their plain versions at the flagship
-    shapes (B 8, NH 12, DH 32) and every (S, L) the route gives them, open
+    shapes (B 8, NH 12, DH 32; or ``ws``) and every (S, L) the route gives them, open
     gates, with initial (C, n, m) and dC_last on the inference segments; and
     at EXP_REGIMES with closed forget gates and with large input gates.
     float32 streams and products (1e-4) and the route's bfloat16 (2e-2),
@@ -1108,6 +1208,7 @@ def phase_exp_kernels(ex, shapes, device="cuda"):
     must equal the training variant's bit for bit."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in EXP_KERNELS}
     cases = [(S, L, "open", states) for (S, L), states in shapes] + [
         (S, L, gates, states) for gates in ("closed", "large_i") for S, L, states in EXP_REGIMES]
@@ -1115,7 +1216,8 @@ def phase_exp_kernels(ex, shapes, device="cuda"):
         key = str(dtype).split(".")[-1]
         rel = GRAD_REL[key]
         for S, L, gates, states in cases:
-            args, dh, dcl = exp_inputs(S, dtype, gates, states, seed=S + L + 1, device=device)
+            args, dh, dcl = exp_inputs(S, dtype, gates, states, seed=S + L + 1, device=device,
+                                        ws=ws)
             kw = dict(chunk_size=L, eps=EPS, compute_dtype=dtype)
             got = ex.chunkwise_exp_fw(*args, **kw)
             got_p = ex.chunkwise_exp_fw(*args, save_states=False, **kw)
@@ -1145,7 +1247,8 @@ def phase_exp_kernels(ex, shapes, device="cuda"):
             e_qkv = compare_outputs(f"exp bw_dqkv S={S} L={L} {gates} {key}", got_b, ref_b, rel)
             for name, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv)):
                 worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
-            emit({"phase": "exp_kernels", "S": S, "L": L, "dtype": key, "compute_dtype": key,
+            emit({"phase": "exp_kernels", "widths": ws.cfg, "S": S, "L": L, "dtype": key,
+                  "compute_dtype": key,
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
                   "m_last_range": [m_last.min().item(), m_last.max().item()],
                   "h_max_rel_err": h_rel,
@@ -1154,7 +1257,7 @@ def phase_exp_kernels(ex, shapes, device="cuda"):
     return worst
 
 
-def phase_exp_predict(ex, v1, cw, yolo):
+def phase_exp_predict(ex, v1, cw, yolo, n_images: int = 10):
     """The predict path on the exp route: YOLO(..., chunkwise_kernel=EXP)
     on the images of phase_predict, held to the launch count derived from
     the wrappers' segment plan (the v1 route's plan), no v1 or v2 launch."""
@@ -1162,7 +1265,7 @@ def phase_exp_predict(ex, v1, cw, yolo):
 
     plan = v1_plan(yolo.model)
     per_forward = sum(plan["infer"].values())
-    images = synthetic_images(10, seed=5)  # batches of 8 and 2: two forwards
+    images = synthetic_images(n_images, seed=5)  # 10: batches of 8 and 2, two forwards
     forwards = -(-len(images) // B)
     cw.LAUNCHES = 0
     zero_route_counts(v1, ex)
@@ -1175,7 +1278,7 @@ def phase_exp_predict(ex, v1, cw, yolo):
         ok &= bool(r.orig_img.shape == im.shape and np.isfinite(d).all()
                    and (d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all()
                    and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= h).all())
-    emit({"phase": "exp_predict", "cfg": "vil-det-192", "chunkwise_kernel": EXP,
+    emit({"phase": "exp_predict", "cfg": cfg_name(yolo), "chunkwise_kernel": EXP,
           "dtype": "bfloat16", "images": len(images), "batch": B, "launches": launches,
           "forwards": forwards, "expected": forwards * per_forward, "per_forward": per_forward,
           "segments_per_forward": {f"{S}@{L}": n for (S, L), n in sorted(plan["infer"].items())},
@@ -1192,9 +1295,9 @@ def phase_exp_predict(ex, v1, cw, yolo):
 
 
 def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640,
-                    device="cuda"):
+                    device="cuda", n_steps=TRAIN_STEPS):
     """The training path on the exp route: detect_trainer(...,
-    chunkwise_kernel=EXP), TRAIN_STEPS bf16 steps, exact launches per step."""
+    chunkwise_kernel=EXP), n_steps bf16 steps, exact launches per step."""
     import torch
 
     from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
@@ -1212,7 +1315,7 @@ def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=6
              "ffn_bw": n, **{k: 0 for k in V1_KERNELS}}
     p0 = [p.detach().clone() for p in state.params.values()]
     e0 = [e.clone() for e in state.ema.params]
-    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(n_steps)]
     gen = torch.Generator().manual_seed(8)
     all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1), **exp_counts(ex)}  # noqa: E731
     zero_counts(cw, epi, ffn)
@@ -1228,8 +1331,8 @@ def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=6
     total = exp_counts(ex)
     moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
     ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
-    emit({"phase": "exp_train", "cfg": "vil-det-192", "chunkwise_kernel": EXP, "batch": B,
-          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+    emit({"phase": "exp_train", "cfg": cfg, "chunkwise_kernel": EXP, "batch": B,
+          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": n_steps,
           "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
           "param_max_change": moved, "ema_max_change": ema_moved})
     for m in metrics_log:
@@ -1240,7 +1343,7 @@ def phase_exp_train(ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=6
     for s_ in per_step:
         if any(s_[k] != c for k, c in {**expected, **other}.items()):
             raise AssertionError(f"exp train step launches {s_}, expected {expected} and {other}")
-    return model, state, step, batches[0], total, expected
+    return model, state, step, batches[0], total
 
 
 @contextlib.contextmanager
@@ -1394,12 +1497,13 @@ def zero_par_counts(pk):
     pk.LAUNCHES_FW = pk.LAUNCHES_BW_DQ = pk.LAUNCHES_BW_DKV = 0
 
 
-def par_inputs(S, dtype, gates="open", seed=0, device="cuda"):
+def par_inputs(S, dtype, gates="open", seed=0, device="cuda", ws=FLAGSHIP):
     """Flagship-width (B, NH, S, DH) streams and dh, (B, NH, S) gates (open:
     i ~ N(0, 1), f ~ U(3, 6), the flagship's forget-gate bias range; closed:
     f ~ U(-60, -20)) on the card."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     g = torch.Generator().manual_seed(seed)
     cu = lambda t, d=torch.float32: t.to(device, d)  # noqa: E731
     q, k, v, dh = (cu(torch.randn(B, NH, S, DH, generator=g), dtype) for _ in range(4))
@@ -1409,7 +1513,7 @@ def par_inputs(S, dtype, gates="open", seed=0, device="cuda"):
     return (q, k, v, i, f), dh
 
 
-def parallel_bound(name: str, S: int, itemsize: int = 2) -> tuple[float, str]:
+def parallel_bound(name: str, S: int, itemsize: int = 2, ws=FLAGSHIP) -> tuple[float, str]:
     """Least time for one call of a quadratic kernel at batch B in ms: each
     input read once and each output written once over HBM bandwidth (the
     forward: q, k, v, i, f in, h, den out; dq: k, v, dh, i, f, den in, dq
@@ -1417,6 +1521,7 @@ def parallel_bound(name: str, S: int, itemsize: int = 2) -> tuple[float, str]:
     products over the S (S + 1) / 2 causal pairs at the bf16 peak (2 DH
     flop a pair per product: the forward and dq two products, dk/dv
     four)."""
+    B, NH, DH, H, D, U = ws.dims
     rows = B * NH * S
     stream, gate = rows * DH * itemsize, rows * 4
     pairs = B * NH * S * (S + 1) / 2
@@ -1425,11 +1530,12 @@ def parallel_bound(name: str, S: int, itemsize: int = 2) -> tuple[float, str]:
     return _bound(streams * stream + 3 * gate, products * 2 * DH * pairs)
 
 
-def step_bound(itemsize: int) -> tuple[float, str]:
-    """Least time for one step-kernel call at B 8, NH 12, DH 32 in ms: q, k,
+def step_bound(itemsize: int, ws=FLAGSHIP) -> tuple[float, str]:
+    """Least time for one step-kernel call at B, NH, DH of ``ws`` in ms: q, k,
     v, i, f, C, n read and h, C', n' written once over HBM bandwidth,
     against 6 DH^2 + 6 DH float32 operations a head (the C update 4 DH^2,
     q C' 2 DH^2, n and q . n' 6 DH) at the float32 peak."""
+    B, NH, DH, H, D, U = ws.dims
     heads = B * NH
     nbytes = heads * (4 * DH * itemsize + 2 * 4 + 2 * (DH * DH + DH) * 4)
     flops = heads * (6 * DH * DH + 6 * DH)
@@ -1443,6 +1549,7 @@ def plain_in_slices(fn, args, S):
     (B, NH, ...).  ``args``: the (B, NH, ...) tensors it takes."""
     import torch
 
+    B, NH = args[0].shape[:2]
     n = max(1, min(B * NH, int(PLAIN_SLICE_BYTES // (S * S * 4))))
     flat = [a.reshape(B * NH, 1, *a.shape[2:]) for a in args]
     outs = [fn(*(a[j:j + n] for a in flat)) for j in range(0, B * NH, n)]
@@ -1451,9 +1558,9 @@ def plain_in_slices(fn, args, S):
     return joined if len(joined) > 1 else joined[0]
 
 
-def phase_parallel_kernels(pk, lengths):
+def phase_parallel_kernels(pk, lengths, ws=FLAGSHIP):
     """The three quadratic kernels against their plain versions at the
-    flagship shapes (B 8, NH 12, DH 32) and at each S the route pads the
+    flagship shapes (B 8, NH 12, DH 32; or ``ws``) and at each S the route pads the
     flagship's sequences to, float32 (products float32) and bfloat16
     (products bfloat16), with open and with closed forget gates; the plain
     versions run over slices of batch * head (plain_in_slices).  Each
@@ -1461,13 +1568,14 @@ def phase_parallel_kernels(pk, lengths):
     the forward kernel's den, given to both sides."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {k: {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]} for k in PAR_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
         rel = GRAD_REL[key]
         for S in lengths:
             for gates in ("open", "closed"):
-                args, dh = par_inputs(S, dtype, gates, seed=S + (gates == "closed"))
+                args, dh = par_inputs(S, dtype, gates, seed=S + (gates == "closed"), ws=ws)
                 kw = dict(eps=EPS, compute_dtype=dtype)
                 h, den = pk.parallel_fw(*args, **kw)
                 dq = pk.parallel_bw_dq(*args, den, dh, **kw)
@@ -1487,7 +1595,8 @@ def phase_parallel_kernels(pk, lengths):
                         plain_in_slices(plain["parallel_bw_dkv"], (*args, den, dh), S), rel)}
                 for name, e in errs.items():
                     worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
-                emit({"phase": "parallel_kernels", "S": S, "dtype": key, "compute_dtype": key,
+                emit({"phase": "parallel_kernels", "widths": ws.cfg, "S": S, "dtype": key,
+                      "compute_dtype": key,
                       "gates": gates, "rel_tol": rel,
                       "den_gt_1_share": (den > 1).float().mean().item(),
                       **{f"{n}_max_rel_err": e[1] for n, e in errs.items()}})
@@ -1496,9 +1605,9 @@ def phase_parallel_kernels(pk, lengths):
 
 
 def phase_parallel_train(pk, ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml", imgsz=640,
-                         device="cuda"):
+                         device="cuda", n_steps=TRAIN_STEPS):
     """The training path on the quadratic route: detect_trainer(...,
-    chunkwise_kernel=PAR), TRAIN_STEPS bf16 steps, exact launches per step:
+    chunkwise_kernel=PAR), n_steps bf16 steps, exact launches per step:
     one forward, dq and dk/dv call per layer at S padded to whole chunks of
     the layer's chunk (the pad wrapper's), one more forward per layer of a
     rematerialised pair; no v1, v2 or exp cell launch."""
@@ -1519,7 +1628,7 @@ def phase_parallel_train(pk, ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml"
              "ffn_bw": n, **{k: 0 for k in V1_KERNELS + EXP_KERNELS}}
     p0 = [p.detach().clone() for p in state.params.values()]
     e0 = [e.clone() for e in state.ema.params]
-    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(TRAIN_STEPS)]
+    batches = [train_batch(B, imgsz, seed=10 + j, device=device) for j in range(n_steps)]
     gen = torch.Generator().manual_seed(8)
     all_counts = lambda: {**counts(cw, epi, ffn), **v1_counts(v1), **exp_counts(ex),  # noqa: E731
                           **par_counts(pk)}
@@ -1537,8 +1646,8 @@ def phase_parallel_train(pk, ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml"
     total = par_counts(pk)
     moved = max((p.detach() - a).abs().max().item() for p, a in zip(state.params.values(), p0))
     ema_moved = max((e - a).abs().max().item() for e, a in zip(state.ema.params, e0))
-    emit({"phase": "parallel_train", "cfg": "vil-det-192", "chunkwise_kernel": PAR, "batch": B,
-          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": TRAIN_STEPS,
+    emit({"phase": "parallel_train", "cfg": cfg, "chunkwise_kernel": PAR, "batch": B,
+          "imgsz": imgsz, "compute_dtype": "bfloat16", "steps": n_steps,
           "padded_lengths_per_step": {f"{S}@{L}": c for (S, L), c in sorted(plan["train"].items())},
           "metrics": metrics_log, "launches_per_step": per_step, "expected_per_step": expected,
           "param_max_change": moved, "ema_max_change": ema_moved})
@@ -1551,7 +1660,7 @@ def phase_parallel_train(pk, ex, v1, cw, epi, ffn, steps, cfg="vil-det-192.yaml"
         if any(s_[k] != c for k, c in {**expected, **other}.items()):
             raise AssertionError(f"parallel train step launches {s_}, expected {expected} and "
                                  f"{other}")
-    return model, state, step, batches[0], total, expected
+    return model, state, step, batches[0], total
 
 
 def phase_parallel_grads(pk, steps, device="cuda"):
@@ -1560,11 +1669,12 @@ def phase_parallel_grads(pk, steps, device="cuda"):
                       lambda: par_counts(pk), steps, device=device)
 
 
-def step_inputs(dtype, gates, seed):
+def step_inputs(dtype, gates, seed, ws=FLAGSHIP):
     """One token at the flagship's heads: q, k, v (B, NH, DH), gates (B,
     NH) (open: i ~ N(0, 2), f ~ N(2, 1); closed: f ~ U(-60, -20)), C, n."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     g = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(B, NH, DH, generator=g).to("cuda", dtype) for _ in range(3))
     i = (torch.randn(B, NH, generator=g) * 2).cuda()
@@ -1574,8 +1684,8 @@ def step_inputs(dtype, gates, seed):
     return q, k, v, i, f, c, n
 
 
-def phase_step_kernel(stp):
-    """The step kernel against ``mlstm_siging_step`` at B 8, NH 12, DH 32:
+def phase_step_kernel(stp, ws=FLAGSHIP):
+    """The step kernel against ``mlstm_siging_step`` at B 8, NH 12, DH 32 (or ``ws``):
     q, k, v float32 and bfloat16, C and n float32, open and closed forget
     gates; h within GRAD_REL of its largest |value|, (C', n') within
     GRAD_REL["float32"]."""
@@ -1583,11 +1693,12 @@ def phase_step_kernel(stp):
 
     from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
+    B, NH, DH, H, D, U = ws.dims
     worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype).split(".")[-1]
         for gates in ("open", "closed"):
-            args = step_inputs(dtype, gates, seed=3 + (gates == "closed"))
+            args = step_inputs(dtype, gates, seed=3 + (gates == "closed"), ws=ws)
             h, (c, n) = stp.mlstm_siging_step_kernel(*args, eps=EPS)
             torch.cuda.synchronize()
             hp, (cp, np_) = mlstm_siging_step(*args, eps=EPS)
@@ -1595,15 +1706,38 @@ def phase_step_kernel(stp):
             e_s = compare_outputs(f"step state {gates} {key}", (c, n), (cp, np_),
                                   GRAD_REL["float32"])
             worst[key] = [max(a, b, c_) for a, b, c_ in zip(worst[key], e_h, e_s)]
-            emit({"phase": "step_kernel", "dtype": key, "gates": gates, "B": B, "NH": NH,
+            emit({"phase": "step_kernel", "widths": ws.cfg, "dtype": key, "gates": gates, "B": B,
+                  "NH": NH,
                   "DH": DH, "h_max_rel_err": e_h[1], "state_max_rel_err": e_s[1],
                   "rel_tol": {"h": GRAD_REL[key], "state": GRAD_REL["float32"]}})
     return worst
 
 
-def phase_decode(stp, card: str):
-    """The stateful cell's decode: MatrixLSTMCell(384, 12, step_kernel=
-    "step--pallas") of vil-det-192's width, in eval, weights from seed 0,
+def step_times(stp, ws=FLAGSHIP) -> dict:
+    """Per-call times of the step kernel and the plain step at one token,
+    float32 and bfloat16, in turns plain, kernel, kernel, plain."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
+
+    per_call = {}
+    for key, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = step_inputs(dtype, "open", seed=11, ws=ws)
+        kern = lambda: stp.mlstm_siging_step_kernel(*args, eps=EPS)  # noqa: E731
+        plain = lambda: mlstm_siging_step(*args, eps=EPS)  # noqa: E731
+        t_plain = time_cuda(plain, iters=50, reps=3)
+        t_kern = time_cuda(kern, iters=200, reps=3) + time_cuda(kern, iters=200, reps=3)
+        t_plain += time_cuda(plain, iters=50, reps=3)
+        per_call[key] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                         **dict(zip(("bound_ms", "bound_by"), step_bound(dtype.itemsize, ws=ws))),
+                         "ms_runs": t_kern, "plain_ms_runs": t_plain}
+    return per_call
+
+
+def phase_decode(stp, card: str, ws=FLAGSHIP):
+    """The stateful cell's decode: MatrixLSTMCell(H, NH, step_kernel=
+    "step--pallas") of the detector's width (vil-det-192: 384, 12;
+    vil-det-384: 768, 6), in eval, weights from seed 0,
     perturbed ifgates, float32.  DECODE_TOKENS tokens one at a time with
     ``state=`` from zeros, each exactly one step-kernel launch; h of every
     token and the final (C, n) against one stateful call over the tokens
@@ -1613,8 +1747,8 @@ def phase_decode(stp, card: str):
     import torch
 
     from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell, reset_parameters
-    from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
+    B, NH, DH, H, D, U = ws.dims
     cell = MatrixLSTMCell(H, NH, step_kernel="step--pallas")
     reset_parameters(cell, torch.Generator().manual_seed(0))
     perturb_ifgates(cell, seed=9)
@@ -1645,21 +1779,11 @@ def phase_decode(stp, card: str):
             decode()
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) / DECODE_TOKENS * 1e6)
-    per_call = {}
-    for key, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        args = step_inputs(dtype, "open", seed=11)
-        kern = lambda: stp.mlstm_siging_step_kernel(*args, eps=EPS)  # noqa: E731
-        plain = lambda: mlstm_siging_step(*args, eps=EPS)  # noqa: E731
-        t_plain = time_cuda(plain, iters=50, reps=3)
-        t_kern = time_cuda(kern, iters=200, reps=3) + time_cuda(kern, iters=200, reps=3)
-        t_plain += time_cuda(plain, iters=50, reps=3)
-        per_call[key] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                         **dict(zip(("bound_ms", "bound_by"), step_bound(dtype.itemsize))),
-                         "ms_runs": t_kern, "plain_ms_runs": t_plain}
+    per_call = step_times(stp, ws)
     out = {"launches": launches, "max_abs_err": errs[0], "max_rel_err": errs[1],
            "us_per_token": statistics.median(runs), "us_per_token_runs": runs,
            "per_call": per_call}
-    emit({"phase": "decode", "card": card, "cell": f"MatrixLSTMCell({H}, {NH})",
+    emit({"phase": "decode", "widths": ws.cfg, "card": card, "cell": f"MatrixLSTMCell({H}, {NH})",
           "step_kernel": "step--pallas", "batch": B, "tokens": DECODE_TOKENS,
           "dtype": "float32", **out, "rel_tol": GRAD_REL["float32"],
           "note": "us_per_token: host clock around a decode of 64 tokens (the whole cell: "
@@ -1692,16 +1816,17 @@ def phase_refusal(pk):
     raise AssertionError("predict on the quadratic route was not refused")
 
 
-def phase_parallel_times(pk, card: str, plan):
+def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
     """Per-call times of the three quadratic kernels (bf16 streams and
     products) at each padded S of the route beside their plain versions (in
     slices of batch * head, plain_in_slices, timed as a whole) and bounds,
     in turns plain, kernel, kernel, plain."""
     import torch
 
+    B, NH, DH, H, D, U = ws.dims
     per = {k: {} for k in PAR_KERNELS}
     for S in sorted({S for S, _ in plan["train"]}):
-        args, dh = par_inputs(S, torch.bfloat16, seed=S + 2)
+        args, dh = par_inputs(S, torch.bfloat16, seed=S + 2, ws=ws)
         _, den = pk.parallel_fw(*args)
         bw = (*args, den, dh)
         pairs = {"parallel_fw": (lambda: pk.parallel_fw(*args),
@@ -1716,9 +1841,9 @@ def phase_parallel_times(pk, card: str, plan):
                                                                               warm_s=0.0)
             t_plain += time_cuda(plain, iters=1, reps=2, warm_s=0.0)
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                   **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S)))}
+                   **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S, ws=ws)))}
             per[name][S] = row
-            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S,
+            emit({"phase": "times", "widths": ws.cfg, "what": name, "card": card, "B": B, "S": S,
                   "dtype": "bfloat16", "calls_per_step": sum(
                       n for (s, _), n in plan["train"].items() if s == S) + (sum(
                           n for (s, _), n in plan["remat"].items() if s == S)
@@ -1767,20 +1892,16 @@ def time_step(step, state, batch, windows: int):
             **device_busy(prof, start.elapsed_time(end))}
 
 
-def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
+def v1_times(v1, card: str, plan, ws=FLAGSHIP, device="cuda"):
     """Per-call times of the v1 kernels (bf16) at each (S, L) of the route
-    beside their plain versions and bounds; the two backward designs at the
-    same chunk, L = 64 (v1: the dC scan, then chunk-parallel dq/dk/dv; v2:
-    one serial pass); and the v1 predict forward on device input."""
+    beside their plain versions and bounds."""
     import torch
-
-    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
     shapes = sorted(set(plan["train"]) | set(plan["infer"]))
     per = {k: {} for k in V1_KERNELS}
     for S, L in shapes:
         infer = (S, L) in plan["infer"]
-        args, dh, _ = v1_inputs(S, torch.bfloat16, states=infer, seed=S, device=device)
+        args, dh, _ = v1_inputs(S, torch.bfloat16, states=infer, seed=S, device=device, ws=ws)
         kw = dict(chunk_size=L, eps=EPS)
         _, den, cs, *_ = v1.chunkwise_fw(*args, **kw)
         q, k, v, i, f = args[:5]
@@ -1795,19 +1916,33 @@ def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
                 lambda: v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, dcs, **kw),
                 lambda: v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, dcs, **kw))
         for name, (kern, plain) in pairs.items():
-            t_plain = time_cuda(plain, iters=2, reps=2)
-            t_kern = time_cuda(kern, iters=10, reps=3) + time_cuda(kern, iters=10, reps=3)
-            t_plain += time_cuda(plain, iters=2, reps=2)
+            n = iters_for(ws, 10)
+            t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                    **dict(zip(("bound_ms", "bound_by"),
-                              v1_bound(name, S, L, states=infer and name == "chunkwise_v1_fw")))}
+                              v1_bound(name, S, L, states=infer and name == "chunkwise_v1_fw",
+                                       ws=ws)))}
             per[name][(S, L)] = row
-            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S, "L": L,
-                  "dtype": "bfloat16", "calls_per_forward": plan["infer"].get((S, L), 0),
+            emit({"phase": "times", "what": name, "widths": ws.cfg, "card": card, "B": ws.B,
+                  "S": S, "L": L, "dtype": "bfloat16",
+                  "calls_per_forward": plan["infer"].get((S, L), 0),
                   "calls_per_step": (plan["train"].get((S, L), 0)
                                      + (plan["remat"].get((S, L), 0) if "fw" in name else 0)),
                   **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
         del args, dh, den, cs, dcs, pairs
+    return per
+
+
+def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
+    """Per-call times of the v1 kernels (v1_times); the two backward designs
+    at the same chunk, L = 64 (v1: the dC scan, then chunk-parallel
+    dq/dk/dv; v2: one serial pass); and the v1 predict forward on device
+    input."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+
+    per = v1_times(v1, card, plan, device=device)
 
     # the same work on both backward designs at L = 64 (448: 400 padded to whole chunks)
     for S in (6400, 1600, 448):
@@ -1864,25 +1999,18 @@ def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
     return per
 
 
-def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
+def exp_times(ex, card: str, plan, ws=FLAGSHIP, device="cuda"):
     """Per-call times of the exp kernels (bf16) at each (S, L) of the route
     beside their plain versions and bounds (the predict variant of the
     forward at the inference segments, the training variant at the padded
-    training lengths); the exp and v2 predict forwards on device input in
-    turns (v2, exp, exp, v2); a trace of three exp forwards (busy share); and
-    the share of the exp forward taken by its recurrent tails (each tail
-    timed between two synchronises, in an instrumented forward)."""
+    training lengths)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
-    from xlstm_yolo_tpu_torch.ops import backend
 
     shapes = sorted(set(plan["train"]) | set(plan["infer"]))
     per = {k: {} for k in EXP_KERNELS}
     for S, L in shapes:
         infer = (S, L) in plan["infer"]
-        args, dh, _ = exp_inputs(S, torch.bfloat16, states=infer, seed=S, device=device)
+        args, dh, _ = exp_inputs(S, torch.bfloat16, states=infer, seed=S, device=device, ws=ws)
         kw = dict(chunk_size=L, eps=EPS)
         _, den, mc, cs, ms, (_, _, m_last) = ex.chunkwise_exp_fw(*args, **kw)
         q, k, v, i, f = args[:5]
@@ -1901,22 +2029,38 @@ def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
                 lambda: ex.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc, mrow_qkv, dh,
                                                        dcs, **kw))
         for name, (kern, plain) in pairs.items():
-            t_plain = time_cuda(plain, iters=2, reps=2)
-            t_kern = time_cuda(kern, iters=10, reps=3) + time_cuda(kern, iters=10, reps=3)
-            t_plain += time_cuda(plain, iters=2, reps=2)
+            n = iters_for(ws, 10)
+            t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
             fw = name == "chunkwise_exp_fw"
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                    **dict(zip(("bound_ms", "bound_by"),
-                              v1_bound(name, S, L, states=infer and fw, save=not infer)))}
+                              v1_bound(name, S, L, states=infer and fw, save=not infer,
+                                       ws=ws)))}
             per[name][(S, L)] = row
-            emit({"phase": "times", "what": name, "card": card, "B": B, "S": S, "L": L,
-                  "dtype": "bfloat16", "variant": ("predict" if infer else "train") if fw else "",
+            emit({"phase": "times", "what": name, "widths": ws.cfg, "card": card, "B": ws.B,
+                  "S": S, "L": L, "dtype": "bfloat16",
+                  "variant": ("predict" if infer else "train") if fw else "",
                   "calls_per_forward": plan["infer"].get((S, L), 0),
                   "calls_per_step": (plan["train"].get((S, L), 0)
                                      + (plan["remat"].get((S, L), 0) if fw else 0)),
                   **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
         del args, dh, den, mc, cs, ms, dcs, pairs
+    return per
 
+
+def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
+    """Per-call times of the exp kernels (exp_times); the exp and v2 predict
+    forwards on device input in turns (v2, exp, exp, v2); a trace of three
+    exp forwards (busy share); and the share of the exp forward taken by its
+    recurrent tails (each tail timed between two synchronises, in an
+    instrumented forward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from xlstm_yolo_tpu_torch.ops import backend
+
+    per = exp_times(ex, card, plan, device=device)
     preds = {route: DetectionPredictor({"imgsz": y.imgsz, "batch": B}, y.model, y.names)
              for route, y in (("v2", yolo_v2), ("exp", yolo_exp))}
     batch = preds["exp"].preprocess(synthetic_images(B, seed=6))
@@ -1993,25 +2137,41 @@ def phase_step_times(card: str, routes):
     return steps_ms
 
 
+
+
+def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False):
+    """Per-call times of the inference forward (``fused_ln``: with the
+    per-head LayerNorm fused in) at each S (bf16) beside its plain version
+    and bound, in turns plain, kernel, kernel, plain."""
+    import torch
+
+    per_s = {}
+    for S in SEQ_LENS:
+        args = kernel_inputs(S, torch.bfloat16, seed=S, ws=ws)
+        what = "chunkwise_fw_ln" if fused_ln else "chunkwise_fw"
+        if fused_ln:
+            ln = ln_params(ws, seed=S)
+            plain = lambda: cw.mlstm_siging_chunkwise_fw_ln_plain(*args[:6], *ln, *args[6:],
+                                                                    eps=EPS)
+            kern = lambda: cw.mlstm_siging_chunkwise_fw_ln(*args[:6], *ln, *args[6:], eps=EPS)
+        else:
+            plain = lambda: cw.mlstm_siging_chunkwise_fw_plain(*args, eps=EPS)
+            kern = lambda: cw.mlstm_siging_chunkwise_fw(*args, eps=EPS)
+        t_kern, t_plain = in_turns(kern, plain, iters_for(ws, 20), 3, kern_reps=5, ws=ws)
+        per_s[S] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+                    **dict(zip(("bound_ms", "bound_by"), bound(S, ws=ws, fused_ln=fused_ln)))}
+        emit({"phase": "times", "what": what, "widths": ws.cfg, "card": card, "B": ws.B, "S": S,
+              "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16", **per_s[S], "ms_runs": t_kern,
+              "plain_ms_runs": t_plain})
+    return per_s
+
+
 def phase_times(cw, yolo, card: str):
     import torch
 
     from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
-    per_s = {}
-    for S in SEQ_LENS:
-        args = kernel_inputs(S, torch.bfloat16, seed=S)
-        plain = lambda: cw.mlstm_siging_chunkwise_fw_plain(*args, eps=EPS)
-        kern = lambda: cw.mlstm_siging_chunkwise_fw(*args, eps=EPS)
-        # plain, kernel, kernel, plain: a drift of the card shows as a spread
-        t_plain = time_cuda(plain, iters=3, reps=3)
-        t_kern = time_cuda(kern, iters=20) + time_cuda(kern, iters=20)
-        t_plain += time_cuda(plain, iters=3, reps=3)
-        per_s[S] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                    **dict(zip(("bound_ms", "bound_by"), bound(S)))}
-        emit({"phase": "times", "what": "chunkwise_fw", "card": card, "B": B, "S": S, "NH": NH,
-              "DH": DH, "dtype": "bfloat16", **per_s[S], "ms_runs": t_kern,
-              "plain_ms_runs": t_plain})
+    per_s = fw_times(cw, card)
 
     predictor = DetectionPredictor({"imgsz": 640, "batch": B}, yolo.model, yolo.names)
     batch = predictor.preprocess(synthetic_images(B, seed=6))  # device-resident uint8
@@ -2049,6 +2209,236 @@ def phase_times(cw, yolo, card: str):
     emit({"phase": "times", "what": "forward_breakdown", "card": card, "forwards": 3,
           "forward_ms_unprofiled": t_fwd, **device_busy(prof, start.elapsed_time(end))})
     return per_s
+
+
+def ln_params(ws, seed: int):
+    """The fused LayerNorm's (1 + w, b), (H,) float32 on the card, w ~ 0.3
+    N(0, 1), b ~ 0.1 N(0, 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return ((1.0 + 0.3 * torch.randn(ws.H, generator=g)).cuda(),
+            (0.1 * torch.randn(ws.H, generator=g)).cuda())
+
+
+def phase_wide_kernels(cw, epi, ffn, v1, ex, pk, stp, shapes, lengths):
+    """Every mLSTM kernel and the FFN and epilogue backwards against their
+    plain versions at the widths of vil-det-256 (NH 8, DH 64, H 512, D 256,
+    U 704) and vil-det-384 (NH 6, DH 128, H 768, D 384, U 1024), batch 8:
+    the phases kernel, train_kernels, v1_kernels, exp_kernels,
+    parallel_kernels and step_kernel at those widths, at the same lengths,
+    gates, states and tolerances as at the flagship's."""
+    worst = {}
+    for ws in WIDE:
+        worst[ws.cfg] = {"chunkwise_fw": phase_kernel(cw, ws),
+                         **phase_train_kernels(cw, epi, ffn, ws),
+                         **phase_v1_kernels(v1, shapes, ws=ws),
+                         **phase_exp_kernels(ex, shapes, ws=ws),
+                         **phase_parallel_kernels(pk, lengths, ws),
+                         "mlstm_step": phase_step_kernel(stp, ws)}
+    return worst
+
+
+def phase_outnorm(cw):
+    """The inference forward with the per-head LayerNorm fused in.
+
+    1. The kernel against its plain version at DH 32, 64 and 128 (the
+       three detectors' heads, batch 8) at S 6400/1600/400/100 and a ragged
+       1000 with initial states, float32 and bfloat16, non-zero weight and
+       bias, and v offset by 20, so that the rows of h have |mean| >> std:
+       in float32 each output at most E2E_FACTOR times as far from the
+       plain version in float64 as the float32 plain version is (+ 1e-4 of
+       its largest |value|: the normalisation divides h's float32 rounding
+       by its row's std), in bfloat16 within 2e-2 of its largest |value|.
+    2. MatrixLSTMCell(768, 6, fuse_outnorm=True) in eval (vil-det-384's
+       cell, weights from seed 0, perturbed ifgates, random outnorm weight
+       and bias, bf16 streams): each call is one fused launch and no other
+       inference-forward launch, and it agrees with the unfused cell within
+       2e-2 of the output's largest |value|, stateless and stateful at
+       S = 1600."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell, reset_parameters
+
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    for ws in (FLAGSHIP, *WIDE):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            for S, states in [(S, False) for S in SEQ_LENS] + [(1000, True)]:
+                q, k, v, *rest = kernel_inputs(S, dtype, "open", states, seed=S + 5, ws=ws)
+                args = (q, k, (v.float() + 20.0).to(dtype), *rest[:3])
+                st, ln = rest[3:], ln_params(ws, seed=S)
+                got = cw.mlstm_siging_chunkwise_fw_ln(*args, *ln, *st, eps=EPS,
+                                                      return_last_states=True)
+                torch.cuda.synchronize()
+                ref = cw.mlstm_siging_chunkwise_fw_ln_plain(*args, *ln, *st, eps=EPS,
+                                                            return_last_states=True)
+                ref64 = None
+                if dtype == torch.float32:
+                    ref64 = cw.mlstm_siging_chunkwise_fw_ln_plain(
+                        *to64(args), *to64(ln), *to64(st), eps=EPS, return_last_states=True)
+                    ref64 = [ref64[0], *ref64[1]]
+                e = compare_outputs(f"fw_ln {ws.cfg} S={S} {key}", [got[0], *got[1]],
+                                    [ref[0], *ref[1]], GRAD_REL[key], ref64)
+                worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
+                emit({"phase": "outnorm", "widths": ws.cfg, "NH": ws.NH, "DH": ws.DH, "S": S,
+                      "dtype": key, "initial_states": states, "v_offset": 20.0,
+                      "max_abs_err": e[0], "max_rel_err": e[1], "rel_tol": GRAD_REL[key],
+                      "float64_arbiter": ref64 is not None})
+                del args, got, ref, ref64
+
+    ws = WIDE[-1]
+    cell = MatrixLSTMCell(ws.H, ws.NH, fuse_outnorm=True)
+    reset_parameters(cell, torch.Generator().manual_seed(0))
+    perturb_ifgates(cell, seed=13)
+    g = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        cell.outnorm.weight.copy_(0.3 * torch.randn(ws.H, generator=g))
+        cell.outnorm.bias.copy_(0.1 * torch.randn(ws.H, generator=g))
+    cell = cell.cuda().eval()
+    unfused = copy.deepcopy(cell)
+    unfused.fuse_outnorm = False
+    S = 1600
+    q, k, v = (torch.randn(ws.B, S, ws.H, generator=g).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    state = (torch.randn(ws.B, ws.NH, ws.DH, ws.DH, generator=g).cuda(),
+             torch.randn(ws.B, ws.NH, ws.DH, generator=g).cuda())
+    report = {"phase": "outnorm", "cell": f"MatrixLSTMCell({ws.H}, {ws.NH}, fuse_outnorm=True)",
+              "S": S, "batch": ws.B, "dtype": "bfloat16"}
+    with torch.inference_mode():
+        for mode, kw in (("stateless", {}), ("stateful", {"state": state})):
+            cw.LAUNCHES = cw.LAUNCHES_LN = 0
+            out = cell(q, k, v, **kw)
+            torch.cuda.synchronize()
+            launches = {"chunkwise_fw_ln": cw.LAUNCHES_LN, "chunkwise_fw": cw.LAUNCHES}
+            ref = unfused(q, k, v, **kw)
+            got, want = ((out,), (ref,)) if mode == "stateless" else (
+                (out[0], *out[1]), (ref[0], *ref[1]))
+            e = compare_outputs(f"fused cell {mode}", got, want, GRAD_REL["bfloat16"])
+            report[mode] = {"launches": launches, "max_abs_err": e[0], "max_rel_err": e[1]}
+            if launches != {"chunkwise_fw_ln": 1, "chunkwise_fw": 0}:
+                raise AssertionError(f"the fused cell ({mode}) made {launches} launches, "
+                                     "expected one fused launch and no other")
+    report["rel_tol"] = GRAD_REL["bfloat16"]
+    emit(report)
+    return worst, report["stateless"]["launches"]["chunkwise_fw_ln"] + \
+        report["stateful"]["launches"]["chunkwise_fw_ln"]
+
+
+def phase_wide_grads():
+    """A ViLBlockPair of vil-det-384's widths (dim 384, qkv_block_size 128:
+    6 heads of 128, FFN 1024) in training at S = 1600 (40 x 40), batch 2,
+    float32, weights from seed 0, perturbed ifgates: the gradients of
+    sum(y * w) with respect to the input and every parameter, with the
+    kernels (train forward, fused backward, epilogue and FFN backwards) and
+    with their plain versions, each against a float64 run of the plain
+    versions.  The kernel path may be at most E2E_FACTOR times as far from
+    float64 as the plain path, each leaf's largest error relative to the
+    largest float64 |g| of all leaves: the input-gate biases' gradients are
+    sums of q.dq - k.dk over all S rows that cancel, so their float32
+    rounding is set by their terms and not by their size (the two float32
+    paths, which sum them in other orders, are up to 3x apart on one leaf
+    of this block in a CPU run), while a wiring fault moves a leaf by O(1)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.layers import ViLBlockPair, reset_parameters
+    from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn
+
+    ws = WIDE[-1]
+    block = ViLBlockPair(ws.D, seqlens=(40, 40), qkv_block_size=ws.DH, chunk_size=512)
+    reset_parameters(block, torch.Generator().manual_seed(0))
+    perturb_ifgates(block, seed=15)
+    block = block.cuda().train()
+    g = torch.Generator().manual_seed(16)
+    x, w = (torch.randn(2, 1600, ws.D, generator=g).cuda() for _ in range(2))
+
+    def grads(model, x, w):
+        x = x.clone().requires_grad_()
+        y = model(x)
+        params = [x, *model.parameters()]
+        return [t.detach() for t in torch.autograd.grad((y * w).sum(), params)]
+
+    before = (chunkwise_v2.LAUNCHES_TRAIN, chunkwise_v2.LAUNCHES_BW, epilogue.LAUNCHES,
+              ffn.LAUNCHES)
+    g_k = grads(block, x, w)
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip((chunkwise_v2.LAUNCHES_TRAIN, chunkwise_v2.LAUNCHES_BW,
+                                       epilogue.LAUNCHES, ffn.LAUNCHES), before)]
+    plain = copy.deepcopy(block)
+    use_plain_training_ops(plain)
+    g_p = grads(plain, x, w)
+    g_64 = grads(plain.double(), x.double(), w.double())
+    top = max(t.abs().max().item() for t in g_64)
+    err_k = max((a.double() - r).abs().max().item() for a, r in zip(g_k, g_64)) / top
+    err_p = max((p.double() - r).abs().max().item() for p, r in zip(g_p, g_64)) / top
+    ok = err_k <= E2E_FACTOR * err_p + E2E_GRAD_ATOL and all(
+        bool(torch.isfinite(t).all()) for t in g_k) and launches == [2, 2, 2, 2]
+    emit({"phase": "wide_grads", "block": f"ViLBlockPair({ws.D}, qkv_block_size={ws.DH})",
+          "S": 1600, "batch": 2, "dtype": "float32", "kernel_vs_f64_rel": err_k,
+          "plain_vs_f64_rel": err_p, "factor": E2E_FACTOR, "atol_rel": E2E_GRAD_ATOL,
+          "leaves": len(g_k), "launches": dict(zip(
+              ("chunkwise_fw_train", "chunkwise_bw", "epilogue_bw", "ffn_bw"), launches))})
+    if not ok:
+        raise AssertionError("the wide ViLBlockPair's kernel gradients are further from float64 "
+                             f"than allowed, or its launches {launches} are not one per layer")
+
+
+def phase_wide_times(cw, epi, ffn, v1, ex, pk, stp, card: str, plan):
+    """Per-call times of every kernel at the widths of vil-det-256 and
+    vil-det-384 beside their plain versions and bounds (fw_times, with and
+    without the fused LayerNorm; phase_train_times; v1_times; exp_times;
+    phase_parallel_times; step_times), and of the fused forward at the
+    flagship's."""
+    out = {"fw_ln_flagship": fw_times(cw, card, fused_ln=True)}
+    for ws in WIDE:
+        out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws),
+                       "chunkwise_fw_ln": fw_times(cw, card, ws, fused_ln=True),
+                       **phase_train_times(cw, epi, ffn, card, ws),
+                       **v1_times(v1, card, plan, ws), **exp_times(ex, card, plan, ws),
+                       **phase_parallel_times(pk, card, plan, ws),
+                       "mlstm_step": step_times(stp, ws)}
+        emit({"phase": "times", "what": "step_kernel", "widths": ws.cfg, "card": card,
+              **{k: {kk: vv for kk, vv in v.items() if not kk.endswith("runs")}
+                 for k, v in out[ws.cfg]["mlstm_step"].items()}})
+    return out
+
+
+def predict_times(yolo, card: str) -> dict:
+    """The predict forward of ``yolo`` on device input (normalise + forward
+    + top-k on a letterboxed uint8 batch of 8 on the card), 5 windows of 3
+    forwards after 2 s of warm-up with the clocks sampled; the peak device
+    memory; and the busy share from a trace of 3 forwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+
+    predictor = DetectionPredictor({"imgsz": yolo.imgsz, "batch": B}, yolo.model, yolo.names)
+    batch = predictor.preprocess(synthetic_images(B, seed=6))
+    fwd = lambda: predictor.forward(batch)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    with ClockSampler() as clocks:
+        runs = time_cuda(fwd, iters=3, reps=5, warm_s=2.0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(3):
+            fwd()
+        end.record()
+        torch.cuda.synchronize()
+    busy = device_busy(prof, start.elapsed_time(end))
+    out = {"forward_ms": statistics.median(runs), "forward_ms_runs": runs,
+           "img_per_s_device_input": B / statistics.median(runs) * 1e3,
+           "peak_memory_gib": peak, "clocks_during_forward_timing": clocks.summary,
+           "clock_samples": clocks.summary_n,
+           **{k: v for k, v in busy.items() if k != "top"}, "top": busy.get("top", [])[:8]}
+    emit({"phase": "times", "what": "predict", "card": card, "cfg": cfg_name(yolo),
+          "imgsz": yolo.imgsz, "batch": B, "dtype": "bfloat16", **out,
+          "note": "device input: normalise + forward + top-k on a letterboxed uint8 batch on "
+                  "the card, 5 windows of 3 forwards after 2 s of warm-up; busy share from a "
+                  "trace of 3 forwards"})
+    return out
 
 
 def main() -> int:
@@ -2124,12 +2514,12 @@ def main() -> int:
         raise AssertionError("the exp route's segment plan differs from the v1 route's")
     worst_exp = timed("exp_kernels", phase_exp_kernels, ex, shapes)
     exp_predict_launches = timed("exp_predict", phase_exp_predict, ex, v1, cw, yolo_exp)
-    exp_model, exp_state, exp_step, exp_batch, exp_launches, exp_per_step = timed(
+    exp_model, exp_state, exp_step, exp_batch, exp_launches = timed(
         "exp_train", phase_exp_train, ex, v1, cw, epi, ffn, steps)
     timed("exp_grads", phase_exp_grads, ex, steps)
     par_lengths = sorted({S for S, _ in plan["train"]})
     worst_par = timed("parallel_kernels", phase_parallel_kernels, pk, par_lengths)
-    par_model, par_state, par_step, par_batch, par_launches, par_per_step = timed(
+    par_model, par_state, par_step, par_batch, par_launches = timed(
         "parallel_train", phase_parallel_train, pk, ex, v1, cw, epi, ffn, steps)
     if v1_plan(par_model)["train"] != plan["train"]:
         raise AssertionError("the quadratic route's padded lengths differ from the v1 route's")
@@ -2137,6 +2527,39 @@ def main() -> int:
     worst_step = timed("step_kernel", phase_step_kernel, stp)
     decode = timed("decode", phase_decode, stp, card)
     timed("refusal", phase_refusal, pk)
+
+    # the larger detectors: their kernels, the fused LayerNorm, their paths
+    wide = timed("wide_kernels", phase_wide_kernels, cw, epi, ffn, v1, ex, pk, stp, shapes,
+                 par_lengths)
+    worst_ln, ln_launches = timed("outnorm", phase_outnorm, cw)
+    yolo384 = YOLO("vil-det-384.yaml", device="cuda", compute_dtype=torch.bfloat16)
+    perturb_ifgates(yolo384.model, seed=8)
+    if v1_plan(yolo384.model) != plan:
+        raise AssertionError("vil-det-384's segment plan differs from vil-det-192's")
+    p384 = {"chunkwise_fw": timed("predict_384", phase_predict, cw, yolo384)}
+    yolo256 = YOLO("vil-det-256.yaml", device="cuda", compute_dtype=torch.bfloat16)
+    perturb_ifgates(yolo256.model, seed=8)
+    timed("predict_256", phase_predict, cw, yolo256, n_images=B)
+    del yolo256
+    for route, fn, args in (("v1", phase_v1_predict, (v1, cw)),
+                            ("exp", phase_exp_predict, (ex, v1, cw))):
+        y = YOLO("vil-det-384.yaml", device="cuda", compute_dtype=torch.bfloat16,
+                 chunkwise_kernel={"v1": V1, "exp": EXP}[route])
+        perturb_ifgates(y.model, seed=8)
+        p384[f"chunkwise_{route}_fw"] = timed("predict_384", fn, *args, y, n_images=B)
+        del y
+    m384, st384, step384, batch384, t384 = timed("train_384", phase_train, cw, epi, ffn, steps,
+                                                 cfg="vil-det-384.yaml")
+    timed("train_256", phase_train, cw, epi, ffn, steps, cfg="vil-det-256.yaml", n_steps=1)
+    t384.update(timed("train_384", phase_v1_train, v1, cw, epi, ffn, steps,
+                      cfg="vil-det-384.yaml", n_steps=1)[4])
+    t384.update(timed("train_384", phase_exp_train, ex, v1, cw, epi, ffn, steps,
+                      cfg="vil-det-384.yaml", n_steps=1)[4])
+    t384.update(timed("train_384", phase_parallel_train, pk, ex, v1, cw, epi, ffn, steps,
+                      cfg="vil-det-384.yaml", n_steps=1)[4])
+    decode384 = timed("decode", phase_decode, stp, card, WIDE[-1])
+    timed("wide_grads", phase_wide_grads)
+
     per_s = timed("times", phase_times, cw, yolo, card)
     per_exp, exp_fwd = timed("exp_times", phase_exp_times, ex, card, plan, yolo_exp, yolo)
     del yolo
@@ -2147,162 +2570,136 @@ def main() -> int:
         "v2": (model, state, step, batch), "v1": (v1_model, v1_state, v1_step, v1_batch),
         "exp": (exp_model, exp_state, exp_step, exp_batch),
         "parallel": (par_model, par_state, par_step, par_batch)})
+    wide_t = timed("wide_times", phase_wide_times, cw, epi, ffn, v1, ex, pk, stp, card, plan)
+    predict384 = timed("times", predict_times, yolo384, card)
+    ts384 = time_step(step384, st384, batch384, windows=2)
+    emit({"phase": "times", "what": "train_step", "route": "v2", "card": card,
+          "cfg": "vil-det-384", "imgsz": 640, "batch": B, "compute_dtype": "bfloat16",
+          **{k: v for k, v in ts384.items() if k != "top"}, "top": ts384.get("top", [])[:8],
+          "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
+                  ">= 3 s warm-up; busy share from a torch.profiler trace of one step"})
 
-    per_fwd = lambda key: sum(LAUNCHES_PER_S[S] * per_s[S][key] for S in SEQ_LENS)
+    # each kernel's calls on the main paths, to sum its per-call times over a
+    # forward or a step (vil-det-384 has vil-det-192's layers, so the same)
     calls = expected_step_launches(model)
     per_step_s = {name: dict(LAUNCHES_PER_S) for name in KERNELS}
     per_step_s["chunkwise_fw_train"][6400] += calls["chunkwise_fw_train"] - calls["chunkwise_bw"]
-    per_step = lambda name, key: sum(per_step_s[name][S] * per_train[name][S][key]
-                                     for S in SEQ_LENS)
-    pallas = "xlstm_yolo_tpu/ops/pallas"
-    sources = {"chunkwise_fw_train": ("chunkwise_fw.cu", f"{pallas}/chunkwise_v2.py:238"),
-               "chunkwise_bw": ("chunkwise_bw.cu", f"{pallas}/chunkwise_v2.py:446"),
-               "epilogue_bw": ("epilogue_bw.cu", f"{pallas}/epilogue.py:70"),
-               "ffn_bw": ("ffn_bw.cu", f"{pallas}/ffn.py:53")}
-    rows = [{
-        "name": "chunkwise_fw",
-        "route": "cuda",
-        "source": "xlstm_yolo_tpu_torch/csrc/chunkwise_fw.cu",
-        "replaces": "xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py:245",
-        "launches": launches,
-        "max_abs_err": worst["bfloat16"],
-        "ms": per_fwd("ms"),
-        "plain_ms": per_fwd("plain_ms"),
-        "bound_ms": per_fwd("bound_ms"),
-        "bound_by": per_s[6400]["bound_by"],  # S = 6400 holds two thirds of the bound
-        "library_ms": None,
-        "note": "predict path; times are per vil-det-192 forward at batch 8, bf16: the 20 "
-                "calls (4 at S=6400, 6 at 1600, 6 at 400, 4 at 100) summed; max_abs_err is "
-                f"the largest bf16 kernel-vs-plain |h| error (f32: {worst['float32']:.3g})",
-    }]
-    for name in KERNELS:
-        src, replaces = sources[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": train_launches[name],
-            "max_abs_err": worst_train[name]["bfloat16"][0],
-            "ms": per_step(name, "ms"), "plain_ms": per_step(name, "plain_ms"),
-            "bound_ms": per_step(name, "bound_ms"),
-            "bound_by": per_train[name][6400]["bound_by"], "library_ms": None,
-            "max_rel_err": worst_train[name]["bfloat16"][1],
-            "max_rel_err_float32": worst_train[name]["float32"][1],
-            "note": f"train path; launches over {TRAIN_STEPS} vil-det-192 steps at batch 8, "
-                    f"bf16 ({calls[name]} per step); times per step: the calls at each S "
-                    f"({per_step_s[name]}) summed; max_abs_err is the largest bf16 "
-                    "kernel-vs-plain error over all outputs (max_rel_err: over the output's "
-                    "largest |value|)",
-        })
-    v1_sources = {"chunkwise_v1_fw": ("chunkwise_v1_fw.cu", f"{pallas}/chunkwise.py:96"),
-                  "chunkwise_v1_bw_dc": ("chunkwise_v1_bw.cu", f"{pallas}/chunkwise.py:271"),
-                  "chunkwise_v1_bw_dqkv": ("chunkwise_v1_bw.cu", f"{pallas}/chunkwise.py:316")}
     step_calls = {"chunkwise_v1_fw": {k: n + plan["remat"].get(k, 0)
                                       for k, n in plan["train"].items()},
                   "chunkwise_v1_bw_dc": plan["train"], "chunkwise_v1_bw_dqkv": plan["train"]}
-    per_v1_step = lambda name, key: sum(n * per_v1[name][k][key]  # noqa: E731
-                                    for k, n in step_calls[name].items())
-    v1_fwd = lambda key: sum(n * per_v1["chunkwise_v1_fw"][k][key]  # noqa: E731
-                             for k, n in plan["infer"].items())
-    for name in V1_KERNELS:
-        src, replaces = v1_sources[name]
-        big = max(step_calls[name])
-        extra = (f"; per vil-det-192 forward in predict ({sum(plan['infer'].values())} calls "
-                 f"at {sorted(plan['infer'])}): {v1_fwd('ms'):.4g} ms, plain "
-                 f"{v1_fwd('plain_ms'):.4g}, bound {v1_fwd('bound_ms'):.4g}; launches: "
-                 f"{v1_predict_launches} in the v1 predict of 10 images + "
-                 f"{v1_launches[name]} in {TRAIN_STEPS} v1 train steps"
-                 if name == "chunkwise_v1_fw" else "")
-        rows.append({
-            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
-            "replaces": replaces,
-            "launches": v1_launches[name] + (v1_predict_launches if name == "chunkwise_v1_fw"
-                                             else 0),
-            "max_abs_err": worst_v1[name]["bfloat16"][0],
-            "ms": per_v1_step(name, "ms"), "plain_ms": per_v1_step(name, "plain_ms"),
-            "bound_ms": per_v1_step(name, "bound_ms"), "bound_by": per_v1[name][big]["bound_by"],
-            "library_ms": None,
-            "max_rel_err": worst_v1[name]["bfloat16"][1],
-            "max_rel_err_float32": worst_v1[name]["float32"][1],
-            "note": f"v1 route (chunkwise_kernel={V1}); times per vil-det-192 train step at "
-                    f"batch 8, bf16: the calls at each (S, L) ({step_calls[name]}) summed"
-                    + extra,
-        })
-    exp_sources = {"chunkwise_exp_fw": ("chunkwise_exp_fw.cu", f"{pallas}/chunkwise_exp.py:55"),
-                   "chunkwise_exp_bw_dc": ("chunkwise_exp_bw.cu",
-                                           f"{pallas}/chunkwise_exp.py:284"),
-                   "chunkwise_exp_bw_dqkv": ("chunkwise_exp_bw.cu",
-                                             f"{pallas}/chunkwise_exp.py:330")}
-    step_calls_exp = {name: {k: n + (plan["remat"].get(k, 0) if name == "chunkwise_exp_fw"
-                                     else 0) for k, n in plan["train"].items()}
-                      for name in EXP_KERNELS}
-    per_exp_step = lambda name, key: sum(n * per_exp[name][k][key]  # noqa: E731
-                                         for k, n in step_calls_exp[name].items())
-    exp_fwd_sum = lambda key: sum(n * per_exp["chunkwise_exp_fw"][k][key]  # noqa: E731
-                                  for k, n in plan["infer"].items())
-    for name in EXP_KERNELS:
-        src, replaces = exp_sources[name]
-        big = max(step_calls_exp[name])
-        fw = name == "chunkwise_exp_fw"
-        extra = (f"; per vil-det-192 forward in predict ({sum(plan['infer'].values())} calls "
-                 f"of the predict variant at {sorted(plan['infer'])}): {exp_fwd_sum('ms'):.4g} ms, "
-                 f"plain {exp_fwd_sum('plain_ms'):.4g}, bound {exp_fwd_sum('bound_ms'):.4g}; "
-                 f"launches: {exp_predict_launches} calls (two launches each: the state scan "
-                 f"and h) in the exp predict of 10 images + {exp_launches[name]} in "
-                 f"{TRAIN_STEPS} exp train steps" if fw else "")
-        rows.append({
-            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
-            "replaces": replaces,
-            "launches": exp_launches[name] + (exp_predict_launches if fw else 0),
-            "max_abs_err": worst_exp[name]["bfloat16"][0],
-            "ms": per_exp_step(name, "ms"), "plain_ms": per_exp_step(name, "plain_ms"),
-            "bound_ms": per_exp_step(name, "bound_ms"),
-            "bound_by": per_exp[name][big]["bound_by"], "library_ms": None,
-            "max_rel_err": worst_exp[name]["bfloat16"][1],
-            "max_rel_err_float32": worst_exp[name]["float32"][1],
-            "note": f"exp route (chunkwise_kernel={EXP}); times per vil-det-192 train step at "
-                    f"batch 8, bf16: the calls at each (S, L) ({step_calls_exp[name]}; "
-                    f"{exp_per_step[name]} per step) summed" + extra
-                    + ("; the forward's errors are of h (den + eps), den, m_comb and the states"
-                       if fw else ""),
-        })
-    par_sources = {"parallel_fw": ("parallel_fw.cu", f"{pallas}/parallel.py:48"),
-                   "parallel_bw_dq": ("parallel_bw.cu", f"{pallas}/parallel.py:84"),
-                   "parallel_bw_dkv": ("parallel_bw.cu", f"{pallas}/parallel.py:117")}
+    step_calls.update({name.replace("v1", "exp"): c for name, c in step_calls.items()})
     par_calls = {name: {S: sum(n for (s, _), n in plan["train"].items() if s == S)
                         + (sum(n for (s, _), n in plan["remat"].items() if s == S)
                            if name == "parallel_fw" else 0) for S in par_lengths}
                  for name in PAR_KERNELS}
-    per_par_step = lambda name, key: sum(n * per_par[name][S][key]  # noqa: E731
-                                         for S, n in par_calls[name].items())
-    for name in PAR_KERNELS:
-        src, replaces = par_sources[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": par_launches[name],
-            "max_abs_err": worst_par[name]["bfloat16"][0],
-            "ms": per_par_step(name, "ms"), "plain_ms": per_par_step(name, "plain_ms"),
-            "bound_ms": per_par_step(name, "bound_ms"),
-            "bound_by": per_par[name][max(par_lengths)]["bound_by"], "library_ms": None,
-            "max_rel_err": worst_par[name]["bfloat16"][1],
-            "max_rel_err_float32": worst_par[name]["float32"][1],
-            "note": f"quadratic route (chunkwise_kernel={PAR}); times per vil-det-192 train "
-                    f"step at batch 8, bf16: the calls at each padded S ({par_calls[name]}; "
-                    f"{par_per_step[name]} per step) summed; the plain version runs in slices "
-                    "of batch * head; no single PyTorch call computes the function (its "
-                    "max(|.|, 1) denominator is no softmax)",
-        })
-    step32 = decode["per_call"]["float32"]
-    rows.append({
-        "name": "mlstm_step", "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/step.cu",
-        "replaces": f"{pallas}/step.py:31", "launches": decode["launches"],
-        "max_abs_err": worst_step["bfloat16"][0], "ms": step32["ms"],
-        "plain_ms": step32["plain_ms"], "bound_ms": step32["bound_ms"],
-        "bound_by": step32["bound_by"], "library_ms": None,
-        "max_rel_err": worst_step["bfloat16"][1], "max_rel_err_float32": worst_step["float32"][1],
-        "note": f"step--pallas; launches: one per token of the decode of {DECODE_TOKENS} tokens "
-                f"(MatrixLSTMCell({H}, {NH}), batch 8, float32); times per call at B 8, NH 12, "
-                f"DH 32, float32 (bfloat16: {decode['per_call']['bfloat16']['ms']:.4g} ms); the "
-                f"decode takes {decode['us_per_token']:.4g} us per token through the whole cell",
-    })
+    dist = {"chunkwise_fw": LAUNCHES_PER_S, "chunkwise_fw_ln": LAUNCHES_PER_S, **per_step_s,
+            **step_calls, **par_calls}
+
+    def sums(t, name):
+        """Kernel, plain and bound ms of ``name`` summed over its calls on
+        the main path (t: per-call times by S or (S, L)); the step kernel's
+        per call at float32."""
+        if name == "mlstm_step":
+            return {k: t[name]["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        d = dist[name]
+        out = {key: sum(n * t[name][k][key] for k, n in d.items())
+               for key in ("ms", "plain_ms", "bound_ms")}
+        return {**out, "bound_by": t[name][max(d)]["bound_by"]}
+
+    flag_t = {"chunkwise_fw": per_s, **per_train, **per_v1, **per_exp, **per_par,
+              "mlstm_step": decode["per_call"], "chunkwise_fw_ln": wide_t["fw_ln_flagship"]}
+    w384_t = wide_t["vil-det-384.yaml"]
+    w384 = wide["vil-det-384.yaml"]
+    launches384 = {**t384, "chunkwise_fw": p384["chunkwise_fw"],
+                   "mlstm_step": decode384["launches"], "chunkwise_fw_ln": ln_launches}
+    launches384["chunkwise_v1_fw"] += p384["chunkwise_v1_fw"]
+    launches384["chunkwise_exp_fw"] += p384["chunkwise_exp_fw"]
+
+    def at_384(name):
+        err = w384[name]["bfloat16"] if name in w384 else worst_ln["bfloat16"]
+        return {"launches": launches384[name], **sums(w384_t, name),
+                "max_abs_err": err if name == "chunkwise_fw" else err[0],
+                "note": "vil-det-384 (NH 6, DH 128, batch 8, bf16): launches on its "
+                        "paths (predict of 10 images on v2, one predict batch on v1 and exp, "
+                        "3 train steps on v2 and one on v1, exp and the quadratic route, a "
+                        f"{DECODE_TOKENS}-token decode of MatrixLSTMCell(768, 6)); times "
+                        "summed over one forward or one step as at vil-det-192"}
+
+    pallas = "xlstm_yolo_tpu/ops/pallas"
+    sources = {
+        "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245", launches, worst["bfloat16"]),
+        "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
+        "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
+        "epilogue_bw": ("epilogue_bw.cu", "epilogue.py:70"),
+        "ffn_bw": ("ffn_bw.cu", "ffn.py:53"),
+        "chunkwise_v1_fw": ("chunkwise_v1_fw.cu", "chunkwise.py:96"),
+        "chunkwise_v1_bw_dc": ("chunkwise_v1_bw.cu", "chunkwise.py:271"),
+        "chunkwise_v1_bw_dqkv": ("chunkwise_v1_bw.cu", "chunkwise.py:316"),
+        "chunkwise_exp_fw": ("chunkwise_exp_fw.cu", "chunkwise_exp.py:55"),
+        "chunkwise_exp_bw_dc": ("chunkwise_exp_bw.cu", "chunkwise_exp.py:284"),
+        "chunkwise_exp_bw_dqkv": ("chunkwise_exp_bw.cu", "chunkwise_exp.py:330"),
+        "parallel_fw": ("parallel_fw.cu", "parallel.py:48"),
+        "parallel_bw_dq": ("parallel_bw.cu", "parallel.py:84"),
+        "parallel_bw_dkv": ("parallel_bw.cu", "parallel.py:117"),
+        "mlstm_step": ("step.cu", "step.py:31"),
+        "chunkwise_fw_ln": ("chunkwise_fw.cu", "chunkwise_v2.py:252"),
+    }
+    worst_all = {**worst_train, **worst_v1, **worst_exp, **worst_par, "mlstm_step": worst_step,
+                 "chunkwise_fw_ln": worst_ln}
+    launches_all = {**train_launches, **v1_launches, **exp_launches, **par_launches,
+                    "mlstm_step": decode["launches"], "chunkwise_fw_ln": ln_launches}
+    launches_all["chunkwise_v1_fw"] += v1_predict_launches
+    launches_all["chunkwise_exp_fw"] += exp_predict_launches
+    notes = {
+        "chunkwise_fw": "predict path; times per forward at batch 8, bf16: the 20 calls (4 at "
+                        "S=6400, 6 at 1600, 6 at 400, 4 at 100) summed; launches in the predict "
+                        "of 10 images",
+        "train": f"train path; launches over {TRAIN_STEPS} steps at batch 8, bf16 ({calls}); "
+                 f"times per step: the calls at each S ({per_step_s['chunkwise_fw_train']} for "
+                 "the forward) summed",
+        "v1": f"v1 route (chunkwise_kernel={V1}); launches over {TRAIN_STEPS} train steps (and "
+              "the forward's in the predict of 10 images); times per train step at batch 8, "
+              "bf16, the calls at each (S, L) summed",
+        "exp": f"exp route (chunkwise_kernel={EXP}); as v1 (the forward: two launches a call, "
+               "counted once); the forward's errors are of h (den + eps), den, m_comb and the "
+               "states",
+        "parallel": f"quadratic route (chunkwise_kernel={PAR}); launches over {TRAIN_STEPS} "
+                    f"train steps; times per step at the padded S ({par_calls}); the plain "
+                    "version in slices of batch * head; its max(|.|, 1) denominator is no "
+                    "softmax, so no single PyTorch call computes the function",
+        "mlstm_step": f"step--pallas; launches: one per token of a {DECODE_TOKENS}-token decode "
+                      "(MatrixLSTMCell(384, 12), batch 8, float32); times per call at B 8, "
+                      f"NH 12, DH 32, float32; the decode {decode['us_per_token']:.4g} us per "
+                      "token",
+        "chunkwise_fw_ln": "the inference forward with the per-head LayerNorm fused in "
+                           "(MatrixLSTMCell(fuse_outnorm=True), which no config sets); "
+                           "launches: the stateless and the stateful call of the vil-det-384 "
+                           "cell at S = 1600 in phase outnorm; times summed as chunkwise_fw's "
+                           "at vil-det-192's heads (DH 32)",
+    }
+    rows = []
+    for name, (src, replaces, *given) in sources.items():
+        group = ("train" if name in KERNELS else "v1" if "v1" in name else "exp"
+                 if "exp" in name else "parallel" if name in PAR_KERNELS else name)
+        err = given[1] if given else worst_all[name]["bfloat16"][0]
+        row = {"name": name, "route": "cuda", "source": f"xlstm_yolo_tpu_torch/csrc/{src}",
+               "replaces": f"{pallas}/{replaces}",
+               "launches": given[0] if given else launches_all[name], "max_abs_err": err,
+               **sums(flag_t, name), "library_ms": None}
+        if not given:
+            row["max_rel_err"] = worst_all[name]["bfloat16"][1]
+            row["max_rel_err_float32"] = worst_all[name]["float32"][1]
+        row["note"] = notes[group] + "; vil_det_384: the same at vil-det-384's widths"
+        row["vil_det_384"] = at_384(name)
+        rows.append(row)
+    for row in rows:
+        if row["launches"] == 0 or row["vil_det_384"]["launches"] == 0:
+            raise AssertionError(f"{row['name']} was not launched on its path")
+    emit({"phase": "times", "what": "vil-det-384", "card": card, "predict": {
+        k: v for k, v in predict384.items() if k not in ("top", "forward_ms_runs")},
+        "train_step_ms": ts384["step_ms"], "train_step_busy_share": ts384.get("busy_share"),
+        "train_step_peak_memory_gib": ts384["peak_memory_gib"],
+        "train_step_clocks": ts384["clocks_during_step_timing"]})
     step_line = {route: [r["step_ms"] for r in rs] for route, rs in steps_ms.items()}
     busy_line = {route: [r.get("busy_share") for r in rs] for route, rs in steps_ms.items()}
     emit({"phase": "times", "what": "train_step_routes", "card": card, "step_ms": step_line,

@@ -29,6 +29,8 @@ CASES = [  # (S, NH, DH, gates, initial states)
     (128, 2, 32, "perturbed", True),  # two full chunks, initial states (dC0)
     (100, 3, 16, "closed", False),    # ragged second chunk, closed forget gates
     (200, 2, 32, "open", True),       # ragged tail, initial states
+    (100, 2, 64, "open", False),      # vil-det-256's head dim, ragged tail
+    (130, 1, 128, "perturbed", True),  # vil-det-384's head dim, initial states
 ]
 
 

@@ -57,6 +57,9 @@ CASES = [  # (S, NH, DH, gates, states)
     (64, 2, 32, "open", True),     # exactly one chunk, with initial states
     (100, 3, 16, "closed", False),  # ragged second chunk, closed forget gates
     (200, 4, 32, "open", True),    # several chunks, ragged tail
+    (130, 2, 64, "open", True),    # vil-det-256's head dim
+    (200, 1, 128, "closed", False),  # vil-det-384's head dim, closed forget gates
+    (70, 1, 128, "open", True),    # vil-det-384's head dim, ragged second chunk
 ]
 
 

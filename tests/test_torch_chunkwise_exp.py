@@ -49,8 +49,12 @@ CASES = [  # (L, chunks, DH, compute dtype, gates, initial (C, n, m) and dC_last
     (64, 2, 16, "bfloat16", "large_i", False),
     (128, 2, 16, "float32", "open", False),
     (128, 2, 32, "bfloat16", "large_i", True),
+    (64, 2, 64, "float32", "open", True),       # vil-det-256's head dim
+    (32, 3, 128, "bfloat16", "large_i", False),  # vil-det-384's head dim
+    (16, 2, 128, "float32", "closed", True),
 ]
-IDS = [f"L{c[0]}-{c[3]}-{c[4]}-{'states' if c[5] else 'nostates'}" for c in CASES]
+IDS = [f"L{c[0]}-{c[3]}-{c[4]}-{'states' if c[5] else 'nostates'}"
+       + (f"-DH{c[2]}" if c[2] > 32 else "") for c in CASES]
 
 
 def make_inputs(seed, S, DH, gates, states, B=2, NH=2):

@@ -37,8 +37,12 @@ CASES = [  # (L, chunks, DH, compute dtype, initial states and dC_last)
     (64, 2, 16, "bfloat16", False),
     (128, 2, 16, "float32", False),
     (128, 2, 32, "bfloat16", True),
+    (64, 2, 64, "float32", True),     # vil-det-256's head dim
+    (32, 3, 128, "bfloat16", False),  # vil-det-384's head dim
+    (16, 2, 128, "float32", True),
 ]
-IDS = [f"L{c[0]}-{c[3]}-{'states' if c[4] else 'nostates'}" for c in CASES]
+IDS = [f"L{c[0]}-{c[3]}-{'states' if c[4] else 'nostates'}" + (f"-DH{c[2]}" if c[2] > 32 else "")
+       for c in CASES]
 
 
 def make_inputs(seed, L, chunks, DH, states, B=2, NH=2):

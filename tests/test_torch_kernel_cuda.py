@@ -1,9 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the chunkwise mLSTM inference forward, train forward and backward (and the
-differentiable cell built from them), the epilogue backward, the FFN
+the chunkwise mLSTM inference forward (also with the per-head LayerNorm
+fused in), train forward and backward (and the differentiable cell built
+from them), the epilogue backward, the FFN
 backward, the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
-one-token step.  This file imports neither JAX nor the JAX package, so it
+one-token step, at head dims 16 and 32 (the flagship, vil-det-tiny), 64
+(vil-det-256) and 128 (vil-det-384), and the row kernels at all their
+widths.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
@@ -47,11 +50,16 @@ CASES = [  # (S, NH, DH, gates, initial states)
     (100, 3, 16, "closed", False),  # ragged second chunk, closed forget gates
     (200, 4, 32, "open", True),     # several chunks, ragged tail
     (1000, 12, 32, "open", True),   # flagship heads, ragged S
+    (300, 8, 64, "open", True),     # vil-det-256's heads, ragged S
+    (200, 6, 128, "closed", True),  # vil-det-384's heads, closed forget gates
+    (1000, 6, 128, "open", False),  # vil-det-384's heads, ragged S
 ]
 ROW_CASES = [  # (B, S, H, D, U, NH, mean offset): epilogue H, NH; FFN D, U
     (2, 25, 64, 32, 96, 4, 0.0),        # one ragged row tile
     (2, 100, 384, 192, 512, 12, 0.0),   # the flagship's widths, ragged tiles
     (1, 1000, 384, 192, 512, 12, 50.0),  # |mean| >> std rows (centred variance)
+    (2, 100, 512, 256, 704, 8, 0.0),     # vil-det-256's widths (FFN: 16-row tiles)
+    (1, 300, 768, 384, 1024, 6, 50.0),   # vil-det-384's widths (both 16-row tiles)
 ]
 
 
@@ -105,6 +113,33 @@ def test_kernel_matches_plain_on_gpu(dtype):
         torch.testing.assert_close(h.float(), hp.float(), **tol)
         torch.testing.assert_close(c, cp, **TOL)
         torch.testing.assert_close(n, np_, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,NH,DH", [(200, 12, 32), (300, 8, 64), (1000, 6, 128)])
+def test_fused_outnorm_kernel_matches_plain_on_gpu(S, NH, DH, dtype):
+    """The inference forward with the per-head LayerNorm fused in against
+    its plain version, non-zero weight and bias, initial states, and v
+    offset by 20 so that the rows of h have |mean| >> std (the centred
+    variance).  Each output within 1e-4 (float32) or 2e-2 (bfloat16) of
+    its largest |value|."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v, i, f, c0, n0 = make_inputs(S + DH, 2, S, NH, DH, "open", True)
+    rng = np.random.default_rng(DH)
+    lnw, lnb = cu(1.0 + rng.normal(0, 0.3, NH * DH)), cu(rng.normal(0, 0.1, NH * DH))
+    args = (cu(q, dt), cu(k, dt), cu(v + 20.0, dt), cu(i), cu(f), NH, lnw, lnb, cu(c0), cu(n0))
+    before = (chunkwise_v2.LAUNCHES_LN, chunkwise_v2.LAUNCHES)
+    h, (c, n) = chunkwise_v2.mlstm_siging_chunkwise_fw_ln(*args, eps=EPS,
+                                                          return_last_states=True)
+    torch.cuda.synchronize()
+    assert (chunkwise_v2.LAUNCHES_LN, chunkwise_v2.LAUNCHES) == (before[0] + 1, before[1])
+    hp, (cp, np_) = chunkwise_v2.mlstm_siging_chunkwise_fw_ln_plain(
+        *args, eps=EPS, return_last_states=True)
+    assert h.dtype == dt
+    assert_rel_close([h], [hp], 1e-4 if dt == torch.float32 else 2e-2)
+    assert_rel_close([c, n], [cp, np_], 1e-4)
 
 
 @pytest.mark.cuda
@@ -242,6 +277,9 @@ V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
     (128, 2, 2, 32, "open", True),
     (256, 2, 2, 16, "closed", True),
     (512, 2, 2, 32, "open", False),
+    (64, 2, 2, 64, "open", True),
+    (32, 2, 1, 128, "closed", False),
+    (512, 2, 1, 128, "open", True),   # 32-row dq/dk/dv tiles at DH 128
 ]
 V1_TYPES = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
 
@@ -319,6 +357,9 @@ EXP_CASES = [  # (L, chunks, NH, DH, gates, initial (C, n, m) and dC_last)
     (128, 2, 2, 32, "large_i", True),
     (256, 2, 2, 16, "closed", True),
     (512, 2, 2, 32, "large_i", False),
+    (64, 2, 2, 64, "large_i", True),
+    (16, 3, 1, 128, "closed", False),
+    (512, 2, 1, 128, "large_i", True),
 ]
 
 
@@ -399,6 +440,8 @@ PAR_CASES = [  # (S, NH, DH, gates): one tile, ragged tiles, several tiles
     (64, 3, 16, "open"),
     (200, 2, 32, "closed"),
     (448, 2, 32, "open"),
+    (200, 2, 64, "open"),
+    (448, 1, 128, "closed"),
 ]
 
 
@@ -460,11 +503,13 @@ def test_parallel_function_matches_plain_on_gpu():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_step_kernel_matches_plain_on_gpu(dtype):
     """The step kernel against ``mlstm_siging_step`` at the flagship's heads
-    (B 8, NH 12, DH 32) and at DH 16, open and closed forget gates: h in
-    the storage type, (C', n') float32."""
+    (B 8, NH 12, DH 32), at DH 16 and at the larger detectors' (NH 8, DH
+    64; NH 6, DH 128), open and closed forget gates: h in the storage type,
+    (C', n') float32."""
     needs_cuda()
     dt = getattr(torch, dtype)
-    for NH, DH, gates in ((12, 32, "open"), (12, 32, "closed"), (3, 16, "open")):
+    for NH, DH, gates in ((12, 32, "open"), (12, 32, "closed"), (3, 16, "open"),
+                          (8, 64, "open"), (6, 128, "open"), (6, 128, "closed")):
         rng = np.random.default_rng(NH + DH)
         q, k, v = (cu(rng.normal(size=(8, NH, DH)), dt) for _ in range(3))
         i = cu(rng.normal(0, 2, (8, NH)))

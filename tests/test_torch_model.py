@@ -245,7 +245,10 @@ def assert_close_to_float64_arbiter(y_jax, model, x):
     for part, atol in ((slice(0, 4), BOX_TOL["atol"]), (slice(4, None), SCORE_ATOL)):
         err_jax = np.abs(y_jax[..., part] - y64[..., part]).max()
         err_port = np.abs(y[..., part] - y64[..., part]).max()
-        assert err_jax <= 2 * err_port + atol, (part, err_jax, err_port)
+        what = "boxes" if part.stop == 4 else "scores"
+        assert err_jax <= 2 * err_port + atol, (
+            f"{what}: JAX's float32 output is {err_jax:.6g} from the port's float64 forward, "
+            f"the port's float32 output {err_port:.6g} (allowed: {2 * err_port + atol:.6g})")
 
 
 def test_tiny_decode_only_against_float64_arbiter(tiny):

@@ -4,8 +4,9 @@ package's Pallas kernels (``ops/pallas/parallel.py``), interpreted on the
 CPU, and ``vil-det-tiny`` on the route (``chunkwise_kernel=
 "parallel--pallas_limit_headdim"``) against JAX's detector on it.
 
-Kernel inputs are made with numpy from a seed: B 2, NH 3, DH 16, S in
-{64, 200, 448} (448 is two query tiles of the Pallas kernels, 200 a ragged
+Kernel inputs are made with numpy from a seed: B 2, NH 3, DH 16 (also
+NH 2, DH 64 and NH 1, DH 128, the larger detectors' head dims), S in
+{64, 130, 200, 448} (448 is two query tiles of the Pallas kernels, 200 a ragged
 S), open gates (i ~ N(0, 1), f ~ N(3, 1): many denominators do not clamp)
 or closed forget gates (f ~ U(-60, -20)).
 
@@ -87,14 +88,20 @@ def pt(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-@pytest.mark.parametrize("S,stream,compute", [
-    (64, "float32", "float32"), (200, "float32", "bfloat16"), (448, "float32", "float32"),
-    (448, "bfloat16", "bfloat16")])
-def test_plain_versions_match_jax_kernels(S, stream, compute):
+@pytest.mark.parametrize("S,stream,compute,NH,DH", [
+    pytest.param(64, "float32", "float32", 3, 16, id="64-float32-float32"),
+    pytest.param(200, "float32", "bfloat16", 3, 16, id="200-float32-bfloat16"),
+    pytest.param(448, "float32", "float32", 3, 16, id="448-float32-float32"),
+    pytest.param(448, "bfloat16", "bfloat16", 3, 16, id="448-bfloat16-bfloat16"),
+    pytest.param(200, "float32", "float32", 2, 64, id="200-float32-float32-DH64"),
+    pytest.param(130, "bfloat16", "bfloat16", 1, 128, id="130-bfloat16-bfloat16-DH128"),
+    pytest.param(64, "float32", "float32", 1, 128, id="64-float32-float32-DH128")])
+def test_plain_versions_match_jax_kernels(S, stream, compute, NH, DH):
     """``parallel_fw_plain`` against ``_fw`` (h, den), then the two backward
     plain versions and the gate gradients against ``jax.vjp`` of
-    ``mlstm_siging_parallel_pallas`` (dq, dk, dv, di, df), on JAX's den."""
-    args, dh = make_inputs(S, S)
+    ``mlstm_siging_parallel_pallas`` (dq, dk, dv, di, df), on JAX's den, at
+    the tiny model's head dim and at vil-det-256's and vil-det-384's."""
+    args, dh = make_inputs(S, S, NH=NH, DH=DH)
     jdt, tdt = getattr(jnp, stream), getattr(torch, stream)
     jargs = [jnp.asarray(a, jdt if j < 3 else jnp.float32) for j, a in enumerate(args)]
     targs = [pt(a).to(tdt if j < 3 else torch.float32) for j, a in enumerate(args)]
@@ -102,8 +109,8 @@ def test_plain_versions_match_jax_kernels(S, stream, compute):
     kw = dict(eps=EPS, compute_dtype=getattr(jnp, compute))
     tkw = dict(eps=EPS, compute_dtype=getattr(torch, compute))
     rel = REL[compute]
-    h_ref, n_out, _, _ = jax_par._fw(*jargs, 16 ** -0.5, EPS, getattr(jnp, compute), True)
-    den_ref = np.asarray(n_out).reshape(2, 3, S)
+    h_ref, n_out, _, _ = jax_par._fw(*jargs, DH ** -0.5, EPS, getattr(jnp, compute), True)
+    den_ref = np.asarray(n_out).reshape(2, NH, S)
     h, den = par.parallel_fw_plain(*targs, **tkw)
     assert h.dtype == tdt and den.dtype == torch.float32
     assert_rel_close([h.float(), den], [np.asarray(h_ref, np.float32), den_ref], rel,

@@ -59,11 +59,15 @@ def assert_rel_close(got, ref, rel, names):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("gates", ["open", "closed"])
-def test_step_matches_jax_pallas_step(gates, dtype):
+@pytest.mark.parametrize("gates,DH", [
+    pytest.param("open", 16, id="open"), pytest.param("closed", 16, id="closed"),
+    pytest.param("open", 64, id="open-DH64"), pytest.param("closed", 128, id="closed-DH128"),
+    pytest.param("open", 128, id="open-DH128")])
+def test_step_matches_jax_pallas_step(gates, DH, dtype):
     """``mlstm_siging_step_kernel`` on CPU tensors (the plain step, no
-    launch) against ``mlstm_siging_step_pallas``: h and (C', n')."""
-    args = step_inputs(1 if gates == "open" else 2, gates)
+    launch) against ``mlstm_siging_step_pallas``: h and (C', n'), at DH 16
+    and at the larger detectors' 64 and 128."""
+    args = step_inputs(1 if gates == "open" else 2, gates, DH=DH)
     jargs = [jnp.asarray(a, getattr(jnp, dtype) if j < 3 else jnp.float32)
              for j, a in enumerate(args)]
     targs = [torch.from_numpy(a).to(getattr(torch, dtype) if j < 3 else torch.float32)

@@ -8,7 +8,9 @@ from the JAX layout to the port's (transposed).  Tolerances, relative to
 the largest |value| of each output: float32 2e-5 (the same float32 math,
 summed in another order); bfloat16 3e-2 (the JAX kernel keeps dz and the
 gate gradients in float32 where the port's autograd rounds them to
-bfloat16, a few bfloat16 ulps).  The large-mean case uses the centred
+bfloat16, a few bfloat16 ulps).  Each is run at a small width and at the widths of
+vil-det-256 (H 512, D 256, U 704, NH 8) and vil-det-384 (H 768, D 384,
+U 1024, NH 6), where the CUDA kernels tile 16 rows.  The large-mean case uses the centred
 variance on both sides and must stay finite; in float32 its h - mean keeps
 about 5 bits fewer (the float32 ulp at 300 is 3e-5), so it is held to
 2e-4, as the JAX package's own large-mean test is.
@@ -27,6 +29,11 @@ from xlstm_yolo_tpu_torch.ops import epilogue, ffn
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 B, S, NH = 2, 64, 4
 H, D, U = 64, 32, 96
+SMALL = (B, S, NH, H, D, U)
+WIDE = {  # (B, S, NH, H, D, U) of the larger detectors' layers, fewer rows
+    "vil-det-256": (1, 40, 8, 512, 256, 704),
+    "vil-det-384": (1, 40, 6, 768, 384, 1024),
+}
 
 
 def close(got, ref, rel, name):
@@ -45,9 +52,13 @@ def as_torch(a, dtype):
     return torch.from_numpy(np.asarray(a, np.float32)).to(getattr(torch, dtype))
 
 
-@pytest.mark.parametrize("offset", [0.0, 300.0], ids=["centred", "large_mean"])
+@pytest.mark.parametrize("offset,widths", [
+    pytest.param(0.0, SMALL, id="centred"), pytest.param(300.0, SMALL, id="large_mean"),
+    pytest.param(0.0, WIDE["vil-det-256"], id="centred-vil-det-256"),
+    pytest.param(300.0, WIDE["vil-det-384"], id="large_mean-vil-det-384")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_epilogue_gradients_match_jax(dtype, offset):
+def test_epilogue_gradients_match_jax(dtype, offset, widths):
+    B, S, NH, H, D, _ = widths
     rng = np.random.default_rng(11)
     h = rng.normal(offset, 1.0, (B, S, H)).astype(np.float32)
     x = rng.normal(size=(B, S, H)).astype(np.float32)
@@ -77,9 +88,13 @@ def test_epilogue_gradients_match_jax(dtype, offset):
         close(a.T if name == "dwd" else a, np.asarray(b, np.float32), rel, name)
 
 
-@pytest.mark.parametrize("offset", [0.0, 30.0], ids=["centred", "large_mean"])
+@pytest.mark.parametrize("offset,widths", [
+    pytest.param(0.0, SMALL, id="centred"), pytest.param(30.0, SMALL, id="large_mean"),
+    pytest.param(0.0, WIDE["vil-det-256"], id="centred-vil-det-256"),
+    pytest.param(30.0, WIDE["vil-det-384"], id="large_mean-vil-det-384")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ffn_gradients_match_jax(dtype, offset):
+def test_ffn_gradients_match_jax(dtype, offset, widths):
+    B, S, _, _, D, U = widths
     rng = np.random.default_rng(12)
     x = rng.normal(offset, 1.0, (B, S, D)).astype(np.float32)
     wn = rng.normal(1, 0.1, D).astype(np.float32)

@@ -26,11 +26,20 @@
 // Design.  One block of 256 threads per (batch, head) walks the chunks of
 // L = 64 rows from the last to the first.  q~, k, v and dhn of the chunk,
 // the causal P and SD tiles, C_prev and dC live in shared memory (float32,
-// row stride DH + 1 against bank conflicts), about 70 KB at DH = 32
-// (dynamic shared memory).  Per chunk: load; P and SD as 4x4 register
-// tiles; dq, dk, dv for one row and DH / 4 columns per thread; then the dC
-// update.  All arithmetic is float32 FMA; bf16 inputs are widened on load,
-// dq, dk and dv rounded once on store.
+// row stride DH + 1 against bank conflicts): 75 KB at DH = 32, 131 KB at
+// 64 (dynamic shared memory).  Per chunk: load; P and SD as 4x4 register
+// tiles; dq, dk, dv for one row and DH / 4 columns per thread, one output
+// at a time (two DH / 4 sums live per thread); then the dC update.
+// All arithmetic is float32 FMA; bf16 inputs are widened on load, dq, dk
+// and dv rounded once on store.
+//
+// DH = 128 (vil-det-384).  The tiles (132 KB), P and SD (33 KB) and dC
+// (66 KB) fill a block's 227 KB, and C_prev (another 66 KB) does not fit.
+// Its one reader is the dq term dhn C_prev^T, so there it is read from
+// the saved per-chunk states in device memory (through L1 and L2; the 64
+// rows of the chunk read the same 64 KB), in the order the staged copy
+// is read: the numbers are those of the staged layout.  The chunk stays
+// L = 64 rows, as the forward saves one state per 64 rows.
 //
 // What bounds it.  At B = 8, S = 6400, bf16 the function moves ~320 MB (q,
 // k, v, dh read, dq, dk, dv written, the saved states read), ~0.1 ms at
@@ -44,27 +53,33 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int L = 64;    // chunk rows
 constexpr int NT = 256;  // threads per block
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float* y) { *y = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* y) { *y = __float2bfloat16(x); }
+using port::from_f32;
+using port::to_f32;
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
+// C_prev is staged in shared memory where it fits (DH <= 64).
+template <int DH>
+__host__ __device__ constexpr bool stage_c() { return DH <= 64; }
+
 template <int DH>
 constexpr size_t smem_floats() {
-  return 4 * L * (DH + 1)   // q~, k, v, dhn
-         + 2 * L * (L + 1)  // P, SD
-         + 2 * DH * (DH + 1)  // C_prev, dC
-         + 5 * L + 1;       // b, e^b, e^a, logsig(i), e^g
+  return 4 * L * (DH + 1)                    // q~, k, v, dhn
+         + 2 * L * (L + 1)                   // P, SD
+         + (stage_c<DH>() ? 2 : 1) * DH * (DH + 1)  // (C_prev,) dC
+         + 3 * L;                            // b, e^b, logsig(i)
 }
+
+static_assert(4 * smem_floats<128>() <= 232448, "a block's shared memory on Hopper");
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
@@ -74,7 +89,7 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
     const T* __restrict__ dh, const float* __restrict__ dc_last, T* __restrict__ dq,
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dc0, int S, int NH,
     float qk_scale, float eps) {
-  static_assert(DH == 16 || DH == 32, "head dim 16 or 32");
+  constexpr bool STAGE_C = stage_c<DH>();
   constexpr int DP = DH + 1;  // padded row stride of the (L, DH) tiles
   constexpr int LP = L + 1;   // padded row stride of the (L, L) tiles
   constexpr int CPT = DH / 4; // output columns per thread (4 threads per row)
@@ -88,13 +103,11 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
   float* sdh = sv + L * DP;      // (L, DP) dhn
   float* sP = sdh + L * DP;      // (L, LP) P
   float* sSD = sP + L * LP;      // (L, LP) SD
-  float* sC = sSD + L * LP;      // (DH, DP) C_prev
-  float* sdC = sC + DH * DP;     // (DH, DP) dC
-  float* sb = sdC + DH * DP;     // (L) b
+  float* sdC = sSD + L * LP;     // (DH, DP) dC
+  float* sC = sdC + DH * DP;     // (DH, DP) C_prev, if STAGE_C
+  float* sb = sC + (STAGE_C ? DH * DP : 0);  // (L) b
   float* seb = sb + L;           // (L) e^b
-  float* sea = seb + L;          // (L) e^a
-  float* sli = sea + L;          // (L) logsig(i)
-  float* seg = sli + L;          // (1) e^g
+  float* sli = seb + L;          // (L) logsig(i)
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -128,8 +141,9 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
       sv[r * DP + col] = vv;
       sdh[r * DP + col] = dv_;
     }
-    for (int e = tid; e < DH * DH; e += NT)
-      sC[(e / DH) * DP + e % DH] = c_states[chunk_bh * DH * DH + e];
+    const float* cprev = c_states + chunk_bh * DH * DH;
+    if constexpr (STAGE_C)
+      for (int e = tid; e < DH * DH; e += NT) sC[(e / DH) * DP + e % DH] = cprev[e];
     if (tid < 32) {  // one warp, two rows per lane: inclusive scan of logsig(f)
       const int r0 = 2 * tid, r1 = r0 + 1;
       float lf0 = 0.f, lf1 = 0.f, li0 = -CUDART_INF_F, li1 = -CUDART_INF_F;
@@ -151,16 +165,12 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
       if (tid == 0) excl = 0.f;
       const float b0 = excl + lf0;
       const float b1 = b0 + lf1;
-      const float g = __shfl_sync(0xffffffffu, b1, 31);
-      sb[r0] = b0;
+      sb[r0] = b0;  // g, the chunk's total, is sb[L - 1]
       sb[r1] = b1;
       seb[r0] = expf(b0);
       seb[r1] = expf(b1);
-      sea[r0] = expf((g - b0) + li0);
-      sea[r1] = expf((g - b1) + li1);
       sli[r0] = li0;
       sli[r1] = li1;
-      if (tid == 0) seg[0] = expf(g);
     }
     __syncthreads();
 
@@ -207,61 +217,70 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
     }
     __syncthreads();
 
-    // 3. dq, dk, dv for row `row`, columns [cc, cc + CPT)
+    // 3. dq, dk, dv for row `row`, columns [cc, cc + CPT), one at a time:
+    //    the intra-chunk sum, then the inter-chunk one
     {
       const int row = tid / 4;
       const int cc = (tid % 4) * CPT;
-      float aq[CPT], ak[CPT], av[CPT];
+      const bool store = t0 + row < S;
+      const size_t off = row0 + (size_t)(t0 + row) * H + cc;
+      const float g = sb[L - 1];
+      const float eb = seb[row] * qk_scale, ea = expf((g - sb[row]) + sli[row]);
+      float a[CPT], in[CPT];
+      // dq = P k * qk_scale + e^b qk_scale (dhn C_prev^T)
 #pragma unroll
-      for (int x = 0; x < CPT; ++x) aq[x] = ak[x] = av[x] = 0.f;
-      // intra-chunk parts
-      for (int j = 0; j <= row; ++j) {  // dq: sum_{j <= row} P[row, j] k[j]
+      for (int x = 0; x < CPT; ++x) a[x] = in[x] = 0.f;
+      for (int j = 0; j <= row; ++j) {
         const float p = sP[row * LP + j];
 #pragma unroll
-        for (int x = 0; x < CPT; ++x) aq[x] = fmaf(p, sk[j * DP + cc + x], aq[x]);
+        for (int x = 0; x < CPT; ++x) a[x] = fmaf(p, sk[j * DP + cc + x], a[x]);
       }
-      for (int l = row; l < L; ++l) {  // dk, dv: sums over l >= row
-        const float p = sP[l * LP + row];
-        const float sd = sSD[l * LP + row];
-#pragma unroll
-        for (int x = 0; x < CPT; ++x) {
-          ak[x] = fmaf(p, sq[l * DP + cc + x], ak[x]);
-          av[x] = fmaf(sd, sdh[l * DP + cc + x], av[x]);
-        }
-      }
-      // inter-chunk parts
-      float iq[CPT], ik[CPT], iv[CPT];
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) iq[x] = ik[x] = iv[x] = 0.f;
 #pragma unroll 4
       for (int u = 0; u < DH; ++u) {
         const float dhu = sdh[row * DP + u];
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) {
+          const float cv = STAGE_C ? sC[(cc + x) * DP + u] : __ldg(cprev + (cc + x) * DH + u);
+          in[x] = fmaf(dhu, cv, in[x]);
+        }
+      }
+      if (store)
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) from_f32(fmaf(a[x], qk_scale, eb * in[x]), dq + off + x);
+      // dk = P^T q~ + e^a (v dC^T)
+#pragma unroll
+      for (int x = 0; x < CPT; ++x) a[x] = in[x] = 0.f;
+      for (int l = row; l < L; ++l) {
+        const float p = sP[l * LP + row];
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) a[x] = fmaf(p, sq[l * DP + cc + x], a[x]);
+      }
+#pragma unroll 4
+      for (int u = 0; u < DH; ++u) {
         const float vu = sv[row * DP + u];
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) in[x] = fmaf(vu, sdC[(cc + x) * DP + u], in[x]);
+      }
+      if (store)
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) from_f32(fmaf(ea, in[x], a[x]), dk + off + x);
+      // dv = SD^T dhn + e^a (k dC)
+#pragma unroll
+      for (int x = 0; x < CPT; ++x) a[x] = in[x] = 0.f;
+      for (int l = row; l < L; ++l) {
+        const float sd = sSD[l * LP + row];
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) a[x] = fmaf(sd, sdh[l * DP + cc + x], a[x]);
+      }
+#pragma unroll 4
+      for (int u = 0; u < DH; ++u) {
         const float ku = sk[row * DP + u];
 #pragma unroll
-        for (int x = 0; x < CPT; ++x) {
-          iq[x] = fmaf(dhu, sC[(cc + x) * DP + u], iq[x]);   // dhn C_prev^T
-          ik[x] = fmaf(vu, sdC[(cc + x) * DP + u], ik[x]);   // v dC^T
-          iv[x] = fmaf(ku, sdC[u * DP + cc + x], iv[x]);     // k dC
-        }
+        for (int x = 0; x < CPT; ++x) in[x] = fmaf(ku, sdC[u * DP + cc + x], in[x]);
       }
-      const float eb = seb[row] * qk_scale, ea = sea[row];
-      float oq[CPT], ok[CPT], ov[CPT];
+      if (store)
 #pragma unroll
-      for (int x = 0; x < CPT; ++x) {
-        oq[x] = fmaf(aq[x], qk_scale, eb * iq[x]);
-        ok[x] = fmaf(ea, ik[x], ak[x]);
-        ov[x] = fmaf(ea, iv[x], av[x]);
-      }
-      if (t0 + row < S) {
-        const size_t off = row0 + (size_t)(t0 + row) * H + cc;
-#pragma unroll
-        for (int x = 0; x < CPT; ++x) {
-          from_f32(oq[x], dq + off + x);
-          from_f32(ok[x], dk + off + x);
-          from_f32(ov[x], dv + off + x);
-        }
-      }
+        for (int x = 0; x < CPT; ++x) from_f32(fmaf(ea, in[x], a[x]), dv + off + x);
     }
     __syncthreads();
 
@@ -278,7 +297,7 @@ __global__ void __launch_bounds__(NT) chunkwise_bw_kernel(
 #pragma unroll
         for (int x = 0; x < VPT; ++x) acc[x] = fmaf(qb, sdh[l * DP + dv0 + x], acc[x]);
       }
-      const float eg = seg[0];
+      const float eg = expf(sb[L - 1]);
 #pragma unroll
       for (int x = 0; x < VPT; ++x)
         sdC[dk_ * DP + dv0 + x] = fmaf(eg, sdC[dk_ * DP + dv0 + x], acc[x]);
@@ -296,8 +315,7 @@ int launch(const void* q, const void* k, const void* v, const float* i, const fl
            void* dk, void* dv, float* dc0, int B, int S, int NH, float qk_scale, float eps,
            cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
-  cudaError_t err = cudaFuncSetAttribute(chunkwise_bw_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = port::allow_smem(chunkwise_bw_kernel<T, DH>, smem);
   if (err != cudaSuccess) return (int)err;
   chunkwise_bw_kernel<T, DH><<<B * NH, NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f, cs,
@@ -318,18 +336,10 @@ extern "C" int chunkwise_bw(const void* q, const void* k, const void* v, const f
                             const void* dh, const float* dc_last, void* dq, void* dk, void* dv,
                             float* dc0, int B, int S, int NH, int DH, int dtype, float qk_scale,
                             float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && DH == 32)
-    return launch<float, 32>(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0, B, S,
-                             NH, qk_scale, eps, st);
-  if (dtype == 0 && DH == 16)
-    return launch<float, 16>(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0, B, S,
-                             NH, qk_scale, eps, st);
-  if (dtype == 1 && DH == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv,
-                                     dc0, B, S, NH, qk_scale, eps, st);
-  if (dtype == 1 && DH == 16)
-    return launch<__nv_bfloat16, 16>(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv,
-                                     dc0, B, S, NH, qk_scale, eps, st);
-  return 1000;
+  return port::dispatch(dtype, dtype, DH, [&](auto t, auto, auto dhd) -> int {
+    using T = decltype(t);
+    constexpr int D = decltype(dhd)::value;
+    return launch<T, D>(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0, B, S, NH,
+                        qk_scale, eps, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -61,11 +61,11 @@ extern "C" int chunkwise_exp_bw_dc(const void* q, const float* f, const void* dh
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    state_scan_kernel<T, CT, D, true, true><<<B * NH, NT, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(dh), nullptr, f, den, dc_last, nullptr,
-        dc_states, nullptr, dc0, nullptr, S, L, qk_scale, eps,
-        MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
-    return (int)cudaGetLastError();
+    return launch_with_smem(state_scan_kernel<T, CT, D, true, true>, dim3(B * NH),
+                            sizeof(float) * scan_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(dh), nullptr, f, den, dc_last, nullptr,
+                            dc_states, nullptr, dc0, nullptr, S, L, qk_scale, eps,
+                            MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
   });
 }
 
@@ -85,16 +85,12 @@ extern "C" int chunkwise_exp_bw_dqkv(const void* q, const void* k, const void* v
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const size_t smem = sizeof(float) * dqkv_smem_floats<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        dqkv_kernel<T, CT, D, true, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S / L) * (L / tile_rows(L)), B * NH, 2);
-    dqkv_kernel<T, CT, D, true, T><<<grid, NT, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
-        c_states, den, static_cast<const T*>(dh), dc_states, static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), S, L, qk_scale, eps,
-        MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
-    return (int)cudaGetLastError();
+    const dim3 grid((S / L) * (L / tile_rows(L, dqkv_rows<D>())), B * NH, 2);
+    return launch_with_smem(dqkv_kernel<T, CT, D, true, T>, grid,
+                            sizeof(float) * dqkv_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v), i, f, c_states,
+                            den, static_cast<const T*>(dh), dc_states, static_cast<T*>(dq),
+                            static_cast<T*>(dk), static_cast<T*>(dv), S, L, qk_scale, eps,
+                            MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
   });
 }

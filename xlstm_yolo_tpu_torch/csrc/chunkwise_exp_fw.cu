@@ -71,19 +71,15 @@ extern "C" int chunkwise_exp_fw(const void* q, const void* k, const void* v, con
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
-    state_scan_kernel<T, CT, D, false, true><<<B * NH, NT, 0, st>>>(
-        kt, vt, i, f, nullptr, c0, n0, c_states, n_states, c_last, n_last, S, L, qk_scale, eps,
+    const int err = launch_with_smem(
+        state_scan_kernel<T, CT, D, false, true>, dim3(B * NH),
+        sizeof(float) * scan_smem_floats<D>(), st, kt, vt, i, f, nullptr, c0, n0, c_states,
+        n_states, c_last, n_last, S, L, qk_scale, eps,
         MState{m0, m_states, m_last, nullptr, nullptr, nullptr});
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const size_t smem = sizeof(float) * h_smem_floats<D>();
-    err = cudaFuncSetAttribute(h_kernel<T, CT, D, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S / L) * (L / tile_rows(L)), B * NH);
-    h_kernel<T, CT, D, true><<<grid, NT, smem, st>>>(
-        qt, kt, vt, i, f, c_states, n_states, static_cast<T*>(h), den, S, L, qk_scale, eps,
-        MState{nullptr, m_states, nullptr, nullptr, nullptr, m_comb});
-    return (int)cudaGetLastError();
+    if (err != 0) return err;
+    return launch_with_smem(h_kernel<T, CT, D, true>, dim3((S / L) * (L / tile_rows(L)), B * NH),
+                            sizeof(float) * h_smem_floats<D>(), st, qt, kt, vt, i, f, c_states,
+                            n_states, static_cast<T*>(h), den, S, L, qk_scale, eps,
+                            MState{nullptr, m_states, nullptr, nullptr, nullptr, m_comb});
   });
 }

@@ -1,9 +1,13 @@
-// Chunkwise sigmoid-input-gate mLSTM forward for Hopper, sm_90a: inference and
-// train variants.
+// Chunkwise sigmoid-input-gate mLSTM forward for Hopper, sm_90a: inference,
+// train and inference-with-LayerNorm variants.
 //
 // Replaces the TPU kernels `_fw_kernel_infer` (xlstm_yolo_tpu/ops/pallas/
-// chunkwise_v2.py:245) and `_fw_kernel_train` (:238), body `_fw_body` :130,
-// and the host-side gate packing `_pack_gates` (:259).  The train variant
+// chunkwise_v2.py:245), `_fw_kernel_train` (:238) and `_fw_kernel_infer_ln`
+// (:252), body `_fw_body` :130, and the host-side gate packing
+// `_pack_gates` (:259).  The LN variant normalises each row's float32 h of
+// each head before it is rounded (`_fw_body` :209-216): mean and centred
+// variance over DH, (h - mean) rsqrt(var + ln_eps) lnw + lnb, with lnw the
+// caller's (1 + w) and lnb (H,) float32.  The train variant
 // (SAVE) also stores, for the backward, the state before each chunk,
 // C (B, NC, NH, DH, DH) and n (B, NC, NH, DH), and the denominator
 // max(|n_inter + n_intra|, 1) of each row, den (B, NC, NH, L), in float32
@@ -33,14 +37,22 @@
 // memory, q pre-scaled), build the causal q k^T * D tile (4x4 register
 // tiles), form h = inter + intra for 8 columns of one row per thread, then
 // update C and n.  All arithmetic is float32 FMA; bf16 inputs are widened on
-// load, h is rounded once on store.
+// load, h is rounded once on store.  In the LN variant the 4 threads of a
+// row (4 consecutive lanes) reduce its mean and then its centred variance
+// with two rounds of __shfl_xor_sync each, before the store.
+//
+// Shared memory (dynamic, FwSmem): 4 (2 DH (L + 4) + L DH + L (L + 1) +
+// DH^2 + DH + 4 L + 1) bytes, 47.5 KB at DH = 32, 85.5 KB at 64 and
+// 186.1 KB at 128 (vil-det-384), one block per SM there.  Registers grow
+// with DH: the state update holds DH^2 / 256 floats a thread (64 at DH =
+// 128) and the h phase DH / 4 (32).
 //
 // What bounds it.  The function is memory-bound by a wide margin (about 46
 // FLOP per byte moved at DH = 32, L = 64 in bf16, against the card's ~295
 // for bf16 tensor-core work).  This first version does not reach that
 // bound.  Occupancy: the grid has only B*NH blocks, 96 at batch 8 on 132
-// SMs, one block of 8 warps per SM (47.5 KB of static shared memory at
-// DH = 32), so 36 SMs idle and each busy SM runs 8 of its 64 warp slots.
+// SMs, one block of 8 warps per SM, so 36 SMs idle (at vil-det-384, NH = 6,
+// 48 blocks: 84 idle) and each busy SM runs 8 of its 64 warp slots.
 // Each block walks S/L chunks serially (100 at S = 6400) with float32 FMA
 // and a __syncthreads between phases, and its global loads are not
 // overlapped with compute: it is bound by the latency of that serial chain.
@@ -54,16 +66,18 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using port::from_f32;
+using port::to_f32;
 
 constexpr int L = 64;     // chunk rows
 constexpr int NT = 256;   // threads per block
 constexpr int LP = L + 4; // padded row length of the transposed q/k tiles
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f32(float x, float* y) { *y = x; }
-__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* y) { *y = __float2bfloat16(x); }
+enum Variant { INFER = 0, TRAIN = 1, INFER_LN = 2 };
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -99,29 +113,55 @@ __device__ __forceinline__ void store_row(T* p, const float* x) {
   }
 }
 
-template <typename T, int DH, bool SAVE>
+// The block's shared memory.  Row lengths are multiples of 16 bytes, so
+// the float4 reads below stay aligned.
+template <int DH>
+struct __align__(16) FwSmem {
+  float sqT[DH][LP];  // q~ transposed
+  float skT[DH][LP];  // k transposed
+  float sv[L][DH];
+  float ssd[L][L + 1];  // causal q~ k^T * D
+  float sc[DH][DH];     // C state
+  float sn[DH];         // n state
+  float sb[L], seb[L], sea[L], sli[L];
+  float sg;
+};
+
+// Sum of x over the 4 consecutive lanes of a row.
+__device__ __forceinline__ float row_sum4(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <typename T, int DH, int VAR>
 __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ ig, const float* __restrict__ fg,
     const float* __restrict__ c0, const float* __restrict__ n0,
     T* __restrict__ h, float* __restrict__ c_last, float* __restrict__ n_last,
     float* __restrict__ c_states, float* __restrict__ n_states, float* __restrict__ den_out,
-    int S, int NH, float qk_scale, float eps) {
-  static_assert(DH == 16 || DH == 32, "head dim 16 or 32");
+    const float* __restrict__ lnw, const float* __restrict__ lnb, int S, int NH,
+    float qk_scale, float eps, float ln_eps) {
+  constexpr bool SAVE = VAR == TRAIN;
   constexpr int VE = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int VPR = DH / VE;        // 16-byte loads per head row
   constexpr int CPT = DH / 4;         // h columns per thread (4 threads per row)
   constexpr int TPR = NT / DH;        // threads per C row in the state update
   constexpr int VPT = DH / TPR;       // C columns per thread
 
-  __shared__ __align__(16) float sqT[DH][LP];  // q~ transposed
-  __shared__ __align__(16) float skT[DH][LP];  // k transposed
-  __shared__ __align__(16) float sv[L][DH];
-  __shared__ float ssd[L][L + 1];              // causal q~ k^T * D
-  __shared__ __align__(16) float sc[DH][DH];   // C state
-  __shared__ float sn[DH];                     // n state
-  __shared__ float sb[L], seb[L], sea[L], sli[L];
-  __shared__ float sg;
+  extern __shared__ __align__(16) unsigned char fw_smem[];
+  FwSmem<DH>& sm = *reinterpret_cast<FwSmem<DH>*>(fw_smem);
+  auto& sqT = sm.sqT;
+  auto& skT = sm.skT;
+  auto& sv = sm.sv;
+  auto& ssd = sm.ssd;
+  auto& sc = sm.sc;
+  float* sn = sm.sn;
+  float* sb = sm.sb;
+  float* seb = sm.seb;
+  float* sea = sm.sea;
+  float* sli = sm.sli;
+  float& sg = sm.sg;
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -277,6 +317,23 @@ __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
       const float inv = 1.f / (den + eps);
 #pragma unroll
       for (int x = 0; x < CPT; ++x) acc[x] *= inv;
+      if constexpr (VAR == INFER_LN) {  // per-head LayerNorm of the float32 row
+        float s = 0.f;
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) s += acc[x];
+        const float mu = row_sum4(s) / DH;
+        float ss = 0.f;
+#pragma unroll
+        for (int x = 0; x < CPT; ++x) {
+          const float d = acc[x] - mu;
+          ss = fmaf(d, d, ss);
+        }
+        const float rstd = rsqrtf(row_sum4(ss) / DH + ln_eps);
+        const int col = hd * DH + cc;
+#pragma unroll
+        for (int x = 0; x < CPT; ++x)
+          acc[x] = fmaf((acc[x] - mu) * rstd, lnw[col + x], lnb[col + x]);
+      }
       if (t0 + l < S) store_row<T, CPT>(h + row0 + (size_t)(t0 + l) * H + cc, acc);
     }
     __syncthreads();
@@ -308,49 +365,48 @@ __global__ void __launch_bounds__(NT) chunkwise_fw_kernel(
   if (tid < DH) n_last[(size_t)bh * DH + tid] = sn[tid];
 }
 
-template <typename T, int DH, bool SAVE>
-void launch(const void* q, const void* k, const void* v, const float* i, const float* f,
-            const float* c0, const float* n0, void* h, float* c_last, float* n_last,
-            float* c_states, float* n_states, float* den, int B, int S, int NH, float qk_scale,
-            float eps, cudaStream_t stream) {
-  chunkwise_fw_kernel<T, DH, SAVE><<<B * NH, NT, 0, stream>>>(
+template <typename T, int DH, int VAR>
+int launch(const void* q, const void* k, const void* v, const float* i, const float* f,
+           const float* c0, const float* n0, void* h, float* c_last, float* n_last,
+           float* c_states, float* n_states, float* den, const float* lnw, const float* lnb,
+           int B, int S, int NH, float qk_scale, float eps, float ln_eps, cudaStream_t stream) {
+  const size_t smem = sizeof(FwSmem<DH>);
+  cudaError_t err = port::allow_smem(chunkwise_fw_kernel<T, DH, VAR>, smem);
+  if (err != cudaSuccess) return (int)err;
+  chunkwise_fw_kernel<T, DH, VAR><<<B * NH, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
-      c0, n0, static_cast<T*>(h), c_last, n_last, c_states, n_states, den, S, NH, qk_scale, eps);
+      c0, n0, static_cast<T*>(h), c_last, n_last, c_states, n_states, den, lnw, lnb, S, NH,
+      qk_scale, eps, ln_eps);
+  return (int)cudaGetLastError();
 }
 
-template <bool SAVE>
+template <int VAR>
 int dispatch(const void* q, const void* k, const void* v, const float* i, const float* f,
              const float* c0, const float* n0, void* h, float* c_last, float* n_last,
-             float* c_states, float* n_states, float* den, int B, int S, int NH, int DH,
-             int dtype, float qk_scale, float eps, cudaStream_t st) {
-  if (dtype == 0 && DH == 32)
-    launch<float, 32, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
-                            B, S, NH, qk_scale, eps, st);
-  else if (dtype == 0 && DH == 16)
-    launch<float, 16, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
-                            B, S, NH, qk_scale, eps, st);
-  else if (dtype == 1 && DH == 32)
-    launch<__nv_bfloat16, 32, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states,
-                                    n_states, den, B, S, NH, qk_scale, eps, st);
-  else if (dtype == 1 && DH == 16)
-    launch<__nv_bfloat16, 16, SAVE>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states,
-                                    n_states, den, B, S, NH, qk_scale, eps, st);
-  else
-    return 1000;
-  return static_cast<int>(cudaGetLastError());
+             float* c_states, float* n_states, float* den, const float* lnw, const float* lnb,
+             int B, int S, int NH, int DH, int dtype, float qk_scale, float eps, float ln_eps,
+             cudaStream_t st) {
+  // the compute type is the storage type: every product here is float32
+  return port::dispatch(dtype, dtype, DH, [&](auto t, auto, auto dh) -> int {
+    using T = decltype(t);
+    constexpr int D = decltype(dh)::value;
+    return launch<T, D, VAR>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
+                             lnw, lnb, B, S, NH, qk_scale, eps, ln_eps, st);
+  });
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  c0/n0 may be null (zero initial state).
-// Returns cudaGetLastError() after the launch; 1000 for an unsupported
-// dtype or head size (the Python wrapper checks both before calling).
+// Returns the CUDA error code of the launch; 1000 for an unsupported dtype
+// or head size (the Python wrapper checks both before calling).
 extern "C" int chunkwise_fw(const void* q, const void* k, const void* v, const float* i,
                             const float* f, const float* c0, const float* n0, void* h,
                             float* c_last, float* n_last, int B, int S, int NH, int DH,
                             int dtype, float qk_scale, float eps, void* stream) {
-  return dispatch<false>(q, k, v, i, f, c0, n0, h, c_last, n_last, nullptr, nullptr, nullptr,
-                         B, S, NH, DH, dtype, qk_scale, eps, static_cast<cudaStream_t>(stream));
+  return dispatch<INFER>(q, k, v, i, f, c0, n0, h, c_last, n_last, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, B, S, NH, DH, dtype, qk_scale, eps, 0.f,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The train variant: also c_states (B, NC, NH, DH, DH), n_states
@@ -360,6 +416,19 @@ extern "C" int chunkwise_fw_train(const void* q, const void* k, const void* v, c
                                   float* c_last, float* n_last, float* c_states,
                                   float* n_states, float* den, int B, int S, int NH, int DH,
                                   int dtype, float qk_scale, float eps, void* stream) {
-  return dispatch<true>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den, B,
-                        S, NH, DH, dtype, qk_scale, eps, static_cast<cudaStream_t>(stream));
+  return dispatch<TRAIN>(q, k, v, i, f, c0, n0, h, c_last, n_last, c_states, n_states, den,
+                         nullptr, nullptr, B, S, NH, DH, dtype, qk_scale, eps, 0.f,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The inference variant with the per-head LayerNorm fused in: lnw (the
+// caller's 1 + w) and lnb, (NH * DH) float32.
+extern "C" int chunkwise_fw_ln(const void* q, const void* k, const void* v, const float* i,
+                               const float* f, const float* c0, const float* n0,
+                               const float* lnw, const float* lnb, void* h, float* c_last,
+                               float* n_last, int B, int S, int NH, int DH, int dtype,
+                               float qk_scale, float eps, float ln_eps, void* stream) {
+  return dispatch<INFER_LN>(q, k, v, i, f, c0, n0, h, c_last, n_last, nullptr, nullptr,
+                            nullptr, lnw, lnb, B, S, NH, DH, dtype, qk_scale, eps, ln_eps,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -48,11 +48,18 @@ using port::to_f32;
 constexpr int LMAX = 512;  // longest chunk
 constexpr int TR = 64;     // rows of a tile: a chunk longer than this runs in sub-tiles
 
+// Rows of the dq/dk/dv kernel's tiles: 64, and 32 at DH = 128, where 64
+// rows would need 271 KB of shared memory (163 KB at 32 rows).  Each sum
+// runs over the same terms in ascending order whatever the tile, so the
+// numbers do not depend on it.
+template <int DH>
+__host__ __device__ constexpr int dqkv_rows() { return DH >= 128 ? 32 : TR; }
+
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__host__ __device__ constexpr int tile_rows(int L) { return L < TR ? L : TR; }
+__host__ __device__ constexpr int tile_rows(int L, int tr = TR) { return L < tr ? L : tr; }
 
 // The m arrays of the exp route (all null on the v1 route).
 struct MState {
@@ -125,7 +132,15 @@ __device__ __forceinline__ float row_mcomb(const float* sb, const float* si, int
 //             qf = e^b (v1; gbar = e^g) or e^{(b + m_prev) - m_comb} (exp; m_prev
 //             and gbar from mrow); x = q, y = dh, s0 = dC_last;  s_last = dC0
 //
-// A chunk is read in tiles of TR rows staged in shared memory.
+// A chunk is read in tiles of TR rows staged in shared memory (dynamic:
+// scan_smem_floats, 72 KB at DH = 128).
+template <int DH>
+constexpr size_t scan_smem_floats() {
+  return 3 * LMAX          // b, logsig(i) (exp: i), the row factor
+         + 2 * TR * (DH + 1)  // R(x * row factor), R(y)
+         + 1;              // exp forward: m_new of the chunk
+}
+
 template <typename T, typename CT, int DH, bool BW, bool EXP>
 __global__ void __launch_bounds__(NT) state_scan_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const float* __restrict__ ig,
@@ -133,15 +148,16 @@ __global__ void __launch_bounds__(NT) state_scan_kernel(
     const float* __restrict__ n0, float* __restrict__ states, float* __restrict__ n_states,
     float* __restrict__ s_last, float* __restrict__ n_last, int S, int L, float qk_scale,
     float eps, MState ms) {
-  static_assert(DH == 16 || DH == 32, "head dim 16 or 32");
   constexpr int EPT = DH * DH / NT;  // state entries per thread
   constexpr int TPR = DH / EPT;      // threads per state row
   constexpr int DP = DH + 1;
-  __shared__ float sb[LMAX], sli[LMAX];
-  __shared__ float sfac[LMAX];   // the row factor: e^a (forward), e^b (backward), stabilized
-  __shared__ float sa[TR * DP];  // R(x * row factor)
-  __shared__ float sy[TR * DP];  // R(y), divided by den + eps in the backward
-  __shared__ float smax;         // exp forward: m_new of the chunk
+  extern __shared__ float smem[];
+  float* sb = smem;            // (LMAX)
+  float* sli = sb + LMAX;      // (LMAX)
+  float* sfac = sli + LMAX;    // (LMAX) the row factor: e^a (forward), e^b (backward), stabilized
+  float* sa = sfac + LMAX;     // (TR, DP) R(x * row factor)
+  float* sy = sa + TR * DP;    // (TR, DP) R(y), divided by den + eps in the backward
+  float& smax = sy[TR * DP];   // exp forward: m_new of the chunk
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -379,10 +395,11 @@ __global__ void __launch_bounds__(NT) h_kernel(
 
 template <int DH>
 constexpr size_t dqkv_smem_floats() {
+  constexpr int TRD = dqkv_rows<DH>();
   return 3 * LMAX                 // b, logsig(i) (exp: i), exp: m_comb
-         + 5 * TR * (DH + 1)      // own-tile operands (3), other-tile operands (2)
+         + 5 * TRD * (DH + 1)     // own-tile operands (3), other-tile operands (2)
          + DH * (DH + 1)          // R(C_prev) or R(dC)
-         + 2 * TR * (TR + 1);     // P, SD tiles
+         + 2 * TRD * (TRD + 1);   // P, SD tiles
 }
 
 // dq, dk, dv (in TO) of every chunk, independently, from the saved state
@@ -395,7 +412,7 @@ constexpr size_t dqkv_smem_floats() {
 // where qf = e^b, kf = e^a (v1) or qf = e^{(b + m_prev) - m_comb},
 // kf = e^{a - m_new} (exp; m_prev, m_new from ms.mrow, m_comb per row).
 //
-// Every (batch * head, chunk, TR-row sub-tile, part) is a block, part 0
+// Every (batch * head, chunk, TRD-row sub-tile, part) is a block, part 0
 // computing dq of the sub-tile's rows (walking the key sub-tiles at or
 // before it) and part 1 dk and dv of its rows as keys (walking the query
 // sub-tiles at or after it).
@@ -406,24 +423,25 @@ __global__ void __launch_bounds__(NT) dqkv_kernel(
     const float* __restrict__ c_states, const float* __restrict__ den, const T* __restrict__ dh,
     const float* __restrict__ dc_states, TO* __restrict__ dq, TO* __restrict__ dk,
     TO* __restrict__ dv, int S, int L, float qk_scale, float eps, MState ms) {
+  constexpr int TRD = dqkv_rows<DH>();
   constexpr int DP = DH + 1;
-  constexpr int TP = TR + 1;
+  constexpr int TP = TRD + 1;
   constexpr int CPT = DH / 4;
   extern __shared__ float smem[];
   float* sb = smem;
   float* sli = sb + LMAX;
   float* smc = sli + LMAX;     // exp: m_comb of the chunk's rows
   float* sA = smc + LMAX;      // own rows: R(dhn) (dq) | R(k) (dk, dv)
-  float* sB = sA + TR * DP;    // own rows: unused    | R(v)
-  float* sKa = sB + TR * DP;   // own rows: unused    | R(k kf)
-  float* sX = sKa + TR * DP;   // other rows: R(v)    | R(q)
-  float* sY = sX + TR * DP;    // other rows: R(k)    | R(dhn)
-  float* sS = sY + TR * DP;    // (DH, DP) R(C_prev)  | R(dC)
-  float* sP = sS + DH * DP;    // (TR, TP) P
-  float* sSD = sP + TR * TP;   // (TR, TP) SD (dk, dv only)
+  float* sB = sA + TRD * DP;    // own rows: unused    | R(v)
+  float* sKa = sB + TRD * DP;   // own rows: unused    | R(k kf)
+  float* sX = sKa + TRD * DP;   // other rows: R(v)    | R(q)
+  float* sY = sX + TRD * DP;    // other rows: R(k)    | R(dhn)
+  float* sS = sY + TRD * DP;    // (DH, DP) R(C_prev)  | R(dC)
+  float* sP = sS + DH * DP;     // (TRD, TP) P
+  float* sSD = sP + TRD * TP;   // (TRD, TP) SD (dk, dv only)
 
   const int tid = threadIdx.x;
-  const int T_ = tile_rows(L);
+  const int T_ = tile_rows(L, TRD);
   const int tiles = L / T_;
   const int c = blockIdx.x / tiles, st = blockIdx.x - c * tiles;
   const int bh = blockIdx.y;
@@ -581,6 +599,7 @@ __global__ void __launch_bounds__(NT) dqkv_kernel(
 }
 
 using port::dispatch;
+using port::launch_with_smem;
 
 inline bool chunk_ok(int S, int L) {
   return L >= 16 && L <= LMAX && (L & (L - 1)) == 0 && S > 0 && S % L == 0;

@@ -31,6 +31,9 @@
 // rows as keys (walking the query sub-tiles at or after it), so a chunk of
 // 512 rows needs no (512 x 512)
 // tile in shared memory.  2 * 96 * S / 64 blocks at batch 8 fill the card.
+// At DH = 128 the sub-tiles have 32 rows (`dqkv_rows`), so that a block's
+// operands fit in 163 KB of shared memory; the sums run over the same terms
+// in the same order, so the numbers do not change.
 // Products are float32 FMA on the CUDA cores with rounded operands.
 //
 // What bounds it.  The pair moves q, k, v, dh, dq, dk, dv once, the gates,
@@ -60,10 +63,10 @@ extern "C" int chunkwise_v1_bw_dc(const void* q, const float* f, const void* dh,
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    state_scan_kernel<T, CT, D, true, false><<<B * NH, NT, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(dh), nullptr, f, den, dc_last, nullptr,
-        dc_states, nullptr, dc0, nullptr, S, L, qk_scale, eps, MState{});
-    return (int)cudaGetLastError();
+    return launch_with_smem(state_scan_kernel<T, CT, D, true, false>, dim3(B * NH),
+                            sizeof(float) * scan_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(dh), nullptr, f, den, dc_last, nullptr,
+                            dc_states, nullptr, dc0, nullptr, S, L, qk_scale, eps, MState{});
   });
 }
 
@@ -80,16 +83,11 @@ extern "C" int chunkwise_v1_bw_dqkv(const void* q, const void* k, const void* v,
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const size_t smem = sizeof(float) * dqkv_smem_floats<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        dqkv_kernel<T, CT, D, false, float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S / L) * (L / tile_rows(L)), B * NH, 2);
-    dqkv_kernel<T, CT, D, false, float><<<grid, NT, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
-        c_states, den, static_cast<const T*>(dh), dc_states, dq, dk, dv, S, L, qk_scale, eps,
-        MState{});
-    return (int)cudaGetLastError();
+    const dim3 grid((S / L) * (L / tile_rows(L, dqkv_rows<D>())), B * NH, 2);
+    return launch_with_smem(dqkv_kernel<T, CT, D, false, float>, grid,
+                            sizeof(float) * dqkv_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v), i, f, c_states,
+                            den, static_cast<const T*>(dh), dc_states, dq, dk, dv, S, L,
+                            qk_scale, eps, MState{});
   });
 }

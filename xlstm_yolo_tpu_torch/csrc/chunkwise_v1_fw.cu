@@ -65,19 +65,13 @@ extern "C" int chunkwise_v1_fw(const void* q, const void* k, const void* v, cons
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
-    state_scan_kernel<T, CT, D, false, false><<<B * NH, NT, 0, st>>>(
-        kt, vt, i, f, nullptr, c0, n0, c_states, n_states, c_last, n_last, S, L, qk_scale, eps,
-        MState{});
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const size_t smem = sizeof(float) * h_smem_floats<D>();
-    err = cudaFuncSetAttribute(h_kernel<T, CT, D, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S / L) * (L / tile_rows(L)), B * NH);
-    h_kernel<T, CT, D, false><<<grid, NT, smem, st>>>(
-        qt, kt, vt, i, f, c_states, n_states, static_cast<T*>(h), den, S, L, qk_scale, eps,
-        MState{});
-    return (int)cudaGetLastError();
+    const int err = launch_with_smem(
+        state_scan_kernel<T, CT, D, false, false>, dim3(B * NH),
+        sizeof(float) * scan_smem_floats<D>(), st, kt, vt, i, f, nullptr, c0, n0, c_states,
+        n_states, c_last, n_last, S, L, qk_scale, eps, MState{});
+    if (err != 0) return err;
+    return launch_with_smem(h_kernel<T, CT, D, false>, dim3((S / L) * (L / tile_rows(L)), B * NH),
+                            sizeof(float) * h_smem_floats<D>(), st, qt, kt, vt, i, f, c_states,
+                            n_states, static_cast<T*>(h), den, S, L, qk_scale, eps, MState{});
   });
 }

@@ -3,8 +3,8 @@
 // - dtype helpers: float32 or bfloat16 in device memory, float32 math;
 //   rt<T>(x) rounds x to T and back, where the JAX package casts to the
 //   compute dtype;
-// - gemm_rows32: one block of 256 threads computes C = A * B for a tile of
-//   32 rows, A and C in shared memory, B a weight in device memory (read
+// - gemm_rows: one block of 256 threads computes C = A * B for a tile of
+//   16 or 32 rows, A and C in shared memory, B a weight in device memory (read
 //   through the L1/L2 caches, every warp of the block reads the same B
 //   values), f32 FMA;
 // - wgrad_kernel: weight gradients X^T Y over the rows of (M, P) and
@@ -13,7 +13,8 @@
 //   fixed order, so that gradients are the same from run to run (no
 //   atomics);
 // - dispatch: the storage type, compute type and head dim of a launcher's
-//   arguments as template parameters.
+//   arguments as template parameters; allow_smem: a kernel's dynamic
+//   shared memory above 48 KB.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,17 +37,20 @@ template <> __device__ __forceinline__ float rt<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// C[r * ldc + n] = sum_k A[r * lda + k] * rt<T>(B[k * ldb + n]) for r < 32,
-// n < N.  Thread t owns rows 4 * (t / 32) .. + 3 and columns
-// n0 + t % 32 + 32 j, j < TN, of each 32 * TN wide column chunk.
-template <typename T, int TN>
-__device__ __forceinline__ void gemm_rows32(const float* A, int lda, const float* __restrict__ B,
-                                            int ldb, float* C, int ldc, int K, int N) {
+// C[r * ldc + n] = sum_k A[r * lda + k] * rt<T>(B[k * ldb + n]) for r < R
+// (16 or 32), n < N.  Thread t owns rows RW * (t / 32) .. + RW - 1, RW =
+// R / 8, and columns n0 + t % 32 + 32 j, j < TN, of each 32 * TN wide
+// column chunk.  Each sum runs over k in order, whatever R.
+template <typename T, int TN, int R>
+__device__ __forceinline__ void gemm_rows(const float* A, int lda, const float* __restrict__ B,
+                                          int ldb, float* C, int ldc, int K, int N) {
+  static_assert(R == 16 || R == 32, "tiles of 16 or 32 rows");
+  constexpr int RW = R / 8;  // rows per warp
   const int rg = threadIdx.x >> 5, cg = threadIdx.x & 31;
   for (int n0 = 0; n0 < N; n0 += 32 * TN) {
-    float acc[4][TN];
+    float acc[RW][TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
@@ -58,18 +62,18 @@ __device__ __forceinline__ void gemm_rows32(const float* A, int lda, const float
         b[j] = n < N ? rt<T>(__ldg(B + (size_t)k * ldb + n)) : 0.f;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = A[(rg * 4 + i) * lda + k];
+      for (int i = 0; i < RW; ++i) {
+        const float a = A[(rg * RW + i) * lda + k];
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RW; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int n = n0 + cg + 32 * j;
-        if (n < N) C[(rg * 4 + i) * ldc + n] = acc[i][j];
+        if (n < N) C[(rg * RW + i) * ldc + n] = acc[i][j];
       }
   }
 }
@@ -167,24 +171,46 @@ cudaError_t launch_wgrad(const T* X, const T* Y, float* part, float* out, int M,
   return cudaGetLastError();
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB a
+// kernel must ask for it before its launch).
+template <typename K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Launches kernel<<<grid, NT, smem, st>>>(args...) after allow_smem; the
+// CUDA error code of the launch.
+template <typename K, typename... A>
+int launch_with_smem(K* kernel, dim3 grid, size_t smem, cudaStream_t st, A... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NT, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The head dims every mLSTM kernel takes (HEAD_DIMS in ops/cuda_build.py).
+template <typename T, typename CT, typename F>
+int dispatch_dh(int DH, F&& f) {
+  switch (DH) {
+    case 16: return f(T{}, CT{}, std::integral_constant<int, 16>{});
+    case 32: return f(T{}, CT{}, std::integral_constant<int, 32>{});
+    case 64: return f(T{}, CT{}, std::integral_constant<int, 64>{});
+    case 128: return f(T{}, CT{}, std::integral_constant<int, 128>{});
+    default: return 1000;
+  }
+}
+
 // Calls f(T{}, CT{}, std::integral_constant<int, DH>{}) for the storage
 // type (0 float32, 1 bfloat16), the compute type (same codes) and the head
-// dim; 1000 for a combination the kernels do not take.
+// dim (16, 32, 64 or 128); 1000 for a combination the kernels do not take.
 template <typename F>
 int dispatch(int dtype, int cdtype, int DH, F&& f) {
-  using D16 = std::integral_constant<int, 16>;
-  using D32 = std::integral_constant<int, 32>;
   using bf16 = __nv_bfloat16;
-  const int key = dtype * 100 + cdtype * 10 + (DH == 32 ? 1 : DH == 16 ? 0 : 9);
-  switch (key) {
-    case 0: return f(float{}, float{}, D16{});
-    case 1: return f(float{}, float{}, D32{});
-    case 10: return f(float{}, bf16{}, D16{});
-    case 11: return f(float{}, bf16{}, D32{});
-    case 100: return f(bf16{}, float{}, D16{});
-    case 101: return f(bf16{}, float{}, D32{});
-    case 110: return f(bf16{}, bf16{}, D16{});
-    case 111: return f(bf16{}, bf16{}, D32{});
+  switch (dtype * 10 + cdtype) {
+    case 0: return dispatch_dh<float, float>(DH, f);
+    case 1: return dispatch_dh<float, bf16>(DH, f);
+    case 10: return dispatch_dh<bf16, float>(DH, f);
+    case 11: return dispatch_dh<bf16, bf16>(DH, f);
     default: return 1000;
   }
 }

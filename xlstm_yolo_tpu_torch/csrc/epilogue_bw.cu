@@ -19,11 +19,14 @@
 // one flat range M, the last tile is masked.
 //
 // Design.  Three grid launches on the caller's stream:
-//  1. rows: one block of 256 threads per tile of 32 rows.  It stages h, x
+//  1. rows: one block of 256 threads per tile of R rows.  It stages h, x
 //     and g in shared memory (float32), recomputes the LayerNorm and z,
 //     stores z (compute dtype) for step 2, computes dz = g Wd with
-//     gemm_rows32 (Wd read through the caches), writes dh and dx, and
-//     writes per-tile column sums of dln_w, dln_b, dskip and dbd;
+//     gemm_rows (Wd read through the caches), writes dh and dx, and
+//     writes per-tile column sums of dln_w, dln_b, dskip and dbd.  The
+//     tile holds 4 R (3H + D + NH) bytes: R = 32 where that fits in a
+//     block's 227 KB (H 384 and 512), R = 16 at H 768 (172 KB); the
+//     wrapper chooses (ops/epilogue.py `tile_rows`);
 //  2. dWd = g^T z over row ranges (wgrad_kernel), one partial per range;
 //  3. reduce_kernel: the per-tile and per-range partials summed in a fixed
 //     order: the parameter gradients are deterministic (no atomics).
@@ -42,9 +45,7 @@ namespace {
 
 using namespace port;
 
-constexpr int R = 32;  // rows per tile
-
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(NT) epilogue_rows_kernel(
     const T* __restrict__ h, const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ lnw, const float* __restrict__ lnb,
@@ -100,7 +101,7 @@ __global__ void __launch_bounds__(NT) epilogue_rows_kernel(
   }
 
   // dz = g Wd
-  gemm_rows32<T, 4>(sg, D, wd, H, sdz, H, D, H);
+  gemm_rows<T, 4, R>(sg, D, wd, H, sdz, H, D, H);
   __syncthreads();
 
   // dx, and per-tile column sums (fixed row order)
@@ -150,17 +151,16 @@ __global__ void __launch_bounds__(NT) epilogue_rows_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int R>
 int run(const void* h, const void* x, const void* g, const float* lnw, const float* lnb,
         const float* skip, const float* wd, void* dh, void* dx, float* dvec, float* dwd,
         void* z, float* part_vec, float* part_w, int M, int H, int D, int NH, int splits,
         float eps, cudaStream_t st) {
   const int tiles = cdiv(M, R);
   const size_t smem = sizeof(float) * (3 * R * H + R * D + R * NH);
-  cudaError_t err = cudaFuncSetAttribute(epilogue_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(epilogue_rows_kernel<T, R>, smem);
   if (err != cudaSuccess) return (int)err;
-  epilogue_rows_kernel<T><<<tiles, NT, smem, st>>>(
+  epilogue_rows_kernel<T, R><<<tiles, NT, smem, st>>>(
       static_cast<const T*>(h), static_cast<const T*>(x), static_cast<const T*>(g), lnw, lnb,
       skip, wd, static_cast<T*>(dh), static_cast<T*>(dx), static_cast<T*>(z), part_vec, M, H,
       D, NH, eps);
@@ -171,23 +171,38 @@ int run(const void* h, const void* x, const void* g, const float* lnw, const flo
                               M, D, H, splits, st);
 }
 
+template <typename T>
+int run_rows(int rows, const void* h, const void* x, const void* g, const float* lnw,
+             const float* lnb, const float* skip, const float* wd, void* dh, void* dx,
+             float* dvec, float* dwd, void* z, float* part_vec, float* part_w, int M, int H,
+             int D, int NH, int splits, float eps, cudaStream_t st) {
+  if (rows == 32)
+    return run<T, 32>(h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z, part_vec, part_w, M,
+                      H, D, NH, splits, eps, st);
+  if (rows == 16)
+    return run<T, 16>(h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z, part_vec, part_w, M,
+                      H, D, NH, splits, eps, st);
+  return 1000;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Outputs: dh, dx (M, H) in the dtype;
-// dvec = [dln_w (H), dln_b (H), dskip (H), dbd (D)] and dwd (D, H) float32.
-// Scratch: z (M, H) in the dtype, part_vec (ceil(M / 32), 3H + D) and
-// part_w (splits, D, H) float32.  Returns a CUDA error code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; rows: R, 16 or 32.  Outputs: dh, dx
+// (M, H) in the dtype; dvec = [dln_w (H), dln_b (H), dskip (H), dbd (D)]
+// and dwd (D, H) float32.  Scratch: z (M, H) in the dtype, part_vec
+// (ceil(M / R), 3H + D) and part_w (splits, D, H) float32.  Returns a CUDA
+// error code (0 = launched); 1000 for a dtype or R it does not take.
 extern "C" int epilogue_bw(const void* h, const void* x, const void* g, const float* lnw,
                            const float* lnb, const float* skip, const float* wd, void* dh,
                            void* dx, float* dvec, float* dwd, void* z, float* part_vec,
-                           float* part_w, int M, int H, int D, int NH, int splits, int dtype,
-                           float eps, void* stream) {
+                           float* part_w, int M, int H, int D, int NH, int splits, int rows,
+                           int dtype, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z, part_vec, part_w, M,
-                      H, D, NH, splits, eps, st);
+    return run_rows<float>(rows, h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z, part_vec,
+                           part_w, M, H, D, NH, splits, eps, st);
   if (dtype == 1)
-    return run<__nv_bfloat16>(h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z, part_vec,
-                              part_w, M, H, D, NH, splits, eps, st);
+    return run_rows<__nv_bfloat16>(rows, h, x, g, lnw, lnb, skip, wd, dh, dx, dvec, dwd, z,
+                                   part_vec, part_w, M, H, D, NH, splits, eps, st);
   return 1000;
 }

@@ -19,12 +19,15 @@
 // Any S: the rows form one flat range M, the last tile is masked.
 //
 // Design.  Four grid launches on the caller's stream:
-//  1. rows: one block of 256 threads per tile of 32 rows stages x and g in
+//  1. rows: one block of 256 threads per tile of R rows stages x and g in
 //     shared memory, recomputes the norm (xn stored in the compute dtype for
-//     dWgz), dact = g Wd (gemm_rows32), the gate backward (act and dgz stored
+//     dWgz), dact = g Wd (gemm_rows), the gate backward (act and dgz stored
 //     for the weight gradients; dgz kept in shared memory), dxn = dgz Wgz
-//     (gemm_rows32), the RMSNorm backward into dx, and per-tile column sums
-//     of dwn, dbd and dbgz;
+//     (gemm_rows), the RMSNorm backward into dx, and per-tile column sums
+//     of dwn, dbd and dbgz.  The tile holds 4 R (2D + 2U + 2) bytes: R = 32
+//     where that fits in a block's 227 KB (D 192, U 512), R = 16 at the
+//     wider layers (D 256, U 704: 123 KB; D 384, U 1024: 180 KB); the
+//     wrapper chooses (ops/ffn.py `tile_rows`);
 //  2.-3. dWd = g^T act and dWgz = dgz^T xn over row ranges (wgrad_kernel);
 //  4. reduce_kernel for every partial: deterministic sums, no atomics.
 // All arithmetic is float32 FMA on the CUDA cores.
@@ -41,9 +44,7 @@ namespace {
 
 using namespace port;
 
-constexpr int R = 32;  // rows per tile
-
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(NT) ffn_rows_kernel(
     const T* __restrict__ x, const T* __restrict__ gz, const T* __restrict__ g,
     const float* __restrict__ wn, const float* __restrict__ wgz, const float* __restrict__ wd,
@@ -83,7 +84,7 @@ __global__ void __launch_bounds__(NT) ffn_rows_kernel(
   }
 
   // dact = g Wd into sd[:, :U]
-  gemm_rows32<T, 4>(sg, D, wd, U, sd, W2, D, U);
+  gemm_rows<T, 4, R>(sg, D, wd, U, sd, W2, D, U);
   __syncthreads();
 
   // gate backward, one column per thread over the rows (fixed order sums)
@@ -125,7 +126,7 @@ __global__ void __launch_bounds__(NT) ffn_rows_kernel(
   __syncthreads();
 
   // dxn = dgz Wgz into sg
-  gemm_rows32<T, 2>(sd, W2, wgz, D, sg, D, W2, D);
+  gemm_rows<T, 2, R>(sd, W2, wgz, D, sg, D, W2, D);
   __syncthreads();
 
   for (int r = warp; r < R; r += NT / 32) {
@@ -152,17 +153,16 @@ __global__ void __launch_bounds__(NT) ffn_rows_kernel(
   }
 }
 
-template <typename T>
+template <typename T, int R>
 int run(const void* x, const void* gz, const void* g, const float* wn, const float* wgz,
         const float* wd, void* dx, float* dvec, float* dwgz, float* dwd, void* xn, void* act,
         void* dgz, float* part_vec, float* part_w, int M, int D, int U, int splits, float eps,
         cudaStream_t st) {
   const int tiles = cdiv(M, R);
   const size_t smem = sizeof(float) * (2 * R * D + 2 * R * U + 2 * R);
-  cudaError_t err = cudaFuncSetAttribute(ffn_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(ffn_rows_kernel<T, R>, smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_rows_kernel<T><<<tiles, NT, smem, st>>>(
+  ffn_rows_kernel<T, R><<<tiles, NT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(gz), static_cast<const T*>(g), wn, wgz,
       wd, static_cast<T*>(dx), static_cast<T*>(xn), static_cast<T*>(act), static_cast<T*>(dgz),
       part_vec, M, D, U, eps);
@@ -177,24 +177,39 @@ int run(const void* x, const void* gz, const void* g, const float* wn, const flo
                               dwgz, M, 2 * U, D, splits, st);
 }
 
+template <typename T>
+int run_rows(int rows, const void* x, const void* gz, const void* g, const float* wn,
+             const float* wgz, const float* wd, void* dx, float* dvec, float* dwgz, float* dwd,
+             void* xn, void* act, void* dgz, float* part_vec, float* part_w, int M, int D,
+             int U, int splits, float eps, cudaStream_t st) {
+  if (rows == 32)
+    return run<T, 32>(x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act, dgz, part_vec,
+                      part_w, M, D, U, splits, eps, st);
+  if (rows == 16)
+    return run<T, 16>(x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act, dgz, part_vec,
+                      part_w, M, D, U, splits, eps, st);
+  return 1000;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Outputs: dx (M, D) in the dtype;
-// dvec = [dwn (D), dbd (D), dbgz (2U)], dwgz (2U, D), dwd (D, U) float32.
-// Scratch: xn (M, D), act (M, U), dgz (M, 2U) in the dtype; part_vec
-// (ceil(M / 32), 2D + 2U) and part_w (splits, 2U, D) float32.  Returns a
-// CUDA error code (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; rows: R, 16 or 32.  Outputs: dx (M, D)
+// in the dtype; dvec = [dwn (D), dbd (D), dbgz (2U)], dwgz (2U, D), dwd
+// (D, U) float32.  Scratch: xn (M, D), act (M, U), dgz (M, 2U) in the dtype;
+// part_vec (ceil(M / R), 2D + 2U) and part_w (splits, 2U, D) float32.
+// Returns a CUDA error code (0 = launched); 1000 for a dtype or R it does
+// not take.
 extern "C" int ffn_bw(const void* x, const void* gz, const void* g, const float* wn,
                       const float* wgz, const float* wd, void* dx, float* dvec, float* dwgz,
                       float* dwd, void* xn, void* act, void* dgz, float* part_vec,
-                      float* part_w, int M, int D, int U, int splits, int dtype, float eps,
-                      void* stream) {
+                      float* part_w, int M, int D, int U, int splits, int rows, int dtype,
+                      float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act, dgz, part_vec,
-                      part_w, M, D, U, splits, eps, st);
+    return run_rows<float>(rows, x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act, dgz,
+                           part_vec, part_w, M, D, U, splits, eps, st);
   if (dtype == 1)
-    return run<__nv_bfloat16>(x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act, dgz,
-                              part_vec, part_w, M, D, U, splits, eps, st);
+    return run_rows<__nv_bfloat16>(rows, x, gz, g, wn, wgz, wd, dx, dvec, dwgz, dwd, xn, act,
+                                   dgz, part_vec, part_w, M, D, U, splits, eps, st);
   return 1000;
 }

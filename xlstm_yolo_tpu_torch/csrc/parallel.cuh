@@ -23,8 +23,8 @@
 // side of the causal diagonal, one at a time through shared memory.  A
 // (64 x 64) score tile is 16 x 16 threads of 4 x 4 register tiles
 // (tile_dot); a row of the output is 4 threads of DH / 4 columns.  64 rows
-// keep a block's shared memory near 43 KB (fw, dQ) or 67 KB (dK/dV), so
-// 3-5 blocks share an SM, and give 96 * 104 = 9984 blocks at the longest
+// keep a block's shared memory near 43 KB (fw, dQ) or 67 KB (dK/dV) at
+// DH = 32, so 3-5 blocks share an SM (114 KB and 162 KB at DH = 128: one), and give 96 * 104 = 9984 blocks at the longest
 // sequence of the flagship (B 8, NH 12, S 6656), 75 waves over 132 SMs.
 // The blocks with the longest walks are launched first (heavy_first), so
 // that the causal triangle's short walks fill the tail.
@@ -38,6 +38,7 @@ namespace par {
 
 using port::dispatch;
 using port::from_f32;
+using port::launch_with_smem;
 using port::NT;
 using port::rt;
 using port::to_f32;
@@ -46,6 +47,14 @@ constexpr int TR = 64;      // rows of a tile
 constexpr int TP = TR + 1;  // padded row of a (TR, TR) tile in shared memory
 
 __host__ __device__ constexpr int tiles(int S) { return (S + TR - 1) / TR; }
+
+// Shared memory of a query-tile block (the forward, dQ): three (TR, DH + 1)
+// operand tiles, a (TR, TP) score tile and three rows of TR; 42 KB at
+// DH = 32, 66 KB at 64, 114 KB at 128 (dynamic).
+template <int DH>
+constexpr size_t qtile_smem_floats() {
+  return 3 * TR * (DH + 1) + TR * TP + 3 * TR;
+}
 
 // The tile of block index x when the tiles with the longest walks go first:
 // query tiles walk the key tiles before them (long = late tile), key tiles

@@ -47,8 +47,14 @@ __global__ void __launch_bounds__(NT) parallel_bw_dq_kernel(
     T* __restrict__ dq, int S, float qk_scale, float eps) {
   constexpr int DP = DH + 1;
   constexpr int CPT = DH / 4;
-  __shared__ float sdn[TR * DP], sv[TR * DP], sk[TR * DP], sp[TR * TP];
-  __shared__ float sbq[TR], sbk[TR], slk[TR];
+  extern __shared__ float smem[];  // qtile_smem_floats<DH>()
+  float* sdn = smem;            // (TR, DP) R(dh / (den + eps)) of the query rows
+  float* sv = sdn + TR * DP;    // (TR, DP) R(v) of the key tile
+  float* sk = sv + TR * DP;     // (TR, DP) R(k) of the key tile
+  float* sp = sk + TR * DP;     // (TR, TP) P
+  float* sbq = sp + TR * TP;    // (TR) b of the query rows
+  float* sbk = sbq + TR;        // (TR) b of the key rows
+  float* slk = sbk + TR;        // (TR) logsig(i) of the key rows
 
   const int tid = threadIdx.x;
   const int qt = heavy_first(blockIdx.x, tiles(S), true);
@@ -194,11 +200,10 @@ extern "C" int parallel_bw_dq(const void* k, const void* v, const float* b, cons
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const dim3 grid(tiles(S), BNH);
-    parallel_bw_dq_kernel<T, CT, D><<<grid, NT, 0, st>>>(
-        static_cast<const T*>(k), static_cast<const T*>(v), b, li, den,
-        static_cast<const T*>(dh), static_cast<T*>(dq), S, qk_scale, eps);
-    return (int)cudaGetLastError();
+    return launch_with_smem(parallel_bw_dq_kernel<T, CT, D>, dim3(tiles(S), BNH),
+                            sizeof(float) * qtile_smem_floats<D>(), st, static_cast<const T*>(k),
+                            static_cast<const T*>(v), b, li, den, static_cast<const T*>(dh),
+                            static_cast<T*>(dq), S, qk_scale, eps);
   });
 }
 
@@ -213,16 +218,10 @@ extern "C" int parallel_bw_dkv(const void* q, const void* k, const void* v, cons
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const size_t smem = sizeof(float) * dkv_smem_floats<D>();
-    cudaError_t err = cudaFuncSetAttribute(parallel_bw_dkv_kernel<T, CT, D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(tiles(S), BNH);
-    parallel_bw_dkv_kernel<T, CT, D><<<grid, NT, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), b, li,
-        den, static_cast<const T*>(dh), static_cast<T*>(dk), static_cast<T*>(dv), S, qk_scale,
-        eps);
-    return (int)cudaGetLastError();
+    return launch_with_smem(parallel_bw_dkv_kernel<T, CT, D>, dim3(tiles(S), BNH),
+                            sizeof(float) * dkv_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v), b, li, den,
+                            static_cast<const T*>(dh), static_cast<T*>(dk), static_cast<T*>(dv),
+                            S, qk_scale, eps);
   });
 }

@@ -42,8 +42,14 @@ __global__ void __launch_bounds__(NT) parallel_fw_kernel(
     float* __restrict__ den_out, int S, float qk_scale, float eps) {
   constexpr int DP = DH + 1;
   constexpr int CPT = DH / 4;  // output columns per thread, 4 threads per row
-  __shared__ float sq[TR * DP], sk[TR * DP], sv[TR * DP], ssd[TR * TP];
-  __shared__ float sbq[TR], sbk[TR], slk[TR];
+  extern __shared__ float smem[];  // qtile_smem_floats<DH>()
+  float* sq = smem;             // (TR, DP) R(q)
+  float* sk = sq + TR * DP;     // (TR, DP) R(k) of the key tile
+  float* sv = sk + TR * DP;     // (TR, DP) R(v) of the key tile
+  float* ssd = sv + TR * DP;    // (TR, TP) R(q) R(k)^T scale * D
+  float* sbq = ssd + TR * TP;   // (TR) b of the query rows
+  float* sbk = sbq + TR;        // (TR) b of the key rows
+  float* slk = sbk + TR;        // (TR) logsig(i) of the key rows
 
   const int tid = threadIdx.x;
   const int qt = heavy_first(blockIdx.x, tiles(S), true);
@@ -112,10 +118,9 @@ extern "C" int parallel_fw(const void* q, const void* k, const void* v, const fl
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dh)::value;
-    const dim3 grid(tiles(S), BNH);
-    parallel_fw_kernel<T, CT, D><<<grid, NT, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), b, li,
-        static_cast<T*>(h), den, S, qk_scale, eps);
-    return (int)cudaGetLastError();
+    return launch_with_smem(parallel_fw_kernel<T, CT, D>, dim3(tiles(S), BNH),
+                            sizeof(float) * qtile_smem_floats<D>(), st, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v), b, li,
+                            static_cast<T*>(h), den, S, qk_scale, eps);
   });
 }

@@ -27,6 +27,12 @@
 
 using namespace port;
 
+// 4 DH + DH (DH + 1) + 1 floats: 4.7 KB at DH = 32, 68 KB at 128 (dynamic).
+template <int DH>
+constexpr size_t step_smem_floats() {
+  return 4 * DH + DH * (DH + 1) + 1;
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT) step_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -34,8 +40,13 @@ __global__ void __launch_bounds__(NT) step_kernel(
     const float* __restrict__ n, T* __restrict__ h, float* __restrict__ c_new,
     float* __restrict__ n_new, float qk_scale, float eps) {
   constexpr int DP = DH + 1;
-  __shared__ float sq[DH], sk[DH], sv[DH], sn[DH], sC[DH * DP];
-  __shared__ float sden;
+  extern __shared__ float smem[];  // step_smem_floats<DH>()
+  float* sq = smem;     // (DH) q scale
+  float* sk = sq + DH;  // (DH) k
+  float* sv = sk + DH;  // (DH) v
+  float* sn = sv + DH;  // (DH) n'
+  float* sC = sn + DH;  // (DH, DP) C'
+  float& sden = sC[DH * DP];
   const int tid = threadIdx.x;
   const size_t bh = blockIdx.x;
   const float i_gate = 1.f / (1.f + expf(-ig[bh]));
@@ -87,9 +98,9 @@ extern "C" int mlstm_step(const void* q, const void* k, const void* v, const flo
   return dispatch(dtype, dtype, DH, [&](auto t, auto, auto dh) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dh)::value;
-    step_kernel<T, D><<<BNH, NT, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f, c,
-        n, static_cast<T*>(h), c_new, n_new, qk_scale, eps);
-    return (int)cudaGetLastError();
+    return launch_with_smem(step_kernel<T, D>, dim3(BNH), sizeof(float) * step_smem_floats<D>(),
+                            st, static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), i, f, c, n, static_cast<T*>(h), c_new,
+                            n_new, qk_scale, eps);
   });
 }

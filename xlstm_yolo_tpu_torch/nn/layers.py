@@ -43,6 +43,7 @@ from xlstm_yolo_tpu_torch.ops.backend import (
 )
 from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import (
     mlstm_siging_chunkwise_fw,
+    mlstm_siging_chunkwise_fw_ln,
     mlstm_siging_chunkwise_train,
 )
 from xlstm_yolo_tpu_torch.ops.epilogue import epilogue
@@ -496,6 +497,13 @@ class MatrixLSTMCell(nn.Module):
     port keeps the fused epilogue, the same function as the JAX v1 route's
     unfused [outnorm -> + skip * x -> proj_down].
 
+    ``fuse_outnorm`` (off by default; no config sets it), as in JAX: in
+    eval mode on the v2 name the outnorm is fused into the inference
+    kernel (``mlstm_siging_chunkwise_fw_ln`` with 1 + weight and bias), so
+    the LayerNorm normalises the float32 h before its rounding; with a
+    ``state`` that holds at S >= 1024, where the v2 kernel runs.  In
+    training it changes nothing.
+
     With a ``state`` (C (B, NH, DH, DH), n (B, NH, DH), float32) the cell
     runs in inference mode only and returns (h, (C, n)) after the S tokens,
     as the JAX cell does: the v2 name at S >= 1024 runs the v2 kernel from
@@ -510,9 +518,11 @@ class MatrixLSTMCell(nn.Module):
                  norm_bias: bool = True, eps: float = 5e-5,
                  compute_dtype: torch.dtype | None = None, chunk_size: int = 64,
                  mode: str | None = None, chunkwise_kernel: str = V2_KERNEL,
-                 sequence_kernel: str = "sequence--native", step_kernel: str = "step--native"):
+                 sequence_kernel: str = "sequence--native", step_kernel: str = "step--native",
+                 fuse_outnorm: bool = False):
         super().__init__()
         self.num_heads, self.gate_soft_cap, self.eps = num_heads, gate_soft_cap, eps
+        self.fuse_outnorm = fuse_outnorm
         self.compute_dtype = compute_dtype
         self.chunk_size, self.mode, self.chunkwise_kernel = chunk_size, mode, chunkwise_kernel
         self.sequence_kernel, self.step_kernel = sequence_kernel, step_kernel
@@ -532,9 +542,14 @@ class MatrixLSTMCell(nn.Module):
         if_preact = soft_cap(self.ifgate(gate_in), self.gate_soft_cap)
         i_pre, f_pre = if_preact.split(NH, dim=-1)
         cd = self.compute_dtype or q.dtype
+        fused = self.fuse_outnorm and not self.training and self.chunkwise_kernel == V2_KERNEL
         if state is not None:
+            if fused and S >= 1024:
+                return self._fused(q, k, v, i_pre, f_pre, cd, state)
             h, new_state = self._stateful(q, k, v, i_pre, f_pre, cd, state)
             return self.outnorm(h.to(q.dtype)).reshape(B, S, H), new_state
+        if fused:
+            return self._fused(q, k, v, i_pre, f_pre, cd)
         if self.chunkwise_kernel == V2_KERNEL:
             fn = self.train_kernel if self.training else self.kernel
             h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
@@ -546,6 +561,20 @@ class MatrixLSTMCell(nn.Module):
         if self.training:
             return h.reshape(B, S, H).to(q.dtype), (self.outnorm.weight, self.outnorm.bias)
         return self.outnorm(h.to(q.dtype)).reshape(B, S, H)
+
+    def _fused(self, q, k, v, i_pre, f_pre, cd, state=None):
+        """The outnorm's output (B, S, H) in q's dtype from the v2
+        inference kernel with the LayerNorm fused in (and, with ``state``,
+        the last (C, n))."""
+        c0, n0 = state if state is not None else (None, None)
+        out = mlstm_siging_chunkwise_fw_ln(
+            _cast(q, cd).contiguous(), _cast(k, cd).contiguous(), _cast(v, cd).contiguous(),
+            i_pre.contiguous(), f_pre.contiguous(), self.num_heads, 1.0 + self.outnorm.weight,
+            self.outnorm.bias, c0, n0, eps=self.eps, ln_eps=self.outnorm.eps,
+            return_last_states=state is not None)
+        if state is None:
+            return out.to(q.dtype)
+        return out[0].to(q.dtype), out[1]
 
     def _mode(self) -> str:
         return self.mode or ("train_with_padding" if self.training else "inference")

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
-from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
+from xlstm_yolo_tpu_torch.ops.cuda_build import HEAD_DIMS, I, P
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = [
@@ -61,7 +61,6 @@ LAUNCHES_BW_DC = 0    # launches of the dC reverse-scan kernel
 LAUNCHES_BW_DQKV = 0  # launches of the dq/dk/dv kernel
 
 CHUNK_SIZES = (16, 32, 64, 128, 256, 512)  # the kernels' chunk lengths
-HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -133,13 +132,13 @@ def _check_saved(q, chunk_size, **saved):
 
 def _check_cuda(q, chunk_size, compute_dtype, tensors):
     """Raise unless the kernels take these inputs."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES or compute_dtype not in _DTYPE_CODES:
         raise TypeError(f"q/k/v dtype {q.dtype} and compute dtype {compute_dtype} must be "
                         "float32 or bfloat16 for the kernel")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel {HEAD_DIMS}")
     if chunk_size not in CHUNK_SIZES:
         raise ValueError(f"chunk size {chunk_size} not supported by the kernel {CHUNK_SIZES}")
     cuda_build.check_kernel_inputs(*tensors)

@@ -5,6 +5,9 @@ Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
 
 - :func:`mlstm_siging_chunkwise_fw` — the inference forward
   (``_fw_kernel_infer``), kernel ``chunkwise_fw`` in ``csrc/chunkwise_fw.cu``;
+- :func:`mlstm_siging_chunkwise_fw_ln` — the inference forward with the
+  per-head LayerNorm fused in (``_fw_kernel_infer_ln``), kernel
+  ``chunkwise_fw_ln`` in the same file; forward only;
 - :func:`mlstm_siging_chunkwise_fw_train` — the forward that also saves the
   state before each chunk and the denominator per row
   (``_fw_kernel_train``), kernel ``chunkwise_fw_train`` in the same file;
@@ -18,8 +21,8 @@ Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
   (``mlstm_siging_chunkwise_pallas_v2``) on (B, NH, S, DH) operands.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-``*_plain`` version for CPU tensors.  ``LAUNCHES``, ``LAUNCHES_TRAIN`` and
-``LAUNCHES_BW`` count kernel launches.
+``*_plain`` version for CPU tensors.  ``LAUNCHES``, ``LAUNCHES_LN``,
+``LAUNCHES_TRAIN`` and ``LAUNCHES_BW`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -27,18 +30,21 @@ from __future__ import annotations
 import torch
 
 from xlstm_yolo_tpu_torch.ops import cuda_build
-from xlstm_yolo_tpu_torch.ops.cuda_build import F, I, P
+from xlstm_yolo_tpu_torch.ops.cuda_build import HEAD_DIMS, F, I, P
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BW",
+    "LAUNCHES_LN",
     "LAUNCHES_TRAIN",
     "gate_grads",
     "mlstm_siging_chunkwise_bw",
     "mlstm_siging_chunkwise_bw_plain",
     "mlstm_siging_chunkwise_fw",
+    "mlstm_siging_chunkwise_fw_ln",
+    "mlstm_siging_chunkwise_fw_ln_plain",
     "mlstm_siging_chunkwise_fw_plain",
     "mlstm_siging_chunkwise_fw_train",
     "mlstm_siging_chunkwise_fw_train_plain",
@@ -48,18 +54,19 @@ __all__ = [
 ]
 
 LAUNCHES = 0        # launches of the inference forward kernel
+LAUNCHES_LN = 0     # launches of the inference forward with the fused LayerNorm
 LAUNCHES_TRAIN = 0  # launches of the train forward kernel
 LAUNCHES_BW = 0     # launches of the backward kernel
 
 CHUNK_SIZE = 64  # the kernels' chunk length (L in csrc/chunkwise_*.cu)
-HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _declare_fw(lib):
     lib.chunkwise_fw.argtypes = [P] * 10 + [I] * 5 + [F, F, P]
     lib.chunkwise_fw_train.argtypes = [P] * 13 + [I] * 5 + [F, F, P]
-    lib.chunkwise_fw.restype = lib.chunkwise_fw_train.restype = I
+    lib.chunkwise_fw_ln.argtypes = [P] * 12 + [I] * 5 + [F, F, F, P]
+    lib.chunkwise_fw.restype = lib.chunkwise_fw_train.restype = lib.chunkwise_fw_ln.restype = I
 
 
 def _declare_bw(lib):
@@ -100,13 +107,13 @@ def _check(q, k, v, i, f, num_heads, c_initial, n_initial):
 
 def _check_cuda(q, DH, tensors):
     """Raise unless the kernels take these inputs."""
+    if DH not in HEAD_DIMS:
+        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q/k/v dtype {q.dtype} not supported by the kernel "
                         "(float32 or bfloat16)")
-    if DH not in HEAD_DIMS:
-        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
     cuda_build.check_kernel_inputs(*tensors)
 
 
@@ -169,6 +176,85 @@ def mlstm_siging_chunkwise_fw(q, k, v, i, f, num_heads: int, c_initial=None,
             *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, h, c_last, n_last),
             B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
     LAUNCHES += 1
+    return (h, (c_last, n_last)) if return_last_states else h
+
+
+# ---------------------------------------------------------------------------
+# inference forward with the per-head LayerNorm fused in
+# ---------------------------------------------------------------------------
+
+
+def _check_ln(q, ln_weight, ln_bias):
+    H = q.shape[-1]
+    if ln_weight is None:
+        raise ValueError("ln_weight is required (the caller's 1 + w)")
+    for name, t in (("ln_weight", ln_weight), ("ln_bias", ln_bias)):
+        if t is not None and (t.shape != (H,) or t.device != q.device):
+            raise ValueError(f"{name} must be ({H},) on {q.device}, got {tuple(t.shape)} "
+                             f"on {t.device}")
+
+
+def mlstm_siging_chunkwise_fw_ln_plain(q, k, v, i, f, num_heads: int, ln_weight, ln_bias=None,
+                                       c_initial=None, n_initial=None, eps: float = 1e-6,
+                                       qk_scale: float | None = None, ln_eps: float = 1e-6,
+                                       return_last_states: bool = False):
+    """Plain version of :func:`mlstm_siging_chunkwise_fw_ln`: the plain
+    inference forward in float32 (float64 for float64 q), the per-head
+    LayerNorm of that h, then the cast to q's dtype."""
+    B, S, H, DH, _ = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+    _check_ln(q, ln_weight, ln_bias)
+    acc = acc_dtype(q.dtype)
+    h, state = mlstm_siging_chunkwise_fw_plain(
+        q.to(acc), k.to(acc), v.to(acc), i, f, num_heads, c_initial, n_initial, eps=eps,
+        qk_scale=qk_scale, return_last_states=True)
+    hh = h.reshape(B, S, num_heads, DH)
+    mu = hh.mean(-1, keepdim=True)
+    var = (hh - mu).square().mean(-1, keepdim=True)
+    y = ((hh - mu) * torch.rsqrt(var + ln_eps)).reshape(B, S, H) * ln_weight.to(acc)
+    if ln_bias is not None:
+        y = y + ln_bias.to(acc)
+    y = y.to(q.dtype)
+    return (y, state) if return_last_states else y
+
+
+def mlstm_siging_chunkwise_fw_ln(q, k, v, i, f, num_heads: int, ln_weight, ln_bias=None,
+                                 c_initial=None, n_initial=None, eps: float = 1e-6,
+                                 qk_scale: float | None = None, ln_eps: float = 1e-6,
+                                 return_last_states: bool = False):
+    """The inference forward with MultiHeadLayerNorm fused in, as
+    ``mlstm_siging_chunkwise_pallas_v2_bsh(..., ln_weight, ln_bias)``.
+
+    As :func:`mlstm_siging_chunkwise_fw`, then each row's float32 h of each
+    head is normalised over DH (mean, centred variance, rsqrt(var +
+    ln_eps)), times ``ln_weight`` (H,) (the caller's 1 + w) plus
+    ``ln_bias`` (H,) (None: 0), and cast to q's dtype.  Forward only: it
+    does not take part in autograd.
+    """
+    global LAUNCHES_LN
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_fw_ln_plain(
+            q, k, v, i, f, num_heads, ln_weight, ln_bias, c_initial, n_initial, eps=eps,
+            qk_scale=qk_scale, ln_eps=ln_eps, return_last_states=return_last_states)
+    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+    _check_ln(q, ln_weight, ln_bias)
+    lnw = ln_weight.detach().float().contiguous()
+    lnb = (torch.zeros_like(lnw) if ln_bias is None
+           else ln_bias.detach().float().contiguous())
+    _check_cuda(q, DH, tensors + [lnw, lnb])
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    lib = cuda_build.load("chunkwise_fw", _declare_fw)
+    h = torch.empty_like(q)
+    c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
+    n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_build.launch(
+            lib.chunkwise_fw_ln, "chunkwise_fw_ln",
+            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, lnw, lnb, h, c_last,
+                                 n_last),
+            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps),
+            float(ln_eps))
+    LAUNCHES_LN += 1
     return (h, (c_last, n_last)) if return_last_states else h
 
 

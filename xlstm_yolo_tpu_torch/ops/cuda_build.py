@@ -28,6 +28,8 @@ SOURCES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "chunkwise_v
            "chunkwise_v1_bw", "chunkwise_exp_fw", "chunkwise_exp_bw", "parallel_fw",
            "parallel_bw", "step")
 
+HEAD_DIMS = (16, 32, 64, 128)  # the mLSTM kernels' head dims (port::dispatch_dh, csrc/common.cuh)
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 

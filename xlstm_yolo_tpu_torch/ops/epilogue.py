@@ -22,7 +22,6 @@ __all__ = ["LAUNCHES", "epilogue", "epilogue_bwd", "epilogue_bwd_plain", "epilog
 
 LAUNCHES = 0  # calls of epilogue_bwd that launched the kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 32  # rows per tile of the kernel (R in csrc/epilogue_bw.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 
@@ -53,8 +52,20 @@ def epilogue_bwd_plain(h, x, g, ln_w, ln_b, skip, wd, num_heads: int, eps: float
 
 
 def _declare(lib):
-    lib.epilogue_bw.argtypes = [P] * 14 + [I] * 6 + [CF, P]
+    lib.epilogue_bw.argtypes = [P] * 14 + [I] * 7 + [CF, P]
     lib.epilogue_bw.restype = I
+
+
+def tile_rows(row_floats: int) -> int:
+    """R, the rows of a tile of the row kernels (csrc/epilogue_bw.cu,
+    csrc/ffn_bw.cu), whose tile holds ``row_floats`` float32 a row: 32
+    where they fit in a block's shared memory, else 16.  Raises if 16 rows
+    do not fit either."""
+    for rows in (32, 16):
+        if 4 * rows * row_floats <= SMEM_LIMIT:
+            return rows
+    raise ValueError(f"a tile of 16 rows of {row_floats} floats needs more shared memory "
+                     "than a block has")
 
 
 def weight_grad_splits(M: int) -> int:
@@ -77,8 +88,7 @@ def epilogue_bwd(h, x, g, ln_w, ln_b, skip, wd, num_heads: int, eps: float = 1e-
         raise TypeError(f"h, x, g must share a dtype of {list(_DTYPE_CODES)}")
     if x.shape != h.shape or g.shape != (B, S, D) or wd.shape != (D, H) or H % num_heads:
         raise ValueError("shapes: h, x (B, S, H); g (B, S, D); wd (D, H); H % num_heads == 0")
-    if 4 * ROWS * (3 * H + D + num_heads) > SMEM_LIMIT:
-        raise ValueError(f"H={H}, D={D} need more shared memory than a block has")
+    rows = tile_rows(3 * H + D + num_heads)
     params = [t.detach().float().contiguous() for t in (ln_w, ln_b, skip, wd)]
     cuda_build.check_kernel_inputs(h, x, g, *params)
     lib = cuda_build.load("epilogue_bw", _declare)
@@ -90,13 +100,13 @@ def epilogue_bwd(h, x, g, ln_w, ln_b, skip, wd, num_heads: int, eps: float = 1e-
     dvec = torch.empty(3 * H + D, **f32)  # dln_w, dln_b, dskip, dbd
     dwd = torch.empty(D, H, **f32)
     z = torch.empty(M, H, dtype=h.dtype, device=dev)
-    part_vec = torch.empty(-(-M // ROWS), 3 * H + D, **f32)
+    part_vec = torch.empty(-(-M // rows), 3 * H + D, **f32)
     part_w = torch.empty(splits, D, H, **f32)
     with torch.cuda.device(dev):
         cuda_build.launch(
             lib.epilogue_bw, "epilogue_bw",
             *cuda_build.pointers(h, x, g, *params, dh, dx, dvec, dwd, z, part_vec, part_w),
-            M, H, D, num_heads, splits, _DTYPE_CODES[h.dtype], float(eps))
+            M, H, D, num_heads, splits, rows, _DTYPE_CODES[h.dtype], float(eps))
     LAUNCHES += 1
     return dh, dx, dvec[:H], dvec[H:2 * H], dvec[2 * H:3 * H], dwd, dvec[3 * H:]
 

@@ -18,14 +18,13 @@ import torch.nn.functional as F
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
 from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
-from xlstm_yolo_tpu_torch.ops.epilogue import SMEM_LIMIT, weight_grad_splits
+from xlstm_yolo_tpu_torch.ops.epilogue import tile_rows, weight_grad_splits
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = ["LAUNCHES", "ffn", "ffn_bwd", "ffn_bwd_plain", "ffn_forward"]
 
 LAUNCHES = 0  # calls of ffn_bwd that launched the kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 32  # rows per tile of the kernel (R in csrc/ffn_bw.cu)
 
 
 def ffn_forward(x, wn, wgz, bgz, wd, bd, eps: float = 1e-6):
@@ -61,7 +60,7 @@ def ffn_bwd_plain(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
 
 
 def _declare(lib):
-    lib.ffn_bw.argtypes = [P] * 15 + [I] * 5 + [CF, P]
+    lib.ffn_bw.argtypes = [P] * 15 + [I] * 6 + [CF, P]
     lib.ffn_bw.restype = I
 
 
@@ -80,8 +79,7 @@ def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
     if gz.shape != (B, S, 2 * U) or g.shape != x.shape or wgz.shape != (2 * U, D) \
             or wd.shape != (D, U) or wn.shape != (D,):
         raise ValueError("shapes: x, g (B, S, D); gz (B, S, 2U); wgz (2U, D); wd (D, U)")
-    if 4 * ROWS * (2 * D + 2 * U + 2) > SMEM_LIMIT:
-        raise ValueError(f"D={D}, U={U} need more shared memory than a block has")
+    rows = tile_rows(2 * D + 2 * U + 2)
     params = [t.detach().float().contiguous() for t in (wn, wgz, wd)]
     cuda_build.check_kernel_inputs(x, gz, g, *params)
     lib = cuda_build.load("ffn_bw", _declare)
@@ -96,14 +94,14 @@ def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
     xn = torch.empty(M, D, dtype=x.dtype, device=dev)
     act = torch.empty(M, U, dtype=x.dtype, device=dev)
     dgz = torch.empty(M, 2 * U, dtype=x.dtype, device=dev)
-    part_vec = torch.empty(-(-M // ROWS), 2 * D + 2 * U, **f32)
+    part_vec = torch.empty(-(-M // rows), 2 * D + 2 * U, **f32)
     part_w = torch.empty(splits, 2 * U, D, **f32)
     with torch.cuda.device(dev):
         cuda_build.launch(
             lib.ffn_bw, "ffn_bw",
             *cuda_build.pointers(x, gz, g, *params, dx, dvec, dwgz, dwd, xn, act, dgz,
                                  part_vec, part_w),
-            M, D, U, splits, _DTYPE_CODES[x.dtype], float(eps))
+            M, D, U, splits, rows, _DTYPE_CODES[x.dtype], float(eps))
     LAUNCHES += 1
     return dx, dvec[:D], dwgz, dvec[2 * D:], dwd, dvec[D:2 * D]
 

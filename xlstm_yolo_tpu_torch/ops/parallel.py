@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.chunkwise import _decay, _rounder, gate_grad_terms
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
-from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
+from xlstm_yolo_tpu_torch.ops.cuda_build import HEAD_DIMS, I, P
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = [
@@ -60,7 +60,6 @@ LAUNCHES_FW = 0      # launches of the forward kernel
 LAUNCHES_BW_DQ = 0   # launches of the dq kernel
 LAUNCHES_BW_DKV = 0  # launches of the dk/dv kernel
 
-HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -101,13 +100,13 @@ def _check(q, k, v, i, f, compute_dtype, den=None, dh=None):
 
 def _check_cuda(q, compute_dtype, tensors):
     """Raise unless the kernels take these inputs."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES or compute_dtype not in _DTYPE_CODES:
         raise TypeError(f"q/k/v dtype {q.dtype} and compute dtype {compute_dtype} must be "
                         "float32 or bfloat16 for the kernel")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not supported by the kernel {HEAD_DIMS}")
     cuda_build.check_kernel_inputs(*tensors)
 
 

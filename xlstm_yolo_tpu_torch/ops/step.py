@@ -14,14 +14,13 @@ from __future__ import annotations
 import torch
 
 from xlstm_yolo_tpu_torch.ops import cuda_build
-from xlstm_yolo_tpu_torch.ops.cuda_build import F, I, P
+from xlstm_yolo_tpu_torch.ops.cuda_build import HEAD_DIMS, F, I, P
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
 __all__ = ["LAUNCHES", "mlstm_siging_step_kernel"]
 
 LAUNCHES = 0  # launches of the step kernel
 
-HEAD_DIMS = (16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -41,13 +40,13 @@ def _check(q, k, v, i, f, c_state, n_state):
     for name, (t, shape, dtype) in want.items():
         if t.shape != shape or t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} {shape}, got {tuple(t.shape)} {t.dtype}")
+    if DH not in HEAD_DIMS:
+        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q/k/v dtype {q.dtype} not supported by the kernel "
                         "(float32 or bfloat16)")
-    if DH not in HEAD_DIMS:
-        raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
 
 
 def mlstm_siging_step_kernel(q, k, v, i, f, c_state, n_state, qk_scale: float | None = None,
