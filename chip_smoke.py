@@ -4,10 +4,10 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. setup     - print the card's name and power limit; build the eleven CUDA
-               sources of csrc/ with nvcc (sm_90a), one nvcc each, all
+1. setup     - print the card's name and power limit; build the thirteen
+               CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time and what ptxas
-               reports;
+               reports; phases 28-31 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -137,10 +137,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                vil-det-384 (wide_times); vil-det-384's predict rate and train
                step with busy share, clocks and peak memory.
 
+28. tal_kernel - the fused TAL metric kernel against its plain version at
+               640 px (A 8400, nc 80), batch 8 and a stacked 16 with k 10
+               for one half and 1 for the other, M 8 (the smoke's gts) and
+               128 (the JAX dataset's max_targets): mask_pos equal, align
+               and overlaps bit-equal or within 2e-5; then the assigner
+               entry task_aligned_assign_pallas_metric (one launch a call,
+               counted) against task_aligned_assign at the tolerances of
+               tests/test_tal_kernel.py (phase_tal_kernel);
+29. slstm_kernel - the sLSTM scan kernel against its plain loop at DH 8,
+               32 and 128, S 128, 97 and 2048, with and without an initial
+               state, and large input gates; float32, within 1e-5 of each
+               output's largest value, or, where rounding compounds over
+               2048 steps beyond that, against float64 (phase_slstm_kernel);
+30. lm       - the xLSTM language model at full width (dim 512, 6 blocks,
+               sLSTM at 1, vocabulary 50 304), float32, batch 8, 128-token
+               prompts: forward logits with the kernels and with the plain
+               versions against a float64 forward (E2E_FACTOR), exactly 1
+               sLSTM and 5 v2-inference launches a forward and 32 and 160
+               in a 32-token greedy generate, the same tokens as the plain
+               generate; forward ms, tokens per second, the sLSTM kernel per
+               call (phase_lm);
+31. tal_times - the TAL kernel, its plain version and both assigners per
+               call at batch 8, M 8 and 128 (phase_tal_times).
+
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
-phase, the nvidia-smi line, one {"kernels": [...]} line (sixteen kernels,
-each with its numbers on the vil-det-192 paths and, under "vil_det_384",
-on vil-det-384's), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+phase, the nvidia-smi line, one {"kernels": [...]} line (eighteen kernels:
+the sixteen of the detector with their numbers on the vil-det-192 paths
+and, under "vil_det_384", on vil-det-384's; the TAL metric kernel on the
+assigner entry, the sLSTM scan on the LM's generate), and last {"ok": true,
+"device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -2441,6 +2467,427 @@ def predict_times(yolo, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the TAL metric stage and the sLSTM scan with the xLSTM language model
+# ---------------------------------------------------------------------------
+
+TAL_SIZE, TAL_NC = 640, 80  # A = 8400 anchors at strides 8, 16, 32
+TAL_CASES = ((8, 8, False), (8, 128, False), (16, 8, True), (16, 128, True))  # B, M, k 10/1
+# the assigner entries against each other (tests/test_tal_kernel.py's tolerances)
+TAL_TOL = {"target_bboxes": dict(rtol=1e-6, atol=0.0), "target_scores": dict(rtol=2e-5, atol=1e-7)}
+SLSTM_NH, SLSTM_B = 4, 8
+SLSTM_CASES = [(dh, S, state, False) for dh in (8, 32, 128) for S in (128, 97, 2048)
+               for state in (False, True)] + [(dh, 512, True, True) for dh in (8, 32, 128)]
+SLSTM_REL = 1e-5  # of each output's largest |value|: float32, recurrent sums in another order
+LM = dict(vocab_size=50304, dim=512, num_blocks=6, slstm_at=(1,))  # xLSTM-7B's vocabulary
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 32
+LM_MLSTM_BLOCKS = LM["num_blocks"] - len(LM["slstm_at"])
+TOKEN_TIE_REL = 1e-4  # greedy tokens may part only where the top-2 gap is below this
+
+
+def tal_inputs(seed: int, B: int, M: int):
+    """The assigner's inputs at 640 px on the card: sigmoid scores (B, A,
+    80), predicted boxes around the anchors (strides 8, 16, 32), (B, M)
+    padded gts of 8-300 px, about half valid (the rest zeros, as the
+    dataset pads to its max_targets), labels and mask; k 10/1 halves."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pts = []
+    for s in (8, 16, 32):
+        n = TAL_SIZE // s
+        gy, gx = np.meshgrid(np.arange(n) + 0.5, np.arange(n) + 0.5, indexing="ij")
+        pts.append(np.stack([gx, gy], -1).reshape(-1, 2) * s)
+    anc = np.concatenate(pts)
+    A = len(anc)
+    scores = 1 / (1 + np.exp(-rng.normal(-2, 1.5, (B, A, TAL_NC))))
+    wh = rng.uniform(4, 160, (B, A, 2))
+    ctr = anc[None] + rng.normal(0, 8, (B, A, 2))
+    pboxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    gxy = rng.uniform(0, TAL_SIZE - 40, (B, M, 2))
+    gboxes = np.concatenate([gxy, np.minimum(gxy + rng.uniform(8, 300, (B, M, 2)), TAL_SIZE)], -1)
+    mask = rng.uniform(0, 1, (B, M)) < 0.5
+    gboxes[~mask] = 0.0
+    cu = lambda a, d=torch.float32: torch.from_numpy(np.asarray(a)).to("cuda", d)  # noqa: E731
+    return (cu(scores), cu(pboxes), cu(anc), cu(rng.integers(0, TAL_NC, (B, M)), torch.int32),
+            cu(gboxes), cu(mask, torch.bool))
+
+
+def tal_k(B: int, halves: bool):
+    """The per-sample k of the stacked E2E loss: top-10 for the first half
+    of the batch, top-1 for the second; None for one k of 10."""
+    import torch
+
+    if not halves:
+        return None
+    return torch.tensor([10] * (B // 2) + [1] * (B - B // 2), dtype=torch.int32, device="cuda")
+
+
+def tal_bound(B: int, M: int, A: int) -> tuple[float, str]:
+    """Least time of one metric-stage call in ms: the gathered scores (B M A
+    floats), boxes, atan terms, anchors, gts and k read once, align,
+    overlaps (float32) and mask_pos (bytes) written once, over HBM
+    bandwidth; against ~60 float32 operations an element at the float32
+    peak."""
+    nbytes = B * M * A * 4 + B * A * 5 * 4 + A * 2 * 4 + B * M * (6 * 4 + 1) + B * 4 \
+        + B * M * A * 9
+    flops = 60 * B * M * A
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_device_ms(fn, match: str, calls: int = 10):
+    """Device time of one call's kernels whose name holds ``match``, from a
+    torch.profiler trace of ``calls`` calls of ``fn`` (kernel events only,
+    as device_busy reads them); "not measured" if the trace has none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    top = device_busy(prof, 1.0).get("top", [])
+    hits = [r for r in top if match in r["kernel"]]
+    if not hits:
+        return "not measured"
+    return sum(r["device_ms"] for r in hits) / calls
+
+
+def phase_tal_kernel(tk):
+    """The TAL metric kernel against its plain version on the card, then the
+    assigner entry with the kernel (the path: one launch a call, counted)
+    against the default eager ``task_aligned_assign``."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.utils import tal
+
+    worst = {"max_abs_err": 0.0, "bit_equal": True}
+    calls = []
+    for j, (Bt, M, halves) in enumerate(TAL_CASES):
+        args, k = tal_inputs(100 + j, Bt, M), tal_k(Bt, halves)
+        got = tk.tal_metric(*args, topk=10, topk_arr=k)
+        torch.cuda.synchronize()
+        ref = tk.tal_metric_plain(*args, topk=10, topk_arr=k)
+        errs = [(a - b).abs().max().item() for a, b in zip(got[:2], ref[:2])]
+        bits = all(torch.equal(a, b) for a, b in zip(got[:2], ref[:2]))
+        masks = torch.equal(got[2], ref[2])
+        emit({"phase": "tal_kernel", "B": Bt, "M": M, "A": args[0].shape[1], "nc": TAL_NC,
+              "k": "10/1" if halves else 10, "mask_pos_equal": masks, "align_overlaps_bit_equal": bits,
+              "max_abs_err_align": errs[0], "max_abs_err_overlaps": errs[1],
+              "positives": int(got[2].sum().item())})
+        if not masks:
+            raise AssertionError(f"tal_metric: mask_pos differs from the plain version at B {Bt}, "
+                                 f"M {M}")
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-7)
+        worst["max_abs_err"] = max(worst["max_abs_err"], *errs)
+        worst["bit_equal"] &= bits
+        calls.append((args, k))
+    # the path: the assigner entry, counts set to 0 just before
+    tk.LAUNCHES = 0
+    fused = [tal.task_aligned_assign_pallas_metric(*args, topk=10, num_classes=TAL_NC,
+                                                   topk_arr=k) for args, k in calls]
+    torch.cuda.synchronize()
+    launches = tk.LAUNCHES
+    if launches != len(calls):
+        raise AssertionError(f"{len(calls)} assigner calls made {launches} kernel launches")
+    for (args, k), r1, (Bt, M, halves) in zip(calls, fused, TAL_CASES):
+        r0 = tal.task_aligned_assign(*args, topk=10, num_classes=TAL_NC, topk_arr=k)
+        for name in ("fg_mask", "target_labels", "target_gt_idx"):
+            if not torch.equal(getattr(r0, name), getattr(r1, name)):
+                raise AssertionError(f"assigner: {name} differs from task_aligned_assign at "
+                                     f"B {Bt}, M {M}")
+        for name, tol in TAL_TOL.items():
+            torch.testing.assert_close(getattr(r1, name), getattr(r0, name), **tol)
+        emit({"phase": "tal_kernel", "what": "assigner", "B": Bt, "M": M,
+              "foreground": int(r1.fg_mask.sum().item()),
+              "max_abs_err_scores": (r1.target_scores - r0.target_scores).abs().max().item()})
+    return worst, launches
+
+
+def phase_tal_times(tk, card: str) -> dict:
+    """Per call at 640 px (A 8400, nc 80), batch 8, M 8 (the smoke's gts)
+    and 128 (the JAX dataset's max_targets): the kernel, its plain version,
+    the assigner with the kernel against the default eager assigner, and
+    the shared steps 4-6 (``_assign_from_metric``), in turns."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.utils import tal
+
+    out = {}
+    for M in (8, 128):
+        args = tal_inputs(7, 8, M)
+        metric = tk.tal_metric(*args, topk=10)
+        fns = {"kernel": lambda: tk.tal_metric(*args, topk=10),  # noqa: E731
+               "plain": lambda: tk.tal_metric_plain(*args, topk=10),  # noqa: E731
+               "assign_fused": lambda: tal.task_aligned_assign_pallas_metric(*args),  # noqa: E731
+               "assign_eager": lambda: tal.task_aligned_assign(*args),  # noqa: E731
+               "assign_tail": lambda: tal._assign_from_metric(  # noqa: E731
+                   *metric, args[3], args[4], fg_eps=1e-9, num_classes=TAL_NC)}
+        runs = {name: [] for name in fns}
+        for name in list(fns) + list(reversed(fns)):
+            runs[name] += time_cuda(fns[name], iters=20, reps=3, warm_s=0.2)
+        med = {name: statistics.median(r) for name, r in runs.items()}
+        bound_ms, bound_by = tal_bound(8, M, args[0].shape[1])
+        dev_ms = kernel_device_ms(fns["kernel"], "tal_metric_kernel")
+        out[M] = {"ms": dev_ms if isinstance(dev_ms, float) else med["kernel"],
+                  "wrapper_ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
+                  "bound_by": bound_by, "assign_fused_ms": med["assign_fused"],
+                  "assign_eager_ms": med["assign_eager"], "assign_tail_ms": med["assign_tail"],
+                  "eager_metric_stage_ms": med["assign_eager"] - med["assign_tail"],
+                  "runs": runs}
+        emit({"phase": "times", "what": "tal_metric", "card": card, "B": 8, "M": M,
+              "A": args[0].shape[1], "nc": TAL_NC, **out[M],
+              "note": "ms: the kernel's device time a call (torch.profiler trace of 10 "
+                      "calls; the wrapper's time where the trace has no kernel event); the rest CUDA-event windows of 20 calls, in turns wrapper, plain, "
+                      "fused assign, eager assign, tail, then back (the wrapper's atan, cast and "
+                      "k ops included); eager metric stage = eager assign - tail"})
+    return out
+
+
+def slstm_inputs(DH: int, S: int, state: bool, big_i: bool, seed: int):
+    """wx (B, S, 4, NH, DH) ~ N(0, 1) (input gates + 12 with ``big_i``: m
+    far from 0), R with orthonormal columns per gate and head (not
+    symmetric), and an optional (h, c, n, m), on the card in float32."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    wx = torch.randn(SLSTM_B, S, 4, SLSTM_NH, DH, generator=g)
+    if big_i:
+        wx[:, :, 1] += 12.0
+    R = torch.empty(4 * SLSTM_NH * DH, DH)
+    torch.nn.init.orthogonal_(R, generator=g)
+    st = None
+    if state:
+        shape = (SLSTM_B, SLSTM_NH, DH)
+        st = tuple(t.cuda() for t in (torch.randn(*shape, generator=g),
+                                      torch.randn(*shape, generator=g),
+                                      torch.rand(*shape, generator=g) * 1.5 + 0.5,
+                                      torch.rand(*shape, generator=g) * 10 - 2))
+    return wx.cuda(), R.reshape(4, SLSTM_NH, DH, DH).cuda(), st
+
+
+def slstm_bound(B: int, S: int, NH: int, DH: int, state: bool) -> tuple[float, str]:
+    """Least time of one scan call in ms: wx read and hs written once, R and
+    the states read once, the last states written once, over HBM
+    bandwidth; against the recurrent products' 8 B S NH DH^2 float32
+    operations at the float32 peak."""
+    D = NH * DH
+    nbytes = 4 * (4 * B * S * D + B * S * D + 4 * NH * DH * DH + (8 if state else 4) * B * D)
+    flops = 8 * B * S * D * DH
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_slstm_kernel(sk):
+    """The sLSTM scan kernel against its plain loop on the card: DH 8, 32
+    and 128, S 128, a ragged 97 and 2048, with and without an initial
+    state, and large input gates; float32.  Each output within SLSTM_REL of
+    its largest |value| of the plain loop's; or, where float32 rounding
+    compounds over a long scan beyond that, at most E2E_FACTOR times as far
+    from the plain loop in float64 as the float32 plain loop is (+
+    SLSTM_REL of the largest |value|): the criterion each output took is
+    printed."""
+    import torch
+
+    worst = 0.0
+    for j, (DH, S, state, big_i) in enumerate(SLSTM_CASES):
+        wx, R, st = slstm_inputs(DH, S, state, big_i, seed=j)
+        with torch.no_grad():
+            hs, last = sk.slstm_sequence(wx, R, st)
+            torch.cuda.synchronize()
+            hp, lp = sk.slstm_sequence_plain(wx, R, st)
+            h64, l64 = sk.slstm_sequence_plain(wx.double(), R.double(),
+                                               None if st is None else tuple(t.double() for t in st))
+        errs, via = {}, {}
+        for name, a, b, r in zip(("hs", "h", "c", "n", "m"), (hs, *last), (hp, *lp), (h64, *l64)):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"slstm: {name} is not finite at DH {DH}, S {S}")
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            errs[name] = err / max(scale, 1e-30)
+            if err <= SLSTM_REL * scale:
+                via[name] = "direct"
+                continue
+            err_k, err_p = ((t.double() - r).abs().max().item() for t in (a, b))
+            via[name] = {"kernel_vs_f64": err_k, "plain_vs_f64": err_p}
+            if err_k > E2E_FACTOR * err_p + SLSTM_REL * scale:
+                raise AssertionError(f"slstm: {name} at DH {DH}, S {S} is {err:.3g} from the "
+                                     f"plain loop ({err / scale:.3g} of its largest value) and "
+                                     f"{err_k:.3g} from float64, the plain loop {err_p:.3g}")
+        emit({"phase": "slstm_kernel", "B": SLSTM_B, "NH": SLSTM_NH, "DH": DH, "S": S,
+              "initial_state": state, "large_input_gates": big_i, "max_rel_err": errs,
+              "criterion": via, "max_abs_err_hs": (hs - hp).abs().max().item(),
+              "m_mean": lp[3].mean().item(), "tol": SLSTM_REL})
+        worst = max(worst, (hs - hp).abs().max().item())
+    return worst
+
+
+def lm_cells(model):
+    from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell
+    from xlstm_yolo_tpu_torch.nn.xlstm import sLSTMCell
+
+    return ([m for m in model.modules() if isinstance(m, sLSTMCell)],
+            [m for m in model.modules() if isinstance(m, MatrixLSTMCell)])
+
+
+def set_lm_kernels(model, plain: bool):
+    """The LM's sLSTM and mLSTM cells on their kernels' wrappers, or on the
+    plain versions (any device, float64 too)."""
+    from xlstm_yolo_tpu_torch.ops import chunkwise_v2 as cw
+    from xlstm_yolo_tpu_torch.ops import slstm as sk
+
+    scells, mcells = lm_cells(model)
+    for m in scells:
+        m.kernel = sk.slstm_sequence_plain if plain else sk.slstm_sequence
+    for m in mcells:
+        m.kernel = cw.mlstm_siging_chunkwise_fw_plain if plain else cw.mlstm_siging_chunkwise_fw
+
+
+def lm_counts(cw, sk) -> dict:
+    return {"slstm_forward": sk.LAUNCHES, "chunkwise_fw": cw.LAUNCHES}
+
+
+def phase_lm(cw, sk, card: str):
+    """The xLSTM language model at full width (LM: dim 512, 6 blocks, sLSTM
+    at 1; 5 mLSTM cells of 16 heads of 64, one sLSTM cell of 4 heads of
+    128; vocabulary 50 304), float32, random weights from seed 0; batch 8,
+    prompts of 128 tokens from a seed.
+
+    1. One forward with the kernels, and one with the plain versions,
+       against a float64 forward on the plain versions: the kernel logits
+       at most E2E_FACTOR times as far from float64 as the plain ones (+
+       1e-6 of the largest |logit|); exactly 1 sLSTM and 5 v2-inference
+       launches.
+    2. ``generate`` of 32 new tokens with the kernels (counts set to 0 just
+       before: exactly 32 and 160 launches) and with the plain versions:
+       the same tokens; where they part, the plain path's top-2 logit gap
+       at that step is printed, and the run fails unless it is below
+       TOKEN_TIE_REL of the largest |logit| there.
+    3. Times: forward ms (kernels, plain), generate tokens per second,
+       the sLSTM kernel per call at the LM's shape."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.xlstm import generate, xLSTMLarge
+
+    lm = xLSTMLarge(**LM, device="cuda", generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, LM["vocab_size"], (LM_BATCH, LM_PROMPT),
+                           generator=torch.Generator().manual_seed(3)).cuda()
+    scells, mcells = lm_cells(lm)
+    if len(scells) != 1 or len(mcells) != LM_MLSTM_BLOCKS:
+        raise AssertionError(f"the LM has {len(scells)} sLSTM and {len(mcells)} mLSTM cells")
+    with torch.inference_mode():
+        cw.LAUNCHES = sk.LAUNCHES = 0
+        logits = lm(tokens)
+        torch.cuda.synchronize()
+        fwd_launches = lm_counts(cw, sk)
+        set_lm_kernels(lm, plain=True)
+        logits_plain = lm(tokens)
+        lm64 = copy.deepcopy(lm).double()
+        logits64 = lm64(tokens)
+        del lm64
+        set_lm_kernels(lm, plain=False)
+    want = {"slstm_forward": 1, "chunkwise_fw": LM_MLSTM_BLOCKS}
+    if fwd_launches != want:
+        raise AssertionError(f"one LM forward launched {fwd_launches}, not {want}")
+    err_k = (logits.double() - logits64).abs().max().item()
+    err_p = (logits_plain.double() - logits64).abs().max().item()
+    scale = logits64.abs().max().item()
+    emit({"phase": "lm", "what": "forward", **LM, "batch": LM_BATCH, "prompt": LM_PROMPT,
+          "dtype": "float32", "launches_per_forward": fwd_launches,
+          "kernel_vs_f64": err_k, "plain_vs_f64": err_p,
+          "kernel_vs_plain": (logits - logits_plain).abs().max().item(), "max_abs_logit": scale,
+          "e2e_factor": E2E_FACTOR})
+    if not bool(torch.isfinite(logits).all()) or err_k > E2E_FACTOR * err_p + 1e-6 * scale:
+        raise AssertionError(f"LM logits {err_k:.3g} from float64, the plain path {err_p:.3g}")
+    del logits, logits_plain, logits64
+
+    cw.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(lm, tokens, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = lm_counts(cw, sk)
+    want = {"slstm_forward": LM_NEW, "chunkwise_fw": LM_NEW * LM_MLSTM_BLOCKS}
+    if gen_launches != want:
+        raise AssertionError(f"generate launched {gen_launches}, not {want}")
+    set_lm_kernels(lm, plain=True)
+    t0 = time.perf_counter()
+    out_plain = generate(lm, tokens, max_new_tokens=LM_NEW)
+    torch.cuda.synchronize()
+    gen_plain_s = time.perf_counter() - t0
+    report = {"phase": "lm", "what": "generate", "new_tokens": LM_NEW, "batch": LM_BATCH,
+              "launches": gen_launches, "same_tokens": bool(torch.equal(out, out_plain))}
+    if not report["same_tokens"]:
+        b, j = map(int, (out != out_plain).nonzero()[0])
+        with torch.inference_mode():
+            last = lm(out_plain[b:b + 1, :j])[0, -1]
+        top2 = last.topk(2).values
+        report.update(first_parting={"sequence": b, "position": j},
+                      plain_top2_gap=(top2[0] - top2[1]).item(),
+                      max_abs_logit=last.abs().max().item())
+    set_lm_kernels(lm, plain=False)
+    emit(report)
+    if not report["same_tokens"] and (
+            report["plain_top2_gap"] > TOKEN_TIE_REL * report["max_abs_logit"]):
+        raise AssertionError("generate's tokens part from the plain path's where the plain "
+                             f"path's top-2 gap is {report['plain_top2_gap']:.3g}")
+
+    # times
+    with torch.inference_mode():
+        fwd = time_cuda(lambda: lm(tokens), iters=5, reps=3, warm_s=0.2)
+        set_lm_kernels(lm, plain=True)
+        fwd_plain = time_cuda(lambda: lm(tokens), iters=2, reps=2, warm_s=0.0)
+        set_lm_kernels(lm, plain=False)
+        fwd += time_cuda(lambda: lm(tokens), iters=5, reps=3, warm_s=0.0)
+        t0 = time.perf_counter()
+        generate(lm, tokens, max_new_tokens=LM_NEW)
+        torch.cuda.synchronize()
+        gen2_s = time.perf_counter() - t0
+        # the sLSTM cell's call in that forward: its inputs at the LM's shape
+        cell = scells[0]
+        block = lm.backbone.block_1
+        x = lm.embedding(tokens)
+        x = lm.backbone.block_0(x)
+        xc = torch.nn.functional.silu(block.conv(block.norm(x)))
+        wx = cell.wx(xc).reshape(LM_BATCH, LM_PROMPT, 4, cell.num_heads, -1).float()
+        R = cell.recurrent_kernel
+        kern = lambda: sk.slstm_sequence(wx, R)  # noqa: E731
+        plain = lambda: sk.slstm_sequence_plain(wx, R)  # noqa: E731
+        t_plain = time_cuda(plain, iters=2, reps=2, warm_s=0.0)
+        t_kern = time_cuda(kern, iters=20, reps=3, warm_s=0.2) + time_cuda(kern, iters=20, reps=3)
+        t_plain += time_cuda(plain, iters=2, reps=2, warm_s=0.0)
+        dev_ms = kernel_device_ms(kern, "slstm_kernel")
+        wx_long, R_long, _ = slstm_inputs(128, 2048, False, False, seed=99)
+        t_long = time_cuda(lambda: sk.slstm_sequence(wx_long, R_long), iters=3, reps=3)
+    DH = wx.shape[-1]
+    bound_ms, bound_by = slstm_bound(LM_BATCH, LM_PROMPT, cell.num_heads, DH, False)
+    bound_long = slstm_bound(SLSTM_B, 2048, SLSTM_NH, 128, False)
+    gen_tokens = LM_BATCH * LM_NEW
+    times = {"forward_ms": statistics.median(fwd), "forward_ms_runs": fwd,
+             "forward_plain_ms": statistics.median(fwd_plain),
+             "generate_s": [gen_s, gen2_s], "generate_plain_s": gen_plain_s,
+             "generate_tokens_per_s": gen_tokens / min(gen_s, gen2_s),
+             "generate_plain_tokens_per_s": gen_tokens / gen_plain_s,
+             "slstm": {"ms": statistics.median(t_kern), "device_ms": dev_ms,
+                       "plain_ms": statistics.median(t_plain),
+                       "bound_ms": bound_ms, "bound_by": bound_by, "ms_runs": t_kern,
+                       "plain_ms_runs": t_plain, "shape": list(wx.shape)},
+             "slstm_S2048": {"ms": statistics.median(t_long), "bound_ms": bound_long[0],
+                             "bound_by": bound_long[1], "shape": list(wx_long.shape)}}
+    emit({"phase": "times", "what": "lm", "card": card, **LM, "batch": LM_BATCH,
+          "prompt": LM_PROMPT, **times,
+          "note": "forward: CUDA-event windows of 5 forwards at (8, 128) tokens, in turns "
+                  "kernels, plain, kernels; generate: host clock around 32 new tokens of 8 "
+                  "sequences (full-prefix recompute), the second run after the first"})
+    return {"launches": gen_launches, "forward_launches": fwd_launches, **times}
+
+
 def main() -> int:
     try:
         import torch
@@ -2460,7 +2907,9 @@ def main() -> int:
         from xlstm_yolo_tpu_torch.ops import epilogue as epi
         from xlstm_yolo_tpu_torch.ops import ffn
         from xlstm_yolo_tpu_torch.ops import parallel as pk
+        from xlstm_yolo_tpu_torch.ops import slstm as sk
         from xlstm_yolo_tpu_torch.ops import step as stp
+        from xlstm_yolo_tpu_torch.ops import tal_metric as tk
     except ImportError as exc:
         print(f"chip_smoke: the xlstm_yolo_tpu_torch package is missing ({exc})",
               file=sys.stderr)
@@ -2487,6 +2936,12 @@ def main() -> int:
         out = fn(*args, **kw)
         emit({"phase": name, "seconds": time.perf_counter() - t})
         return out
+
+    # the assigner's metric stage and the language model
+    worst_tal, tal_launches = timed("tal_kernel", phase_tal_kernel, tk)
+    worst_slstm = timed("slstm_kernel", phase_slstm_kernel, sk)
+    lm_out = timed("lm", phase_lm, cw, sk, card)
+    tal_t = timed("tal_times", phase_tal_times, tk, card)
 
     worst = timed("kernel", phase_kernel, cw)
     timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
@@ -2692,8 +3147,32 @@ def main() -> int:
         row["note"] = notes[group] + "; vil_det_384: the same at vil-det-384's widths"
         row["vil_det_384"] = at_384(name)
         rows.append(row)
+    t8 = tal_t[M_GTS]
+    rows.append({
+        "name": "tal_metric", "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/tal_metric.cu",
+        "replaces": f"{pallas}/tal_metric.py:39", "launches": tal_launches,
+        "max_abs_err": worst_tal["max_abs_err"], "bit_equal": worst_tal["bit_equal"],
+        **{k: t8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "wrapper_ms": t8["wrapper_ms"], "eager_metric_stage_ms": t8["eager_metric_stage_ms"],
+        "m128": {k: tal_t[128][k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "eager_metric_stage_ms")},
+        "note": "task_aligned_assign_pallas_metric; launches: one per assigner call of phase "
+                f"tal_kernel ({len(TAL_CASES)} calls); times per call at 640 px, batch 8, "
+                f"M {M_GTS} (m128: M 128), topk 10, ms the kernel's device time, wrapper_ms "
+                "the wrapper's call with its atan and cast ops; no one PyTorch call computes "
+                "the stage"})
+    rows.append({
+        "name": "slstm_forward", "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/slstm.cu",
+        "replaces": f"{pallas}/slstm.py:42", "launches": lm_out["launches"]["slstm_forward"],
+        "max_abs_err": worst_slstm,
+        **{k: lm_out["slstm"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "device_ms": lm_out["slstm"]["device_ms"],
+        "S2048": lm_out["slstm_S2048"],
+        "note": f"the LM's sLSTM cell; launches in a {LM_NEW}-token greedy generate of the LM "
+                f"(batch {LM_BATCH}); times per call at the LM's forward (B 8, S 128, 4 heads "
+                "of 128, float32); no one PyTorch call computes the scan"})
     for row in rows:
-        if row["launches"] == 0 or row["vil_det_384"]["launches"] == 0:
+        if row["launches"] == 0 or row.get("vil_det_384", {"launches": 1})["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path")
     emit({"phase": "times", "what": "vil-det-384", "card": card, "predict": {
         k: v for k, v in predict384.items() if k not in ("top", "forward_ms_runs")},

@@ -44,6 +44,7 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     from xlstm_yolo_tpu_torch.engine.model import YOLO
     from xlstm_yolo_tpu_torch.engine.steps import detect_trainer
     from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+    from xlstm_yolo_tpu_torch.nn.xlstm import generate, xLSTMLarge
     from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -51,6 +52,7 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
                  lambda: build_detection_model("vil-det-tiny.yaml"),
                  lambda: build_detection_model("vil-det-tiny.yaml", training=True),
                  lambda: detect_trainer("vil-det-tiny.yaml"),
+                 lambda: xLSTMLarge(50, dim=32, num_blocks=2, slstm_at=(1,)),
                  lambda: select_device()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -63,3 +65,6 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     model, state, step = detect_trainer("vil-det-tiny.yaml", device="cpu")
     assert model.training and state.step == 0 and callable(step)
     assert all(p.device == torch.device("cpu") for p in state.params.values())
+    lm = xLSTMLarge(50, dim=32, num_blocks=2, slstm_at=(1,), device="cpu")
+    assert next(lm.parameters()).device == torch.device("cpu") and not lm.training
+    assert generate(lm, torch.tensor([1, 2, 3]), max_new_tokens=2).device == torch.device("cpu")

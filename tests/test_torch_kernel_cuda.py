@@ -6,7 +6,7 @@ backward, the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
 one-token step, at head dims 16 and 32 (the flagship, vil-det-tiny), 64
 (vil-det-256) and 128 (vil-det-384), and the row kernels at all their
-widths.  This file imports neither JAX nor the JAX package, so it
+widths; the fused TAL metric stage and the sLSTM scan.  This file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
@@ -25,7 +25,11 @@ seed.  Tolerances:
   compute type at the same points as their plain versions: each output
   within 1e-4 of its largest |value| with compute float32, 2e-2 with compute
   bfloat16 (a float32 sum in another order can flip the rounding of an
-  operand by one bfloat16 step).  The exp forward's h is held as its
+  operand by one bfloat16 step).  The TAL metric stage: align, overlaps
+  and mask_pos equal bit for bit (both sides round every operation once,
+  in the same order).  The sLSTM scan (float32): each output within 1e-5
+  of its largest |value| (its recurrent sums in another order).  The exp
+  forward's h is held as its
   numerator h (den + eps) beside den: the floor e^{-m_comb} of its
   denominator is tiny once m is large, so a row whose terms nearly cancel
   turns a float32 rounding of den into a large relative change of h.
@@ -39,6 +43,7 @@ from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.ops import chunkwise_exp as exp
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn, step
 from xlstm_yolo_tpu_torch.ops import parallel as par
+from xlstm_yolo_tpu_torch.ops import slstm, tal_metric
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -522,3 +527,97 @@ def test_step_kernel_matches_plain_on_gpu(dtype):
         hp, (cp, np_) = mlstm_siging_step(q, k, v, i, f, c, n, eps=EPS)
         assert_rel_close([h], [hp], 1e-4 if dt == torch.float32 else 2e-2)
         assert_rel_close([c1, n1], [cp, np_], 1e-4)
+
+
+def tal_inputs(seed, B, M, nc=80, size=640):
+    """Scores, predicted boxes near the anchors of a ``size`` px image
+    (strides 8, 16, 32), padded gts (about half valid), labels, mask."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for s in (8, 16, 32):
+        n = size // s
+        gy, gx = np.meshgrid(np.arange(n) + 0.5, np.arange(n) + 0.5, indexing="ij")
+        pts.append(np.stack([gx, gy], -1).reshape(-1, 2) * s)
+    anc = np.concatenate(pts).astype(np.float32)
+    A = len(anc)
+    scores = 1 / (1 + np.exp(-rng.normal(-2, 1.5, (B, A, nc))))
+    wh = rng.uniform(4, 160, (B, A, 2))
+    ctr = anc[None] + rng.normal(0, 8, (B, A, 2))
+    pboxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    gxy = rng.uniform(0, size - 40, (B, M, 2))
+    gwh = rng.uniform(8, 300, (B, M, 2))
+    gboxes = np.concatenate([gxy, np.minimum(gxy + gwh, size)], -1)
+    mask = rng.uniform(0, 1, (B, M)) < 0.5
+    gboxes[~mask] = 0.0
+    labels = rng.integers(0, nc, (B, M))
+    return (cu(scores), cu(pboxes), cu(anc), cu(labels, torch.int32), cu(gboxes),
+            cu(mask, torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,k_arr", [(2, 8, None), (4, 24, (10, 1, 10, 1))])
+def test_tal_metric_kernel_matches_plain_on_gpu(B, M, k_arr):
+    """The TAL metric kernel against its plain version at 640 px (A 8400,
+    nc 80), with a per-sample k: align, overlaps and mask_pos bit-equal;
+    one launch a call."""
+    needs_cuda()
+    args = tal_inputs(B + M, B, M)
+    karr = None if k_arr is None else torch.tensor(k_arr, dtype=torch.int32, device="cuda")
+    before = tal_metric.LAUNCHES
+    got = tal_metric.tal_metric(*args, topk=10, topk_arr=karr)
+    torch.cuda.synchronize()
+    assert tal_metric.LAUNCHES == before + 1
+    ref = tal_metric.tal_metric_plain(*args, topk=10, topk_arr=karr)
+    assert got[2].dtype == torch.bool and got[2].any()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NH,DH,S,state,big_i", [
+    (4, 8, 37, False, False), (4, 32, 97, True, False), (2, 48, 20, True, True),
+    (4, 128, 128, True, True), (4, 128, 300, False, False)])
+def test_slstm_kernel_matches_plain_on_gpu(NH, DH, S, state, big_i):
+    """The sLSTM scan kernel against its plain loop (float32, B 3): hs and
+    the last (h, c, n, m), with and without an initial state, and with
+    large input gates (m far from 0); one launch a call; bfloat16 wx gives
+    bfloat16 hs."""
+    needs_cuda()
+    rng = np.random.default_rng(DH + S)
+    wx = rng.normal(size=(3, S, 4, NH, DH))
+    if big_i:
+        wx[:, :, 1] += 12.0
+    q, _ = np.linalg.qr(rng.normal(size=(4 * NH * DH, DH)))
+    R = cu(q.reshape(4, NH, DH, DH))
+    st = None
+    if state:
+        st = (cu(rng.normal(size=(3, NH, DH))), cu(rng.normal(size=(3, NH, DH))),
+              cu(rng.uniform(0.5, 2, (3, NH, DH))), cu(rng.uniform(-2, 8, (3, NH, DH))))
+    before = slstm.LAUNCHES
+    hs, last = slstm.slstm_sequence(cu(wx), R, st)
+    torch.cuda.synchronize()
+    assert slstm.LAUNCHES == before + 1 and hs.shape == (3, S, NH * DH)
+    hp, lp = slstm.slstm_sequence_plain(cu(wx), R, st)
+    assert_rel_close([hs, *last], [hp, *lp], 1e-5)
+    hb, _ = slstm.slstm_sequence(cu(wx, torch.bfloat16), R, st)
+    assert hb.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_slstm_cell_refuses_a_gradient_on_gpu():
+    """The sLSTM kernel has no backward: on the card the cell runs under
+    no_grad (one launch) and raises a ValueError where autograd would need
+    its gradient."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.nn.xlstm import sLSTMCell
+
+    cell = sLSTMCell(64, 4).cuda()
+    for p in cell.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.1)
+    x = torch.randn(2, 9, 64, device="cuda")
+    with pytest.raises(ValueError, match="no gradient"):
+        cell(x)
+    before = slstm.LAUNCHES
+    with torch.no_grad():
+        y, _ = cell(x)
+    assert slstm.LAUNCHES == before + 1 and y.shape == x.shape

@@ -6,9 +6,12 @@ returns the port's ``state_dict``.  The name translation and the layout
 rules are those of ``xlstm_yolo_tpu/utils/torch_convert.py``:
 
 - dense kernels (in, out) are transposed to (out, in);
-- conv kernels HWIO become OIHW;
+- conv kernels HWIO become OIHW, and the xLSTM LM's 1-d causal conv
+  kernels (K, 1, D) become torch's (D, 1, K);
 - BatchNorm/LayerNorm ``scale`` becomes ``weight``; batch statistics
-  ``mean``/``var`` become ``running_mean``/``running_var``.
+  ``mean``/``var`` become ``running_mean``/``running_var``;
+- ``nn.Embed``'s ``embedding`` becomes the ``weight`` of ``nn.Embedding``;
+  the sLSTM cell's ``recurrent_kernel`` (4, NH, DH, DH) is taken as it is.
 
 The port names its submodules so that these are exactly its keys.
 """
@@ -74,7 +77,9 @@ def jax_path_to_name(path: tuple[str, ...]) -> tuple[str, str]:
         return join("weight"), "kernel"
     if leaf == "scale":
         return join("weight"), "raw"
-    if leaf in {"bias", "weight", "embed", "queries", "learnable_skip"}:
+    if leaf == "embedding":
+        return join("weight"), "raw"
+    if leaf in {"bias", "weight", "embed", "queries", "learnable_skip", "recurrent_kernel"}:
         return join(leaf), "raw"
     raise KeyError(f"untranslatable leaf {leaf!r} at {path}")
 
@@ -88,6 +93,8 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
         if kind == "kernel":
             if t.ndim == 2:
                 t = t.T
+            elif t.ndim == 3:
+                t = t.transpose(2, 1, 0)
             elif t.ndim == 4:
                 t = t.transpose(3, 2, 0, 1)
         if name in out:
@@ -100,10 +107,12 @@ def jax_leaf_names(model: torch.nn.Module) -> dict[str, str]:
     """The JAX leaf name of each of ``model``'s parameters, the inverse of
     :func:`jax_path_to_name` on the leaf: a ``weight`` is flax's ``kernel``
     on a dense, conv or patch projection, its ``scale`` on a BatchNorm or
-    LayerNorm, and ``weight`` on the RMS and per-head norms."""
-    from xlstm_yolo_tpu_torch.nn import layers
+    LayerNorm, its ``embedding`` on an embedding, and ``weight`` on the RMS
+    and per-head norms."""
+    from xlstm_yolo_tpu_torch.nn import layers, xlstm
 
-    kernel_owners = (layers.Dense, layers.Conv, layers.SequenceConv2d, layers._PatchProj)
+    kernel_owners = (layers.Dense, layers.Conv, layers.SequenceConv2d, layers._PatchProj,
+                     xlstm.CausalConv1d)
     scale_owners = (layers.BatchNorm, layers.LayerNorm)
     modules = dict(model.named_modules())
     out = {}
@@ -113,6 +122,8 @@ def jax_leaf_names(model: torch.nn.Module) -> dict[str, str]:
             leaf = "kernel"
         elif leaf == "weight" and isinstance(modules[owner], scale_owners):
             leaf = "scale"
+        elif leaf == "weight" and isinstance(modules[owner], torch.nn.Embedding):
+            leaf = "embedding"
         out[name] = leaf
     return out
 

@@ -1,8 +1,8 @@
 """Anchor geometry and the task-aligned assigner (counterpart of
 ``make_anchors``, ``dist2bbox``, ``bbox2dist``, ``topk_select_mask``,
-``task_aligned_assign`` and ``_assign_from_metric`` in
-``xlstm_yolo_tpu/utils/tal.py``): fixed shapes, padded gts, every step a
-masked dense computation over the (B, M, A) grid."""
+``task_aligned_assign``, ``task_aligned_assign_pallas_metric`` and
+``_assign_from_metric`` in ``xlstm_yolo_tpu/utils/tal.py``): fixed shapes,
+padded gts, every step a masked dense computation over the (B, M, A) grid."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
+from xlstm_yolo_tpu_torch.ops.tal_metric import tal_metric
 from xlstm_yolo_tpu_torch.utils.metrics import bbox_iou
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
@@ -47,18 +48,25 @@ def bbox2dist(anchor_points, bbox, reg_max: float):
     return d.clamp(0, reg_max - 0.01)
 
 
-def topk_select_mask(metric: torch.Tensor, topk: int) -> torch.Tensor:
+def topk_select_mask(metric: torch.Tensor, topk: int, k_arr=None) -> torch.Tensor:
     """(..., A) metric -> (..., A) bool mask of its ``topk`` largest
     entries, as ``topk`` masked-argmax rounds: value ties go to the lowest
     index first (``argmax`` returns the first maximum; ``torch.topk`` on
     CUDA promises no order among ties), and a chosen entry is masked to
-    -inf so the indices are distinct."""
+    -inf so the indices are distinct.
+
+    ``k_arr`` (one int <= ``topk`` per leading index) is a per-sample k:
+    round r counts for sample b only where r < k_arr[b] (the E2E loss's
+    top-10 and top-1 halves in one call)."""
     A = metric.shape[-1]
     live = metric.to(acc_dtype(metric.dtype))
     sel = torch.zeros(metric.shape, dtype=torch.bool, device=metric.device)
-    for _ in range(topk):
+    if k_arr is not None:
+        k_arr = torch.as_tensor(k_arr, device=metric.device).reshape(
+            (metric.shape[0],) + (1,) * (metric.ndim - 1))
+    for r in range(topk):
         oh = F.one_hot(live.argmax(-1), A).bool()
-        sel |= oh
+        sel |= oh if k_arr is None else oh & (r < k_arr)
         live = live.masked_fill(oh, float("-inf"))
     return sel
 
@@ -73,14 +81,15 @@ class AssignResult(NamedTuple):
 
 def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt,
                         topk: int = 10, num_classes: int = 80, alpha: float = 0.5,
-                        beta: float = 6.0, eps: float = 1e-9) -> AssignResult:
+                        beta: float = 6.0, eps: float = 1e-9, topk_arr=None) -> AssignResult:
     """Assign padded gts to anchors by s^alpha * CIoU^beta, masked dense over
     the (B, M, A) grid.
 
     pd_scores (B, A, nc) sigmoid probabilities; pd_bboxes (B, A, 4) and
     gt_bboxes (B, M, 4) xyxy in image units; anc_points (A, 2) in image
-    units; gt_labels (B, M) ints; mask_gt (B, M) validity.  An in-box anchor
-    of a valid gt stays a top-k candidate even at zero metric.
+    units; gt_labels (B, M) ints; mask_gt (B, M) validity; ``topk_arr`` an
+    optional per-sample k (B,) <= ``topk`` (:func:`topk_select_mask`).  An
+    in-box anchor of a valid gt stays a top-k candidate even at zero metric.
     """
     B, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
@@ -97,7 +106,22 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, 
     acc = acc_dtype(overlaps.dtype)
     align_metric = bbox_scores.to(acc) ** alpha * overlaps.to(acc) ** beta
 
-    mask_pos = topk_select_mask(align_metric, topk) & mask_gt[..., None] & valid
+    mask_pos = topk_select_mask(align_metric, topk, topk_arr) & mask_gt[..., None] & valid
+    return _assign_from_metric(align_metric, overlaps, mask_pos, gt_labels, gt_bboxes,
+                               fg_eps=eps, num_classes=num_classes)
+
+
+def task_aligned_assign_pallas_metric(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes,
+                                      mask_gt, topk: int = 10, num_classes: int = 80,
+                                      eps: float = 1e-9, topk_arr=None) -> AssignResult:
+    """:func:`task_aligned_assign` (alpha 0.5, beta 6) with its metric stage
+    fused into one kernel (:func:`~xlstm_yolo_tpu_torch.ops.tal_metric.tal_metric`),
+    under the JAX package's name for the same entry.  The training step
+    keeps :func:`task_aligned_assign`, as JAX does; this entry takes the
+    kernel on CUDA tensors and its plain version on CPU tensors."""
+    align_metric, overlaps, mask_pos = tal_metric(
+        pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt.bool(), topk=topk,
+        num_classes=num_classes, eps=eps, topk_arr=topk_arr)
     return _assign_from_metric(align_metric, overlaps, mask_pos, gt_labels, gt_bboxes,
                                fg_eps=eps, num_classes=num_classes)
 
