@@ -4,10 +4,10 @@
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
-1. setup     - print the card's name and power limit; build the thirteen
+1. setup     - print the card's name and power limit; build the fourteen
                CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time and what ptxas
-               reports; phases 28-31 run next, then 2-27;
+               reports; phases 28-33 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -159,14 +159,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                generate; forward ms, tokens per second, the sLSTM kernel per
                call (phase_lm);
 31. tal_times - the TAL kernel, its plain version and both assigners per
-               call at batch 8, M 8 and 128 (phase_tal_times).
+               call at batch 8, M 8 and 128 (phase_tal_times);
+32. fw3_kernel - the sub-chunked forward fw3 (state pass, then output pass)
+               against its plain version at every (S, L, Lb) of FW3_SHAPES
+               (the v2 cell's S 6400/1600/400/100 with L 640/400/400/100,
+               and tests/test_fw3.py's cases) at the widths of all three
+               detectors, batch 8: q float32 and bfloat16, products float32
+               and bfloat16, open and closed forget gates, with and without
+               initial states, both variants; every output within F32_TOL
+               or BF16_TOL of its largest value, and with bfloat16 products
+               within half the plain version's bfloat16-vs-float32-products
+               gap in mean error (a kernel that skipped the operands'
+               rounding fails), two launches a call; then
+               its path with counts set to 0: the inference variant at the
+               v2 cell's (S, L) and the drop-in contract (the train
+               variant's states fed to the v2 backward kernel at L 64, the
+               gradients at GRAD_REL), exact launches (phase_fw3_kernel);
+33. fw3_times - fw3 in both variants beside the port's v2 inference and
+               train forwards on the same inputs and the plain version, per
+               call at each flagship S, DH 32 and 128, with its bound, each
+               pass's device time at S 6400 and the scratch buffer's size;
+               besides the JAX cell's L and bfloat16 products, fw3 with
+               float32 products (the v2 kernels' precision) and the train
+               variant at the v2 kernels' L 64 with sub-chunks 32 and 64,
+               the configuration whose states the v2 backward takes
+               (phase_fw3_times).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
-phase, the nvidia-smi line, one {"kernels": [...]} line (eighteen kernels:
+phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
 the sixteen of the detector with their numbers on the vil-det-192 paths
 and, under "vil_det_384", on vil-det-384's; the TAL metric kernel on the
-assigner entry, the sLSTM scan on the LM's generate), and last {"ok": true,
-"device": {...}}.  Without a CUDA device, or without
+assigner entry, the sLSTM scan on the LM's generate; fw3's inference and
+train variants on their path, with "dh128" at vil-det-384's heads), and
+last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -2888,6 +2913,320 @@ def phase_lm(cw, sk, card: str):
     return {"launches": gen_launches, "forward_launches": fwd_launches, **times}
 
 
+# the sub-chunked forward fw3 (ops/chunkwise_fw3.py): the (S, L) pairs the
+# JAX v2 cell hands its forward (S 6400 -> L 640, five sub-chunks of 128;
+# 1600 -> 400; 400 and 100 in one chunk, Lb = L) and tests/test_fw3.py's
+# cases, (S, L, Lb)
+FW3_PATH = ((6400, 640, 128), (1600, 400, 128), (400, 400, 128), (100, 100, 128))
+FW3_SHAPES = FW3_PATH + ((1024, 256, 128), (900, 256, 128), (512, 512, 256))
+FW3_WIDTHS = (FLAGSHIP,) + WIDE
+# (q/k/v type, product type, forget gates, initial states): each shape and
+# width runs all four, so every type pair, gate regime and state option runs
+FW3_CONFIGS = (("float32", "float32", "open", True), ("float32", "bfloat16", "closed", False),
+               ("bfloat16", "float32", "closed", True), ("bfloat16", "bfloat16", "open", False))
+FW3_OUTPUTS = ("h", "n_out", "cstates", "c_last", "n_last")
+FW3_DROP_IN = (1000, (32, 64))  # S, the sub-chunks at the v2 kernels' L = 64
+
+
+def fw3_counts(f3) -> dict:
+    return {"chunkwise_fw3": f3.LAUNCHES_FW3, "chunkwise_fw3_train": f3.LAUNCHES_FW3_TRAIN}
+
+
+def fw3_streams(S: int, ws, seed: int):
+    """q, k, v (B, S, H) float32, i, open and closed f (B, S, NH), initial
+    states, and an upstream dh and dC_last, made on the card from a seed
+    (as kernel_inputs draws them)."""
+    import torch
+
+    B, NH, DH, H, D, U = ws.dims
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    u = lambda lo, hi: torch.rand(B, S, NH, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
+    return {"qkv": (r(B, S, H), r(B, S, H), r(B, S, H)), "i": u(-6, 4),
+            "f": {"open": u(-2, 8), "closed": u(-60, -20)},
+            "states": (r(B, NH, DH, DH), r(B, NH, DH)), "grads": (r(B, S, H), r(B, NH, DH, DH))}
+
+
+def fw3_args(streams, dtype: str, gates: str, states: bool):
+    import torch
+
+    q, k, v = (t.to(getattr(torch, dtype)) for t in streams["qkv"])
+    c0, n0 = streams["states"] if states else (None, None)
+    return q, k, v, streams["i"], streams["f"][gates], c0, n0
+
+
+def fw3_rounding(got, ref, ref_f32) -> dict:
+    """With bfloat16 products: for each output that a product feeds (all
+    but n_last), the mean |kernel - plain| and the mean |plain with float32
+    products - plain|, each over the mean |plain|; raise where the first is
+    not under half the second, as it would not be for a kernel that skipped
+    the operands' rounding (a few operands rounded one step the other way
+    barely move a mean).  Outputs no product reaches (the initial or zero
+    state) are skipped."""
+    out = {}
+    for name, a, b, c in list(zip(FW3_OUTPUTS, got, ref, ref_f32))[:4]:
+        if a is None:
+            continue
+        a, b, c = a.double(), b.double(), c.double()
+        size = b.abs().mean().item()
+        gap = (c - b).abs().mean().item()
+        if size == 0 or gap == 0:
+            continue
+        err = (a - b).abs().mean().item()
+        out[name] = {"mean_err": err / size, "gap": gap / size}
+        if err >= gap / 2:
+            raise AssertionError(f"fw3: {name} {err / size:.3g} from the plain version in mean "
+                                 f"error, not under half its gap to float32 products "
+                                 f"({gap / size:.3g}): the products' rounding does not show")
+    return out
+
+
+def fw3_errors(got, ref, tols) -> dict:
+    """Each output's largest |kernel - plain| over its largest |plain|
+    (outputs that either side lacks are skipped); raise where that passes
+    its tolerance or the kernel's output is not finite."""
+    import torch
+
+    out = {}
+    for name, a, b, tol in zip(FW3_OUTPUTS, got, ref, tols):
+        if a is None or b is None:
+            continue
+        a, b = a.float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"fw3: {name} of the kernel is not finite")
+        err = (a - b).abs().max().item()
+        rel = err / max(b.abs().max().item(), 1e-30)
+        out[name] = {"max_abs_err": err, "rel": rel, "tol": tol}
+        if rel > tol:
+            raise AssertionError(f"fw3: {name} {rel:.3g} of its largest value from the plain "
+                                 f"version (tolerance {tol})")
+    return out
+
+
+def phase_fw3_kernel(f3, cw):
+    """1. The kernel against ``fw3_plain`` on the card at every (S, L, Lb)
+    of FW3_SHAPES and every width of FW3_WIDTHS (B 8), in each of
+    FW3_CONFIGS, both variants against the plain train variant: h within
+    F32_TOL of its largest value (BF16_TOL where q or the products are
+    bfloat16), n_out and the states within F32_TOL (BF16_TOL with bfloat16
+    products, and then also nearer the plain version than its
+    float32-products twin is, fw3_rounding); two launches a call, exactly.
+    2. The path, counts set to 0 just before: the inference variant at the
+    v2 cell's (S, L) pairs at vil-det-192's widths, bfloat16 (JAX's
+    default products), against the plain version; then the drop-in
+    contract at the v2 kernels' L = 64, S 1000, sub-chunks 32 and 64, q in
+    float32 and bfloat16, products float32: the train variant's cstates
+    and n_out are the v2 train forward's c_states and den (F32_TOL), and
+    the v2 backward kernel fed them gives the v2 path's dq, dk, dv and dC0
+    (GRAD_REL).  Returns the worst errors and the path's launches."""
+    import torch
+
+    worst = {"float32": {}, "bfloat16": {}, "max_abs_err_h_bf16": 0.0,
+             "rounding_err_over_gap": 0.0}
+    for ws in FW3_WIDTHS:
+        for S, L, Lb in FW3_SHAPES:
+            streams = fw3_streams(S, ws, seed=S + ws.DH)
+            for dtype, compute, gates, states in FW3_CONFIGS:
+                q, k, v, i, f, c0, n0 = fw3_args(streams, dtype, gates, states)
+                kw = dict(chunk_size=L, sub_chunk=Lb, eps=EPS,
+                          compute_dtype=getattr(torch, compute))
+                ref = f3.fw3_plain(q, k, v, i, f, ws.NH, c0, n0, **kw)
+                ref_f32 = (f3.fw3_plain(q, k, v, i, f, ws.NH, c0, n0,
+                                        **{**kw, "compute_dtype": torch.float32})
+                           if compute == "bfloat16" else None)
+                h_tol = F32_TOL if dtype == compute == "float32" else BF16_TOL
+                s_tol = F32_TOL if compute == "float32" else BF16_TOL
+                tols = (h_tol,) + (s_tol,) * 4
+                for save in (True, False):
+                    before = fw3_counts(f3)
+                    got = f3.fw3(q, k, v, i, f, ws.NH, c0, n0, save_states=save, **kw)
+                    torch.cuda.synchronize()
+                    name = "chunkwise_fw3_train" if save else "chunkwise_fw3"
+                    made = fw3_counts(f3)[name] - before[name]
+                    if made != 2:
+                        raise AssertionError(f"one fw3 call made {made} launches, not 2")
+                    if not save and (got[1] is not None or got[2] is not None):
+                        raise AssertionError("the inference variant returned saved states")
+                    errs = fw3_errors(got, ref, tols)
+                    rounding = fw3_rounding(got, ref, ref_f32) if ref_f32 is not None else {}
+                    emit({"phase": "fw3_kernel", "widths": ws.cfg, "S": S, "L": L, "Lb": Lb,
+                          "dtype": dtype, "compute": compute, "gates": gates,
+                          "initial_states": states, "variant": "train" if save else "inference",
+                          "errors": errs, "rounding": rounding})
+                    for r in rounding.values():
+                        worst["rounding_err_over_gap"] = max(worst["rounding_err_over_gap"],
+                                                             r["mean_err"] / r["gap"])
+                    for out, e in errs.items():
+                        w = worst[compute]
+                        w[out] = max(w.get(out, 0.0), e["rel"])
+                    if "bfloat16" in (dtype, compute):
+                        worst["max_abs_err_h_bf16"] = max(worst["max_abs_err_h_bf16"],
+                                                          errs["h"]["max_abs_err"])
+                del ref_f32
+            del streams
+
+    # the path
+    f3.LAUNCHES_FW3 = f3.LAUNCHES_FW3_TRAIN = 0
+    for S, L, Lb in FW3_PATH:
+        q, k, v, i, f, c0, n0 = fw3_args(fw3_streams(S, FLAGSHIP, seed=S), "bfloat16", "open",
+                                         False)
+        got = f3.fw3(q, k, v, i, f, NH, chunk_size=L, sub_chunk=Lb, eps=EPS,
+                     save_states=False)
+        torch.cuda.synchronize()
+        ref = f3.fw3_plain(q, k, v, i, f, NH, chunk_size=L, sub_chunk=Lb, eps=EPS,
+                           save_states=False)
+        emit({"phase": "fw3_kernel", "what": "path", "S": S, "L": L, "Lb": Lb,
+              "dtype": "bfloat16", "compute": "bfloat16",
+              "errors": fw3_errors(got, ref, (BF16_TOL,) * 5)})
+    S, subs = FW3_DROP_IN
+    for dtype in ("float32", "bfloat16"):
+        streams = fw3_streams(S, FLAGSHIP, seed=11)
+        q, k, v, i, f, c0, n0 = fw3_args(streams, dtype, "open", True)
+        dh, dcl = streams["grads"]
+        dh = dh.to(q.dtype)
+        _, _, (c_states, _, den) = cw.mlstm_siging_chunkwise_fw_train(
+            q, k, v, i, f, NH, c0, n0, eps=EPS)
+        ref = cw.mlstm_siging_chunkwise_bw(q, k, v, i, f, NH, c_states, den, dh, dcl, eps=EPS)
+        for sub in subs:
+            _, n_out, cstates, _, _ = f3.fw3(q, k, v, i, f, NH, c0, n0, chunk_size=cw.CHUNK_SIZE,
+                                             sub_chunk=sub, eps=EPS,
+                                             compute_dtype=torch.float32)
+            states = fw3_errors((None, n_out, cstates), (None, den, c_states),
+                                (None, F32_TOL, F32_TOL))
+            got = cw.mlstm_siging_chunkwise_bw(q, k, v, i, f, NH, cstates, n_out, dh, dcl,
+                                               eps=EPS)
+            torch.cuda.synchronize()
+            grads = {}
+            for name, a, b in zip(("dq", "dk", "dv", "dc0"), got, ref):
+                a, b = a.float(), b.float()
+                rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                grads[name] = rel
+                if not bool(torch.isfinite(a).all()) or rel > GRAD_REL[dtype]:
+                    raise AssertionError(f"fw3 drop-in: {name} {rel:.3g} of its largest value "
+                                         f"from the v2 path's (GRAD_REL {GRAD_REL[dtype]})")
+            emit({"phase": "fw3_kernel", "what": "drop-in", "S": S, "L": cw.CHUNK_SIZE,
+                  "Lb": sub, "dtype": dtype, "states": states, "grads_rel": grads,
+                  "grad_rel": GRAD_REL[dtype]})
+    torch.cuda.synchronize()
+    launches = fw3_counts(f3)
+    want = {"chunkwise_fw3": 2 * len(FW3_PATH), "chunkwise_fw3_train": 2 * 2 * len(subs)}
+    if launches != want:
+        raise AssertionError(f"the fw3 path made {launches} launches, not {want}")
+    return worst, launches
+
+
+def fw3_bound(S: int, L: int, Lb: int, itemsize: int = 2, ws=FLAGSHIP,
+              train: bool = False) -> tuple[float, str]:
+    """Least time for one fw3 call in ms, and what sets it: q, k, v read and
+    h written once, the gates read once, the last states written once (the
+    train variant also cstates per chunk and den per row), over HBM
+    bandwidth; against 4*B*NH*S*DH*(Lb+DH) FLOP at the bf16 peak."""
+    from xlstm_yolo_tpu_torch.ops.chunkwise_fw3 import geometry
+
+    B, NH, DH, H, D, U = ws.dims
+    L_, Lb_, NC, _ = geometry(S, L, Lb)
+    nbytes = 4 * B * S * H * itemsize + 2 * B * S * NH * 4 + B * NH * (DH * DH + DH) * 4
+    if train:
+        nbytes += B * NC * NH * (DH * DH + L_) * 4
+    flops = 4 * B * NH * S * DH * (Lb_ + DH)
+    return _bound(nbytes, flops)
+
+
+def phase_fw3_times(f3, cw, card: str) -> dict:
+    """Per call at B 8 and each (S, L) of FW3_PATH (Lb 128, Lb = L where
+    128 does not divide L), bfloat16 q/k/v and products, at vil-det-192's
+    heads (DH 32) and vil-det-384's (DH 128): CUDA-event windows of the
+    kernel in both variants, the port's v2 inference and train forwards
+    on the same inputs, and the plain version, in turns (and back); the
+    bound; at S 6400 the device time of each pass from a torch.profiler
+    trace, and the scratch buffer's size.  In the same turns, the two
+    configurations that compare like with like with the v2 kernels (float32
+    products, as theirs): the inference variant at the JAX cell's L
+    (``f32``), and the train variant at the v2 kernels' L 64 with
+    sub-chunks 32 and 64 (``drop_in_32``, ``drop_in_64``), whose states
+    the v2 backward takes."""
+    import torch
+
+    out = {}
+    for ws in (FLAGSHIP, WIDE[-1]):
+        per = {}
+        for S, L, Lb in FW3_PATH:
+            q, k, v, i, f, _, _ = fw3_args(fw3_streams(S, ws, seed=S), "bfloat16", "open", False)
+            kw = dict(chunk_size=L, sub_chunk=Lb, eps=EPS)
+            f32 = dict(eps=EPS, compute_dtype=torch.float32)
+            fns = {"fw3": lambda: f3.fw3(q, k, v, i, f, ws.NH, save_states=False, **kw),
+                   "fw3_train": lambda: f3.fw3(q, k, v, i, f, ws.NH, **kw),
+                   "f32": lambda: f3.fw3(q, k, v, i, f, ws.NH, chunk_size=L, sub_chunk=Lb,
+                                         save_states=False, **f32),
+                   **{f"drop_in_{sub}": functools.partial(
+                       f3.fw3, q, k, v, i, f, ws.NH, chunk_size=cw.CHUNK_SIZE, sub_chunk=sub,
+                       **f32) for sub in FW3_DROP_IN[1]},
+                   "v2": lambda: cw.mlstm_siging_chunkwise_fw(q, k, v, i, f, ws.NH, eps=EPS),
+                   "v2_train": lambda: cw.mlstm_siging_chunkwise_fw_train(
+                       q, k, v, i, f, ws.NH, eps=EPS),
+                   "plain": lambda: f3.fw3_plain(q, k, v, i, f, ws.NH, save_states=False, **kw),
+                   "plain_train": lambda: f3.fw3_plain(q, k, v, i, f, ws.NH, **kw)}
+            runs = {name: [] for name in fns}
+            for name in list(fns) + list(reversed(fns)):
+                iters = 2 if name.startswith("plain") else iters_for(ws, 10)
+                runs[name] += time_cuda(fns[name], iters=iters, reps=2, warm_s=0.1)
+            med = {name: statistics.median(r) for name, r in runs.items()}
+            _, Lb_, NC, NB = f3.geometry(S, L, Lb)
+            row = {"ms": med["fw3"], "train_ms": med["fw3_train"], "v2_ms": med["v2"],
+                   "v2_train_ms": med["v2_train"], "plain_ms": med["plain"],
+                   "plain_train_ms": med["plain_train"], "f32_ms": med["f32"],
+                   **{f"drop_in_{sub}_{key}": val for sub in FW3_DROP_IN[1]
+                      for key, val in (("ms", med[f"drop_in_{sub}"]),
+                                       ("bound_ms", fw3_bound(S, cw.CHUNK_SIZE, sub, ws=ws,
+                                                              train=True)[0]))},
+                   **dict(zip(("bound_ms", "bound_by"), fw3_bound(S, L, Lb, ws=ws))),
+                   **dict(zip(("train_bound_ms", "train_bound_by"),
+                              fw3_bound(S, L, Lb, ws=ws, train=True))),
+                   "scratch_mb": ws.B * NC * NB * ws.NH * (ws.DH ** 2 + ws.DH) * 4 / 1e6,
+                   "Lb": Lb_, "runs": runs}
+            if S == FW3_PATH[0][0]:
+                for name in ("fw3", "fw3_train"):
+                    row[f"{name}_passes_device_ms"] = {
+                        p: kernel_device_ms(fns[name], p) for p in ("fw3_states", "fw3_out")}
+            per[S] = row
+            emit({"phase": "times", "what": "fw3", "widths": ws.cfg, "card": card, "B": ws.B,
+                  "S": S, "L": L, "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16",
+                  "compute": "bfloat16", **row,
+                  "note": "CUDA-event windows in turns fw3, fw3_train, v2, v2_train, plain, "
+                          "plain_train and back (f32, drop_in_32, drop_in_64 after "
+                          "fw3_train); v2 is the port's v2 forward kernel (L 64, float32 "
+                          "products) on the same inputs, so fw3 at L and bfloat16 products "
+                          "is not a drop-in for it: f32 is fw3 with float32 products, "
+                          "drop_in_<Lb> the train variant at L 64 with float32 products; "
+                          "passes_device_ms from a torch.profiler trace of 10 calls"})
+        out[ws.cfg] = per
+    return out
+
+
+def fw3_numbers(t: dict, train: bool) -> dict:
+    """One width's numbers of a variant for the kernels line: per call at S
+    6400, and summed over the 20 calls of a forward (LAUNCHES_PER_S) beside
+    the v2 forward's."""
+    key = "train_" if train else ""
+    t0 = t[FW3_PATH[0][0]]
+
+    def per_forward(k):
+        return sum(n * t[S][k] for S, n in LAUNCHES_PER_S.items())
+
+    like = ({f"drop_in_{sub}": {"ms": t0[f"drop_in_{sub}_ms"],
+                                "bound_ms": t0[f"drop_in_{sub}_bound_ms"],
+                                "forward_ms": per_forward(f"drop_in_{sub}_ms")}
+             for sub in FW3_DROP_IN[1]} if train
+            else {"f32": {"ms": t0["f32_ms"], "forward_ms": per_forward("f32_ms")}})
+    return {"ms": t0[f"{key}ms"], "plain_ms": t0[f"plain_{key}ms"],
+            "bound_ms": t0[f"{key}bound_ms"], "bound_by": t0[f"{key}bound_by"],
+            "v2_ms": t0[f"v2_{key}ms"], "forward_ms": per_forward(f"{key}ms"),
+            "v2_forward_ms": per_forward(f"v2_{key}ms"), "scratch_mb": t0["scratch_mb"],
+            "passes_device_ms": t0["fw3_train_passes_device_ms" if train
+                                   else "fw3_passes_device_ms"],
+            "float32_products": like}
+
+
 def main() -> int:
     try:
         import torch
@@ -2902,6 +3241,7 @@ def main() -> int:
         from xlstm_yolo_tpu_torch.engine.model import YOLO
         from xlstm_yolo_tpu_torch.ops import chunkwise as v1
         from xlstm_yolo_tpu_torch.ops import chunkwise_exp as ex
+        from xlstm_yolo_tpu_torch.ops import chunkwise_fw3 as f3
         from xlstm_yolo_tpu_torch.ops import chunkwise_v2 as cw
         from xlstm_yolo_tpu_torch.ops import cuda_build
         from xlstm_yolo_tpu_torch.ops import epilogue as epi
@@ -2942,6 +3282,9 @@ def main() -> int:
     worst_slstm = timed("slstm_kernel", phase_slstm_kernel, sk)
     lm_out = timed("lm", phase_lm, cw, sk, card)
     tal_t = timed("tal_times", phase_tal_times, tk, card)
+    # the sub-chunked forward fw3, beside the v2 forward
+    worst_fw3, fw3_launches = timed("fw3_kernel", phase_fw3_kernel, f3, cw)
+    fw3_t = timed("fw3_times", phase_fw3_times, f3, cw, card)
 
     worst = timed("kernel", phase_kernel, cw)
     timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
@@ -3171,6 +3514,27 @@ def main() -> int:
         "note": f"the LM's sLSTM cell; launches in a {LM_NEW}-token greedy generate of the LM "
                 f"(batch {LM_BATCH}); times per call at the LM's forward (B 8, S 128, 4 heads "
                 "of 128, float32); no one PyTorch call computes the scan"})
+    for name, replaces, train in (("chunkwise_fw3", "chunkwise_fw3.py:203", False),
+                                  ("chunkwise_fw3_train", "chunkwise_fw3.py:196", True)):
+        rows.append({
+            "name": name, "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/chunkwise_fw3.cu",
+            "replaces": f"{pallas}/{replaces}", "launches": fw3_launches[name],
+            "max_abs_err": worst_fw3["max_abs_err_h_bf16"],
+            **fw3_numbers(fw3_t[FLAGSHIP.cfg], train), "library_ms": None,
+            "max_rel_err": worst_fw3["bfloat16"], "max_rel_err_float32": worst_fw3["float32"],
+            "rounding_err_over_gap": worst_fw3["rounding_err_over_gap"],
+            "dh128": fw3_numbers(fw3_t[WIDE[-1].cfg], train),
+            "note": "fw3 (unwired, as in JAX); launches (two a call: the state pass and the "
+                    "output pass) on its path in phase fw3_kernel: the inference variant at "
+                    "the v2 cell's (S, L) pairs, the train variant feeding the v2 backward at "
+                    "L 64; times per call at B 8, S 6400, L 640, Lb 128, bf16 q/k/v and "
+                    "products, NH 12 x DH 32 (dh128: NH 6 x DH 128); forward_ms summed over "
+                    "a forward's 20 calls as chunkwise_fw's, v2 the port's v2 forward on the "
+                    "same inputs (L 64, float32 products: ms is not a drop-in time; "
+                    "float32_products holds those that compare like with like: f32 at L "
+                    "640, drop_in_<Lb> the train variant at L 64); max_abs_err of h over the "
+                    "cases with bf16 q or products; no one PyTorch call computes the "
+                    "function"})
     for row in rows:
         if row["launches"] == 0 or row.get("vil_det_384", {"launches": 1})["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path")

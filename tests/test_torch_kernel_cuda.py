@@ -6,7 +6,9 @@ backward, the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
 one-token step, at head dims 16 and 32 (the flagship, vil-det-tiny), 64
 (vil-det-256) and 128 (vil-det-384), and the row kernels at all their
-widths; the fused TAL metric stage and the sLSTM scan.  This file imports neither JAX nor the JAX package, so it
+widths; the fused TAL metric stage, the sLSTM scan, and the sub-chunked
+forward fw3 (both variants, and its states fed to the v2 backward).  This
+file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
     python -m pytest -m cuda tests/test_torch_kernel_cuda.py -q
@@ -41,7 +43,7 @@ import torch
 
 from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.ops import chunkwise_exp as exp
-from xlstm_yolo_tpu_torch.ops import chunkwise_v2, epilogue, ffn, step
+from xlstm_yolo_tpu_torch.ops import chunkwise_fw3, chunkwise_v2, epilogue, ffn, step
 from xlstm_yolo_tpu_torch.ops import parallel as par
 from xlstm_yolo_tpu_torch.ops import slstm, tal_metric
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
@@ -273,6 +275,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         ffn.ffn_bwd(a["xf"], torch.empty(1, 30, 192, device="meta"), a["g_ffn"], a["wn"],
                     a["wgz"], a["wd_ffn"])
+    counts = (chunkwise_fw3.LAUNCHES_FW3, chunkwise_fw3.LAUNCHES_FW3_TRAIN)
+    for save in (True, False):
+        got = chunkwise_fw3.fw3(*t, 2, chunk_size=16, sub_chunk=8, save_states=save)
+        ref = chunkwise_fw3.fw3_plain(*t, 2, chunk_size=16, sub_chunk=8, save_states=save)
+        assert all(a is b is None or torch.equal(a, b) for a, b in zip(got, ref))
+        with pytest.raises(ValueError, match="unsupported device"):
+            chunkwise_fw3.fw3(*meta, 2, chunk_size=16, save_states=save)
+    assert (chunkwise_fw3.LAUNCHES_FW3, chunkwise_fw3.LAUNCHES_FW3_TRAIN) == counts
 
 
 V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
@@ -621,3 +631,82 @@ def test_slstm_cell_refuses_a_gradient_on_gpu():
     with torch.no_grad():
         y, _ = cell(x)
     assert slstm.LAUNCHES == before + 1 and y.shape == x.shape
+
+
+FW3_CASES = [  # (S, L, Lb, NH, DH, gates, initial states)
+    (200, 64, 32, 2, 16, "open", True),      # several chunks, ragged
+    (900, 256, 128, 12, 32, "closed", False),  # ragged, the flagship's heads
+    (100, 100, 128, 8, 64, "open", True),    # degenerate: Lb = L, not a whole row tile
+    (512, 512, 256, 6, 128, "open", False),  # two sub-chunks of 256 (four row tiles)
+    (1600, 400, 128, 6, 128, "closed", True),  # the v2 cell's S 1600 at vil-det-384's heads
+]
+
+
+def assert_rounding_shows(got, ref, ref_f32):
+    """With bfloat16 products: each output that a product feeds (all but
+    n_last) lies within half the plain version's own bfloat16-vs-float32
+    gap of the plain version, in mean |a - b| over mean |b|, so a kernel
+    that skipped the operands' rounding would fail.  The mean is what a
+    few operands rounded one step the other way barely move."""
+    for a, b, c in list(zip(got, ref, ref_f32))[:4]:
+        if a is None:
+            continue
+        a, b, c = a.double(), b.double(), c.double()
+        size = b.abs().mean().item()
+        gap = (c - b).abs().mean().item()
+        if size == 0 or gap == 0:  # no product reaches it (the initial or zero state)
+            continue
+        assert (a - b).abs().mean().item() < gap / 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,compute", V1_TYPES + [("bfloat16", "float32")])
+def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
+    """Both variants of the fw3 kernel against the plain version on the
+    same inputs, two launches a call: h within 1e-4 of its largest |value|
+    (2e-2 where q or the products are bfloat16), the denominators and
+    states within 1e-4 (2e-2 with bfloat16 products; with them also
+    nearer the plain version than its float32-products twin is, as
+    assert_rounding_shows reads it).  Then the drop-in
+    contract at the v2 kernels' L = 64 (sub-chunks 32 and 64, float32
+    products): fw3's cstates and n_out are the v2 train forward's c_states
+    and den, and the v2 backward kernel fed them gives the v2 path's dq,
+    dk, dv and dC0."""
+    needs_cuda()
+    dt, ct = getattr(torch, dtype), getattr(torch, compute)
+    h_rel = 1e-4 if dt == ct == torch.float32 else 2e-2
+    s_rel = 1e-4 if ct == torch.float32 else 2e-2
+    for S, L, Lb, NH, DH, gates, states in FW3_CASES:
+        q, k, v, i, f, c0, n0 = make_inputs(S, 2, S, NH, DH, gates, states)
+        args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH, cu(c0), cu(n0))
+        kw = dict(chunk_size=L, sub_chunk=Lb, eps=EPS, compute_dtype=ct)
+        ref = chunkwise_fw3.fw3_plain(*args, **kw)
+        ref_f32 = (chunkwise_fw3.fw3_plain(*args, **{**kw, "compute_dtype": torch.float32})
+                   if ct == torch.bfloat16 else None)
+        for save in (True, False):
+            before = chunkwise_fw3.LAUNCHES_FW3_TRAIN if save else chunkwise_fw3.LAUNCHES_FW3
+            got = chunkwise_fw3.fw3(*args, save_states=save, **kw)
+            torch.cuda.synchronize()
+            after = chunkwise_fw3.LAUNCHES_FW3_TRAIN if save else chunkwise_fw3.LAUNCHES_FW3
+            assert after == before + 2
+            outs = [(a, b, s_rel if j else h_rel)
+                    for j, (a, b) in enumerate(zip(got, ref)) if a is not None]
+            assert len(outs) == (5 if save else 3)
+            for a, b, rel in outs:
+                assert_rel_close([a], [b], rel)
+            if ref_f32 is not None:
+                assert_rounding_shows(got, ref, ref_f32)
+
+    q, k, v, i, f, c0, n0 = make_inputs(5, 2, 1000, 12, 32, "open", True)
+    args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), 12, cu(c0), cu(n0))
+    dh = cu(np.random.default_rng(6).normal(size=q.shape), dt)
+    dcl = cu(np.random.default_rng(7).normal(size=c0.shape))
+    _, _, (c_states, _, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+    ref = chunkwise_v2.mlstm_siging_chunkwise_bw(*args[:6], c_states, den, dh, dcl, eps=EPS)
+    for sub in (32, 64):
+        _, n_out, cstates, _, _ = chunkwise_fw3.fw3(
+            *args, chunk_size=chunkwise_v2.CHUNK_SIZE, sub_chunk=sub, eps=EPS,
+            compute_dtype=torch.float32)
+        assert_rel_close([cstates, n_out], [c_states, den], 1e-4)
+        got = chunkwise_v2.mlstm_siging_chunkwise_bw(*args[:6], cstates, n_out, dh, dcl, eps=EPS)
+        assert_grads_close(got, ref, dt)

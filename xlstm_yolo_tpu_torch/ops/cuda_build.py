@@ -26,7 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "chunkwise_v1_fw",
            "chunkwise_v1_bw", "chunkwise_exp_fw", "chunkwise_exp_bw", "parallel_fw",
-           "parallel_bw", "step", "tal_metric", "slstm")
+           "parallel_bw", "step", "tal_metric", "slstm", "chunkwise_fw3")
 
 HEAD_DIMS = (16, 32, 64, 128)  # the mLSTM kernels' head dims (port::dispatch_dh, csrc/common.cuh)
 
