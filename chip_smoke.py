@@ -6,8 +6,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. setup     - print the card's name and power limit; build the fourteen
                CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
-               started together, and print the build time and what ptxas
-               reports; phases 28-33 run next, then 2-27;
+               started together, and print the build time, what ptxas
+               reports and, for the FFN backward and the v2 backward, the
+               tensor-core (HMMA) instructions of each kernel in the machine
+               code (cuobjdump -sass); phases 28-34 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -28,7 +30,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                at the flagship shapes (B 8, NH 12, DH 32, H 384, D 192,
                U 512; S 6400/1600/400/100 and a ragged 1000), float32 and
                bfloat16, with closed forget gates, initial states and dC_last,
-               and |mean| >> std rows for the LayerNorm and the RMSNorm;
+               and |mean| >> std rows for the LayerNorm and the RMSNorm; also
+               each pass of the backward (the dC scan, then dq/dk/dv) alone
+               against its plain version;
 6. replay    - one float32 train step of vil-det-192 (640 px, batch 8,
                perturbed ifgates) records the inputs and upstream gradients
                of every cell, epilogue and FFN call; each call is replayed
@@ -125,7 +129,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                e2e_grads (phase_wide_grads);
 27. times    - CUDA-event medians (and every window) of each kernel and its
                plain version at each S (v1, exp: each (S, L); quadratic: each
-               padded S); the end-to-end
+               padded S); for the v2 backward and the FFN backward also the
+               device time of each of their kernels (the dC scan and dq/dk/dv;
+               the row pass, the weight gradients and the sums) from a
+               torch.profiler trace, each backward pass alone in CUDA-event
+               windows, and the FFN backward's four products as torch.matmul
+               on a line of their own (a yardstick, no part of the port); the
+               end-to-end
                predict rate on every route (windows after a warm-up, SM clock
                and power sampled); torch.profiler traces of three forwards;
                the v1 and v2 backward designs on the same work (L = 64); the
@@ -183,15 +193,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                float32 products (the v2 kernels' precision) and the train
                variant at the v2 kernels' L 64 with sub-chunks 32 and 64,
                the configuration whose states the v2 backward takes
-               (phase_fw3_times).
+               (phase_fw3_times);
+34. passes_times - the device time of each kernel of the v2 backward (dC
+               scan, dq/dk/dv) and of the FFN backward (row pass, weight
+               gradients, sums) at each S and every detector's widths, bf16,
+               from torch.profiler traces, and each backward pass alone in
+               CUDA-event windows (phase_passes_times; the times phases
+               print them beside each call's time).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
 the sixteen of the detector with their numbers on the vil-det-192 paths
 and, under "vil_det_384", on vil-det-384's; the TAL metric kernel on the
 assigner entry, the sLSTM scan on the LM's generate; fw3's inference and
-train variants on their path, with "dh128" at vil-det-384's heads), and
-last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+train variants on their path, with "dh128" at vil-det-384's heads; the v2
+backward's and the FFN backward's rows also "per_call_s6400" with each of
+their kernels' device ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -734,10 +751,21 @@ def phase_train_kernels(cw, epi, ffn, ws=FLAGSHIP):
             rb = cw.mlstm_siging_chunkwise_bw_plain(*bw_args, eps=EPS)
             e_bw = compare_outputs(f"bw S={S} {key}", gb, rb, rel)
             note("chunkwise_bw", key, e_bw)
+            # each pass of the backward alone against its plain version
+            q_, f_ = args[0], args[4]
+            dcs = cw.mlstm_siging_chunkwise_bw_dc(q_, f_, NH, den, dh, dcl, eps=EPS)
+            rdcs = cw.mlstm_siging_chunkwise_bw_dc_plain(q_, f_, NH, den, dh, dcl, eps=EPS)
+            passes = {"bw_dc_max_rel_err": compare_outputs(f"bw_dc S={S}", dcs, rdcs, rel)[1]}
+            got_p = cw.mlstm_siging_chunkwise_bw_dqkv(*args[:6], cs, den, dh, rdcs[0], eps=EPS)
+            ref_p = cw.mlstm_siging_chunkwise_bw_dqkv_plain(*args[:6], cs, den, dh, rdcs[0],
+                                                            eps=EPS)
+            passes["bw_dqkv_max_rel_err"] = compare_outputs(f"bw_dqkv S={S}", got_p, ref_p,
+                                                            rel)[1]
+            del dcs, rdcs, got_p, ref_p
             emit({"phase": "train_kernels", "widths": ws.cfg, "S": S, "dtype": key, "gates": gates,
                   "initial_states": states, "dc_last": states, "rel_tol": rel,
                   "fw_train_max_abs_err": e_fw[0], "fw_train_max_rel_err": e_fw[1],
-                  "bw_max_abs_err": e_bw[0], "bw_max_rel_err": e_bw[1]})
+                  "bw_max_abs_err": e_bw[0], "bw_max_rel_err": e_bw[1], **passes})
             del args, got, ref, gb, rb, bw_args
         for S, offset in [(S, 0.0) for S in SEQ_LENS] + [(1000, 0.0), (1600, 30.0)]:
             e_args, f_args = row_inputs(S, dtype, offset, seed=S + 3, ws=ws)
@@ -952,12 +980,111 @@ def phase_train(cw, epi, ffn, steps, cfg="vil-det-192.yaml", n_steps=TRAIN_STEPS
     return model, state, step, batches[0], total
 
 
-def phase_train_times(cw, epi, ffn, card: str, ws=FLAGSHIP):
+def ffn_matmul_yardstick(f_args, ws) -> float:
+    """ms of the FFN backward's four products as ``torch.matmul`` (cuBLAS,
+    bf16 operands, float32 sums) at the kernel's shapes: dact = g Wd, dxn =
+    dgz Wgz, dWd = g^T act, dWgz = dgz^T xn (gz standing in for dgz and
+    its first half for act).  A yardstick of what the tensor cores give
+    through a library; the port never calls it."""
+    import torch
+
+    x, gz, g, _, wgz, wd = f_args
+    D, U = ws.D, ws.U
+    gm, xm, gzm = g.reshape(-1, D), x.reshape(-1, D), gz.reshape(-1, 2 * U)
+    wdb, wgzb, act = wd.to(gm.dtype), wgz.to(gm.dtype), gzm[:, :U].contiguous()
+
+    def four():
+        torch.matmul(gm, wdb)
+        torch.matmul(gzm, wgzb)
+        torch.matmul(gm.t(), act)
+        torch.matmul(gzm.t(), xm)
+
+    return statistics.median(time_cuda(four, iters=iters_for(ws, 10), reps=3, warm_s=0.1))
+
+
+# the kernels of each redesigned function (bf16), by name in a profiler
+# trace, with their launches a call
+PASSES = {"chunkwise_bw": {"bw_dc_kernel": 1, "bw_dqkv_kernel": 1},
+          "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3}}
+
+
+def sass_mma_counts(library) -> dict | str:
+    """Tensor-core instructions (HMMA) in the machine code of each kernel of
+    a built library, read with the toolkit's cuobjdump; kernels with none
+    are left out."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return "not measured"
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn and "HMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def phase_passes_times(cw, ffn, card: str) -> dict:
+    """The device time of each kernel of the two redesigned functions, the
+    v2 backward (dC scan, dq/dk/dv) and the FFN backward (row pass, weight
+    gradients, sums), at each S and every detector's widths, bf16, from a
+    torch.profiler trace of 10 calls (kernels_device_ms), and each backward
+    pass alone through its wrapper in CUDA-event windows.  It runs early:
+    in this script's long process, traces taken after its later phases
+    missed most kernel events of these calls (PR 9, run 2), which no probe
+    of those traces alone reproduced."""
+    import torch
+
+    out = {}
+    for ws in (FLAGSHIP, *WIDE):
+        B, NH, DH, H, D, U = ws.dims
+        per = {name: {} for name in PASSES}
+        for S in SEQ_LENS:
+            args = kernel_inputs(S, torch.bfloat16, seed=S, ws=ws)
+            _, _, (cs, _, den) = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+            dh = torch.randn(B, S, H, generator=torch.Generator().manual_seed(S)).to(
+                "cuda", torch.bfloat16)
+            _, f_args = row_inputs(S, torch.bfloat16, seed=S, ws=ws)
+            q, f = args[0], args[4]
+            dcs = cw.mlstm_siging_chunkwise_bw_dc(q, f, NH, den, dh, eps=EPS)[0]
+            n = iters_for(ws, 10)
+            per["chunkwise_bw"][S] = {
+                "passes_device_ms": kernels_device_ms(
+                    lambda: cw.mlstm_siging_chunkwise_bw(*args[:6], cs, den, dh, eps=EPS),
+                    PASSES["chunkwise_bw"]),
+                "passes_event_ms": {
+                    "bw_dc_kernel": statistics.median(time_cuda(
+                        lambda: cw.mlstm_siging_chunkwise_bw_dc(q, f, NH, den, dh, eps=EPS),
+                        iters=n, reps=3, warm_s=0.1)),
+                    "bw_dqkv_kernel": statistics.median(time_cuda(
+                        lambda: cw.mlstm_siging_chunkwise_bw_dqkv(*args[:6], cs, den, dh, dcs,
+                                                                  eps=EPS),
+                        iters=n, reps=3, warm_s=0.1))}}
+            per["ffn_bw"][S] = {"passes_device_ms": kernels_device_ms(
+                lambda: ffn.ffn_bwd(*f_args), PASSES["ffn_bw"])}
+            for name in PASSES:
+                emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg, "card": card,
+                      "B": B, "S": S, "dtype": "bfloat16", **per[name][S]})
+            del args, cs, den, dh, f_args, dcs
+        out[ws.cfg] = per
+    return out
+
+
+def phase_train_times(cw, epi, ffn, card: str, ws=FLAGSHIP, passes=None):
     """Per-call times of the four training kernels at each S (bf16) with
-    their plain versions (the train step's time is phase_v1_times')."""
+    their plain versions (the train step's time is phase_v1_times'), with
+    ``passes``' readings of the backward's and the FFN backward's kernels
+    (phase_passes_times) at the same S; beside the FFN backward, on a line
+    of its own, its four products as torch.matmul (ffn_matmul_yardstick)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
+    passes = passes or {}
     per = {k: {} for k in KERNELS}
     for S in SEQ_LENS:
         args = kernel_inputs(S, torch.bfloat16, seed=S, ws=ws)
@@ -976,11 +1103,18 @@ def phase_train_times(cw, epi, ffn, card: str, ws=FLAGSHIP):
                             lambda: epi.epilogue_bwd_plain(*e_args)),
             "ffn_bw": (lambda: ffn.ffn_bwd(*f_args), lambda: ffn.ffn_bwd_plain(*f_args)),
         }
+        emit({"phase": "times", "what": "ffn_bw_matmul_yardstick", "widths": ws.cfg,
+              "card": card, "B": B, "S": S, "D": D, "U": U, "dtype": "bfloat16",
+              "matmul_ms": ffn_matmul_yardstick(f_args, ws),
+              "note": "the FFN backward's four products (12 M D U flop) as torch.matmul "
+                      "(cuBLAS) at the same shapes, without the norm, gate and column sums; "
+                      "a yardstick only, no part of the port"})
         for name, (kern, plain) in pairs.items():
             n = iters_for(ws, 10)
             t_kern, t_plain = in_turns(kern, plain, n, 3, ws=ws)
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                    **dict(zip(("bound_ms", "bound_by"), train_bound(name, S, ws=ws)))}
+            row.update(passes.get(name, {}).get(S, {}))
             per[name][S] = row
             emit({"phase": "times", "widths": ws.cfg, "what": name, "card": card, "B": B, "S": S,
                   "dtype": "bfloat16", **row, "ms_runs": t_kern, "plain_ms_runs": t_plain})
@@ -1987,8 +2121,8 @@ def v1_times(v1, card: str, plan, ws=FLAGSHIP, device="cuda"):
 def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
     """Per-call times of the v1 kernels (v1_times); the two backward designs
     at the same chunk, L = 64 (v1: the dC scan, then chunk-parallel
-    dq/dk/dv; v2: one serial pass); and the v1 predict forward on device
-    input."""
+    dq/dk/dv, float32 FMA; v2: the same split on the tensor cores); and the
+    v1 predict forward on device input."""
     import torch
 
     from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
@@ -2028,10 +2162,11 @@ def phase_v1_times(v1, cw, card: str, plan, yolo_v1, device="cuda"):
                  "v1_dqkv_ms": statistics.median(time_cuda(v1_dqkv, iters=10, reps=3))}
         emit({"phase": "times", "what": "backward_designs_at_L64", "card": card, "B": B, "S": S,
               "L": 64, "dtype": "bfloat16", "v1_chunk_parallel_ms": statistics.median(t["v1"]),
-              "v2_serial_ms": statistics.median(t["v2"]), **split, "v1_runs": t["v1"],
+              "v2_ms": statistics.median(t["v2"]), **split, "v1_runs": t["v1"],
               "v2_runs": t["v2"],
               "note": "v1: chunkwise_v1_bw_dc + chunkwise_v1_bw_dqkv (f32 dq/dk/dv; the gate "
-                      "gradients and casts not included); v2: chunkwise_bw (dq/dk/dv in bf16)"})
+                      "gradients and casts not included); v2: chunkwise_bw (bf16: the dC scan, "
+                      "then chunk-parallel dq/dk/dv on the tensor cores)"})
         del args, dh, den, cs, dcs, qb, kb, vb, dhb, ib, fb, cs2, den2
 
     predictor = DetectionPredictor({"imgsz": yolo_v1.imgsz, "batch": B}, yolo_v1.model,
@@ -2434,17 +2569,17 @@ def phase_wide_grads():
                              f"than allowed, or its launches {launches} are not one per layer")
 
 
-def phase_wide_times(cw, epi, ffn, v1, ex, pk, stp, card: str, plan):
+def phase_wide_times(cw, epi, ffn, v1, ex, pk, stp, card: str, plan, passes):
     """Per-call times of every kernel at the widths of vil-det-256 and
     vil-det-384 beside their plain versions and bounds (fw_times, with and
     without the fused LayerNorm; phase_train_times; v1_times; exp_times;
-    phase_parallel_times; step_times), and of the fused forward at the
-    flagship's."""
+    phase_parallel_times; step_times; with ``passes``' kernel readings,
+    phase_passes_times), and of the fused forward at the flagship's."""
     out = {"fw_ln_flagship": fw_times(cw, card, fused_ln=True)}
     for ws in WIDE:
         out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws),
                        "chunkwise_fw_ln": fw_times(cw, card, ws, fused_ln=True),
-                       **phase_train_times(cw, epi, ffn, card, ws),
+                       **phase_train_times(cw, epi, ffn, card, ws, passes[ws.cfg]),
                        **v1_times(v1, card, plan, ws), **exp_times(ex, card, plan, ws),
                        **phase_parallel_times(pk, card, plan, ws),
                        "mlstm_step": step_times(stp, ws)}
@@ -2562,24 +2697,33 @@ def tal_bound(B: int, M: int, A: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_device_ms(fn, match: str, calls: int = 10):
-    """Device time of one call's kernels whose name holds ``match``, from a
-    torch.profiler trace of ``calls`` calls of ``fn`` (kernel events only,
-    as device_busy reads them); "not measured" if the trace has none."""
+def kernels_device_ms(fn, launches: dict, calls: int = 10) -> dict:
+    """Device ms a call of the kernels of ``fn`` whose names hold each key of
+    ``launches`` (the value: its launches a call), from one torch.profiler
+    trace of ``calls`` calls (kernel events only, as device_busy reads
+    them): the mean event times the launches a call, beside the events
+    each key had ("events").  A trace can miss a kernel event or two at its
+    start (seen on the H100: 9 of 10), so a small operation opens it and
+    the mean, not the sum, is read; a key the trace lacks is "not
+    measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     top = device_busy(prof, 1.0).get("top", [])
-    hits = [r for r in top if match in r["kernel"]]
-    if not hits:
-        return "not measured"
-    return sum(r["device_ms"] for r in hits) / calls
+    out, events = {}, {}
+    for m, per_call in launches.items():
+        hits = [r for r in top if m in r["kernel"]]
+        events[m] = sum(r["calls"] for r in hits)
+        out[m] = (sum(r["device_ms"] for r in hits) / events[m] * per_call if events[m]
+                  else "not measured")
+    return {**out, "events": events, "calls": calls}
 
 
 def phase_tal_kernel(tk):
@@ -2658,7 +2802,7 @@ def phase_tal_times(tk, card: str) -> dict:
             runs[name] += time_cuda(fns[name], iters=20, reps=3, warm_s=0.2)
         med = {name: statistics.median(r) for name, r in runs.items()}
         bound_ms, bound_by = tal_bound(8, M, args[0].shape[1])
-        dev_ms = kernel_device_ms(fns["kernel"], "tal_metric_kernel")
+        dev_ms = kernels_device_ms(fns["kernel"], {"tal_metric_kernel": 1})["tal_metric_kernel"]
         out[M] = {"ms": dev_ms if isinstance(dev_ms, float) else med["kernel"],
                   "wrapper_ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": bound_ms,
                   "bound_by": bound_by, "assign_fused_ms": med["assign_fused"],
@@ -2887,7 +3031,7 @@ def phase_lm(cw, sk, card: str):
         t_plain = time_cuda(plain, iters=2, reps=2, warm_s=0.0)
         t_kern = time_cuda(kern, iters=20, reps=3, warm_s=0.2) + time_cuda(kern, iters=20, reps=3)
         t_plain += time_cuda(plain, iters=2, reps=2, warm_s=0.0)
-        dev_ms = kernel_device_ms(kern, "slstm_kernel")
+        dev_ms = kernels_device_ms(kern, {"slstm_kernel": 1})["slstm_kernel"]
         wx_long, R_long, _ = slstm_inputs(128, 2048, False, False, seed=99)
         t_long = time_cuda(lambda: sk.slstm_sequence(wx_long, R_long), iters=3, reps=3)
     DH = wx.shape[-1]
@@ -3186,8 +3330,9 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
                    "Lb": Lb_, "runs": runs}
             if S == FW3_PATH[0][0]:
                 for name in ("fw3", "fw3_train"):
-                    row[f"{name}_passes_device_ms"] = {
-                        p: kernel_device_ms(fns[name], p) for p in ("fw3_states", "fw3_out")}
+                    passes = kernels_device_ms(fns[name], {"fw3_states": 1, "fw3_out": 1})
+                    row[f"{name}_passes_device_ms"] = {p: passes[p] for p in ("fw3_states",
+                                                                              "fw3_out")}
             per[S] = row
             emit({"phase": "times", "what": "fw3", "widths": ws.cfg, "card": card, "B": ws.B,
                   "S": S, "L": L, "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16",
@@ -3269,7 +3414,8 @@ def main() -> int:
           "build_s": time.perf_counter() - t0,
           "libraries": {k: v["library"].name for k, v in built.items()},
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "registers" in ln]
-                    for k, v in built.items()}})
+                    for k, v in built.items()},
+          "sass_mma": {k: sass_mma_counts(built[k]["library"]) for k in PASSES}})
 
     def timed(name, fn, *args, **kw):
         t = time.perf_counter()
@@ -3285,6 +3431,7 @@ def main() -> int:
     # the sub-chunked forward fw3, beside the v2 forward
     worst_fw3, fw3_launches = timed("fw3_kernel", phase_fw3_kernel, f3, cw)
     fw3_t = timed("fw3_times", phase_fw3_times, f3, cw, card)
+    passes_t = timed("passes_times", phase_passes_times, cw, ffn, card)
 
     worst = timed("kernel", phase_kernel, cw)
     timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
@@ -3361,14 +3508,16 @@ def main() -> int:
     per_s = timed("times", phase_times, cw, yolo, card)
     per_exp, exp_fwd = timed("exp_times", phase_exp_times, ex, card, plan, yolo_exp, yolo)
     del yolo
-    per_train = timed("train_times", phase_train_times, cw, epi, ffn, card)
+    per_train = timed("train_times", phase_train_times, cw, epi, ffn, card,
+                      passes=passes_t[FLAGSHIP.cfg])
     per_v1 = timed("v1_times", phase_v1_times, v1, cw, card, plan, yolo_v1)
     per_par = timed("parallel_times", phase_parallel_times, pk, card, plan)
     steps_ms = timed("step_times", phase_step_times, card, {
         "v2": (model, state, step, batch), "v1": (v1_model, v1_state, v1_step, v1_batch),
         "exp": (exp_model, exp_state, exp_step, exp_batch),
         "parallel": (par_model, par_state, par_step, par_batch)})
-    wide_t = timed("wide_times", phase_wide_times, cw, epi, ffn, v1, ex, pk, stp, card, plan)
+    wide_t = timed("wide_times", phase_wide_times, cw, epi, ffn, v1, ex, pk, stp, card, plan,
+                   passes_t)
     predict384 = timed("times", predict_times, yolo384, card)
     ts384 = time_step(step384, st384, batch384, windows=2)
     emit({"phase": "times", "what": "train_step", "route": "v2", "card": card,
@@ -3489,6 +3638,11 @@ def main() -> int:
             row["max_rel_err_float32"] = worst_all[name]["float32"][1]
         row["note"] = notes[group] + "; vil_det_384: the same at vil-det-384's widths"
         row["vil_det_384"] = at_384(name)
+        if name in PASSES:  # per call at S 6400: each kernel's device ms
+            row["per_call_s6400"] = {
+                cfg: {k: v for k, v in t[name][SEQ_LENS[0]].items()
+                      if k in ("ms", "bound_ms", "passes_device_ms", "passes_event_ms")}
+                for cfg, t in (("vil_det_192", flag_t), ("vil_det_384", w384_t))}
         rows.append(row)
     t8 = tal_t[M_GTS]
     rows.append({

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the chunkwise mLSTM inference forward (also with the per-head LayerNorm
-fused in), train forward and backward (and the differentiable cell built
-from them), the epilogue backward, the FFN
-backward, the v1 and exp routes' forward, dC scan and dq/dk/dv kernels
+fused in), train forward and backward (each of the backward's two passes
+alone too; and the differentiable cell built from them), the epilogue
+backward, the FFN backward (at every detector's widths), the v1 and exp
+routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
 one-token step, at head dims 16 and 32 (the flagship, vil-det-tiny), 64
 (vil-det-256) and 128 (vil-det-384), and the row kernels at all their
@@ -254,6 +255,91 @@ def test_ffn_backward_kernel_matches_plain_on_gpu(B, S, H, D, U, NH, offset, dty
     assert ffn.LAUNCHES == before + 1
     ref = ffn.ffn_bwd_plain(x, gz, g, wn, wgz, wd)
     assert_grads_close(got, ref, dt)
+
+
+FFN_CASES = [  # (B, S, D, U, mean offset): every detector's (D, U), ragged rows
+    (2, 100, 32, 128, 0.0),      # vil-det-tiny's widths
+    (1, 1000, 192, 512, 50.0),   # the flagship's, |mean| >> std rows
+    (2, 130, 256, 704, 0.0),     # vil-det-256's
+    (1, 300, 384, 1024, 50.0),   # vil-det-384's, |mean| >> std rows
+    (3, 37, 384, 1024, 0.0),     # less than one 64-row tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,D,U,offset", FFN_CASES)
+def test_ffn_backward_kernel_at_every_width_on_gpu(B, S, D, U, offset, dtype):
+    """The FFN backward (bfloat16: tensor cores; float32: CUDA cores) against
+    its plain version at every detector's (D, U), one launch a call."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    a = row_inputs(B, S, 4 * D, D, U, 4, offset, seed=S + D)
+    x, wn, wgz, wd = cu(a["xf"], dt), cu(a["wn"]), cu(a["wgz"]), cu(a["wd_ffn"])
+    _, gz = ffn.ffn_forward(x, wn, wgz, cu(a["bgz"]), wd, torch.zeros(D, device="cuda"))
+    g = cu(a["g_ffn"], dt)
+    before = ffn.LAUNCHES
+    got = ffn.ffn_bwd(x, gz, g, wn, wgz, wd)
+    torch.cuda.synchronize()
+    assert ffn.LAUNCHES == before + 1
+    assert_grads_close(got, ffn.ffn_bwd_plain(x, gz, g, wn, wgz, wd), dt)
+
+
+def test_ffn_backward_refuses_other_widths():
+    """A width the kernel does not take raises before the device check."""
+    x = torch.empty(1, 30, 48, device="meta")
+    with pytest.raises(ValueError, match="not taken by the kernel"):
+        ffn.ffn_bwd(x, torch.empty(1, 30, 256, device="meta"), x, torch.empty(48, device="meta"),
+                    torch.empty(256, 48, device="meta"), torch.empty(48, 128, device="meta"))
+
+
+BW_PASS_CASES = [  # (S, NH, DH, gates, dC_last): head dims 16-128, ragged S, closed gates
+    (25, 4, 16, "open", False),
+    (100, 3, 16, "closed", True),
+    (1000, 12, 32, "open", True),
+    (200, 4, 32, "closed", False),
+    (300, 8, 64, "closed", True),
+    (200, 6, 128, "closed", True),
+    (1000, 6, 128, "open", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,NH,DH,gates,dc_last", BW_PASS_CASES)
+def test_backward_passes_match_plain_on_gpu(S, NH, DH, gates, dc_last, dtype):
+    """The backward's two passes, each against its plain version on the
+    same inputs (the second on the first's plain output): float32 within
+    1e-4 of each output's largest |value| (sums in another order);
+    bfloat16 within 2e-2 (both round the products' operands at the same
+    points, but a float32 sum in another order can flip an operand's
+    rounding by one bfloat16 step).  Then the whole backward (one counted
+    launch) against the two plain passes."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    q, k, v, i, f, _, _ = make_inputs(S + DH, 2, S, NH, DH, gates, False)
+    rng = np.random.default_rng(S + 1)
+    dh = cu(rng.normal(size=q.shape), dt)
+    dcl = cu(rng.normal(size=(2, NH, DH, DH))) if dc_last else None
+    args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH)
+    _, _, (cs, _, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+    dcs, dc0 = chunkwise_v2.mlstm_siging_chunkwise_bw_dc(args[0], args[4], NH, den, dh, dcl,
+                                                         eps=EPS)
+    torch.cuda.synchronize()
+    rdcs, rdc0 = chunkwise_v2.mlstm_siging_chunkwise_bw_dc_plain(args[0], args[4], NH, den, dh,
+                                                                 dcl, eps=EPS)
+    assert dcs.dtype == rdcs.dtype == dt
+    assert_rel_close([dcs, dc0], [rdcs, rdc0], rel)
+    got = chunkwise_v2.mlstm_siging_chunkwise_bw_dqkv(*args, cs, den, dh, rdcs, eps=EPS)
+    torch.cuda.synchronize()
+    ref = chunkwise_v2.mlstm_siging_chunkwise_bw_dqkv_plain(*args, cs, den, dh, rdcs, eps=EPS)
+    assert_rel_close(got, ref, rel)
+    before = chunkwise_v2.LAUNCHES_BW
+    whole = chunkwise_v2.mlstm_siging_chunkwise_bw(*args, cs, den, dh, dcl, eps=EPS)
+    torch.cuda.synchronize()
+    assert chunkwise_v2.LAUNCHES_BW == before + 1
+    assert_rel_close(whole, [*ref, rdc0], rel)
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():

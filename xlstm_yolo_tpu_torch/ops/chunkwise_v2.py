@@ -11,9 +11,12 @@ Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
 - :func:`mlstm_siging_chunkwise_fw_train` — the forward that also saves the
   state before each chunk and the denominator per row
   (``_fw_kernel_train``), kernel ``chunkwise_fw_train`` in the same file;
-- :func:`mlstm_siging_chunkwise_bw` — the fused backward: reverse dC scan
-  with dq, dk, dv per chunk and dC0 (``_bw_fused_kernel`` and its
-  transposed twin ``_bw_fused_kernel_t``), ``csrc/chunkwise_bw.cu``;
+- :func:`mlstm_siging_chunkwise_bw` — the backward: reverse dC scan with
+  dq, dk, dv per chunk and dC0 (``_bw_fused_kernel`` and its transposed
+  twin ``_bw_fused_kernel_t``), ``csrc/chunkwise_bw.cu``: two passes, the
+  dC scan (:func:`mlstm_siging_chunkwise_bw_dc`) and the chunk-parallel
+  dq/dk/dv (:func:`mlstm_siging_chunkwise_bw_dqkv`), their products on the
+  tensor cores for bfloat16 and on the CUDA cores for float32;
 - :func:`mlstm_siging_chunkwise_train` — the differentiable cell
   (``_chunkwise_core_v2`` with ``_core_fwd`` / ``_core_bwd``).  Its
   gradient holds the max(|.|, 1) denominator constant, at every S;
@@ -41,6 +44,10 @@ __all__ = [
     "LAUNCHES_TRAIN",
     "gate_grads",
     "mlstm_siging_chunkwise_bw",
+    "mlstm_siging_chunkwise_bw_dc",
+    "mlstm_siging_chunkwise_bw_dc_plain",
+    "mlstm_siging_chunkwise_bw_dqkv",
+    "mlstm_siging_chunkwise_bw_dqkv_plain",
     "mlstm_siging_chunkwise_bw_plain",
     "mlstm_siging_chunkwise_fw",
     "mlstm_siging_chunkwise_fw_ln",
@@ -56,7 +63,7 @@ __all__ = [
 LAUNCHES = 0        # launches of the inference forward kernel
 LAUNCHES_LN = 0     # launches of the inference forward with the fused LayerNorm
 LAUNCHES_TRAIN = 0  # launches of the train forward kernel
-LAUNCHES_BW = 0     # launches of the backward kernel
+LAUNCHES_BW = 0     # calls of the backward that launched its kernels
 
 CHUNK_SIZE = 64  # the kernels' chunk length (L in csrc/chunkwise_*.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,8 +77,10 @@ def _declare_fw(lib):
 
 
 def _declare_bw(lib):
-    lib.chunkwise_bw.argtypes = [P] * 13 + [I] * 5 + [F, F, P]
-    lib.chunkwise_bw.restype = I
+    lib.chunkwise_bw.argtypes = [P] * 14 + [I] * 5 + [F, F, P]
+    lib.chunkwise_bw_dc.argtypes = [P] * 7 + [I] * 5 + [F, F, P]
+    lib.chunkwise_bw_dqkv.argtypes = [P] * 12 + [I] * 5 + [F, F, P]
+    lib.chunkwise_bw.restype = lib.chunkwise_bw_dc.restype = lib.chunkwise_bw_dqkv.restype = I
 
 
 def _check(q, k, v, i, f, num_heads, c_initial, n_initial):
@@ -330,7 +339,8 @@ def _check_bw(q, num_heads, c_states, den, dh, dc_last):
     acc = acc_dtype(q.dtype)
     if dh.shape != q.shape or dh.dtype != q.dtype or dh.device != q.device:
         raise ValueError(f"dh must be {q.dtype} {tuple(q.shape)} on {q.device}")
-    if c_states.shape != (B, NC, num_heads, DH, DH) or c_states.dtype != acc:
+    if c_states is not None and (c_states.shape != (B, NC, num_heads, DH, DH)
+                                 or c_states.dtype != acc):
         raise ValueError(f"c_states must be {acc} {(B, NC, num_heads, DH, DH)}")
     if den.shape != (B, NC, num_heads, CHUNK_SIZE) or den.dtype != acc:
         raise ValueError(f"den must be {acc} {(B, NC, num_heads, CHUNK_SIZE)}")
@@ -363,36 +373,185 @@ def mlstm_siging_chunkwise_bw_plain(q, k, v, i, f, num_heads: int, c_states, den
     return dq, dk, dv, dc0
 
 
+def _chunked(x, NH, NC, acc):
+    """(B, S, NH * DH) -> (B, NH, NC, L, DH) in ``acc``, rows past S zero."""
+    B, S, H = x.shape
+    x = torch.nn.functional.pad(x.to(acc), (0, 0, 0, NC * CHUNK_SIZE - S))
+    return x.reshape(B, NC, CHUNK_SIZE, NH, H // NH).permute(0, 3, 1, 2, 4)
+
+
+def _unchunked(x, S, dtype):
+    """(B, NH, NC, L, DH) -> (B, S, NH * DH) in ``dtype``."""
+    B, NH, NC, L, DH = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(B, NC * L, NH * DH)[:, :S].to(dtype)
+
+
+def _chunk_gates(f, i, NC, acc):
+    """b (within-chunk cumsum of logsig(f)), and with i given a = (g - b) +
+    logsig(i), g = b[L - 1], and logsig(i), each (B, NH, NC, L): rows past
+    S add 0 to b, logsig(i) = -inf there (inert, as JAX's padding)."""
+    B, S, NH = f.shape
+    pad = NC * CHUNK_SIZE - S
+    lf = torch.nn.functional.pad(torch.nn.functional.logsigmoid(f.to(acc)), (0, 0, 0, pad))
+    b = lf.reshape(B, NC, CHUNK_SIZE, NH).permute(0, 3, 1, 2).cumsum(-1)
+    if i is None:
+        return b
+    li = torch.nn.functional.pad(torch.nn.functional.logsigmoid(i.to(acc)), (0, 0, 0, pad),
+                                 value=-float("inf"))
+    li = li.reshape(B, NC, CHUNK_SIZE, NH).permute(0, 3, 1, 2)
+    return b, (b[..., -1:] - b) + li, li
+
+
+def mlstm_siging_chunkwise_bw_dc_plain(q, f, num_heads: int, den, dh, dc_last=None,
+                                       eps: float = 1e-6, qk_scale: float | None = None):
+    """Plain version of the dC scan, the first pass of the backward: walking
+    the chunks in reverse from ``dc_last`` (or 0),
+    dC <- e^g dC + R(q e^b scale)^T R(dh / (den + eps)), R rounding a
+    product's operand to q's dtype (JAX's ``.astype(dtype)``), sums in
+    float32 (float64 for float64 q).  Returns dc_states (B, NC, NH, DH,
+    DH), the gradient of the state after each chunk, in q's dtype (what
+    every reader rounds it to), and dC0 in float32 (float64)."""
+    B, S, H = q.shape
+    NH, NC = num_heads, -(-S // CHUNK_SIZE)
+    DH = H // NH
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    acc, cd = acc_dtype(q.dtype), q.dtype
+    R = lambda x: x.to(cd).to(acc)  # noqa: E731
+    b = _chunk_gates(f, None, NC, acc)
+    qbar = R(_chunked(q, NH, NC, acc) * b.exp()[..., None] * qk_scale)
+    dhn = R(_chunked(dh, NH, NC, acc) / (den.to(acc).transpose(1, 2)[..., None] + eps))
+    dc = (torch.zeros(B, NH, DH, DH, dtype=acc, device=q.device) if dc_last is None
+          else dc_last.to(acc))
+    after = [None] * NC
+    for c in reversed(range(NC)):
+        after[c] = dc
+        dc = b[:, :, c, -1, None, None].exp() * dc + qbar[:, :, c].transpose(-1, -2) @ dhn[:, :, c]
+    return torch.stack(after, dim=1).to(cd), dc
+
+
+def mlstm_siging_chunkwise_bw_dqkv_plain(q, k, v, i, f, num_heads: int, c_states, den, dh,
+                                         dc_states, eps: float = 1e-6,
+                                         qk_scale: float | None = None):
+    """Plain version of the second pass of the backward: every chunk alone,
+    from the state before it (``c_states``) and the gradient of the state
+    after it (``dc_states``, the first pass's), R as in
+    :func:`mlstm_siging_chunkwise_bw_dc_plain`:
+
+        P  = (R(dhn) R(v)^T) * D,  SD = (R(q) R(k)^T) * scale * D
+        dq = R(P) R(k) scale + e^b scale (R(dhn) R(C_prev)^T)
+        dk = R(P)^T R(q) scale + e^a (R(v) R(dC)^T)
+        dv = R(SD)^T R(dhn) + R(k e^a) R(dC)
+
+    with D[l, j] = e^{b_l - b_j + logsig(i_j)} for j <= l (the exponent
+    masked before exp).  Returns dq, dk, dv in q's dtype."""
+    B, S, H = q.shape
+    NH, NC = num_heads, -(-S // CHUNK_SIZE)
+    DH = H // NH
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    acc, cd = acc_dtype(q.dtype), q.dtype
+    R = lambda x: x.to(cd).to(acc)  # noqa: E731
+    qc, kc, vc = (R(_chunked(t, NH, NC, acc)) for t in (q, k, v))
+    b, a, li = _chunk_gates(f, i, NC, acc)
+    dhn = R(_chunked(dh, NH, NC, acc) / (den.to(acc).transpose(1, 2)[..., None] + eps))
+    causal = torch.ones(CHUNK_SIZE, CHUNK_SIZE, dtype=torch.bool, device=q.device).tril()
+    logd = b[..., :, None] - b[..., None, :] + li[..., None, :]
+    d = torch.where(causal, torch.where(causal, logd, -float("inf")).exp(), 0.0)
+    c_prev = R(c_states.to(acc).transpose(1, 2))
+    dc = R(dc_states.to(acc).transpose(1, 2))
+    p = R((dhn @ vc.transpose(-1, -2)) * d)
+    sd = R((qc @ kc.transpose(-1, -2)) * qk_scale * d)
+    eb, ea = b.exp()[..., None], a.exp()[..., None]
+    dq = (p @ kc) * qk_scale + (dhn @ c_prev.transpose(-1, -2)) * (eb * qk_scale)
+    dk = (p.transpose(-1, -2) @ qc) * qk_scale + (vc @ dc.transpose(-1, -2)) * ea
+    dv = sd.transpose(-1, -2) @ dhn + R(kc * ea) @ dc
+    return tuple(_unchunked(x, S, cd) for x in (dq, dk, dv))
+
+
+def _launch_bw(name, q, *args):
+    with torch.cuda.device(q.device):
+        cuda_build.launch(getattr(cuda_build.load("chunkwise_bw", _declare_bw), name), name, *args)
+
+
+def _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, dc_last, qk_scale):
+    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, None, None)
+    _check_bw(q, num_heads, c_states, den, dh, dc_last)
+    _check_cuda(q, DH, tensors + [c_states, den, dh, dc_last])
+    return B, S, DH, DH ** -0.5 if qk_scale is None else qk_scale
+
+
+def _dc_scratch(q, num_heads, DH):
+    B, S, _ = q.shape
+    return torch.empty(B, -(-S // CHUNK_SIZE), num_heads, DH, DH, dtype=q.dtype, device=q.device)
+
+
 def mlstm_siging_chunkwise_bw(q, k, v, i, f, num_heads: int, c_states, den, dh,
                               dc_last=None, eps: float = 1e-6,
                               qk_scale: float | None = None):
-    """The fused backward of the cell, the denominator held constant.
+    """The backward of the cell, the denominator held constant.
 
     Takes the forward's inputs, its saved ``c_states`` and ``den`` (see
     :func:`mlstm_siging_chunkwise_fw_train`), the upstream gradient ``dh``
     (B, S, H) in q's dtype and optionally that of the last C state.
     Returns dq, dk, dv in q's dtype and dC0 (B, NH, DH, DH) float32, the
-    gradient of the state before the first chunk.
+    gradient of the state before the first chunk.  For CUDA tensors the
+    two passes (the dC scan into a scratch buffer, then dq/dk/dv of every
+    chunk), one counted launch; CPU tensors take the plain version.
     """
     global LAUNCHES_BW
     if q.device.type == "cpu":
         return mlstm_siging_chunkwise_bw_plain(q, k, v, i, f, num_heads, c_states, den, dh,
                                                dc_last, eps=eps, qk_scale=qk_scale)
-    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, None, None)
-    _check_bw(q, num_heads, c_states, den, dh, dc_last)
-    _check_cuda(q, DH, tensors + [c_states, den, dh, dc_last])
-    if qk_scale is None:
-        qk_scale = DH ** -0.5
-    lib = cuda_build.load("chunkwise_bw", _declare_bw)
+    B, S, DH, qk_scale = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, dc_last,
+                                   qk_scale)
+    dcs = _dc_scratch(q, num_heads, DH)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dc0 = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        cuda_build.launch(
-            lib.chunkwise_bw, "chunkwise_bw",
-            *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0),
-            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    _launch_bw("chunkwise_bw", q,
+               *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0,
+                                    dcs),
+               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
     LAUNCHES_BW += 1
     return dq, dk, dv, dc0
+
+
+def mlstm_siging_chunkwise_bw_dc(q, f, num_heads: int, den, dh, dc_last=None,
+                                 eps: float = 1e-6, qk_scale: float | None = None):
+    """The first pass of the backward alone, the dC scan (kernel
+    ``bw_dc_kernel``): see :func:`mlstm_siging_chunkwise_bw_dc_plain`, its
+    plain version, which CPU tensors take.  Counts no launch."""
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_bw_dc_plain(q, f, num_heads, den, dh, dc_last, eps=eps,
+                                                  qk_scale=qk_scale)
+    # q and f stand in for k, v and i, which the pass does not read
+    B, S, DH, qk_scale = _bw_setup(q, q, q, f, f, num_heads, None, den, dh, dc_last, qk_scale)
+    dcs = _dc_scratch(q, num_heads, DH)
+    dc0 = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
+    _launch_bw("chunkwise_bw_dc", q, *cuda_build.pointers(q, f, den, dh, dc_last, dcs, dc0),
+               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    return dcs, dc0
+
+
+def mlstm_siging_chunkwise_bw_dqkv(q, k, v, i, f, num_heads: int, c_states, den, dh,
+                                   dc_states, eps: float = 1e-6,
+                                   qk_scale: float | None = None):
+    """The second pass of the backward alone, dq, dk, dv of every chunk
+    (kernel ``bw_dqkv_kernel``): see
+    :func:`mlstm_siging_chunkwise_bw_dqkv_plain`, its plain version, which
+    CPU tensors take.  Counts no launch."""
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_bw_dqkv_plain(q, k, v, i, f, num_heads, c_states, den, dh,
+                                                    dc_states, eps=eps, qk_scale=qk_scale)
+    B, S, DH, qk_scale = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, None, qk_scale)
+    if dc_states.shape != c_states.shape or dc_states.dtype != q.dtype:
+        raise ValueError(f"dc_states must be {q.dtype} {tuple(c_states.shape)}")
+    cuda_build.check_kernel_inputs(q, dc_states)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bw("chunkwise_bw_dqkv", q,
+               *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_states, dq, dk, dv),
+               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    return dq, dk, dv
 
 
 def gate_grads(q, k, dq, dk, i, f, num_heads: int):

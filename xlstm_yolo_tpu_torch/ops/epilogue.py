@@ -57,8 +57,8 @@ def _declare(lib):
 
 
 def tile_rows(row_floats: int) -> int:
-    """R, the rows of a tile of the row kernels (csrc/epilogue_bw.cu,
-    csrc/ffn_bw.cu), whose tile holds ``row_floats`` float32 a row: 32
+    """R, the rows of a tile of the row kernel (csrc/epilogue_bw.cu),
+    whose tile holds ``row_floats`` float32 a row: 32
     where they fit in a block's shared memory, else 16.  Raises if 16 rows
     do not fit either."""
     for rows in (32, 16):
@@ -69,8 +69,10 @@ def tile_rows(row_floats: int) -> int:
 
 
 def weight_grad_splits(M: int) -> int:
-    """Row ranges of the kernels' weight-gradient pass: enough blocks to
-    fill the card, about 1024 rows each, at most 32."""
+    """Row ranges of the float32-FMA weight-gradient pass (wgrad_kernel,
+    csrc/common.cuh; the epilogue backward, and the FFN backward in
+    float32): enough blocks to fill the card, about 1024 rows each, at
+    most 32."""
     return min(32, max(1, M // 1024))
 
 

@@ -4,10 +4,12 @@ silu(gate) * z -> proj_down], with a CUDA backward.
 Counterpart of ``xlstm_yolo_tpu/ops/pallas/ffn.py``: the forward is plain
 PyTorch with the casts of ``ffn_forward`` there (norm in float32, cast to
 x's dtype, dense layers in x's dtype); the backward is the kernel ``ffn_bw``
-(``csrc/ffn_bw.cu``), the counterpart of the Pallas ``_bwd_kernel``.  Its
-plain version is autograd of the forward.  The Function saves x and the
-up-projection gz as residuals, as the JAX VJP does.  Weights use the
-port's layout: ``wgz`` (2U, D), ``wd`` (D, U).
+(``csrc/ffn_bw.cu``), the counterpart of the Pallas ``_bwd_kernel``: a row
+pass over 64-row tiles, then the weight gradients over row ranges, the
+products on the tensor cores for bfloat16 and on the CUDA cores for
+float32.  Its plain version is autograd of the forward.  The Function
+saves x and the up-projection gz as residuals, as the JAX VJP does.
+Weights use the port's layout: ``wgz`` (2U, D), ``wd`` (D, U).
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import torch.nn.functional as F
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
 from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
-from xlstm_yolo_tpu_torch.ops.epilogue import tile_rows, weight_grad_splits
+from xlstm_yolo_tpu_torch.ops.epilogue import weight_grad_splits
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = ["LAUNCHES", "ffn", "ffn_bwd", "ffn_bwd_plain", "ffn_forward"]
 
 LAUNCHES = 0  # calls of ffn_bwd that launched the kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WIDTHS = (32, 192, 256, 384)  # the D the kernel takes (every detector's); U a multiple of 32
+SMS = 132  # streaming multiprocessors of an H100
 
 
 def ffn_forward(x, wn, wgz, bgz, wd, bd, eps: float = 1e-6):
@@ -64,6 +68,14 @@ def _declare(lib):
     lib.ffn_bw.restype = I
 
 
+def tc_splits(M: int, P: int, N: int) -> int:
+    """Row ranges of the bfloat16 weight-gradient pass for a (P, N) gradient
+    over M rows: enough 128 x 128 tiles for two waves of the card, at
+    least 512 rows a range."""
+    tiles = -(-P // 128) * -(-N // 128)
+    return max(1, min(-(-2 * SMS // tiles), M // 512))
+
+
 def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
     """Backward of :func:`ffn_forward` from the saved x and gz and the
     upstream gradient g (B, S, D).  Returns dx in x's dtype and (dwn, dwgz,
@@ -79,12 +91,19 @@ def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
     if gz.shape != (B, S, 2 * U) or g.shape != x.shape or wgz.shape != (2 * U, D) \
             or wd.shape != (D, U) or wn.shape != (D,):
         raise ValueError("shapes: x, g (B, S, D); gz (B, S, 2U); wgz (2U, D); wd (D, U)")
-    rows = tile_rows(2 * D + 2 * U + 2)
-    params = [t.detach().float().contiguous() for t in (wn, wgz, wd)]
+    if D not in WIDTHS or U % 32:
+        raise ValueError(f"FFN widths D={D}, U={U} not taken by the kernel: D in {WIDTHS}, "
+                         "U a multiple of 32")
+    # the products' operands in x's dtype, cast once here
+    params = [wn.detach().float().contiguous()] + [
+        t.detach().to(x.dtype).contiguous() for t in (wgz, wd)]
     cuda_build.check_kernel_inputs(x, gz, g, *params)
     lib = cuda_build.load("ffn_bw", _declare)
     M = B * S
-    splits = weight_grad_splits(M)
+    if x.dtype == torch.bfloat16:
+        splits, splits_gz = tc_splits(M, D, U), tc_splits(M, 2 * U, D)
+    else:
+        splits = splits_gz = weight_grad_splits(M)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
@@ -94,14 +113,14 @@ def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
     xn = torch.empty(M, D, dtype=x.dtype, device=dev)
     act = torch.empty(M, U, dtype=x.dtype, device=dev)
     dgz = torch.empty(M, 2 * U, dtype=x.dtype, device=dev)
-    part_vec = torch.empty(-(-M // rows), 2 * D + 2 * U, **f32)
-    part_w = torch.empty(splits, 2 * U, D, **f32)
+    part_vec = torch.empty(-(-M // 64), 2 * D + 2 * U, **f32)  # per 64-row tile
+    part_w = torch.empty(max(splits * D * U, splits_gz * 2 * U * D), **f32)
     with torch.cuda.device(dev):
         cuda_build.launch(
             lib.ffn_bw, "ffn_bw",
             *cuda_build.pointers(x, gz, g, *params, dx, dvec, dwgz, dwd, xn, act, dgz,
                                  part_vec, part_w),
-            M, D, U, splits, rows, _DTYPE_CODES[x.dtype], float(eps))
+            M, D, U, splits, splits_gz, _DTYPE_CODES[x.dtype], float(eps))
     LAUNCHES += 1
     return dx, dvec[:D], dwgz, dvec[2 * D:], dwd, dvec[D:2 * D]
 
