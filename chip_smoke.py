@@ -7,13 +7,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. setup     - print the card's name and power limit; build the fourteen
                CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time, what ptxas
-               reports and, for the FFN backward and the v2 backward, the
-               tensor-core (HMMA) instructions of each kernel in the machine
-               code (cuobjdump -sass); phases 28-34 run next, then 2-27;
+               reports and, for the v2 forward and backward, the epilogue
+               backward and the FFN backward, the tensor-core (HMMA)
+               instructions of each kernel in the machine code (cuobjdump
+               -sass); phases 28-34 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
                with and without initial states, and with closed forget gates;
+               in bfloat16 against its two plain passes composed (fw_split:
+               the state scan, then the output pass, rounding the products'
+               operands where the kernel and JAX's forward do): h within
+               BF16_TOL, C within BF16_STATE_REL, n within F32_TOL, and h
+               and C nearer them in mean error than the passes without the
+               rounding are (rounding_shows; also in train_kernels);
 3. model     - vil-det-192 at 640 px, batch 8, and vil-det-tiny at 160 px,
                with random weights from a seed and perturbed ifgates (so no
                cell is inert), float32: one forward makes exactly 20 (tiny:
@@ -32,7 +39,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                bfloat16, with closed forget gates, initial states and dC_last,
                and |mean| >> std rows for the LayerNorm and the RMSNorm; also
                each pass of the backward (the dC scan, then dq/dk/dv) alone
-               against its plain version;
+               against its plain version, the bfloat16 train forward against
+               fw_split and the epilogue backward against its
+               rounding-faithful plain version (epilogue_bwd_rounded_plain);
 6. replay    - one float32 train step of vil-det-192 (640 px, batch 8,
                perturbed ifgates) records the inputs and upstream gradients
                of every cell, epilogue and FFN call; each call is replayed
@@ -112,7 +121,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                kernel and the epilogue and FFN backwards against their plain
                versions at the same lengths, gates, states and tolerances;
 23. outnorm  - the inference forward with the per-head LayerNorm fused in
-               against its plain version at DH 32, 64 and 128, and
+               against its plain version (in bfloat16, fw_split with
+               float64 sums, and without the v offset at 2e-2) at DH 32, 64
+               and 128, and
                MatrixLSTMCell(768, 6, fuse_outnorm=True) against the unfused
                cell, one fused launch per call (phase_outnorm);
 24. predict_384 - YOLO("vil-det-384.yaml").predict() on the images of phase
@@ -189,25 +200,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                train forwards on the same inputs and the plain version, per
                call at each flagship S, DH 32 and 128, with its bound, each
                pass's device time at S 6400 and the scratch buffer's size;
-               besides the JAX cell's L and bfloat16 products, fw3 with
-               float32 products (the v2 kernels' precision) and the train
-               variant at the v2 kernels' L 64 with sub-chunks 32 and 64,
-               the configuration whose states the v2 backward takes
-               (phase_fw3_times);
-34. passes_times - the device time of each kernel of the v2 backward (dC
-               scan, dq/dk/dv) and of the FFN backward (row pass, weight
-               gradients, sums) at each S and every detector's widths, bf16,
-               from torch.profiler traces, and each backward pass alone in
-               CUDA-event windows (phase_passes_times; the times phases
-               print them beside each call's time).
+               besides the JAX cell's L, both variants at the v2 kernels'
+               L 64 with sub-chunks 32 and 64 (bfloat16 products, as v2's:
+               like for like; the train variant's states are what the v2
+               backward takes) (phase_fw3_times);
+34. passes_times - the device time of each kernel of the v2 forward (state
+               scan, output pass; inference and train), the v2 backward (dC
+               scan, dq/dk/dv), the epilogue backward and the FFN backward
+               (row pass, weight gradients, sums) at each S and every
+               detector's widths, bf16, from torch.profiler traces, and each
+               pass of the v2 forward and backward alone in CUDA-event
+               windows (phase_passes_times; the times phases print them
+               beside each call's time).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
 the sixteen of the detector with their numbers on the vil-det-192 paths
 and, under "vil_det_384", on vil-det-384's; the TAL metric kernel on the
 assigner entry, the sLSTM scan on the LM's generate; fw3's inference and
-train variants on their path, with "dh128" at vil-det-384's heads; the v2
-backward's and the FFN backward's rows also "per_call_s6400" with each of
+train variants on their path, with "dh128" at vil-det-384's heads; the
+rows of the v2 forward (inference and train), the v2 backward, the
+epilogue backward and the FFN backward also "per_call_s6400" with each of
 their kernels' device ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -263,6 +276,23 @@ BF16_TOL = 2e-2  # bfloat16 in, same rounded inputs on both sides; h rounded onc
 # the plain version rounds intermediate products to bfloat16, the kernels
 # keep them in float32 and round each output once)
 GRAD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the bfloat16 v2 forward against its two plain passes (fw_split: the same
+# operands rounded, float32 sums in another order): h within BF16_TOL, C
+# within BF16_STATE_REL of its largest |value|, n and den within F32_TOL,
+# and each output that a product feeds nearer fw_split in mean error than
+# the passes without the rounding are (rounding_shows).  A float32 sum in
+# another order flips the rounding of an operand now and then, and one
+# flipped k e^a times v moves its element of C by ~2e-3 of C's largest
+# |value| (read on the H100: at most 2.4e-3 in the kernel and train_kernels
+# phases; in mean error at most 0.003 of the unrounded passes' distance)
+BF16_STATE_REL = 5e-3
+# the fused LayerNorm's bfloat16 h of |mean| >> std rows against fw_split
+# with float64 sums: the normalisation magnifies each flipped operand, so
+# its largest error is held at LN_BF16_MAX of its largest |value| (read: at
+# most 0.052; the unrounded version 0.072-0.39) and its mean error at
+# LN_BF16_MEAN of its mean |value| (read: at most 2.5e-5; the unrounded
+# version 3.0e-3-4.1e-3)
+LN_BF16_MAX, LN_BF16_MEAN = 0.1, 1e-4
 # float32 model forwards against a float64 one (phase_model): the kernel
 # forward may be at most E2E_FACTOR times as far from it as the plain one
 E2E_FACTOR = 2.0
@@ -521,7 +551,55 @@ def use_plain_training_ops(model):
             m.ffn_fn = lambda *a: ffn.ffn_forward(*a)[0]
 
 
+def fw_split(cw, args, ln=(None, None), acc=None):
+    """The v2 forward's two plain passes composed on the card (what the
+    kernels compute, bf16 rounding of the products' operands included; sums
+    in ``acc``, default float32): h, den, c_states, n_states, c_last,
+    n_last."""
+    q, k, v, i, f, nh, c0, n0 = args
+    cs, ns, (cl, nl) = cw.mlstm_siging_chunkwise_fw_states_plain(k, v, i, f, nh, c0, n0,
+                                                                 acc=acc)
+    h, den = cw.mlstm_siging_chunkwise_fw_out_plain(q, k, v, i, f, nh, cs, ns, eps=EPS,
+                                                    ln_weight=ln[0], ln_bias=ln[1], acc=acc)
+    return h, den, cs, ns, cl, nl
+
+
+def unrounded(args):
+    """The forward's arguments with q, k and v in float32: fw_split on
+    them skips the products' bf16 rounding."""
+    return (*(a.float() for a in args[:3]), *args[3:])
+
+
+def rounding_shows(what: str, got, ref, unrounded_ref) -> float:
+    """Each bf16 output lies nearer its rounding plain version ``ref`` in
+    mean |error| than the unrounded version is, by more than half, so a
+    kernel that skipped the rounding of its products' operands fails (the
+    mean is what a few operands rounded one step the other way barely
+    move).  Returns the largest ratio of the two mean distances."""
+    worst = 0.0
+    for j, (a, b, c) in enumerate(zip(got, ref, unrounded_ref)):
+        a, b, c = a.double(), b.double(), c.double()
+        gap = (c - b).abs().mean().item()
+        if gap == 0:  # no product reaches it
+            continue
+        ratio = (a - b).abs().mean().item() / gap
+        if ratio >= 0.5:
+            raise AssertionError(f"{what}: output {j} is {ratio:.3g} of the unrounded version's "
+                                 "mean distance from the rounding plain passes (limit 0.5)")
+        worst = max(worst, ratio)
+    return worst
+
+
 def phase_kernel(cw, ws=FLAGSHIP):
+    """The inference forward against its plain version: h and C within
+    F32_TOL in float32, n within F32_TOL.  In bfloat16 the kernel rounds
+    its products' operands as JAX's forward does (the plain one-piece
+    version keeps them in float32), so h is held within BF16_TOL, C within
+    BF16_STATE_REL and n within F32_TOL of their largest value against the
+    two plain passes composed (fw_split), which round where the kernel
+    does, and h and C nearer them in mean error than the unrounded passes
+    are (rounding_shows); the distance from the one-piece plain version is
+    printed beside them."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -536,15 +614,29 @@ def phase_kernel(cw, ws=FLAGSHIP):
             hp, (cp, np_) = cw.mlstm_siging_chunkwise_fw_plain(
                 *args, eps=EPS, return_last_states=True)
             tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            finite = bool(torch.isfinite(h.float()).all())
+            split = {}
+            if dtype == torch.bfloat16:
+                split["max_abs_err_h_vs_unrounded_plain"] = (
+                    h.float() - hp.float()).abs().max().item()
+                hp, _, _, _, cp, sn = fw_split(cw, args)
+                unr = fw_split(cw, unrounded(args))
+                split["max_rel_err_vs_passes"] = {
+                    "h": compare_outputs(f"fw h vs passes S={S}", [h], [hp], BF16_TOL)[1],
+                    "c": compare_outputs(f"fw C vs passes S={S}", [c], [cp], BF16_STATE_REL)[1],
+                    "n": compare_outputs(f"fw n vs passes S={S}", [n], [sn], F32_TOL)[1]}
+                split["mean_err_over_unrounded"] = rounding_shows(
+                    f"fw S={S}", [h, c], [hp, cp], [unr[0], unr[4]])
+                del unr
             err = (h.float() - hp.float()).abs().max().item()
             err_state = max((c - cp).abs().max().item(), (n - np_).abs().max().item())
-            finite = bool(torch.isfinite(h.float()).all())
             emit({"phase": "kernel", "widths": ws.cfg, "S": S, "dtype": str(dtype).split(".")[-1],
                   "gates": gates, "initial_states": states, "max_abs_err_h": err,
-                  "max_abs_err_states": err_state, "tol": tol, "finite": finite})
+                  "max_abs_err_states": err_state, "tol": tol, "finite": finite, **split})
             torch.testing.assert_close(h.float(), hp.float(), atol=tol, rtol=tol)
-            torch.testing.assert_close(c, cp, atol=F32_TOL, rtol=F32_TOL)
             torch.testing.assert_close(n, np_, atol=F32_TOL, rtol=F32_TOL)
+            if dtype == torch.float32:
+                torch.testing.assert_close(c, cp, atol=F32_TOL, rtol=F32_TOL)
             if not finite:
                 raise AssertionError(f"non-finite kernel output at S={S} {gates}")
             key = str(dtype).split(".")[-1]
@@ -737,9 +829,31 @@ def phase_train_kernels(cw, epi, ffn, ws=FLAGSHIP):
             args = kernel_inputs(S, dtype, gates, states, seed=S + 1, ws=ws)
             got = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
             torch.cuda.synchronize()
-            ref = cw.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
-            e_fw = compare_outputs(f"fw_train S={S} {key}", [got[0], *got[1], *got[2]],
-                                   [ref[0], *ref[1], *ref[2]], rel)
+            outs = [got[0], *got[1], *got[2]]
+            split = {}
+            if dtype == torch.float32:
+                ref = cw.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
+                e_fw = compare_outputs(f"fw_train S={S} {key}", outs, [ref[0], *ref[1], *ref[2]],
+                                       rel)
+            else:  # against the two plain passes, which round where the kernel and JAX do
+                ref = cw.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
+                split["fw_train_max_rel_err_vs_unrounded_plain"] = max(
+                    (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                    for a, b in zip(outs, [ref[0], *ref[1], *ref[2]]))
+                sh, sden, scs, sns, scl, snl = fw_split(cw, args)
+                h_, cl_, nl_, cs_, ns_, den_ = outs
+                parts = [compare_outputs(f"fw_train h vs passes S={S}", [h_], [sh], rel),
+                         compare_outputs(f"fw_train C vs passes S={S}", [cl_, cs_], [scl, scs],
+                                         BF16_STATE_REL),
+                         compare_outputs(f"fw_train n, den vs passes S={S}", [nl_, ns_, den_],
+                                         [snl, sns, sden], F32_TOL)]
+                e_fw = tuple(max(p[j] for p in parts) for j in range(2))
+                split["fw_train_max_rel_err_vs_passes"] = {
+                    "h": parts[0][1], "c": parts[1][1], "n_den": parts[2][1]}
+                unr = fw_split(cw, unrounded(args))
+                split["fw_train_mean_err_over_unrounded"] = rounding_shows(
+                    f"fw_train S={S}", [h_, cl_, cs_], [sh, scl, scs], [unr[0], unr[4], unr[2]])
+                del sh, sden, scs, sns, scl, snl, unr
             note("chunkwise_fw_train", key, e_fw)
             g = torch.Generator().manual_seed(S + 2)
             dh = torch.randn(B, S, H, generator=g).to("cuda", dtype)
@@ -765,7 +879,7 @@ def phase_train_kernels(cw, epi, ffn, ws=FLAGSHIP):
             emit({"phase": "train_kernels", "widths": ws.cfg, "S": S, "dtype": key, "gates": gates,
                   "initial_states": states, "dc_last": states, "rel_tol": rel,
                   "fw_train_max_abs_err": e_fw[0], "fw_train_max_rel_err": e_fw[1],
-                  "bw_max_abs_err": e_bw[0], "bw_max_rel_err": e_bw[1], **passes})
+                  **split, "bw_max_abs_err": e_bw[0], "bw_max_rel_err": e_bw[1], **passes})
             del args, got, ref, gb, rb, bw_args
         for S, offset in [(S, 0.0) for S in SEQ_LENS] + [(1000, 0.0), (1600, 30.0)]:
             e_args, f_args = row_inputs(S, dtype, offset, seed=S + 3, ws=ws)
@@ -774,13 +888,16 @@ def phase_train_kernels(cw, epi, ffn, ws=FLAGSHIP):
             torch.cuda.synchronize()
             e_epi = compare_outputs(f"epilogue S={S} {key}", ge, epi.epilogue_bwd_plain(*e_args),
                                     rel)
+            e_epi_r = compare_outputs(f"epilogue vs rounded S={S} {key}", ge,
+                                      epi.epilogue_bwd_rounded_plain(*e_args), rel)
             e_ffn = compare_outputs(f"ffn S={S} {key}", gf, ffn.ffn_bwd_plain(*f_args), rel)
             note("epilogue_bw", key, e_epi)
             note("ffn_bw", key, e_ffn)
             emit({"phase": "train_kernels", "widths": ws.cfg, "S": S, "dtype": key,
                   "mean_offset": offset,
                   "rel_tol": rel, "epilogue_max_abs_err": e_epi[0],
-                  "epilogue_max_rel_err": e_epi[1], "ffn_max_abs_err": e_ffn[0],
+                  "epilogue_max_rel_err": e_epi[1],
+                  "epilogue_max_rel_err_vs_rounded_plain": e_epi_r[1], "ffn_max_abs_err": e_ffn[0],
                   "ffn_max_rel_err": e_ffn[1]})
     return worst
 
@@ -1004,8 +1121,13 @@ def ffn_matmul_yardstick(f_args, ws) -> float:
 
 # the kernels of each redesigned function (bf16), by name in a profiler
 # trace, with their launches a call
-PASSES = {"chunkwise_bw": {"bw_dc_kernel": 1, "bw_dqkv_kernel": 1},
+FW_PASSES = {"fw_state_kernel": 1, "fw_out_kernel": 1}
+PASSES = {"chunkwise_fw": FW_PASSES, "chunkwise_fw_train": FW_PASSES,
+          "chunkwise_bw": {"bw_dc_kernel": 1, "bw_dqkv_kernel": 1},
+          "epilogue_bw": {"epilogue_rows_kernel": 1, "wgrad_tc_kernel": 1, "reduce_kernel": 2},
           "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3}}
+# the libraries whose kernels run their bf16 products on the tensor cores
+TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw")
 
 
 def sass_mma_counts(library) -> dict | str:
@@ -1029,12 +1151,14 @@ def sass_mma_counts(library) -> dict | str:
     return counts
 
 
-def phase_passes_times(cw, ffn, card: str) -> dict:
-    """The device time of each kernel of the two redesigned functions, the
-    v2 backward (dC scan, dq/dk/dv) and the FFN backward (row pass, weight
-    gradients, sums), at each S and every detector's widths, bf16, from a
-    torch.profiler trace of 10 calls (kernels_device_ms), and each backward
-    pass alone through its wrapper in CUDA-event windows.  It runs early:
+def phase_passes_times(cw, epi, ffn, card: str) -> dict:
+    """The device time of each kernel of the redesigned functions, the v2
+    forward (state scan, output pass; inference and train variants), the v2
+    backward (dC scan, dq/dk/dv), the epilogue backward and the FFN backward
+    (row pass, weight gradients, sums), at each S and every detector's
+    widths, bf16, from a torch.profiler trace of 10 calls
+    (kernels_device_ms), and each pass of the v2 forward and backward alone
+    through its wrapper in CUDA-event windows.  It runs early:
     in this script's long process, traces taken after its later phases
     missed most kernel events of these calls (PR 9, run 2), which no probe
     of those traces alone reproduced."""
@@ -1046,13 +1170,30 @@ def phase_passes_times(cw, ffn, card: str) -> dict:
         per = {name: {} for name in PASSES}
         for S in SEQ_LENS:
             args = kernel_inputs(S, torch.bfloat16, seed=S, ws=ws)
-            _, _, (cs, _, den) = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+            _, _, (cs, ns, den) = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
             dh = torch.randn(B, S, H, generator=torch.Generator().manual_seed(S)).to(
                 "cuda", torch.bfloat16)
-            _, f_args = row_inputs(S, torch.bfloat16, seed=S, ws=ws)
+            e_args, f_args = row_inputs(S, torch.bfloat16, seed=S, ws=ws)
             q, f = args[0], args[4]
             dcs = cw.mlstm_siging_chunkwise_bw_dc(q, f, NH, den, dh, eps=EPS)[0]
             n = iters_for(ws, 10)
+            for name, fn, save in (
+                    ("chunkwise_fw", lambda: cw.mlstm_siging_chunkwise_fw(*args, eps=EPS), False),
+                    ("chunkwise_fw_train",
+                     lambda: cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS), True)):
+                c_in = cs if save else cs.to(q.dtype)
+                per[name][S] = {
+                    "passes_device_ms": kernels_device_ms(fn, PASSES[name]),
+                    "passes_event_ms": {
+                        "fw_state_kernel": statistics.median(time_cuda(
+                            lambda: cw.mlstm_siging_chunkwise_fw_states(
+                                *args[1:], save_states=save), iters=n, reps=3, warm_s=0.1)),
+                        "fw_out_kernel": statistics.median(time_cuda(
+                            lambda: cw.mlstm_siging_chunkwise_fw_out(*args[:6], c_in, ns,
+                                                                     eps=EPS),
+                            iters=n, reps=3, warm_s=0.1))}}
+            per["epilogue_bw"][S] = {"passes_device_ms": kernels_device_ms(
+                lambda: epi.epilogue_bwd(*e_args), PASSES["epilogue_bw"])}
             per["chunkwise_bw"][S] = {
                 "passes_device_ms": kernels_device_ms(
                     lambda: cw.mlstm_siging_chunkwise_bw(*args[:6], cs, den, dh, eps=EPS),
@@ -1070,7 +1211,7 @@ def phase_passes_times(cw, ffn, card: str) -> dict:
             for name in PASSES:
                 emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg, "card": card,
                       "B": B, "S": S, "dtype": "bfloat16", **per[name][S]})
-            del args, cs, den, dh, f_args, dcs
+            del args, cs, ns, den, dh, e_args, f_args, dcs
         out[ws.cfg] = per
     return out
 
@@ -2325,10 +2466,11 @@ def phase_step_times(card: str, routes):
 
 
 
-def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False):
+def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False, passes=None):
     """Per-call times of the inference forward (``fused_ln``: with the
     per-head LayerNorm fused in) at each S (bf16) beside its plain version
-    and bound, in turns plain, kernel, kernel, plain."""
+    and bound, in turns plain, kernel, kernel, plain, with ``passes``'
+    readings of its two kernels (phase_passes_times) at the same S."""
     import torch
 
     per_s = {}
@@ -2345,19 +2487,20 @@ def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False):
             kern = lambda: cw.mlstm_siging_chunkwise_fw(*args, eps=EPS)
         t_kern, t_plain = in_turns(kern, plain, iters_for(ws, 20), 3, kern_reps=5, ws=ws)
         per_s[S] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                    **dict(zip(("bound_ms", "bound_by"), bound(S, ws=ws, fused_ln=fused_ln)))}
+                    **dict(zip(("bound_ms", "bound_by"), bound(S, ws=ws, fused_ln=fused_ln))),
+                    **(passes or {}).get(S, {})}
         emit({"phase": "times", "what": what, "widths": ws.cfg, "card": card, "B": ws.B, "S": S,
               "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16", **per_s[S], "ms_runs": t_kern,
               "plain_ms_runs": t_plain})
     return per_s
 
 
-def phase_times(cw, yolo, card: str):
+def phase_times(cw, yolo, card: str, passes=None):
     import torch
 
     from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
-    per_s = fw_times(cw, card)
+    per_s = fw_times(cw, card, passes=passes)
 
     predictor = DetectionPredictor({"imgsz": 640, "batch": B}, yolo.model, yolo.names)
     batch = predictor.preprocess(synthetic_images(B, seed=6))  # device-resident uint8
@@ -2407,6 +2550,25 @@ def ln_params(ws, seed: int):
             (0.1 * torch.randn(ws.H, generator=g)).cuda())
 
 
+def ln_h_close(what: str, h, ref, ref_unrounded) -> dict:
+    """The fused LayerNorm's bf16 h against fw_split with float64 sums:
+    at most LN_BF16_MAX of its largest |value|, at most LN_BF16_MEAN in
+    mean |error| over mean |value|, and nearer it in mean error than the
+    unrounded plain version (``ref_unrounded``) is (rounding_shows)."""
+    import torch
+
+    a, b = h.double(), ref.double()
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{what}: not finite")
+    out = {"h_max_rel_err": (a - b).abs().max().item() / b.abs().max().item(),
+           "h_mean_rel_err": (a - b).abs().mean().item() / b.abs().mean().item(),
+           "h_mean_err_over_unrounded": rounding_shows(what, [h], [ref], [ref_unrounded]),
+           "h_max_tol": LN_BF16_MAX, "h_mean_tol": LN_BF16_MEAN}
+    if out["h_max_rel_err"] > LN_BF16_MAX or out["h_mean_rel_err"] > LN_BF16_MEAN:
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
 def phase_wide_kernels(cw, epi, ffn, v1, ex, pk, stp, shapes, lengths):
     """Every mLSTM kernel and the FFN and epilogue backwards against their
     plain versions at the widths of vil-det-256 (NH 8, DH 64, H 512, D 256,
@@ -2435,7 +2597,15 @@ def phase_outnorm(cw):
        in float32 each output at most E2E_FACTOR times as far from the
        plain version in float64 as the float32 plain version is (+ 1e-4 of
        its largest |value|: the normalisation divides h's float32 rounding
-       by its row's std), in bfloat16 within 2e-2 of its largest |value|.
+       by its row's std); in bfloat16 against the two plain passes
+       composed (fw_split), which round the products' operands where the
+       kernel and JAX's forward do, with float64 sums: C within
+       BF16_STATE_REL and n within F32_TOL of their largest |value|, h (the
+       normalisation magnifies each operand whose rounding a float32 sum
+       flips) within LN_BF16_MAX of its largest |value|, LN_BF16_MEAN in
+       mean error, and nearer fw_split in mean error than the unrounded
+       plain version is (rounding_shows); and, on the same inputs without
+       the offset, h within 2e-2 of fw_split's largest |value|.
     2. MatrixLSTMCell(768, 6, fuse_outnorm=True) in eval (vil-det-384's
        cell, weights from seed 0, perturbed ifgates, random outnorm weight
        and bias, bf16 streams): each call is one fused launch and no other
@@ -2459,19 +2629,40 @@ def phase_outnorm(cw):
                 torch.cuda.synchronize()
                 ref = cw.mlstm_siging_chunkwise_fw_ln_plain(*args, *ln, *st, eps=EPS,
                                                             return_last_states=True)
-                ref64 = None
+                ref64 = cw.mlstm_siging_chunkwise_fw_ln_plain(
+                    *to64(args), *to64(ln), *to64(st), eps=EPS, return_last_states=True)
+                ref64 = [ref64[0], *ref64[1]]
+                split = {}
                 if dtype == torch.float32:
-                    ref64 = cw.mlstm_siging_chunkwise_fw_ln_plain(
-                        *to64(args), *to64(ln), *to64(st), eps=EPS, return_last_states=True)
-                    ref64 = [ref64[0], *ref64[1]]
-                e = compare_outputs(f"fw_ln {ws.cfg} S={S} {key}", [got[0], *got[1]],
-                                    [ref[0], *ref[1]], GRAD_REL[key], ref64)
+                    e = compare_outputs(f"fw_ln {ws.cfg} S={S} {key}", [got[0], *got[1]],
+                                        [ref[0], *ref[1]], GRAD_REL[key], ref64)
+                else:  # the two plain passes with float64 sums, which round where the
+                    # kernel and JAX do
+                    sh, _, _, _, sc, sn = fw_split(cw, (*args, *st), ln, acc=torch.float64)
+                    split = ln_h_close(f"fw_ln h vs passes {ws.cfg} S={S}", got[0], sh, ref64[0])
+                    e_c = compare_outputs(f"fw_ln C vs passes {ws.cfg} S={S}", got[1][:1], [sc],
+                                          BF16_STATE_REL)
+                    e_n = compare_outputs(f"fw_ln n vs passes {ws.cfg} S={S}", got[1][1:], [sn],
+                                          F32_TOL)
+                    h = cw.mlstm_siging_chunkwise_fw_ln(*args[:2], v, *args[3:], *ln, *st,
+                                                        eps=EPS)
+                    split["no_offset_h_max_rel_err"] = compare_outputs(
+                        f"fw_ln h, no offset, vs passes {ws.cfg} S={S}", [h],
+                        fw_split(cw, (*args[:2], v, *args[3:], *st), ln)[:1], BF16_TOL)[1]
+                    e = [max(a, b, c) for a, b, c in zip(
+                        ((got[0].double() - sh).abs().max().item(), split["h_max_rel_err"]),
+                        e_c, e_n)]
+                    # the one-piece plain version keeps the products in float32 (read only)
+                    split["max_rel_err_vs_unrounded_plain"] = max(
+                        (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                        for a, b in zip([got[0], *got[1]], [ref[0], *ref[1]]))
                 worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
                 emit({"phase": "outnorm", "widths": ws.cfg, "NH": ws.NH, "DH": ws.DH, "S": S,
                       "dtype": key, "initial_states": states, "v_offset": 20.0,
-                      "max_abs_err": e[0], "max_rel_err": e[1], "rel_tol": GRAD_REL[key],
-                      "float64_arbiter": ref64 is not None})
-                del args, got, ref, ref64
+                      "max_abs_err": e[0], "max_rel_err": e[1],
+                      "rel_tol": GRAD_REL[key] if dtype == torch.float32 else BF16_STATE_REL,
+                      "float64_arbiter": True, **split})
+                del args, got, ref, ref64, v
 
     ws = WIDE[-1]
     cell = MatrixLSTMCell(ws.H, ws.NH, fuse_outnorm=True)
@@ -2577,7 +2768,8 @@ def phase_wide_times(cw, epi, ffn, v1, ex, pk, stp, card: str, plan, passes):
     phase_passes_times), and of the fused forward at the flagship's."""
     out = {"fw_ln_flagship": fw_times(cw, card, fused_ln=True)}
     for ws in WIDE:
-        out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws),
+        out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws,
+                                                passes=passes[ws.cfg]["chunkwise_fw"]),
                        "chunkwise_fw_ln": fw_times(cw, card, ws, fused_ln=True),
                        **phase_train_times(cw, epi, ffn, card, ws, passes[ws.cfg]),
                        **v1_times(v1, card, plan, ws), **exp_times(ex, card, plan, ws),
@@ -2704,19 +2896,23 @@ def kernels_device_ms(fn, launches: dict, calls: int = 10) -> dict:
     them): the mean event times the launches a call, beside the events
     each key had ("events").  A trace can miss a kernel event or two at its
     start (seen on the H100: 9 of 10), so a small operation opens it and
-    the mean, not the sum, is read; a key the trace lacks is "not
-    measured"."""
+    the mean, not the sum, is read; a trace that lacks a key (seen: 0 of
+    10 events) is taken again, up to three times, and a key still missing
+    is "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    top = device_busy(prof, 1.0).get("top", [])
+    for _ in range(3):  # a trace that caught no event of a key is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        top = device_busy(prof, 1.0).get("top", [])
+        if all(any(m in r["kernel"] for r in top) for m in launches):
+            break
     out, events = {}, {}
     for m, per_call in launches.items():
         hits = [r for r in top if m in r["kernel"]]
@@ -3159,10 +3355,11 @@ def phase_fw3_kernel(f3, cw):
     v2 cell's (S, L) pairs at vil-det-192's widths, bfloat16 (JAX's
     default products), against the plain version; then the drop-in
     contract at the v2 kernels' L = 64, S 1000, sub-chunks 32 and 64, q in
-    float32 and bfloat16, products float32: the train variant's cstates
-    and n_out are the v2 train forward's c_states and den (F32_TOL), and
-    the v2 backward kernel fed them gives the v2 path's dq, dk, dv and dC0
-    (GRAD_REL).  Returns the worst errors and the path's launches."""
+    float32 and bfloat16, products in q's type (the v2 kernels'): the train
+    variant's cstates and n_out are the v2 train forward's c_states and den
+    (F32_TOL; BF16_TOL with bfloat16 products), and the v2 backward kernel
+    fed them gives the v2 path's dq, dk, dv and dC0 (GRAD_REL).  Returns
+    the worst errors and the path's launches."""
     import torch
 
     worst = {"float32": {}, "bfloat16": {}, "max_abs_err_h_bf16": 0.0,
@@ -3231,12 +3428,11 @@ def phase_fw3_kernel(f3, cw):
         _, _, (c_states, _, den) = cw.mlstm_siging_chunkwise_fw_train(
             q, k, v, i, f, NH, c0, n0, eps=EPS)
         ref = cw.mlstm_siging_chunkwise_bw(q, k, v, i, f, NH, c_states, den, dh, dcl, eps=EPS)
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
         for sub in subs:
             _, n_out, cstates, _, _ = f3.fw3(q, k, v, i, f, NH, c0, n0, chunk_size=cw.CHUNK_SIZE,
-                                             sub_chunk=sub, eps=EPS,
-                                             compute_dtype=torch.float32)
-            states = fw3_errors((None, n_out, cstates), (None, den, c_states),
-                                (None, F32_TOL, F32_TOL))
+                                             sub_chunk=sub, eps=EPS, compute_dtype=q.dtype)
+            states = fw3_errors((None, n_out, cstates), (None, den, c_states), (None, tol, tol))
             got = cw.mlstm_siging_chunkwise_bw(q, k, v, i, f, NH, cstates, n_out, dh, dcl,
                                                eps=EPS)
             torch.cuda.synchronize()
@@ -3283,12 +3479,12 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
     kernel in both variants, the port's v2 inference and train forwards
     on the same inputs, and the plain version, in turns (and back); the
     bound; at S 6400 the device time of each pass from a torch.profiler
-    trace, and the scratch buffer's size.  In the same turns, the two
-    configurations that compare like with like with the v2 kernels (float32
-    products, as theirs): the inference variant at the JAX cell's L
-    (``f32``), and the train variant at the v2 kernels' L 64 with
-    sub-chunks 32 and 64 (``drop_in_32``, ``drop_in_64``), whose states
-    the v2 backward takes."""
+    trace, and the scratch buffer's size.  In the same turns, the
+    configurations that compare like with like with the v2 kernels (L 64,
+    bfloat16 products, as theirs): the inference variant (``l64_32``,
+    ``l64_64``) and the train variant (``drop_in_32``, ``drop_in_64``, whose
+    states the v2 backward takes) at the v2 kernels' L 64 with sub-chunks 32
+    and 64."""
     import torch
 
     out = {}
@@ -3297,14 +3493,14 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
         for S, L, Lb in FW3_PATH:
             q, k, v, i, f, _, _ = fw3_args(fw3_streams(S, ws, seed=S), "bfloat16", "open", False)
             kw = dict(chunk_size=L, sub_chunk=Lb, eps=EPS)
-            f32 = dict(eps=EPS, compute_dtype=torch.float32)
             fns = {"fw3": lambda: f3.fw3(q, k, v, i, f, ws.NH, save_states=False, **kw),
                    "fw3_train": lambda: f3.fw3(q, k, v, i, f, ws.NH, **kw),
-                   "f32": lambda: f3.fw3(q, k, v, i, f, ws.NH, chunk_size=L, sub_chunk=Lb,
-                                         save_states=False, **f32),
+                   **{f"l64_{sub}": functools.partial(
+                       f3.fw3, q, k, v, i, f, ws.NH, chunk_size=cw.CHUNK_SIZE, sub_chunk=sub,
+                       eps=EPS, save_states=False) for sub in FW3_DROP_IN[1]},
                    **{f"drop_in_{sub}": functools.partial(
                        f3.fw3, q, k, v, i, f, ws.NH, chunk_size=cw.CHUNK_SIZE, sub_chunk=sub,
-                       **f32) for sub in FW3_DROP_IN[1]},
+                       eps=EPS) for sub in FW3_DROP_IN[1]},
                    "v2": lambda: cw.mlstm_siging_chunkwise_fw(q, k, v, i, f, ws.NH, eps=EPS),
                    "v2_train": lambda: cw.mlstm_siging_chunkwise_fw_train(
                        q, k, v, i, f, ws.NH, eps=EPS),
@@ -3318,11 +3514,12 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
             _, Lb_, NC, NB = f3.geometry(S, L, Lb)
             row = {"ms": med["fw3"], "train_ms": med["fw3_train"], "v2_ms": med["v2"],
                    "v2_train_ms": med["v2_train"], "plain_ms": med["plain"],
-                   "plain_train_ms": med["plain_train"], "f32_ms": med["f32"],
-                   **{f"drop_in_{sub}_{key}": val for sub in FW3_DROP_IN[1]
-                      for key, val in (("ms", med[f"drop_in_{sub}"]),
+                   "plain_train_ms": med["plain_train"],
+                   **{f"{name}_{sub}_{key}": val for sub in FW3_DROP_IN[1]
+                      for name, train in (("l64", False), ("drop_in", True))
+                      for key, val in (("ms", med[f"{name}_{sub}"]),
                                        ("bound_ms", fw3_bound(S, cw.CHUNK_SIZE, sub, ws=ws,
-                                                              train=True)[0]))},
+                                                              train=train)[0]))},
                    **dict(zip(("bound_ms", "bound_by"), fw3_bound(S, L, Lb, ws=ws))),
                    **dict(zip(("train_bound_ms", "train_bound_by"),
                               fw3_bound(S, L, Lb, ws=ws, train=True))),
@@ -3337,13 +3534,12 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
             emit({"phase": "times", "what": "fw3", "widths": ws.cfg, "card": card, "B": ws.B,
                   "S": S, "L": L, "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16",
                   "compute": "bfloat16", **row,
-                  "note": "CUDA-event windows in turns fw3, fw3_train, v2, v2_train, plain, "
-                          "plain_train and back (f32, drop_in_32, drop_in_64 after "
-                          "fw3_train); v2 is the port's v2 forward kernel (L 64, float32 "
-                          "products) on the same inputs, so fw3 at L and bfloat16 products "
-                          "is not a drop-in for it: f32 is fw3 with float32 products, "
-                          "drop_in_<Lb> the train variant at L 64 with float32 products; "
-                          "passes_device_ms from a torch.profiler trace of 10 calls"})
+                  "note": "CUDA-event windows in turns fw3, fw3_train, l64_*, drop_in_*, v2, "
+                          "v2_train, plain, plain_train and back; v2 is the port's v2 forward "
+                          "(L 64, bfloat16 products) on the same inputs, fw3 runs at the JAX "
+                          "cell's L; l64_<Lb> and drop_in_<Lb> are fw3's inference and train "
+                          "variants at v2's L 64, like for like; passes_device_ms from a "
+                          "torch.profiler trace of 10 calls"})
         out[ws.cfg] = per
     return out
 
@@ -3358,18 +3554,18 @@ def fw3_numbers(t: dict, train: bool) -> dict:
     def per_forward(k):
         return sum(n * t[S][k] for S, n in LAUNCHES_PER_S.items())
 
-    like = ({f"drop_in_{sub}": {"ms": t0[f"drop_in_{sub}_ms"],
-                                "bound_ms": t0[f"drop_in_{sub}_bound_ms"],
-                                "forward_ms": per_forward(f"drop_in_{sub}_ms")}
-             for sub in FW3_DROP_IN[1]} if train
-            else {"f32": {"ms": t0["f32_ms"], "forward_ms": per_forward("f32_ms")}})
+    name = "drop_in" if train else "l64"
+    like = {f"{name}_{sub}": {"ms": t0[f"{name}_{sub}_ms"],
+                              "bound_ms": t0[f"{name}_{sub}_bound_ms"],
+                              "forward_ms": per_forward(f"{name}_{sub}_ms")}
+            for sub in FW3_DROP_IN[1]}
     return {"ms": t0[f"{key}ms"], "plain_ms": t0[f"plain_{key}ms"],
             "bound_ms": t0[f"{key}bound_ms"], "bound_by": t0[f"{key}bound_by"],
             "v2_ms": t0[f"v2_{key}ms"], "forward_ms": per_forward(f"{key}ms"),
             "v2_forward_ms": per_forward(f"v2_{key}ms"), "scratch_mb": t0["scratch_mb"],
             "passes_device_ms": t0["fw3_train_passes_device_ms" if train
                                    else "fw3_passes_device_ms"],
-            "float32_products": like}
+            "like_for_like": like}
 
 
 def main() -> int:
@@ -3415,7 +3611,7 @@ def main() -> int:
           "libraries": {k: v["library"].name for k, v in built.items()},
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "registers" in ln]
                     for k, v in built.items()},
-          "sass_mma": {k: sass_mma_counts(built[k]["library"]) for k in PASSES}})
+          "sass_mma": {k: sass_mma_counts(built[k]["library"]) for k in TC_LIBRARIES}})
 
     def timed(name, fn, *args, **kw):
         t = time.perf_counter()
@@ -3431,7 +3627,7 @@ def main() -> int:
     # the sub-chunked forward fw3, beside the v2 forward
     worst_fw3, fw3_launches = timed("fw3_kernel", phase_fw3_kernel, f3, cw)
     fw3_t = timed("fw3_times", phase_fw3_times, f3, cw, card)
-    passes_t = timed("passes_times", phase_passes_times, cw, ffn, card)
+    passes_t = timed("passes_times", phase_passes_times, cw, epi, ffn, card)
 
     worst = timed("kernel", phase_kernel, cw)
     timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
@@ -3505,7 +3701,7 @@ def main() -> int:
     decode384 = timed("decode", phase_decode, stp, card, WIDE[-1])
     timed("wide_grads", phase_wide_grads)
 
-    per_s = timed("times", phase_times, cw, yolo, card)
+    per_s = timed("times", phase_times, cw, yolo, card, passes_t[FLAGSHIP.cfg]["chunkwise_fw"])
     per_exp, exp_fwd = timed("exp_times", phase_exp_times, ex, card, plan, yolo_exp, yolo)
     del yolo
     per_train = timed("train_times", phase_train_times, cw, epi, ffn, card,
@@ -3684,11 +3880,10 @@ def main() -> int:
                     "L 64; times per call at B 8, S 6400, L 640, Lb 128, bf16 q/k/v and "
                     "products, NH 12 x DH 32 (dh128: NH 6 x DH 128); forward_ms summed over "
                     "a forward's 20 calls as chunkwise_fw's, v2 the port's v2 forward on the "
-                    "same inputs (L 64, float32 products: ms is not a drop-in time; "
-                    "float32_products holds those that compare like with like: f32 at L "
-                    "640, drop_in_<Lb> the train variant at L 64); max_abs_err of h over the "
-                    "cases with bf16 q or products; no one PyTorch call computes the "
-                    "function"})
+                    "same inputs (L 64, bf16 products: ms at L 640 is not a drop-in time; "
+                    "like_for_like holds fw3 at v2's L 64: l64_<Lb> the inference variant, "
+                    "drop_in_<Lb> the train variant); max_abs_err of h over the cases with "
+                    "bf16 q or products; no one PyTorch call computes the function"})
     for row in rows:
         if row["launches"] == 0 or row.get("vil_det_384", {"launches": 1})["launches"] == 0:
             raise AssertionError(f"{row['name']} was not launched on its path")

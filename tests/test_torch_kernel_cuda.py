@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the chunkwise mLSTM inference forward (also with the per-head LayerNorm
-fused in), train forward and backward (each of the backward's two passes
-alone too; and the differentiable cell built from them), the epilogue
+fused in), train forward and backward (each of their two passes alone
+too, q and k row-strided views; and the differentiable cell built from
+them), the epilogue
 backward, the FFN backward (at every detector's widths), the v1 and exp
 routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
@@ -24,6 +25,16 @@ seed.  Tolerances:
   2e-2 for h; gradients atol = 2e-2 times the largest |g|, rtol = 2e-2 (the
   kernels keep float32 where the plain version rounds intermediate products
   to bfloat16, and round each output once);
+- the v2 forward with bfloat16 products rounds the operands of its four
+  products as JAX's ``_fw_body`` does, so its C states (and h) are held
+  against the composition of its two plain passes
+  (``mlstm_siging_chunkwise_fw_states_plain`` / ``_fw_out_plain``), each
+  output within 2e-2 of its largest |value| (a float32 sum in another order
+  can flip an operand's rounding by one bfloat16 step), and in mean error
+  nearer them than the same passes without the rounding are
+  (assert_rounding_shows); n, den and the float32 path as before.  The
+  epilogue backward likewise against ``epilogue_bwd_rounded_plain``, mean
+  error within 1e-4 of the mean |value| in bfloat16;
 - the v1 and exp kernels round the operands of their products to the
   compute type at the same points as their plain versions: each output
   within 1e-4 of its largest |value| with compute float32, 2e-2 with compute
@@ -51,6 +62,16 @@ from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# the bfloat16 v2 forward against its plain passes: C (float32 sums of the
+# same rounded operands in another order) within BF16_STATE_REL of its
+# largest |value|; the fused LayerNorm's h of |mean| >> std rows against
+# the passes with float64 sums, at most LN_BF16_MAX of its largest |value|
+# and LN_BF16_MEAN in mean |error| over mean |value| (the normalisation
+# magnifies each operand whose rounding a float32 sum flips).  The limits
+# are chip_smoke.py's, set from its readings on the H100: one flipped
+# k e^a times v moves its element of C by ~2e-3 of C's largest |value|
+BF16_STATE_REL = 5e-3
+LN_BF16_MAX, LN_BF16_MEAN = 0.1, 1e-4
 EPS = 5e-5  # the model's cell eps
 CASES = [  # (S, NH, DH, gates, initial states)
     (25, 4, 16, "open", False),     # single ragged chunk (vil-det-tiny's S)
@@ -119,8 +140,15 @@ def test_kernel_matches_plain_on_gpu(dtype):
             *args, eps=EPS, return_last_states=True)
         assert torch.isfinite(h.float()).all()
         torch.testing.assert_close(h.float(), hp.float(), **tol)
-        torch.testing.assert_close(c, cp, **TOL)
         torch.testing.assert_close(n, np_, **TOL)
+        if dt == torch.float32:
+            torch.testing.assert_close(c, cp, **TOL)
+        else:  # C sums R(k e^a)^T R(v), as JAX's bfloat16 forward does
+            sh, _, _, _, sc, _ = ref = fw_split_plain(args)
+            assert_rel_close([h], [sh], 2e-2)
+            assert_rel_close([c], [sc], BF16_STATE_REL)
+            unr = fw_split_plain(unrounded(args))
+            assert_rounding_shows([h, c], [sh, sc], [unr[0], unr[4]])
 
 
 @pytest.mark.cuda
@@ -130,8 +158,15 @@ def test_fused_outnorm_kernel_matches_plain_on_gpu(S, NH, DH, dtype):
     """The inference forward with the per-head LayerNorm fused in against
     its plain version, non-zero weight and bias, initial states, and v
     offset by 20 so that the rows of h have |mean| >> std (the centred
-    variance).  Each output within 1e-4 (float32) or 2e-2 (bfloat16) of
-    its largest |value|."""
+    variance).  Each output within 1e-4 of its largest |value| in float32.
+    In bfloat16 the products round their operands as JAX's forward does,
+    and the LayerNorm of such rows magnifies a rounding that a float32 sum
+    in another order flips: h is held against the two plain passes with
+    float64 sums, which round where the kernel does, at most LN_BF16_MAX
+    of its largest |value| and LN_BF16_MEAN in mean error, and nearer them
+    in mean error than the unrounded version is; C against the passes
+    within BF16_STATE_REL, n within 1e-4; without the offset h within 2e-2
+    of the passes."""
     needs_cuda()
     dt = getattr(torch, dtype)
     q, k, v, i, f, c0, n0 = make_inputs(S + DH, 2, S, NH, DH, "open", True)
@@ -146,8 +181,31 @@ def test_fused_outnorm_kernel_matches_plain_on_gpu(S, NH, DH, dtype):
     hp, (cp, np_) = chunkwise_v2.mlstm_siging_chunkwise_fw_ln_plain(
         *args, eps=EPS, return_last_states=True)
     assert h.dtype == dt
-    assert_rel_close([h], [hp], 1e-4 if dt == torch.float32 else 2e-2)
-    assert_rel_close([c, n], [cp, np_], 1e-4)
+    if dt == torch.float32:
+        assert_rel_close([h, c, n], [hp, cp, np_], 1e-4)
+    else:
+        split_args = (*args[:6], *args[8:])
+        sh, _, _, _, sc, sn = fw_split_plain(split_args, (lnw, lnb), torch.float64)
+        assert_ln_h_close(h, sh, chunkwise_v2.mlstm_siging_chunkwise_fw_ln_plain(
+            *(a.double() if isinstance(a, torch.Tensor) else a for a in args), eps=EPS))
+        assert_rel_close([c], [sc], BF16_STATE_REL)
+        assert_rel_close([n, n], [sn, np_], 1e-4)
+        args = (*args[:2], cu(v, dt), *args[3:])  # no offset: rows of mean ~ 0
+        h = chunkwise_v2.mlstm_siging_chunkwise_fw_ln(*args, eps=EPS)
+        assert_rel_close([h], [fw_split_plain(split_args[:2] + args[2:3] + split_args[3:],
+                                              (lnw, lnb))[0]], 2e-2)
+
+
+def assert_ln_h_close(h, ref, ref_unrounded):
+    """The fused LayerNorm's bfloat16 h against the passes with float64
+    sums (``ref``): at most LN_BF16_MAX of its largest |value|, LN_BF16_MEAN
+    in mean |error| over mean |value|, and under half the unrounded
+    version's mean distance from ``ref``."""
+    a, b = h.double(), ref.double()
+    assert torch.isfinite(a).all()
+    assert (a - b).abs().max().item() <= LN_BF16_MAX * b.abs().max().item()
+    assert (a - b).abs().mean().item() <= LN_BF16_MEAN * b.abs().mean().item()
+    assert_rounding_shows([h], [ref], [ref_unrounded])
 
 
 @pytest.mark.cuda
@@ -166,8 +224,17 @@ def test_train_forward_kernel_matches_plain_on_gpu(dtype):
         hp, (cp, np_), (csp, nsp, denp) = chunkwise_v2.mlstm_siging_chunkwise_fw_train_plain(
             *args, eps=EPS)
         torch.testing.assert_close(h.float(), hp.float(), **tol)
-        for a, b in ((c, cp), (n, np_), (cs, csp), (ns, nsp), (den, denp)):
+        for a, b in ((n, np_), (ns, nsp), (den, denp)):
             torch.testing.assert_close(a, b, **TOL)
+        if dt == torch.float32:
+            torch.testing.assert_close(c, cp, **TOL)
+            torch.testing.assert_close(cs, csp, **TOL)
+        else:  # C sums R(k e^a)^T R(v), as JAX's bfloat16 forward does
+            sh, _, scs, _, sc, _ = fw_split_plain(args)
+            assert_rel_close([h], [sh], 2e-2)
+            assert_rel_close([c, cs], [sc, scs], BF16_STATE_REL)
+            unr = fw_split_plain(unrounded(args))
+            assert_rounding_shows([h, c, cs], [sh, sc, scs], [unr[0], unr[4], unr[2]])
 
 
 @pytest.mark.cuda
@@ -211,6 +278,163 @@ def test_cell_function_matches_plain_on_gpu():
     assert_grads_close(out["cuda"], out["cpu"], torch.float32)
 
 
+def fw_split_plain(args, ln=(None, None), acc=None):
+    """The forward's two plain passes composed (what the kernels compute,
+    rounding included; sums in ``acc``, default float32): h, den,
+    c_states, n_states, c_last, n_last."""
+    q, k, v, i, f, NH, c0, n0 = args
+    cs, ns, (cl, nl) = chunkwise_v2.mlstm_siging_chunkwise_fw_states_plain(k, v, i, f, NH, c0,
+                                                                           n0, acc=acc)
+    h, den = chunkwise_v2.mlstm_siging_chunkwise_fw_out_plain(q, k, v, i, f, NH, cs, ns, eps=EPS,
+                                                              ln_weight=ln[0], ln_bias=ln[1],
+                                                              acc=acc)
+    return h, den, cs, ns, cl, nl
+
+
+def unrounded(args):
+    """The forward's arguments with q, k and v in float32: the plain
+    passes on them skip the products' bfloat16 rounding."""
+    return (*(a.float() for a in args[:3]), *args[3:])
+
+
+def strided(q, k):
+    """q and k as the cell hands them over: views of one (B, S, 2H)
+    projection, rows 2H apart."""
+    qk = torch.cat([q, k], -1)
+    return qk.split(q.shape[-1], -1)
+
+
+FW_PASS_CASES = [  # (S, NH, DH, gates, initial states): head dims 16-128, ragged S
+    (25, 4, 16, "open", False),
+    (100, 3, 16, "closed", True),
+    (1000, 12, 32, "open", True),
+    (200, 4, 32, "closed", False),
+    (300, 8, 64, "closed", True),
+    (130, 8, 64, "open", False),
+    (200, 6, 128, "closed", True),
+    (1000, 6, 128, "open", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,NH,DH,gates,states", FW_PASS_CASES)
+def test_forward_passes_match_plain_on_gpu(S, NH, DH, gates, states, dtype):
+    """The forward's two passes, each against its plain version on the same
+    inputs (the second on the first's plain states), q and k row-strided
+    views: the state scan with C kept in float32 (train) and in the storage
+    type (inference), the output pass from float32 and from storage-type
+    states and with the LayerNorm fused in.  float32 within 1e-4 of each
+    output's largest |value|; bfloat16 h within 2e-2, C within
+    BF16_STATE_REL, n and den within 1e-4, and in mean error nearer the
+    plain passes than the same passes without the products' rounding are.
+    Then each forward wrapper (one counted launch) against the
+    composition."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    c_rel = 1e-4 if dt == torch.float32 else BF16_STATE_REL
+    q, k, v, i, f, c0, n0 = make_inputs(S + DH + 3, 2, S, NH, DH, gates, states)
+    qv, kv = strided(cu(q, dt), cu(k, dt))
+    args = (qv, kv, cu(v, dt), cu(i), cu(f), NH, cu(c0), cu(n0))
+    rng = np.random.default_rng(DH)
+    ln = (cu(1.0 + rng.normal(0, 0.3, NH * DH)), cu(rng.normal(0, 0.1, NH * DH)))
+    ref = fw_split_plain(args)
+    ref_ln = fw_split_plain(args, ln)[0]
+    unr = fw_split_plain(unrounded(args)) if dt == torch.bfloat16 else None
+    h_ref, den_ref, cs_ref, ns_ref, cl_ref, nl_ref = ref
+    for save in (True, False):
+        cs, ns, (cl, nl) = chunkwise_v2.mlstm_siging_chunkwise_fw_states(*args[1:],
+                                                                         save_states=save)
+        torch.cuda.synchronize()
+        assert cs.dtype == (torch.float32 if save else dt)
+        # the storage-type scratch holds C rounded once more
+        assert_rel_close([cs], [cs_ref], c_rel if save else rel)
+        assert_rel_close([cl, ns, nl], [cl_ref, ns_ref, nl_ref], c_rel)
+        if unr is not None and save:
+            assert_rounding_shows([cs, cl], [cs_ref, cl_ref], [unr[2], unr[4]])
+    for c_states in (cs_ref, cs_ref.to(dt)):
+        h, den = chunkwise_v2.mlstm_siging_chunkwise_fw_out(*args[:6], c_states, ns_ref, eps=EPS)
+        torch.cuda.synchronize()
+        assert_rel_close([h], [h_ref], rel)
+        assert_rel_close([den], [den_ref], 1e-4)
+        if unr is not None:
+            assert_rounding_shows([h], [h_ref], [unr[0]])
+    h_ln, _ = chunkwise_v2.mlstm_siging_chunkwise_fw_out(*args[:6], cs_ref.to(dt), ns_ref,
+                                                         eps=EPS, ln_weight=ln[0], ln_bias=ln[1])
+    assert_rel_close([h_ln], [ref_ln], rel)
+    before = (chunkwise_v2.LAUNCHES, chunkwise_v2.LAUNCHES_TRAIN, chunkwise_v2.LAUNCHES_LN)
+    h, (cl, nl) = chunkwise_v2.mlstm_siging_chunkwise_fw(*args, eps=EPS, return_last_states=True)
+    ht, _, (cs, ns, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+    hl = chunkwise_v2.mlstm_siging_chunkwise_fw_ln(*args[:6], *ln, *args[6:], eps=EPS)
+    torch.cuda.synchronize()
+    assert (chunkwise_v2.LAUNCHES, chunkwise_v2.LAUNCHES_TRAIN,
+            chunkwise_v2.LAUNCHES_LN) == tuple(b + 1 for b in before)
+    assert_rel_close([h, ht, hl], [h_ref, h_ref, ref_ln], rel)
+    assert_rel_close([cl, nl, cs, ns], [cl_ref, nl_ref, cs_ref, ns_ref], c_rel)
+    assert_rel_close([den], [den_ref], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_forward_feeds_the_backward_on_gpu(dtype):
+    """The differentiable cell on the card (the train forward's states and
+    den feeding the v2 backward, q and k row-strided views as the model
+    hands them over) against the plain cell on the same inputs: the
+    gradients of q, k, v, i, f and C0 within 1e-4 (float32) or 2e-2
+    (bfloat16) of their largest |value|.  In bfloat16 the plain cell, whose
+    forward keeps the products in float32 and whose gate gradients come
+    from dq and dk before their rounding, is the reference of q, k, v and
+    C0 only; all six are held against the plain passes that round where
+    the kernels do (fw_states/fw_out, bw_dc/bw_dqkv, gate_grads)."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    for S, NH, DH in ((300, 4, 32), (1000, 6, 128), (130, 8, 64)):
+        q, k, v, i, f, c0, n0 = make_inputs(S + DH + 5, 2, S, NH, DH, "open", True)
+        w = torch.from_numpy(np.random.default_rng(S).normal(size=q.shape).astype(np.float32))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            leaves = [torch.from_numpy(a).to(dev) for a in (q, k, v, i, f, c0)]
+            leaves[:3] = [t.to(dt) for t in leaves[:3]]
+            for t in leaves:
+                t.requires_grad_()
+            qv, kv = strided(leaves[0], leaves[1])
+            n0_ = torch.from_numpy(n0).to(dev)
+            fn = (chunkwise_v2.mlstm_siging_chunkwise_train if dev == "cuda"
+                  else chunkwise_v2.mlstm_siging_chunkwise_train_plain)
+            before = chunkwise_v2.LAUNCHES_TRAIN, chunkwise_v2.LAUNCHES_BW
+            h = fn(qv, kv, *leaves[2:5], NH, leaves[5], n0_, eps=EPS)
+            loss = (h.float() * w.to(dev)).sum()
+            out[dev] = [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert (chunkwise_v2.LAUNCHES_TRAIN, chunkwise_v2.LAUNCHES_BW) == (
+                    before[0] + 1, before[1] + 1)
+        keep = range(6) if dt == torch.float32 else (0, 1, 2, 5)
+        assert_grads_close([out["cuda"][j] for j in keep], [out["cpu"][j] for j in keep], dt)
+        if dt == torch.bfloat16:
+            assert_grads_close(out["cuda"], rounding_cell_grads(
+                q, k, v, i, f, c0, n0, NH, w.to(dt)), dt)
+
+
+def rounding_cell_grads(q, k, v, i, f, c0, n0, NH, dh):
+    """The cell's gradients (dq, dk, dv, di, df, dC0) from the plain
+    passes on the CPU, rounding where the kernels do: the forward's state
+    scan and output pass, the backward's dC scan and dq/dk/dv, then the
+    gate gradients from the rounded dq and dk, for the loss sum(h * dh)
+    with q, k, v in dh's dtype."""
+    dt = dh.dtype
+    q, k, v = (torch.from_numpy(a).to(dt) for a in (q, k, v))
+    i, f, c0, n0 = (torch.from_numpy(a) for a in (i, f, c0, n0))
+    cs, ns, _ = chunkwise_v2.mlstm_siging_chunkwise_fw_states_plain(k, v, i, f, NH, c0, n0)
+    _, den = chunkwise_v2.mlstm_siging_chunkwise_fw_out_plain(q, k, v, i, f, NH, cs, ns, eps=EPS)
+    dcs, dc0 = chunkwise_v2.mlstm_siging_chunkwise_bw_dc_plain(q, f, NH, den, dh, eps=EPS)
+    dq, dk, dv = chunkwise_v2.mlstm_siging_chunkwise_bw_dqkv_plain(q, k, v, i, f, NH, cs, den, dh,
+                                                                   dcs, eps=EPS)
+    di, df = chunkwise_v2.gate_grads(q, k, dq, dk, i, f, NH)
+    return [g.float() for g in (dq, dk, dv, di, df, dc0)]
+
+
 def row_inputs(B, S, H, D, U, NH, offset, seed):
     rng = np.random.default_rng(seed)
     return dict(
@@ -237,6 +461,12 @@ def test_epilogue_backward_kernel_matches_plain_on_gpu(B, S, H, D, U, NH, offset
     assert epilogue.LAUNCHES == before + 1
     ref = epilogue.epilogue_bwd_plain(*args)
     assert_grads_close(got, ref, dt)
+    rounded = epilogue.epilogue_bwd_rounded_plain(*args)
+    assert_grads_close(got, rounded, dt)
+    if dt == torch.bfloat16:  # the kernel rounds where its plain version does
+        for a, b in zip(got, rounded):
+            a, b = a.double(), b.double()
+            assert (a - b).abs().mean().item() <= 1e-4 * b.abs().mean().item()
 
 
 @pytest.mark.cuda
@@ -753,11 +983,11 @@ def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
     (2e-2 where q or the products are bfloat16), the denominators and
     states within 1e-4 (2e-2 with bfloat16 products; with them also
     nearer the plain version than its float32-products twin is, as
-    assert_rounding_shows reads it).  Then the drop-in
-    contract at the v2 kernels' L = 64 (sub-chunks 32 and 64, float32
-    products): fw3's cstates and n_out are the v2 train forward's c_states
-    and den, and the v2 backward kernel fed them gives the v2 path's dq,
-    dk, dv and dC0."""
+    assert_rounding_shows reads it).  Then the drop-in contract at the v2
+    kernels' L = 64 (sub-chunks 32 and 64): fw3's cstates and n_out are the
+    v2 train forward's c_states and den (products in q's type, as the v2
+    kernels'; 2e-2 in bfloat16), and the v2 backward kernel fed them gives
+    the v2 path's dq, dk, dv and dC0."""
     needs_cuda()
     dt, ct = getattr(torch, dtype), getattr(torch, compute)
     h_rel = 1e-4 if dt == ct == torch.float32 else 2e-2
@@ -789,10 +1019,11 @@ def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
     dcl = cu(np.random.default_rng(7).normal(size=c0.shape))
     _, _, (c_states, _, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
     ref = chunkwise_v2.mlstm_siging_chunkwise_bw(*args[:6], c_states, den, dh, dcl, eps=EPS)
-    for sub in (32, 64):
+    for sub in (32, 64):  # products in the v2 kernels' type, q's
         _, n_out, cstates, _, _ = chunkwise_fw3.fw3(
-            *args, chunk_size=chunkwise_v2.CHUNK_SIZE, sub_chunk=sub, eps=EPS,
-            compute_dtype=torch.float32)
-        assert_rel_close([cstates, n_out], [c_states, den], 1e-4)
+            *args, chunk_size=chunkwise_v2.CHUNK_SIZE, sub_chunk=sub, eps=EPS, compute_dtype=dt)
+        assert_rel_close([cstates], [c_states],
+                         1e-4 if dt == torch.float32 else BF16_STATE_REL)
+        assert_rel_close([n_out], [den], 1e-4 if dt == torch.float32 else 2e-2)
         got = chunkwise_v2.mlstm_siging_chunkwise_bw(*args[:6], cstates, n_out, dh, dcl, eps=EPS)
         assert_grads_close(got, ref, dt)

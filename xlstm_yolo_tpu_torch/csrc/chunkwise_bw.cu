@@ -63,6 +63,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "v2_gates.cuh"
 
 namespace {
 
@@ -70,55 +71,14 @@ using port::from_f32;
 using port::NT;
 using port::to_f32;
 using tc::bf16;
+using tc::pad;
 using tc::prod16;
 using tc::st2;
+using v2::chunk_gates;
 
 constexpr int L = 64;     // chunk rows
 constexpr int TRW = 16;   // rows of dC a block of the dC scan owns
 constexpr int NT1 = 128;  // threads of a dC-scan block
-
-// Shared-memory row padding: bf16 rows 16 mod 128 bytes (ldmatrix bank
-// groups), float32 rows 4 mod 32 floats (the FMA products' reads).
-template <typename T>
-__host__ __device__ constexpr int pad() { return sizeof(T) == 2 ? 8 : 4; }
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
-
-// b (inclusive cumsum of logsig(f) over the chunk, rows at or past `valid`
-// adding 0), e^b and, given ir, logsig(i) (-inf past `valid`) and
-// e^{(g - b) + logsig(i)}, g = b[L - 1], for the L rows of one chunk whose
-// raw gates are fr, ir.  Warp 0, two rows a lane; the caller synchronises.
-__device__ __forceinline__ void chunk_gates(const float* fr, const float* ir, int valid,
-                                            float* sb, float* seb, float* sli, float* sea) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = 2 * lane, r1 = r0 + 1;
-  const float lf0 = r0 < valid ? log_sigmoid(fr[r0]) : 0.f;
-  const float lf1 = r1 < valid ? log_sigmoid(fr[r1]) : 0.f;
-  float incl = lf0 + lf1;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-  const float b0 = excl + lf0, b1 = b0 + lf1;
-  sb[r0] = b0;
-  sb[r1] = b1;
-  seb[r0] = expf(b0);
-  seb[r1] = expf(b1);
-  if (ir) {
-    const float g = __shfl_sync(0xffffffffu, b1, 31);
-    const float li0 = r0 < valid ? log_sigmoid(ir[r0]) : -CUDART_INF_F;
-    const float li1 = r1 < valid ? log_sigmoid(ir[r1]) : -CUDART_INF_F;
-    sli[r0] = li0;
-    sli[r1] = li1;
-    sea[r0] = expf((g - b0) + li0);
-    sea[r1] = expf((g - b1) + li1);
-  }
-}
 
 template <typename T, int DH>
 struct DcSmem {
@@ -133,7 +93,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT1) bw_dc_kernel(
     const T* __restrict__ q, const float* __restrict__ fg, const float* __restrict__ den,
     const T* __restrict__ dh, const float* __restrict__ dc_last, T* __restrict__ dcs,
-    float* __restrict__ dc0, int S, int NH, float qk_scale, float eps) {
+    float* __restrict__ dc0, int S, int NH, int ldq, float qk_scale, float eps) {
   constexpr int LDQ = DcSmem<T, DH>::LDQ, LDH = DcSmem<T, DH>::LDH;
   constexpr int NTW = DH >= 32 ? DH / 32 : 1;  // n-tiles of 8 columns a warp
   constexpr int E = 16 / sizeof(T);            // elements a 16-byte copy
@@ -164,7 +124,7 @@ __global__ void __launch_bounds__(NT1) bw_dc_kernel(
       const int r = e / (TRW / E), cc = e - r * (TRW / E);
       const bool ok = t0 + r < S;
       tc::cp_async16(rq + buf * L * TRW + r * TRW + E * cc,
-                     q + (ok ? row0 + (size_t)(t0 + r) * H + i0 + E * cc : 0), ok);
+                     q + (ok ? ((size_t)b * S + t0 + r) * ldq + hd * DH + i0 + E * cc : 0), ok);
     }
     for (int e = tid; e < L * (DH / E); e += NT1) {
       const int r = e / (DH / E), cc = e - r * (DH / E);
@@ -304,7 +264,8 @@ __global__ void __launch_bounds__(NT) bw_dqkv_kernel(
     const float* __restrict__ ig, const float* __restrict__ fg,
     const float* __restrict__ c_states, const float* __restrict__ den,
     const T* __restrict__ dh, const T* __restrict__ dcs, T* __restrict__ dq,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int NH, float qk_scale, float eps) {
+    T* __restrict__ dk, T* __restrict__ dv, int S, int NH, int ldq, int ldk, int ldv,
+    float qk_scale, float eps) {
   using Sm = QkvSmem<T, DH>;
   constexpr int LD = Sm::LD, LDP = Sm::LDP;
   constexpr bool STAGE = stage_states<T, DH>();
@@ -344,8 +305,9 @@ __global__ void __launch_bounds__(NT) bw_dqkv_kernel(
     const int r = f / CR, cc = f - r * CR;
     const bool ok = r < valid;
     const T* src = which == 0 ? q : which == 1 ? k : which == 2 ? v : dh;
+    const int ld = which == 0 ? ldq : which == 1 ? ldk : which == 2 ? ldv : H;
     tc::cp_async16(sq + which * L * LD + r * LD + E * cc,
-                   src + (ok ? row0 + (size_t)r * H + E * cc : 0), ok);
+                   src + (ok ? ((size_t)b * S + t0 + r) * ld + hd * DH + E * cc : 0), ok);
   }
   if constexpr (STAGE)
     for (int e = tid; e < DH * CR; e += NT) {
@@ -464,62 +426,64 @@ __global__ void __launch_bounds__(NT) bw_dqkv_kernel(
 
 template <typename T, int DH>
 int launch_dc(const void* q, const float* f, const float* den, const void* dh,
-              const float* dcl, void* dcs, float* dc0, int B, int S, int NH, float qk_scale,
-              float eps, cudaStream_t st) {
+              const float* dcl, void* dcs, float* dc0, int B, int S, int NH, int ldq,
+              float qk_scale, float eps, cudaStream_t st) {
   const size_t smem = DcSmem<T, DH>::bytes;
   cudaError_t err = port::allow_smem(bw_dc_kernel<T, DH>, smem);
   if (err != cudaSuccess) return (int)err;
   bw_dc_kernel<T, DH><<<dim3(B * NH, DH / TRW), NT1, smem, st>>>(
       static_cast<const T*>(q), f, den, static_cast<const T*>(dh), dcl, static_cast<T*>(dcs),
-      dc0, S, NH, qk_scale, eps);
+      dc0, S, NH, ldq, qk_scale, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
 int launch_dqkv(const void* q, const void* k, const void* v, const float* i, const float* f,
                 const float* cs, const float* den, const void* dh, const void* dcs, void* dq,
-                void* dk, void* dv, int B, int S, int NH, float qk_scale, float eps,
-                cudaStream_t st) {
+                void* dk, void* dv, int B, int S, int NH, int ldq, int ldk, int ldv,
+                float qk_scale, float eps, cudaStream_t st) {
   const size_t smem = QkvSmem<T, DH>::bytes;
   cudaError_t err = port::allow_smem(bw_dqkv_kernel<T, DH>, smem);
   if (err != cudaSuccess) return (int)err;
   bw_dqkv_kernel<T, DH><<<dim3((S + L - 1) / L, B * NH), NT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f, cs,
       den, static_cast<const T*>(dh), static_cast<const T*>(dcs), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, NH, qk_scale, eps);
+      static_cast<T*>(dk), static_cast<T*>(dv), S, NH, ldq, ldk, ldv, qk_scale, eps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Pass 1, the dC scan.  dtype: 0 = float32, 1 = bfloat16.  q, dh (B, S, NH *
-// DH) in the dtype; f (B, S, NH) and den (B, NC, NH, L) float32; dc_last
-// (B, NH, DH, DH) float32 or null.  Outputs dcs (B, NC, NH, DH, DH) in the
+// DH) in the dtype, q with row stride ldq (elements), dh contiguous; f (B,
+// S, NH) and den (B, NC, NH, L) float32; dc_last (B, NH, DH, DH) float32 or
+// null.  Outputs dcs (B, NC, NH, DH, DH) in the
 // dtype, the gradient of the state after each chunk, and dc0 (B, NH, DH,
 // DH) float32.  Returns a CUDA error code; 1000 for an unsupported dtype
 // or head size.
 extern "C" int chunkwise_bw_dc(const void* q, const float* f, const float* den, const void* dh,
                                const float* dc_last, void* dcs, float* dc0, int B, int S,
-                               int NH, int DH, int dtype, float qk_scale, float eps,
+                               int NH, int DH, int ldq, int dtype, float qk_scale, float eps,
                                void* stream) {
   return port::dispatch(dtype, dtype, DH, [&](auto t, auto, auto dhd) -> int {
     return launch_dc<decltype(t), decltype(dhd)::value>(q, f, den, dh, dc_last, dcs, dc0, B, S,
-                                                        NH, qk_scale, eps,
+                                                        NH, ldq, qk_scale, eps,
                                                         static_cast<cudaStream_t>(stream));
   });
 }
 
 // Pass 2, dq, dk, dv of every chunk from the saved states c_states (B, NC,
-// NH, DH, DH) float32 and pass 1's dcs; the rest as pass 1.
+// NH, DH, DH) float32 and pass 1's dcs; q, k, v with row strides ldq, ldk,
+// ldv; dq, dk, dv contiguous; the rest as pass 1.
 extern "C" int chunkwise_bw_dqkv(const void* q, const void* k, const void* v, const float* i,
                                  const float* f, const float* c_states, const float* den,
                                  const void* dh, const void* dcs, void* dq, void* dk, void* dv,
-                                 int B, int S, int NH, int DH, int dtype, float qk_scale,
-                                 float eps, void* stream) {
+                                 int B, int S, int NH, int DH, int ldq, int ldk, int ldv,
+                                 int dtype, float qk_scale, float eps, void* stream) {
   return port::dispatch(dtype, dtype, DH, [&](auto t, auto, auto dhd) -> int {
     return launch_dqkv<decltype(t), decltype(dhd)::value>(
-        q, k, v, i, f, c_states, den, dh, dcs, dq, dk, dv, B, S, NH, qk_scale, eps,
-        static_cast<cudaStream_t>(stream));
+        q, k, v, i, f, c_states, den, dh, dcs, dq, dk, dv, B, S, NH, ldq, ldk, ldv, qk_scale,
+        eps, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -528,11 +492,12 @@ extern "C" int chunkwise_bw_dqkv(const void* q, const void* k, const void* v, co
 extern "C" int chunkwise_bw(const void* q, const void* k, const void* v, const float* i,
                             const float* f, const float* c_states, const float* den,
                             const void* dh, const float* dc_last, void* dq, void* dk, void* dv,
-                            float* dc0, void* dcs, int B, int S, int NH, int DH, int dtype,
-                            float qk_scale, float eps, void* stream) {
-  const int err = chunkwise_bw_dc(q, f, den, dh, dc_last, dcs, dc0, B, S, NH, DH, dtype,
+                            float* dc0, void* dcs, int B, int S, int NH, int DH, int ldq,
+                            int ldk, int ldv, int dtype, float qk_scale, float eps,
+                            void* stream) {
+  const int err = chunkwise_bw_dc(q, f, den, dh, dc_last, dcs, dc0, B, S, NH, DH, ldq, dtype,
                                   qk_scale, eps, stream);
   if (err) return err;
-  return chunkwise_bw_dqkv(q, k, v, i, f, c_states, den, dh, dcs, dq, dk, dv, B, S, NH, DH,
-                           dtype, qk_scale, eps, stream);
+  return chunkwise_bw_dqkv(q, k, v, i, f, c_states, den, dh, dcs, dq, dk, dv, B, S, NH, DH, ldq,
+                           ldk, ldv, dtype, qk_scale, eps, stream);
 }

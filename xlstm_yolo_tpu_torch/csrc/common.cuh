@@ -3,10 +3,6 @@
 // - dtype helpers: float32 or bfloat16 in device memory, float32 math;
 //   rt<T>(x) rounds x to T and back, where the JAX package casts to the
 //   compute dtype;
-// - gemm_rows: one block of 256 threads computes C = A * B for a tile of
-//   16 or 32 rows, A and C in shared memory, B a weight in device memory (read
-//   through the L1/L2 caches, every warp of the block reads the same B
-//   values), f32 FMA;
 // - wgrad_kernel: weight gradients X^T Y over the rows of (M, P) and
 //   (M, N) activations, split over row ranges, one partial per range;
 // - reduce_kernel: sums the rows of a (rows, cols) partial array in a
@@ -35,47 +31,6 @@ template <typename T> __device__ __forceinline__ float rt(float x);
 template <> __device__ __forceinline__ float rt<float>(float x) { return x; }
 template <> __device__ __forceinline__ float rt<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
-}
-
-// C[r * ldc + n] = sum_k A[r * lda + k] * rt<T>(B[k * ldb + n]) for r < R
-// (16 or 32), n < N.  Thread t owns rows RW * (t / 32) .. + RW - 1, RW =
-// R / 8, and columns n0 + t % 32 + 32 j, j < TN, of each 32 * TN wide
-// column chunk.  Each sum runs over k in order, whatever R.
-template <typename T, int TN, int R>
-__device__ __forceinline__ void gemm_rows(const float* A, int lda, const float* __restrict__ B,
-                                          int ldb, float* C, int ldc, int K, int N) {
-  static_assert(R == 16 || R == 32, "tiles of 16 or 32 rows");
-  constexpr int RW = R / 8;  // rows per warp
-  const int rg = threadIdx.x >> 5, cg = threadIdx.x & 31;
-  for (int n0 = 0; n0 < N; n0 += 32 * TN) {
-    float acc[RW][TN];
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float b[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + cg + 32 * j;
-        b[j] = n < N ? rt<T>(__ldg(B + (size_t)k * ldb + n)) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float a = A[(rg * RW + i) * lda + k];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RW; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + cg + 32 * j;
-        if (n < N) C[(rg * RW + i) * ldc + n] = acc[i][j];
-      }
-  }
 }
 
 // part[(s * P + p) * N + n] = sum over rows m of range s of X[m, p] * Y[m, n].

@@ -177,7 +177,9 @@ __device__ __forceinline__ void st2(bf16* p, float lo, float hi) { store2(p, lo,
 // fragment layout: A stored (K, M) (AT) or (M, K), B stored (K, N) (KN) or
 // (N, K), row strides lda, ldb.  bf16 (shared memory): on the tensor
 // cores.  float (shared or device memory): float32 FMA, each thread
-// summing over k in order the entries its fragment holds.
+// summing over k in order the entries its fragment holds; the k loop is
+// unrolled 4 deep, not 16 (the same sums in the same order; fully unrolled,
+// the float32 instantiations made nvcc several times slower).
 template <int NJ, bool AT, bool KN>
 __device__ __forceinline__ void prod16(float (&acc)[NJ][4], const bf16* A, int lda, int m0,
                                        const bf16* B, int ldb, int n0, int k0) {
@@ -194,7 +196,7 @@ __device__ __forceinline__ void prod16(float (&acc)[NJ][4], const float* A, int 
   const int bk = KN ? ldb : 1, bn = KN ? 1 : ldb;  // and of B (k, n)
   const float* a0 = A + (m0 + gq) * am + k0 * ak;
   const float* a1 = a0 + 8 * am;
-#pragma unroll
+#pragma unroll 4
   for (int k = 0; k < 16; ++k) {
     const float x0 = a0[k * ak], x1 = a1[k * ak];
 #pragma unroll
@@ -207,6 +209,25 @@ __device__ __forceinline__ void prod16(float (&acc)[NJ][4], const float* A, int 
       acc[j][3] = fmaf(x1, b1, acc[j][3]);
     }
   }
+}
+
+// Shared-memory row padding of a kernel's tiles in T: bf16 rows 16 mod 128
+// bytes (ldmatrix bank groups), float32 rows 4 mod 32 floats (the FMA
+// products' reads).
+template <typename T>
+__host__ __device__ constexpr int pad() { return sizeof(T) == 2 ? 8 : 4; }
+
+// Sums over the lanes of a warp that hold one column (the 8 lanes of one
+// t = lane % 4) or one row (the 4 lanes of one g = lane / 4) of an
+// accumulator fragment.
+__device__ __forceinline__ float sum_over_rows(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+__device__ __forceinline__ float sum_over_cols(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace tc

@@ -552,9 +552,9 @@ class MatrixLSTMCell(nn.Module):
             return self._fused(q, k, v, i_pre, f_pre, cd)
         if self.chunkwise_kernel == V2_KERNEL:
             fn = self.train_kernel if self.training else self.kernel
-            h = fn(_cast(q, cd).contiguous(), _cast(k, cd).contiguous(),
-                   _cast(v, cd).contiguous(), i_pre.contiguous(), f_pre.contiguous(), NH,
-                   eps=self.eps)
+            # q, k, v go in as they are (the kernels take views with a row stride)
+            h = fn(_cast(q, cd), _cast(k, cd), _cast(v, cd), i_pre.contiguous(),
+                   f_pre.contiguous(), NH, eps=self.eps)
             h = h.reshape(B, S, NH, H // NH)
         else:
             h = self._registry_route(q, k, v, i_pre, f_pre, cd).transpose(1, 2)
@@ -568,10 +568,9 @@ class MatrixLSTMCell(nn.Module):
         the last (C, n))."""
         c0, n0 = state if state is not None else (None, None)
         out = mlstm_siging_chunkwise_fw_ln(
-            _cast(q, cd).contiguous(), _cast(k, cd).contiguous(), _cast(v, cd).contiguous(),
-            i_pre.contiguous(), f_pre.contiguous(), self.num_heads, 1.0 + self.outnorm.weight,
-            self.outnorm.bias, c0, n0, eps=self.eps, ln_eps=self.outnorm.eps,
-            return_last_states=state is not None)
+            _cast(q, cd), _cast(k, cd), _cast(v, cd), i_pre.contiguous(), f_pre.contiguous(),
+            self.num_heads, 1.0 + self.outnorm.weight, self.outnorm.bias, c0, n0, eps=self.eps,
+            ln_eps=self.outnorm.eps, return_last_states=state is not None)
         if state is None:
             return out.to(q.dtype)
         return out[0].to(q.dtype), out[1]
@@ -607,9 +606,8 @@ class MatrixLSTMCell(nn.Module):
             raise ValueError(f"a state is threaded in inference mode only, not {self._mode()!r}")
         if self.chunkwise_kernel == V2_KERNEL and S >= 1024:
             h, new_state = self.kernel(
-                _cast(q, cd).contiguous(), _cast(k, cd).contiguous(), _cast(v, cd).contiguous(),
-                i_pre.contiguous(), f_pre.contiguous(), NH, state[0], state[1], eps=self.eps,
-                return_last_states=True)
+                _cast(q, cd), _cast(k, cd), _cast(v, cd), i_pre.contiguous(), f_pre.contiguous(),
+                NH, state[0], state[1], eps=self.eps, return_last_states=True)
             return h.reshape(B, S, NH, H // NH), new_state
         ck = "chunkwise--native_autograd" if self.chunkwise_kernel == V2_KERNEL else None
         h, new_state = self._registry_route(q, k, v, i_pre, f_pre, cd, ck, state)

@@ -4,13 +4,19 @@ wrappers, their plain PyTorch versions and the autograd Function.
 Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
 
 - :func:`mlstm_siging_chunkwise_fw` — the inference forward
-  (``_fw_kernel_infer``), kernel ``chunkwise_fw`` in ``csrc/chunkwise_fw.cu``;
+  (``_fw_kernel_infer``), kernels in ``csrc/chunkwise_fw.cu``;
 - :func:`mlstm_siging_chunkwise_fw_ln` — the inference forward with the
-  per-head LayerNorm fused in (``_fw_kernel_infer_ln``), kernel
-  ``chunkwise_fw_ln`` in the same file; forward only;
+  per-head LayerNorm fused in (``_fw_kernel_infer_ln``), the same file;
+  forward only;
 - :func:`mlstm_siging_chunkwise_fw_train` — the forward that also saves the
   state before each chunk and the denominator per row
-  (``_fw_kernel_train``), kernel ``chunkwise_fw_train`` in the same file;
+  (``_fw_kernel_train``), the same file.
+  All three forwards are two passes, the state scan
+  (:func:`mlstm_siging_chunkwise_fw_states`) and the chunk-parallel output
+  (:func:`mlstm_siging_chunkwise_fw_out`), their products on the tensor
+  cores for bfloat16, which round the products' operands where JAX's
+  ``_fw_body`` does (the plain passes ``*_plain`` too; the one-piece plain
+  versions keep them in float32);
 - :func:`mlstm_siging_chunkwise_bw` — the backward: reverse dC scan with
   dq, dk, dv per chunk and dC0 (``_bw_fused_kernel`` and its transposed
   twin ``_bw_fused_kernel_t``), ``csrc/chunkwise_bw.cu``: two passes, the
@@ -24,7 +30,9 @@ Counterpart of ``xlstm_yolo_tpu/ops/pallas/chunkwise_v2.py``:
   (``mlstm_siging_chunkwise_pallas_v2``) on (B, NH, S, DH) operands.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-``*_plain`` version for CPU tensors.  ``LAUNCHES``, ``LAUNCHES_LN``,
+``*_plain`` version for CPU tensors.  On the card q, k and v may be views
+with a row stride (``cuda_build.row_stride``); the rest is contiguous.
+``LAUNCHES``, ``LAUNCHES_LN``,
 ``LAUNCHES_TRAIN`` and ``LAUNCHES_BW`` count kernel launches.
 """
 
@@ -52,7 +60,11 @@ __all__ = [
     "mlstm_siging_chunkwise_fw",
     "mlstm_siging_chunkwise_fw_ln",
     "mlstm_siging_chunkwise_fw_ln_plain",
+    "mlstm_siging_chunkwise_fw_out",
+    "mlstm_siging_chunkwise_fw_out_plain",
     "mlstm_siging_chunkwise_fw_plain",
+    "mlstm_siging_chunkwise_fw_states",
+    "mlstm_siging_chunkwise_fw_states_plain",
     "mlstm_siging_chunkwise_fw_train",
     "mlstm_siging_chunkwise_fw_train_plain",
     "mlstm_siging_chunkwise_train",
@@ -70,16 +82,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _declare_fw(lib):
-    lib.chunkwise_fw.argtypes = [P] * 10 + [I] * 5 + [F, F, P]
-    lib.chunkwise_fw_train.argtypes = [P] * 13 + [I] * 5 + [F, F, P]
-    lib.chunkwise_fw_ln.argtypes = [P] * 12 + [I] * 5 + [F, F, F, P]
-    lib.chunkwise_fw.restype = lib.chunkwise_fw_train.restype = lib.chunkwise_fw_ln.restype = I
+    # (pointers, then B, S, NH, DH, the row strides of q, k, v and the dtype)
+    lib.chunkwise_fw_states.argtypes = [P] * 10 + [I] * 9 + [P]
+    lib.chunkwise_fw_out.argtypes = [P] * 11 + [I] * 9 + [F, F, F, P]
+    lib.chunkwise_fw_states.restype = lib.chunkwise_fw_out.restype = I
 
 
 def _declare_bw(lib):
-    lib.chunkwise_bw.argtypes = [P] * 14 + [I] * 5 + [F, F, P]
-    lib.chunkwise_bw_dc.argtypes = [P] * 7 + [I] * 5 + [F, F, P]
-    lib.chunkwise_bw_dqkv.argtypes = [P] * 12 + [I] * 5 + [F, F, P]
+    lib.chunkwise_bw.argtypes = [P] * 14 + [I] * 8 + [F, F, P]
+    lib.chunkwise_bw_dc.argtypes = [P] * 7 + [I] * 6 + [F, F, P]
+    lib.chunkwise_bw_dqkv.argtypes = [P] * 12 + [I] * 8 + [F, F, P]
     lib.chunkwise_bw.restype = lib.chunkwise_bw_dc.restype = lib.chunkwise_bw_dqkv.restype = I
 
 
@@ -114,8 +126,11 @@ def _check(q, k, v, i, f, num_heads, c_initial, n_initial):
     return B, S, H, DH, tensors
 
 
-def _check_cuda(q, DH, tensors):
-    """Raise unless the kernels take these inputs."""
+def _check_cuda(q, DH, tensors, streams=()):
+    """Raise unless the kernels take these inputs: ``tensors`` contiguous,
+    ``streams`` (q, k, v) with a row stride (cuda_build.row_stride).
+    Returns the streams' row strides."""
+    strides = [cuda_build.row_stride(t) for t in streams]
     if DH not in HEAD_DIMS:
         raise ValueError(f"head dim {DH} not supported by the kernel {HEAD_DIMS}")
     if q.device.type != "cuda":
@@ -123,7 +138,8 @@ def _check_cuda(q, DH, tensors):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q/k/v dtype {q.dtype} not supported by the kernel "
                         "(float32 or bfloat16)")
-    cuda_build.check_kernel_inputs(*tensors)
+    cuda_build.check_kernel_inputs(*[t for t in tensors if all(t is not s for s in streams)])
+    return strides
 
 
 def _heads(x, NH):
@@ -171,19 +187,9 @@ def mlstm_siging_chunkwise_fw(q, k, v, i, f, num_heads: int, c_initial=None,
         return mlstm_siging_chunkwise_fw_plain(
             q, k, v, i, f, num_heads, c_initial, n_initial, eps=eps,
             qk_scale=qk_scale, return_last_states=return_last_states)
-    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
-    _check_cuda(q, DH, tensors)
-    if qk_scale is None:
-        qk_scale = DH ** -0.5
-    lib = cuda_build.load("chunkwise_fw", _declare_fw)
-    h = torch.empty_like(q)
-    c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
-    n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        cuda_build.launch(
-            lib.chunkwise_fw, "chunkwise_fw",
-            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, h, c_last, n_last),
-            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    fw = _FwCall(q, k, v, i, f, num_heads, c_initial, n_initial, qk_scale)
+    h, c_last, n_last = fw.outputs()
+    fw.forward(k, v, i, f, c_initial, n_initial, h, c_last, n_last, *fw.scratch(), eps=eps)
     LAUNCHES += 1
     return (h, (c_last, n_last)) if return_last_states else h
 
@@ -244,25 +250,12 @@ def mlstm_siging_chunkwise_fw_ln(q, k, v, i, f, num_heads: int, ln_weight, ln_bi
         return mlstm_siging_chunkwise_fw_ln_plain(
             q, k, v, i, f, num_heads, ln_weight, ln_bias, c_initial, n_initial, eps=eps,
             qk_scale=qk_scale, ln_eps=ln_eps, return_last_states=return_last_states)
-    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
     _check_ln(q, ln_weight, ln_bias)
-    lnw = ln_weight.detach().float().contiguous()
-    lnb = (torch.zeros_like(lnw) if ln_bias is None
-           else ln_bias.detach().float().contiguous())
-    _check_cuda(q, DH, tensors + [lnw, lnb])
-    if qk_scale is None:
-        qk_scale = DH ** -0.5
-    lib = cuda_build.load("chunkwise_fw", _declare_fw)
-    h = torch.empty_like(q)
-    c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
-    n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        cuda_build.launch(
-            lib.chunkwise_fw_ln, "chunkwise_fw_ln",
-            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, lnw, lnb, h, c_last,
-                                 n_last),
-            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps),
-            float(ln_eps))
+    lnw, lnb = _ln_params(ln_weight, ln_bias)
+    fw = _FwCall(q, k, v, i, f, num_heads, c_initial, n_initial, qk_scale, [lnw, lnb])
+    h, c_last, n_last = fw.outputs()
+    fw.forward(k, v, i, f, c_initial, n_initial, h, c_last, n_last, *fw.scratch(), eps=eps,
+               ln=(lnw, lnb), ln_eps=ln_eps)
     LAUNCHES_LN += 1
     return (h, (c_last, n_last)) if return_last_states else h
 
@@ -304,27 +297,206 @@ def mlstm_siging_chunkwise_fw_train(q, k, v, i, f, num_heads: int, c_initial=Non
     if q.device.type == "cpu":
         return mlstm_siging_chunkwise_fw_train_plain(
             q, k, v, i, f, num_heads, c_initial, n_initial, eps=eps, qk_scale=qk_scale)
-    B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
-    _check_cuda(q, DH, tensors)
-    if qk_scale is None:
-        qk_scale = DH ** -0.5
-    NC = -(-S // CHUNK_SIZE)
-    lib = cuda_build.load("chunkwise_fw", _declare_fw)
-    dev = q.device
-    h = torch.empty_like(q)
-    c_last = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=dev)
-    n_last = torch.empty(B, num_heads, DH, dtype=torch.float32, device=dev)
-    c_states = torch.empty(B, NC, num_heads, DH, DH, dtype=torch.float32, device=dev)
-    n_states = torch.empty(B, NC, num_heads, DH, dtype=torch.float32, device=dev)
-    den = torch.empty(B, NC, num_heads, CHUNK_SIZE, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda_build.launch(
-            lib.chunkwise_fw_train, "chunkwise_fw_train",
-            *cuda_build.pointers(q, k, v, i, f, c_initial, n_initial, h, c_last, n_last,
-                                 c_states, n_states, den),
-            B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+    fw = _FwCall(q, k, v, i, f, num_heads, c_initial, n_initial, qk_scale)
+    h, c_last, n_last = fw.outputs()
+    c_states, n_states = fw.scratch(torch.float32)
+    den = fw.empty(fw.NC, num_heads, CHUNK_SIZE)
+    fw.forward(k, v, i, f, c_initial, n_initial, h, c_last, n_last, c_states, n_states, den,
+               eps=eps)
     LAUNCHES_TRAIN += 1
     return h, (c_last, n_last), (c_states, n_states, den)
+
+
+class _FwCall:
+    """The checks and buffers of one call of the forward's kernels
+    (csrc/chunkwise_fw.cu): q, k, v with a row stride, the rest
+    contiguous on one CUDA device."""
+
+    def __init__(self, q, k, v, i, f, num_heads, c_initial, n_initial, qk_scale, extra=()):
+        B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, c_initial, n_initial)
+        self.strides = _check_cuda(q, DH, [*tensors, *extra], (q, k, v))
+        self.B, self.S, self.NH, self.DH = B, S, num_heads, DH
+        self.NC = -(-S // CHUNK_SIZE)
+        self.q = q
+        self.qk_scale = DH ** -0.5 if qk_scale is None else qk_scale
+
+    def empty(self, *shape, dtype=torch.float32):
+        return torch.empty(self.B, *shape, dtype=dtype, device=self.q.device)
+
+    def outputs(self):
+        """h (B, S, H) in q's dtype, and the last C and n in float32."""
+        return (self.empty(self.S, self.NH * self.DH, dtype=self.q.dtype),
+                self.empty(self.NH, self.DH, self.DH), self.empty(self.NH, self.DH))
+
+    def scratch(self, c_dtype=None):
+        """The state before each chunk: C (B, NC, NH, DH, DH) in ``c_dtype``
+        (default q's dtype, what its only reader rounds it to) and n in
+        float32."""
+        return (self.empty(self.NC, self.NH, self.DH, self.DH, dtype=c_dtype or self.q.dtype),
+                self.empty(self.NC, self.NH, self.DH))
+
+    def launch(self, name, *tensors, ints=(), floats=()):
+        lib = cuda_build.load("chunkwise_fw", _declare_fw)
+        with torch.cuda.device(self.q.device):
+            cuda_build.launch(
+                getattr(lib, name), name, *cuda_build.pointers(*tensors), self.B, self.S,
+                self.NH, self.DH, *self.strides, _DTYPE_CODES[self.q.dtype], *ints,
+                *(float(x) for x in floats))
+
+    def forward(self, k, v, i, f, c_initial, n_initial, h, c_last, n_last, c_states, n_states,
+                den=None, eps=1e-6, ln=(None, None), ln_eps=0.0):
+        """A whole forward: the state scan into ``c_states`` (C in float32
+        when it is float32: the train variant's), ``n_states`` and the last
+        states, then h (and ``den``, when given) from them."""
+        cs_float = int(c_states.dtype == torch.float32)
+        self.launch("chunkwise_fw_states", k, v, i, f, c_initial, n_initial, c_states, n_states,
+                    c_last, n_last, ints=(cs_float,))
+        self.launch("chunkwise_fw_out", self.q, k, v, i, f, c_states, n_states, *ln, h, den,
+                    ints=(cs_float,), floats=(self.qk_scale, eps, ln_eps))
+
+
+def _ln_params(ln_weight, ln_bias):
+    lnw = ln_weight.detach().float().contiguous()
+    return lnw, (torch.zeros_like(lnw) if ln_bias is None
+                 else ln_bias.detach().float().contiguous())
+
+
+def mlstm_siging_chunkwise_fw_states(k, v, i, f, num_heads: int, c_initial=None,
+                                     n_initial=None, save_states: bool = True):
+    """The forward's first pass alone, the state scan (kernel
+    ``fw_state_kernel``): see :func:`mlstm_siging_chunkwise_fw_states_plain`,
+    its plain version, which CPU tensors take.  On the card the states
+    before each chunk are C in float32 (``save_states``, the train
+    variant's) or in k's dtype (the inference variants' scratch) and n in
+    float32.  Counts no launch."""
+    if k.device.type == "cpu":
+        return mlstm_siging_chunkwise_fw_states_plain(k, v, i, f, num_heads, c_initial,
+                                                      n_initial)
+    # k stands in for q, which the pass does not read
+    fw = _FwCall(k, k, v, i, f, num_heads, c_initial, n_initial, None)
+    _, c_last, n_last = fw.outputs()
+    c_states, n_states = fw.scratch(torch.float32 if save_states else None)
+    fw.launch("chunkwise_fw_states", k, v, i, f, c_initial, n_initial, c_states, n_states,
+              c_last, n_last, ints=(int(save_states),))
+    return c_states, n_states, (c_last, n_last)
+
+
+def mlstm_siging_chunkwise_fw_out(q, k, v, i, f, num_heads: int, c_states, n_states,
+                                  eps: float = 1e-6, qk_scale: float | None = None,
+                                  ln_weight=None, ln_bias=None, ln_eps: float = 1e-6):
+    """The forward's second pass alone, every chunk's h and den (kernel
+    ``fw_out_kernel``) from the first pass's states: see
+    :func:`mlstm_siging_chunkwise_fw_out_plain`, its plain version, which
+    CPU tensors take.  ``c_states`` in float32 or q's dtype, ``n_states``
+    float32.  Counts no launch."""
+    if q.device.type == "cpu":
+        return mlstm_siging_chunkwise_fw_out_plain(q, k, v, i, f, num_heads, c_states, n_states,
+                                                   eps=eps, qk_scale=qk_scale,
+                                                   ln_weight=ln_weight, ln_bias=ln_bias,
+                                                   ln_eps=ln_eps)
+    ln = ln_weight is not None
+    if ln:
+        _check_ln(q, ln_weight, ln_bias)
+    lnw, lnb = _ln_params(ln_weight, ln_bias) if ln else (None, None)
+    fw = _FwCall(q, k, v, i, f, num_heads, None, None, qk_scale, [lnw, lnb, c_states, n_states])
+    shape = (fw.B, fw.NC, fw.NH, fw.DH)
+    if tuple(c_states.shape) != shape + (fw.DH,) or tuple(n_states.shape) != shape \
+            or c_states.dtype not in (torch.float32, q.dtype) or n_states.dtype != torch.float32:
+        raise ValueError(f"c_states must be {shape + (fw.DH,)} float32 or {q.dtype}, n_states "
+                         f"{shape} float32")
+    if ln and c_states.dtype != q.dtype:
+        raise ValueError("with the LayerNorm c_states must be in q's dtype (the inference "
+                         "variants' scratch)")
+    h = fw.outputs()[0]
+    den = fw.empty(fw.NC, fw.NH, CHUNK_SIZE)
+    fw.launch("chunkwise_fw_out", q, k, v, i, f, c_states, n_states, lnw, lnb, h, den,
+              ints=(int(c_states.dtype != q.dtype),), floats=(fw.qk_scale, eps, ln_eps))
+    return h, den
+
+
+# ---------------------------------------------------------------------------
+# the forward's two passes, as the kernels run them
+# ---------------------------------------------------------------------------
+
+
+def mlstm_siging_chunkwise_fw_states_plain(k, v, i, f, num_heads: int, c_initial=None,
+                                           n_initial=None, acc=None):
+    """Plain version of the forward's first pass, the state scan: walking
+    the chunks from (``c_initial``, ``n_initial``) (or 0),
+
+        C <- e^g C + R(k e^a)^T R(v),   n <- e^g n + sum_l k_l e^{a_l}
+
+    R rounding a product's operand to k's dtype (JAX's ``.astype(dtype)``),
+    sums in ``acc`` (default float32, float64 for float64 k; float64 for
+    bfloat16 k gives the same roundings with nearly exact sums).  Returns
+    the state before each chunk, c_states (B, NC, NH, DH, DH) and n_states
+    (B, NC, NH, DH), and the last (C, n), in ``acc``."""
+    B, S, H = k.shape
+    NH, NC = num_heads, -(-S // CHUNK_SIZE)
+    DH = H // NH
+    acc, cd = acc or acc_dtype(k.dtype), k.dtype
+    R = lambda x: x.to(cd).to(acc)  # noqa: E731
+    b, a, _ = _chunk_gates(f, i, NC, acc)
+    kbar = _chunked(k, NH, NC, acc) * a.exp()[..., None]
+    kb, vc = R(kbar), _chunked(v, NH, NC, acc)
+    c = (torch.zeros(B, NH, DH, DH, dtype=acc, device=k.device) if c_initial is None
+         else c_initial.to(acc))
+    n = (torch.zeros(B, NH, DH, dtype=acc, device=k.device) if n_initial is None
+         else n_initial.to(acc))
+    cs, ns = [], []
+    for j in range(NC):
+        cs.append(c)
+        ns.append(n)
+        eg = b[:, :, j, -1].exp()
+        c = eg[..., None, None] * c + kb[:, :, j].transpose(-1, -2) @ vc[:, :, j]
+        n = eg[..., None] * n + kbar[:, :, j].sum(-2)
+    return torch.stack(cs, dim=1), torch.stack(ns, dim=1), (c, n)
+
+
+def mlstm_siging_chunkwise_fw_out_plain(q, k, v, i, f, num_heads: int, c_states, n_states,
+                                        eps: float = 1e-6, qk_scale: float | None = None,
+                                        ln_weight=None, ln_bias=None, ln_eps: float = 1e-6,
+                                        acc=None):
+    """Plain version of the forward's second pass: every chunk alone, from
+    the state before it (the first pass's ``c_states``, ``n_states``), R as
+    in :func:`mlstm_siging_chunkwise_fw_states_plain`:
+
+        SD = (R(q) R(k)^T) * scale * D,   qbar = q e^b scale
+        h  = (R(qbar) R(C_prev) + R(SD) R(v)) / (den + eps)
+        den = max(|qbar . n_prev + rowsum(SD)|, 1)
+
+    with D[l, j] = e^{b_l - b_j + logsig(i_j)} for j <= l (the exponent
+    masked before exp).  With ``ln_weight`` (the caller's 1 + w, (H,)) each
+    row's h of each head is normalised over DH (centred variance) before
+    the cast, times ln_weight plus ``ln_bias``.  Returns h in q's dtype and
+    den (B, NC, NH, L) in ``acc`` (as in the first pass), 1 on the rows
+    past S."""
+    B, S, H = q.shape
+    NH, NC = num_heads, -(-S // CHUNK_SIZE)
+    DH = H // NH
+    if qk_scale is None:
+        qk_scale = DH ** -0.5
+    acc, cd = acc or acc_dtype(q.dtype), q.dtype
+    R = lambda x: x.to(cd).to(acc)  # noqa: E731
+    qc, kc, vc = (R(_chunked(t, NH, NC, acc)) for t in (q, k, v))
+    b, _, li = _chunk_gates(f, i, NC, acc)
+    causal = torch.ones(CHUNK_SIZE, CHUNK_SIZE, dtype=torch.bool, device=q.device).tril()
+    logd = b[..., :, None] - b[..., None, :] + li[..., None, :]
+    d = torch.where(causal, torch.where(causal, logd, -float("inf")).exp(), 0.0)
+    sd = (qc @ kc.transpose(-1, -2)) * qk_scale * d
+    qbar = qc * b.exp()[..., None] * qk_scale
+    c_prev = R(c_states.to(acc).transpose(1, 2))
+    n_prev = n_states.to(acc).transpose(1, 2)
+    num = R(qbar) @ c_prev + R(sd) @ vc
+    den = ((qbar * n_prev[..., None, :]).sum(-1) + sd.sum(-1)).abs().clamp(min=1.0)
+    h = num / (den[..., None] + eps)
+    if ln_weight is not None:
+        mu = h.mean(-1, keepdim=True)
+        var = (h - mu).square().mean(-1, keepdim=True)
+        w = ln_weight.to(acc).reshape(NH, 1, 1, DH)
+        bias = 0.0 if ln_bias is None else ln_bias.to(acc).reshape(NH, 1, 1, DH)
+        h = (h - mu) * torch.rsqrt(var + ln_eps) * w + bias
+    return _unchunked(h, S, cd), den.transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -475,10 +647,12 @@ def _launch_bw(name, q, *args):
 
 
 def _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, dc_last, qk_scale):
+    """B, S, DH, the scale and the row strides of q, k, v (which may be
+    views with a row stride; the rest is contiguous)."""
     B, S, H, DH, tensors = _check(q, k, v, i, f, num_heads, None, None)
     _check_bw(q, num_heads, c_states, den, dh, dc_last)
-    _check_cuda(q, DH, tensors + [c_states, den, dh, dc_last])
-    return B, S, DH, DH ** -0.5 if qk_scale is None else qk_scale
+    strides = _check_cuda(q, DH, tensors + [c_states, den, dh, dc_last], (q, k, v))
+    return B, S, DH, DH ** -0.5 if qk_scale is None else qk_scale, strides
 
 
 def _dc_scratch(q, num_heads, DH):
@@ -503,15 +677,16 @@ def mlstm_siging_chunkwise_bw(q, k, v, i, f, num_heads: int, c_states, den, dh,
     if q.device.type == "cpu":
         return mlstm_siging_chunkwise_bw_plain(q, k, v, i, f, num_heads, c_states, den, dh,
                                                dc_last, eps=eps, qk_scale=qk_scale)
-    B, S, DH, qk_scale = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, dc_last,
-                                   qk_scale)
+    B, S, DH, qk_scale, strides = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh,
+                                            dc_last, qk_scale)
     dcs = _dc_scratch(q, num_heads, DH)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     dc0 = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
     _launch_bw("chunkwise_bw", q,
                *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_last, dq, dk, dv, dc0,
                                     dcs),
-               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+               B, S, num_heads, DH, *strides, _DTYPE_CODES[q.dtype], float(qk_scale),
+               float(eps))
     LAUNCHES_BW += 1
     return dq, dk, dv, dc0
 
@@ -525,11 +700,13 @@ def mlstm_siging_chunkwise_bw_dc(q, f, num_heads: int, den, dh, dc_last=None,
         return mlstm_siging_chunkwise_bw_dc_plain(q, f, num_heads, den, dh, dc_last, eps=eps,
                                                   qk_scale=qk_scale)
     # q and f stand in for k, v and i, which the pass does not read
-    B, S, DH, qk_scale = _bw_setup(q, q, q, f, f, num_heads, None, den, dh, dc_last, qk_scale)
+    B, S, DH, qk_scale, strides = _bw_setup(q, q, q, f, f, num_heads, None, den, dh, dc_last,
+                                            qk_scale)
     dcs = _dc_scratch(q, num_heads, DH)
     dc0 = torch.empty(B, num_heads, DH, DH, dtype=torch.float32, device=q.device)
     _launch_bw("chunkwise_bw_dc", q, *cuda_build.pointers(q, f, den, dh, dc_last, dcs, dc0),
-               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+               B, S, num_heads, DH, strides[0], _DTYPE_CODES[q.dtype], float(qk_scale),
+               float(eps))
     return dcs, dc0
 
 
@@ -543,14 +720,16 @@ def mlstm_siging_chunkwise_bw_dqkv(q, k, v, i, f, num_heads: int, c_states, den,
     if q.device.type == "cpu":
         return mlstm_siging_chunkwise_bw_dqkv_plain(q, k, v, i, f, num_heads, c_states, den, dh,
                                                     dc_states, eps=eps, qk_scale=qk_scale)
-    B, S, DH, qk_scale = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, None, qk_scale)
+    B, S, DH, qk_scale, strides = _bw_setup(q, k, v, i, f, num_heads, c_states, den, dh, None,
+                                            qk_scale)
     if dc_states.shape != c_states.shape or dc_states.dtype != q.dtype:
         raise ValueError(f"dc_states must be {q.dtype} {tuple(c_states.shape)}")
-    cuda_build.check_kernel_inputs(q, dc_states)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    cuda_build.check_kernel_inputs(dh, dc_states)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     _launch_bw("chunkwise_bw_dqkv", q,
                *cuda_build.pointers(q, k, v, i, f, c_states, den, dh, dc_states, dq, dk, dv),
-               B, S, num_heads, DH, _DTYPE_CODES[q.dtype], float(qk_scale), float(eps))
+               B, S, num_heads, DH, *strides, _DTYPE_CODES[q.dtype], float(qk_scale),
+               float(eps))
     return dq, dk, dv
 
 

@@ -112,6 +112,22 @@ def check_kernel_inputs(*tensors) -> None:
             raise ValueError("kernel inputs must be 16-byte aligned")
 
 
+def row_stride(t) -> int:
+    """The row stride, in elements, of a (B, S, W) stream that the mLSTM
+    kernels read row by row (q, k, v; e.g. a split view of one
+    projection).  Raises unless its last dim is contiguous, its rows are a
+    multiple of 16 bytes apart and do not overlap, its batches lie S rows
+    apart and its start is 16-byte aligned."""
+    B, S, W = t.shape
+    rs = t.stride(1) if S > 1 else (t.stride(0) if B > 1 else W)
+    if (t.stride(2) != 1 or rs < W or rs * t.element_size() % 16 or t.data_ptr() % 16
+            or (B > 1 and t.stride(0) != S * rs)):
+        raise ValueError(f"a layout the kernels cannot take: shape {tuple(t.shape)}, strides "
+                         f"{t.stride()} (last dim contiguous, rows a multiple of 16 bytes "
+                         "apart, batches S rows apart)")
+    return rs
+
+
 def launch(fn, name: str, *args) -> None:
     """Call a C launcher on the current stream; raise on a CUDA error."""
     import torch

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
 from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
-from xlstm_yolo_tpu_torch.ops.epilogue import weight_grad_splits
+from xlstm_yolo_tpu_torch.ops.epilogue import tc_splits, weight_grad_splits
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 __all__ = ["LAUNCHES", "ffn", "ffn_bwd", "ffn_bwd_plain", "ffn_forward"]
@@ -28,7 +28,6 @@ __all__ = ["LAUNCHES", "ffn", "ffn_bwd", "ffn_bwd_plain", "ffn_forward"]
 LAUNCHES = 0  # calls of ffn_bwd that launched the kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WIDTHS = (32, 192, 256, 384)  # the D the kernel takes (every detector's); U a multiple of 32
-SMS = 132  # streaming multiprocessors of an H100
 
 
 def ffn_forward(x, wn, wgz, bgz, wd, bd, eps: float = 1e-6):
@@ -66,14 +65,6 @@ def ffn_bwd_plain(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
 def _declare(lib):
     lib.ffn_bw.argtypes = [P] * 15 + [I] * 6 + [CF, P]
     lib.ffn_bw.restype = I
-
-
-def tc_splits(M: int, P: int, N: int) -> int:
-    """Row ranges of the bfloat16 weight-gradient pass for a (P, N) gradient
-    over M rows: enough 128 x 128 tiles for two waves of the card, at
-    least 512 rows a range."""
-    tiles = -(-P // 128) * -(-N // 128)
-    return max(1, min(-(-2 * SMS // tiles), M // 512))
 
 
 def ffn_bwd(x, gz, g, wn, wgz, wd, eps: float = 1e-6):
