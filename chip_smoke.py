@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time, what ptxas
                reports and, for the v2 forward and backward, the epilogue
-               backward and the FFN backward, the tensor-core (HMMA)
-               instructions of each kernel in the machine code (cuobjdump
-               -sass); phases 28-34 run next, then 2-27;
+               backward, the FFN backward and the quadratic forward and
+               backward, the tensor-core (HMMA) instructions of each kernel
+               in the machine code (cuobjdump -sass); phases 28-34 run next,
+               then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -97,7 +98,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                dk/dv) against their plain versions (run over slices of batch *
                head) at the flagship shapes and every S the route pads the
                flagship's sequences to (6656, 2048, 512, 128), float32 and
-               bfloat16 (products likewise), open and closed forget gates
+               bfloat16 (products likewise), open and closed forget gates;
+               in bfloat16 the forward's and dk/dv's outputs also nearer
+               their plain version in mean error than the plain version
+               with float32 products is (rounding_shows)
                (phase_parallel_kernels);
 17. parallel_train - detect_trainer(..., chunkwise_kernel=PAR): 3 bf16
                steps, exact forward, dq and dk/dv launches per step, no v1,
@@ -111,8 +115,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                forget gates;
 20. decode   - MatrixLSTMCell(384, 12, step_kernel="step--pallas") decodes 64
                tokens one at a time with state=, exactly one step launch
-               each, against one stateful call over the 64 tokens; us per
-               token and the step kernel's time per call;
+               each, against one stateful call over the 64 tokens, which is
+               exactly one launch of the v2 inference kernel; us per token
+               and the step kernel's time per call;
 21. refusal  - YOLO(..., chunkwise_kernel=PAR).predict raises the port's
                ValueError (the route has no predict path, as in JAX);
 22. wide_kernels - phases 2, 5, 9, 12, 16 and 19 again at the widths of
@@ -140,7 +145,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                e2e_grads (phase_wide_grads);
 27. times    - CUDA-event medians (and every window) of each kernel and its
                plain version at each S (v1, exp: each (S, L); quadratic: each
-               padded S); for the v2 backward and the FFN backward also the
+               padded S, with the floor of its one exp a causal pair at the
+               sampled SM clock, exp_floor_ms); for the v2 backward and the
+               FFN backward also the
                device time of each of their kernels (the dC scan and dq/dk/dv;
                the row pass, the weight gradients and the sums) from a
                torch.profiler trace, each backward pass alone in CUDA-event
@@ -221,7 +228,8 @@ assigner entry, the sLSTM scan on the LM's generate; fw3's inference and
 train variants on their path, with "dh128" at vil-det-384's heads; the
 rows of the v2 forward (inference and train), the v2 backward, the
 epilogue backward and the FFN backward also "per_call_s6400" with each of
-their kernels' device ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+their kernels' device ms; the quadratic kernels' "per_call_s6656" at every
+detector's heads with exp_floor_ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -1127,7 +1135,24 @@ PASSES = {"chunkwise_fw": FW_PASSES, "chunkwise_fw_train": FW_PASSES,
           "epilogue_bw": {"epilogue_rows_kernel": 1, "wgrad_tc_kernel": 1, "reduce_kernel": 2},
           "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3}}
 # the libraries whose kernels run their bf16 products on the tensor cores
-TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw")
+TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "parallel_fw",
+                "parallel_bw")
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel from ``nvcc -Xptxas -v`` output: the entry
+    function's mangled name up to its parameter list, its registers and
+    its spill stores."""
+    out, fn, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1].split("EEv")[0]
+        elif "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{fn}: {regs}, {spill}")
+    return out
 
 
 def sass_mma_counts(library) -> dict | str:
@@ -1891,7 +1916,11 @@ def phase_parallel_kernels(pk, lengths, ws=FLAGSHIP):
     (products bfloat16), with open and with closed forget gates; the plain
     versions run over slices of batch * head (plain_in_slices).  Each
     output within GRAD_REL of its largest |value|; the backward kernels on
-    the forward kernel's den, given to both sides."""
+    the forward kernel's den, given to both sides.  In bfloat16 the
+    forward's and dk/dv's outputs must also lie nearer their plain version
+    in mean error than the plain version with float32 products does, by
+    more than half (rounding_shows): a kernel that skipped the rounding of
+    its products' operands fails."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1907,26 +1936,34 @@ def phase_parallel_kernels(pk, lengths, ws=FLAGSHIP):
                 dq = pk.parallel_bw_dq(*args, den, dh, **kw)
                 dk, dv = pk.parallel_bw_dkv(*args, den, dh, **kw)
                 torch.cuda.synchronize()
-                plain = {name: functools.partial(getattr(pk, f"{name}_plain"), **kw)
-                         for name in PAR_KERNELS}
-                errs = {
-                    "parallel_fw": compare_outputs(
-                        f"parallel fw S={S} {gates} {key}", (h, den),
-                        plain_in_slices(plain["parallel_fw"], args, S), rel),
-                    "parallel_bw_dq": compare_outputs(
-                        f"parallel dq S={S} {gates} {key}", (dq,),
-                        (plain_in_slices(plain["parallel_bw_dq"], (*args, den, dh), S),), rel),
-                    "parallel_bw_dkv": compare_outputs(
-                        f"parallel dkv S={S} {gates} {key}", (dk, dv),
-                        plain_in_slices(plain["parallel_bw_dkv"], (*args, den, dh), S), rel)}
+                bw = (*args, den, dh)
+
+                def plain(name, compute=dtype):
+                    fn = functools.partial(getattr(pk, f"{name}_plain"), eps=EPS,
+                                           compute_dtype=compute)
+                    return plain_in_slices(fn, bw if "bw" in name else args, S)
+
+                got = {"parallel_fw": (h, den), "parallel_bw_dq": (dq,),
+                       "parallel_bw_dkv": (dk, dv)}
+                refs = {name: plain(name) for name in PAR_KERNELS}
+                refs["parallel_bw_dq"] = (refs["parallel_bw_dq"],)
+                errs = {name: compare_outputs(f"{name} S={S} {gates} {key}", got[name],
+                                              refs[name], rel) for name in PAR_KERNELS}
+                # bf16: each output nearer the plain version in mean error than
+                # its float32-products twin is (rounding_shows)
+                ratios = {name: rounding_shows(f"{name} S={S} {gates}", got[name], refs[name],
+                                               plain(name, torch.float32))
+                          for name in ("parallel_fw", "parallel_bw_dkv")
+                          if dtype == torch.bfloat16}
                 for name, e in errs.items():
                     worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
                 emit({"phase": "parallel_kernels", "widths": ws.cfg, "S": S, "dtype": key,
                       "compute_dtype": key,
                       "gates": gates, "rel_tol": rel,
                       "den_gt_1_share": (den > 1).float().mean().item(),
-                      **{f"{n}_max_rel_err": e[1] for n, e in errs.items()}})
-                del args, dh, h, den, dq, dk, dv
+                      **{f"{n}_max_rel_err": e[1] for n, e in errs.items()},
+                      **{f"{n}_mean_err_over_unrounded": r for n, r in ratios.items()}})
+                del args, dh, h, den, dq, dk, dv, bw, got, refs
     return worst
 
 
@@ -2060,16 +2097,18 @@ def step_times(stp, ws=FLAGSHIP) -> dict:
     return per_call
 
 
-def phase_decode(stp, card: str, ws=FLAGSHIP):
+def phase_decode(stp, cw, card: str, ws=FLAGSHIP):
     """The stateful cell's decode: MatrixLSTMCell(H, NH, step_kernel=
     "step--pallas") of the detector's width (vil-det-192: 384, 12;
     vil-det-384: 768, 6), in eval, weights from seed 0,
     perturbed ifgates, float32.  DECODE_TOKENS tokens one at a time with
-    ``state=`` from zeros, each exactly one step-kernel launch; h of every
-    token and the final (C, n) against one stateful call over the tokens
-    (GRAD_REL["float32"] of each output's largest |value|).  Then the time
-    of a decode per token (host clock around the loop, ending in a
-    synchronise), and the kernel's and the plain step's time per call."""
+    ``state=`` from zeros, each exactly one step-kernel launch and no v2
+    launch; h of every token and the final (C, n) against one stateful call
+    over the tokens, which is exactly one launch of the v2 inference kernel
+    and no step launch (GRAD_REL["float32"] of each output's largest
+    |value|).  Then the time of a decode per token (host clock around the
+    loop, ending in a synchronise), and the kernel's and the plain step's
+    time per call."""
     import torch
 
     from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell, reset_parameters
@@ -2091,11 +2130,14 @@ def phase_decode(stp, card: str, ws=FLAGSHIP):
         return torch.cat(hs, 1), st
 
     with torch.inference_mode():
-        stp.LAUNCHES = 0
+        stp.LAUNCHES = cw.LAUNCHES = 0
         h_dec, (c_dec, n_dec) = decode()
         torch.cuda.synchronize()
-        launches = stp.LAUNCHES
+        launches, decode_v2 = stp.LAUNCHES, cw.LAUNCHES
+        stp.LAUNCHES = cw.LAUNCHES = 0
         h_all, (c_all, n_all) = cell(q, k, v, state=zeros)
+        torch.cuda.synchronize()
+        reference = {"chunkwise_fw": cw.LAUNCHES, "mlstm_step": stp.LAUNCHES}
         errs = compare_outputs("decode vs the stateful forward", (h_dec, c_dec, n_dec),
                                (h_all, c_all, n_all), GRAD_REL["float32"])
         runs = []
@@ -2106,7 +2148,8 @@ def phase_decode(stp, card: str, ws=FLAGSHIP):
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) / DECODE_TOKENS * 1e6)
     per_call = step_times(stp, ws)
-    out = {"launches": launches, "max_abs_err": errs[0], "max_rel_err": errs[1],
+    out = {"launches": launches, "reference_call_launches": reference,
+           "max_abs_err": errs[0], "max_rel_err": errs[1],
            "us_per_token": statistics.median(runs), "us_per_token_runs": runs,
            "per_call": per_call}
     emit({"phase": "decode", "widths": ws.cfg, "card": card, "cell": f"MatrixLSTMCell({H}, {NH})",
@@ -2116,9 +2159,12 @@ def phase_decode(stp, card: str, ws=FLAGSHIP):
                   "ifgate, heads, step kernel, outnorm) ending in a synchronise, 5 runs; "
                   "per_call: CUDA events around 200 step-kernel calls (50 plain calls), "
                   "in turns plain, kernel, kernel, plain"})
-    if launches != DECODE_TOKENS:
-        raise AssertionError(f"the decode made {launches} step-kernel launches, expected "
-                             f"{DECODE_TOKENS}")
+    if launches != DECODE_TOKENS or decode_v2 != 0:
+        raise AssertionError(f"the decode made {launches} step-kernel and {decode_v2} v2 "
+                             f"launches, expected {DECODE_TOKENS} and 0")
+    if reference != {"chunkwise_fw": 1, "mlstm_step": 0}:
+        raise AssertionError(f"the stateful call over {DECODE_TOKENS} tokens made {reference} "
+                             "launches, expected one of the v2 inference kernel and no step")
     return out
 
 
@@ -2142,11 +2188,26 @@ def phase_refusal(pk):
     raise AssertionError("predict on the quadratic route was not refused")
 
 
+def exp_floor(S: int, sm_mhz, ws=FLAGSHIP):
+    """Least time in ms for the one exp a causal pair that each quadratic
+    kernel takes, B NH S (S + 1) / 2 of them at 16 ex2 a clock on each SM
+    (the special-function units) at the SM clock ``sm_mhz`` read during the
+    run; "not measured" without a reading."""
+    import torch
+
+    if not isinstance(sm_mhz, (int, float)):
+        return "not measured"
+    B, NH = ws.B, ws.NH
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B * NH * S * (S + 1) / 2 / (16 * sms * sm_mhz * 1e6) * 1e3
+
+
 def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
     """Per-call times of the three quadratic kernels (bf16 streams and
     products) at each padded S of the route beside their plain versions (in
-    slices of batch * head, plain_in_slices, timed as a whole) and bounds,
-    in turns plain, kernel, kernel, plain."""
+    slices of batch * head, plain_in_slices, timed as a whole), bounds and
+    the exps' floor at the median SM clock sampled while the kernels ran
+    (exp_floor), in turns plain, kernel, kernel, plain."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -2163,11 +2224,14 @@ def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
                                      lambda: plain_in_slices(pk.parallel_bw_dkv_plain, bw, S))}
         for name, (kern, plain) in pairs.items():
             t_plain = time_cuda(plain, iters=1, reps=2, warm_s=0.0)
-            t_kern = time_cuda(kern, iters=3, reps=3, warm_s=0.2) + time_cuda(kern, iters=3, reps=3,
-                                                                              warm_s=0.0)
+            with ClockSampler() as clocks:
+                t_kern = time_cuda(kern, iters=3, reps=3, warm_s=0.2) + time_cuda(
+                    kern, iters=3, reps=3, warm_s=0.0)
             t_plain += time_cuda(plain, iters=1, reps=2, warm_s=0.0)
+            sm = clocks.summary["clocks.sm"]["median"] if clocks.summary_n else None
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                   **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S, ws=ws)))}
+                   **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S, ws=ws))),
+                   "exp_floor_ms": exp_floor(S, sm, ws), "sm_mhz": sm}
             per[name][S] = row
             emit({"phase": "times", "widths": ws.cfg, "what": name, "card": card, "B": B, "S": S,
                   "dtype": "bfloat16", "calls_per_step": sum(
@@ -3609,8 +3673,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "card": card,
           "build_s": time.perf_counter() - t0,
           "libraries": {k: v["library"].name for k, v in built.items()},
-          "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "registers" in ln]
-                    for k, v in built.items()},
+          "ptxas": {k: ptxas_summary(v["log"]) for k, v in built.items()},
           "sass_mma": {k: sass_mma_counts(built[k]["library"]) for k in TC_LIBRARIES}})
 
     def timed(name, fn, *args, **kw):
@@ -3666,7 +3729,7 @@ def main() -> int:
         raise AssertionError("the quadratic route's padded lengths differ from the v1 route's")
     timed("parallel_grads", phase_parallel_grads, pk, steps)
     worst_step = timed("step_kernel", phase_step_kernel, stp)
-    decode = timed("decode", phase_decode, stp, card)
+    decode = timed("decode", phase_decode, stp, cw, card)
     timed("refusal", phase_refusal, pk)
 
     # the larger detectors: their kernels, the fused LayerNorm, their paths
@@ -3698,7 +3761,7 @@ def main() -> int:
                       cfg="vil-det-384.yaml", n_steps=1)[4])
     t384.update(timed("train_384", phase_parallel_train, pk, ex, v1, cw, epi, ffn, steps,
                       cfg="vil-det-384.yaml", n_steps=1)[4])
-    decode384 = timed("decode", phase_decode, stp, card, WIDE[-1])
+    decode384 = timed("decode", phase_decode, stp, cw, card, WIDE[-1])
     timed("wide_grads", phase_wide_grads)
 
     per_s = timed("times", phase_times, cw, yolo, card, passes_t[FLAGSHIP.cfg]["chunkwise_fw"])
@@ -3834,6 +3897,12 @@ def main() -> int:
             row["max_rel_err_float32"] = worst_all[name]["float32"][1]
         row["note"] = notes[group] + "; vil_det_384: the same at vil-det-384's widths"
         row["vil_det_384"] = at_384(name)
+        if name in PAR_KERNELS:  # per call at the longest padded S, every detector's heads
+            row["per_call_s6656"] = {
+                cfg: {k: v for k, v in t[name][max(par_lengths)].items()
+                      if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
+                for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
+                               ("vil_det_384", w384_t))}
         if name in PASSES:  # per call at S 6400: each kernel's device ms
             row["per_call_s6400"] = {
                 cfg: {k: v for k, v in t[name][SEQ_LENS[0]].items()

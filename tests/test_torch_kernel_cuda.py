@@ -773,6 +773,8 @@ PAR_CASES = [  # (S, NH, DH, gates): one tile, ragged tiles, several tiles
     (448, 2, 32, "open"),
     (200, 2, 64, "open"),
     (448, 1, 128, "closed"),
+    (200, 2, 128, "open"),   # ragged, DH 128: dK/dV's two 32-query steps per tile
+    (130, 1, 16, "closed"),  # ragged last tile of two rows
 ]
 
 
@@ -791,13 +793,16 @@ def par_inputs(seed, S, NH, DH, gates, dt):
 def test_parallel_kernels_match_plain_on_gpu(dtype, compute):
     """The quadratic forward, dq and dk/dv kernels each against its plain
     version on the same inputs (the backward kernels on the plain forward's
-    den), each output in the storage type."""
+    den), each output in the storage type.  With bfloat16 products the
+    forward's and dk/dv's outputs also lie nearer the plain version in mean
+    error than its float32-products twin does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
     for S, NH, DH, gates in PAR_CASES:
         args, dh = par_inputs(S + DH, S, NH, DH, gates, dt)
         kw = dict(eps=EPS, compute_dtype=cd)
+        kw32 = dict(eps=EPS, compute_dtype=torch.float32)
         before = (par.LAUNCHES_FW, par.LAUNCHES_BW_DQ, par.LAUNCHES_BW_DKV)
         got = par.parallel_fw(*args, **kw)
         torch.cuda.synchronize()
@@ -810,9 +815,51 @@ def test_parallel_kernels_match_plain_on_gpu(dtype, compute):
         torch.cuda.synchronize()
         assert all(g.dtype == dt for g in (dq, *dkv))
         assert_rel_close([dq], [par.parallel_bw_dq_plain(*args, den, dh, **kw)], rel)
-        assert_rel_close(dkv, par.parallel_bw_dkv_plain(*args, den, dh, **kw), rel)
+        dkv_ref = par.parallel_bw_dkv_plain(*args, den, dh, **kw)
+        assert_rel_close(dkv, dkv_ref, rel)
+        if cd == torch.bfloat16:
+            assert_rounding_shows(got, ref, par.parallel_fw_plain(*args, **kw32))
+            assert_rounding_shows(dkv, dkv_ref, par.parallel_bw_dkv_plain(*args, den, dh, **kw32))
         assert (par.LAUNCHES_FW, par.LAUNCHES_BW_DQ, par.LAUNCHES_BW_DKV) == tuple(
             n + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_stateful_v2_cell_runs_its_kernel_on_gpu(fuse, monkeypatch):
+    """MatrixLSTMCell(64, 4) on the v2 name in eval, every parameter ~ 0.2
+    N(0, 1), float32, from a random state at S 37 and 400: on the card one
+    v2 inference launch a call (the fused LayerNorm entry under
+    ``fuse_outnorm``), no step launch and no registry route; h and (C, n)
+    against the same cell on the CPU (the plain versions) from the same
+    state, within 1e-4 of each output's largest |value|."""
+    needs_cuda()
+    import copy
+
+    from xlstm_yolo_tpu_torch.nn import layers
+
+    def no_registry(cfg):
+        raise AssertionError(f"the registry route was built: {cfg}")
+
+    rng = np.random.default_rng(41)
+    cpu = layers.MatrixLSTMCell(64, 4, fuse_outnorm=fuse).eval()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.from_numpy(0.2 * rng.normal(size=p.shape)))
+    gpu = copy.deepcopy(cpu).cuda()
+    state = [rng.normal(size=s).astype(np.float32) for s in ((2, 4, 16, 16), (2, 4, 16))]
+    for S in (37, 400):
+        x = [rng.normal(size=(2, S, 64)).astype(np.float32) for _ in range(3)]
+        with torch.no_grad():
+            ref = cpu(*map(torch.from_numpy, x), state=tuple(map(torch.from_numpy, state)))
+            monkeypatch.setattr(layers, "make_backend", no_registry)
+            before = (chunkwise_v2.LAUNCHES, chunkwise_v2.LAUNCHES_LN, step.LAUNCHES)
+            got = gpu(*map(cu, x), state=tuple(map(cu, state)))
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+        after = (chunkwise_v2.LAUNCHES, chunkwise_v2.LAUNCHES_LN, step.LAUNCHES)
+        assert [a - b for a, b in zip(after, before)] == ([0, 1, 0] if fuse else [1, 0, 0])
+        assert_rel_close([got[0].cpu(), *(t.cpu() for t in got[1])], [ref[0], *ref[1]], 1e-4)
 
 
 @pytest.mark.cuda

@@ -88,6 +88,21 @@ def pt(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def assert_rounds_where_jax_rounds(got, got32, ref, names):
+    """Each output of a plain version with bfloat16 products lies nearer
+    JAX's in mean |error| than the same plain version with float32 products
+    does, by more than half: the plain versions round the products'
+    operands where JAX's kernels do.  Outputs that the rounding leaves
+    unchanged (den from bfloat16 streams) are skipped."""
+    for name, a, a32, r in zip(names, got, got32, ref):
+        a, a32, r = (np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float64)
+                     for x in (a, a32, r))
+        if np.array_equal(a, a32):
+            continue
+        err, err32 = np.abs(a - r).mean(), np.abs(a32 - r).mean()
+        assert err < err32 / 2, (name, err, err32)
+
+
 @pytest.mark.parametrize("S,stream,compute,NH,DH", [
     pytest.param(64, "float32", "float32", 3, 16, id="64-float32-float32"),
     pytest.param(200, "float32", "bfloat16", 3, 16, id="200-float32-bfloat16"),
@@ -100,7 +115,10 @@ def test_plain_versions_match_jax_kernels(S, stream, compute, NH, DH):
     """``parallel_fw_plain`` against ``_fw`` (h, den), then the two backward
     plain versions and the gate gradients against ``jax.vjp`` of
     ``mlstm_siging_parallel_pallas`` (dq, dk, dv, di, df), on JAX's den, at
-    the tiny model's head dim and at vil-det-256's and vil-det-384's."""
+    the tiny model's head dim and at vil-det-256's and vil-det-384's.  With
+    bfloat16 products the plain versions' h, den, dq, dk and dv are also
+    nearer JAX's in mean error than with float32 products, by more than
+    half (assert_rounds_where_jax_rounds)."""
     args, dh = make_inputs(S, S, NH=NH, DH=DH)
     jdt, tdt = getattr(jnp, stream), getattr(torch, stream)
     jargs = [jnp.asarray(a, jdt if j < 3 else jnp.float32) for j, a in enumerate(args)]
@@ -127,6 +145,13 @@ def test_plain_versions_match_jax_kernels(S, stream, compute, NH, DH):
     assert all(torch.equal(a, b) for a, b in zip(got[:3], (dq, dk, dv)))
     assert_rel_close([x.float() for x in got], [np.asarray(r, np.float32) for r in ref], rel,
                      ("dq", "dk", "dv", "di", "df"))
+    if compute == "bfloat16":
+        kw32 = dict(eps=EPS, compute_dtype=torch.float32)
+        assert_rounds_where_jax_rounds((h, den), par.parallel_fw_plain(*targs, **kw32),
+                                       (h_ref, den_ref), ("h", "den"))
+        got32 = (par.parallel_bw_dq_plain(*targs, tden, tdh, **kw32),
+                 *par.parallel_bw_dkv_plain(*targs, tden, tdh, **kw32))
+        assert_rounds_where_jax_rounds((dq, dk, dv), got32, ref[:3], ("dq", "dk", "dv"))
 
 
 @pytest.mark.parametrize("gates", ["open", "closed"])

@@ -108,14 +108,16 @@ def cells(name, seed, S):
     return jm, variables, pm.eval(), x, rng
 
 
-@pytest.mark.parametrize("S", [1, 37])
-@pytest.mark.parametrize("name", [V1, V2])
+@pytest.mark.parametrize("name,S", [(V1, 1), (V1, 37), (V2, 1), (V2, 37), (V2, 400)])
 def test_stateful_cell_matches_jax(name, S, monkeypatch):
     """The stateful call from a random state: S = 1 is one step of
-    ``step--pallas`` on both routes; S = 37 is a 32-token segment of the
-    chunkwise kernel (the v1 kernel, or ``chunkwise--native_autograd`` for
-    the v2 name below 1024 tokens, as in JAX) and a 5-token recurrent
-    tail.  h and the last (C, n)."""
+    ``step--pallas`` on both routes.  On the v1 name S = 37 is a 32-token
+    segment of the v1 kernel and a 5-token recurrent tail, in both
+    packages.  On the v2 name S = 37 and S = 400 are one call of the port's
+    v2 inference forward from the state (on the CPU its plain version),
+    while JAX, below its TPU cut-over of 1024 tokens, runs
+    ``chunkwise--native_autograd`` segments and the recurrent tail: in
+    float32 the same function.  h and the last (C, n)."""
     float32_products(monkeypatch)
     jm, variables, pm, x, rng = cells(name, S + len(name), S)
     c0 = rng.normal(size=(2, NH, 16, 16)).astype(np.float32)
@@ -150,10 +152,10 @@ def test_decode_equals_the_stateful_forward(name, monkeypatch):
 
 
 def test_v2_name_runs_its_kernel_from_the_state_at_long_sequences():
-    """At S >= 1024 the v2 name runs the v2 inference forward from the
-    state (on the CPU its plain version), as JAX's cell runs its v2
-    kernel; the same weights on ``chunkwise--native_autograd`` give the same
-    h and state.  Training refuses a state."""
+    """At S = 1024, where JAX's cell too runs its v2 kernel, the v2 name
+    runs the v2 inference forward from the state (on the CPU its plain
+    version); the same weights on ``chunkwise--native_autograd`` give the
+    same h and state.  Training refuses a state."""
     _, _, pm, x, rng = cells(V2, 9, 1024)
     native = tl.MatrixLSTMCell(DIM, NH, chunkwise_kernel="chunkwise--native_autograd")
     native.load_state_dict(pm.state_dict(), strict=True)
@@ -171,3 +173,34 @@ def test_v2_name_runs_its_kernel_from_the_state_at_long_sequences():
     assert_rel_close([c, n], [c_ref, n_ref], 1e-4, ["C", "n"])
     with pytest.raises(ValueError, match="inference mode only"):
         pm.train()(*map(torch.from_numpy, x), state=state)
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_stateful_v2_cell_builds_no_registry_backend_above_one_token(fuse, monkeypatch):
+    """With a state, the v2 name at S = 37 and 400 (below JAX's TPU
+    cut-over) makes one call of the v2 inference forward (the entry with
+    the LayerNorm fused in under ``fuse_outnorm``) and never builds the
+    registry backend; S = 1 builds it (the decode path: one step) and calls
+    no v2 entry."""
+    _, _, pm, x, rng = cells(V2, 3, 400)
+    pm.fuse_outnorm = fuse
+    built, seen = [], []
+    make = tl.make_backend
+    monkeypatch.setattr(tl, "make_backend", lambda cfg: built.append(cfg) or make(cfg))
+    fused_fw = tl.mlstm_siging_chunkwise_fw_ln
+    monkeypatch.setattr(tl, "mlstm_siging_chunkwise_fw_ln",
+                        lambda *a, **kw: seen.append(("ln", a[0].shape[1])) or fused_fw(*a, **kw))
+    kernel = pm.kernel
+    pm.kernel = lambda *a, **kw: seen.append(("fw", a[0].shape[1])) or kernel(*a, **kw)
+    state = (torch.from_numpy(rng.normal(size=(2, NH, 16, 16)).astype(np.float32)),
+             torch.from_numpy(rng.normal(size=(2, NH, 16)).astype(np.float32)))
+    q, k, v = map(torch.from_numpy, x)
+    entry = "ln" if fuse else "fw"
+    with torch.no_grad():
+        for S in (37, 400):
+            h, (c, n) = pm(q[:, :S], k[:, :S], v[:, :S], state=state)
+            assert h.shape == (2, S, DIM) and c.shape == state[0].shape
+            assert seen == [(entry, S)] and built == []
+            seen.clear()
+        pm(q[:, :1], k[:, :1], v[:, :1], state=state)
+    assert seen == [] and len(built) == 1 and built[0].return_last_states

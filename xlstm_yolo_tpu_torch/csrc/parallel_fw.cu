@@ -9,24 +9,36 @@
 //   den_l    = max(|sum_j sd[l, j]|, 1)            (written for the backward)
 //
 // h in the storage type, den float32.  R() rounds to the compute type where
-// the TPU kernel casts (`:68, :74`); sums are float32, each in a fixed
-// order (j ascending).
+// the TPU kernel casts (`:68, :74`); sums are float32, den's from the
+// unrounded sd.
+//
+// What bounds it.  The function reads q, k, v and the gate rows once and
+// writes h and den: 171 MB at the flagship's S = 6656 (B 8, NH 12, DH 32,
+// bf16), 51 us at 3.35 TB/s.  Its two products over the S (S + 1) / 2
+// causal pairs of each (batch, head) are 4 DH flop a pair, 272 GFLOP, 275
+// us at the bf16 tensor-core peak (550 us at vil-det-384's NH 6, DH 128).
+// Each pair also needs one exp: 2.13e9 of them at DH 32, >= 0.51 ms at 16
+// ex2 a clock on each of 132 SMs at 1980 MHz (0.25 ms at DH 128), and
+// some seven float32 operations beside it.  So the exps and the scalar
+// work around them bound it at DH 32, the products at DH 128.
 //
 // Design.  The TPU kernel keeps all of K and V of a (batch, head) in VMEM
-// and makes one (TQ x S) score tile per grid step.  Hopper's shared memory
-// holds 227 KB, and an (S x S) row block of S = 6656 does not fit, so a
-// block owns 64 query rows and walks the 64-row key tiles up to its
-// diagonal, staging R(k), R(v) and the key gate rows in shared memory and
-// the (64 x 64) sd tile between the two products; h and den accumulate in
-// registers.  Products are float32 FMA on the CUDA cores (no tensor cores
-// yet).
-//
-// What bounds it.  The function reads q, k, v once and writes h and den:
-// 171 MB at the flagship's S = 6656 (B 8, NH 12, DH 32, bf16), 51 us at
-// 3.35 TB/s; its causal products are 2 S^2 DH B NH flop, 272 GFLOP, 275 us
-// at the bf16 tensor-core peak.  So it is bound by operations at the long
-// sequences; this version's float32 FMA runs far above that bound, and
-// PERF.md holds its times.
+// and makes one (TQ x S) score tile per grid step; here a block of 4 warps
+// owns 64 query rows, each warp 16 whole rows, and walks the 64-row key
+// tiles up to its diagonal, staged into padded shared memory two deep
+// (cp.async; in the compute type, so a float32 stream with bf16 products
+// is rounded on the way in, through registers).  Per key tile a warp makes
+// its (16 x 64) score fragment Q K^T on the tensor cores (mma.sync
+// m16n8k16, float32 sums), scales it by D in registers (one __expf a pair;
+// only the diagonal tile is masked: the key tiles below it are whole),
+// adds its row sums for den, and multiplies the fragment, rounded to bf16,
+// by V (ldmatrix .trans) without leaving the registers.  h and the row
+// sums accumulate in registers; den's four partial sums of a row meet by
+// two shuffles at the end, and no score tile goes to shared memory.  With
+// float32 products the same tiling runs as float32 FMA (tc::prod16), the
+// score fragment going through the warp's scratch rows.  Blocks are
+// launched heaviest first (the longest walks, heavy_first).  Shared memory
+// at DH 128: 87 KB in bf16 (two blocks an SM), 187 KB in float32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,73 +47,120 @@
 
 using namespace par;
 
+namespace {
+
+template <typename CT, int DH>
+struct FwSmem {
+  static constexpr int LD = DH + tc::pad<CT>();
+  static constexpr size_t bytes =
+      sizeof(CT) * 5 * TR * LD + 4 * (4 * TR + 4 * scratch_floats<CT, TR / 8>());
+};
+static_assert(FwSmem<float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
+
+}  // namespace
+
 template <typename T, typename CT, int DH>
-__global__ void __launch_bounds__(NT) parallel_fw_kernel(
+__global__ void __launch_bounds__(NTC) parallel_fw_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ b, const float* __restrict__ li, T* __restrict__ h,
     float* __restrict__ den_out, int S, float qk_scale, float eps) {
-  constexpr int DP = DH + 1;
-  constexpr int CPT = DH / 4;  // output columns per thread, 4 threads per row
-  extern __shared__ float smem[];  // qtile_smem_floats<DH>()
-  float* sq = smem;             // (TR, DP) R(q)
-  float* sk = sq + TR * DP;     // (TR, DP) R(k) of the key tile
-  float* sv = sk + TR * DP;     // (TR, DP) R(v) of the key tile
-  float* ssd = sv + TR * DP;    // (TR, TP) R(q) R(k)^T scale * D
-  float* sbq = ssd + TR * TP;   // (TR) b of the query rows
-  float* sbk = sbq + TR;        // (TR) b of the key rows
-  float* slk = sbk + TR;        // (TR) logsig(i) of the key rows
+  constexpr int LD = FwSmem<CT, DH>::LD;
+  constexpr int NS = TR / 8;  // n-tiles of 8 keys in a score fragment
+  constexpr int NJ = DH / 8;  // n-tiles of 8 columns of h
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* sq = reinterpret_cast<CT*>(smem_raw);  // (TR, LD) R(q)
+  CT* sk = sq + TR * LD;                     // 2 x (TR, LD) R(k) of a key tile
+  CT* sv = sk + 2 * TR * LD;                 // 2 x (TR, LD) R(v)
+  float* sbk = reinterpret_cast<float*>(sv + 2 * TR * LD);  // 2 x (TR) b of the keys
+  float* slk = sbk + 2 * TR;                                // 2 x (TR) logsig(i)
+  float* scratch = slk + 2 * TR + threadIdx.x / 32 * scratch_floats<CT, NS>();
 
-  const int tid = threadIdx.x;
-  const int qt = heavy_first(blockIdx.x, tiles(S), true);
-  const size_t base = (size_t)blockIdx.y * S;  // first row of this (batch, head)
-  const int q0 = qt * TR;
-  load_tile<T, CT, DH>(q + base * DH, nullptr, 0.f, q0, S, sq);
-  load_rows(b + base, q0, S, sbq);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = heavy_first(blockIdx.y, tiles(S), true);
+  const size_t base = (size_t)blockIdx.x * S;  // first row of this (batch, head)
+  const int q0 = qt * TR, l0 = 16 * warp;
+  const T* kb = k + base * DH;
+  const T* vb = v + base * DH;
 
-  const int ti = tid / 16, tj = tid % 16;  // 4 x 4 piece of the score tile
-  const int row = tid / 4, cc = (tid % 4) * CPT;
-  float num[CPT];
+  auto prefetch = [&](int kt, int buf) {
+    const int k0 = kt * TR;
+    stage_tile<T, CT, DH, LD>(sk + buf * TR * LD, kb, k0, S);
+    stage_tile<T, CT, DH, LD>(sv + buf * TR * LD, vb, k0, S);
+    for (int e = threadIdx.x; e < TR; e += NTC) {
+      const bool ok = k0 + e < S;
+      tc::cp_async4(sbk + buf * TR + e, ok ? b + base + k0 + e : b, ok);
+      tc::cp_async4(slk + buf * TR + e, ok ? li + base + k0 + e : li, ok);
+    }
+    tc::cp_async_commit();
+  };
+  stage_tile<T, CT, DH, LD>(sq, q + base * DH, q0, S);
+  prefetch(0, 0);
+
+  // b of the warp's two rows of each lane; -inf past S, so that D is 0 there
+  float bq[2];
 #pragma unroll
-  for (int x = 0; x < CPT; ++x) num[x] = 0.f;
-  float n = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int l = q0 + l0 + g + 8 * hh;
+    bq[hh] = l < S ? b[base + l] : -CUDART_INF_F;
+  }
+  float acc[NJ][4], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * TR;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, CT, DH>(k + base * DH, nullptr, 0.f, k0, S, sk);
-    load_tile<T, CT, DH>(v + base * DH, nullptr, 0.f, k0, S, sv);
-    load_rows(b + base, k0, S, sbk);
-    load_rows(li + base, k0, S, slk);
-    __syncthreads();
-    float acc[4][4];
-    tile_dot<DH>(sq, sk, ti, tj, acc);
+    const int buf = kt & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // key tile kt is in; every warp is done with tile kt - 1
+    if (kt < qt) prefetch(kt + 1, buf ^ 1);
+    const CT* ck = sk + buf * TR * LD;
+    const CT* cv = sv + buf * TR * LD;
+    const float* cb = sbk + buf * TR;
+    const float* cl = slk + buf * TR;
+
+    float s[NS][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int lr = ti * 4 + r;
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int jr = tj * 4 + s;
-        ssd[lr * TP + jr] =
-            (acc[r][s] * qk_scale) * decay(q0 + lr, k0 + jr, S, sbq[lr], sbk[jr], slk[jr]);
+    for (int kk = 0; kk < DH / 16; ++kk)
+      tc::prod16<NS, false, false>(s, sq, LD, l0, ck, LD, 0, 16 * kk);
+
+    // sd = (q . k) scale D; the diagonal tile masks j > l before the exp
+    auto decay = [&](auto diag) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int j = 8 * n + 2 * t;
+        const float2 bj = *reinterpret_cast<const float2*>(cb + j);
+        const float2 lj = *reinterpret_cast<const float2*>(cl + j);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int hh = x >> 1, e = x & 1;
+          float ex = (bq[hh] - (e ? bj.y : bj.x)) + (e ? lj.y : lj.x);
+          if (decltype(diag)::value && j + e > l0 + g + 8 * hh) ex = -CUDART_INF_F;
+          const float sd = (s[n][x] * qk_scale) * __expf(ex);
+          rsum[hh] += sd;
+          s[n][x] = sd;
+        }
       }
-    }
-    __syncthreads();
-    for (int j = 0; j < TR; ++j) {
-      const float s = ssd[row * TP + j];
-      n += s;
-      const float sr = rt<CT>(s);
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) num[x] = fmaf(sr, sv[j * DP + cc + x], num[x]);
-    }
+    };
+    if (kt == qt) decay(std::true_type{});
+    else decay(std::false_type{});
+
+    score_times<NS, NJ>(acc, s, scratch, cv, LD);  // h += R(sd) R(v)
   }
 
-  const int l = q0 + row;
-  if (l < S) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float n = tc::sum_over_cols(rsum[hh]);
+    const int l = q0 + l0 + g + 8 * hh;
+    if (l >= S) continue;
     const float den = fmaxf(fabsf(n), 1.f);
-    if (cc == 0) den_out[base + l] = den;
+    if (t == 0) den_out[base + l] = den;
     const float inv = den + eps;
 #pragma unroll
-    for (int x = 0; x < CPT; ++x) from_f32(num[x] / inv, h + (base + l) * DH + cc + x);
+    for (int j = 0; j < NJ; ++j)
+      tc::st2(h + (base + l) * DH + 8 * j + 2 * t, acc[j][2 * hh] / inv,
+              acc[j][2 * hh + 1] / inv);
   }
 }
 
@@ -118,9 +177,12 @@ extern "C" int parallel_fw(const void* q, const void* k, const void* v, const fl
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dh)::value;
-    return launch_with_smem(parallel_fw_kernel<T, CT, D>, dim3(tiles(S), BNH),
-                            sizeof(float) * qtile_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), b, li,
-                            static_cast<T*>(h), den, S, qk_scale, eps);
+    const size_t smem = FwSmem<CT, D>::bytes;
+    cudaError_t err = port::allow_smem(parallel_fw_kernel<T, CT, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    parallel_fw_kernel<T, CT, D><<<dim3(BNH, tiles(S)), NTC, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), b, li,
+        static_cast<T*>(h), den, S, qk_scale, eps);
+    return (int)cudaGetLastError();
   });
 }

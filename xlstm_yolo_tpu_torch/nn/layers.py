@@ -501,16 +501,18 @@ class MatrixLSTMCell(nn.Module):
     eval mode on the v2 name the outnorm is fused into the inference
     kernel (``mlstm_siging_chunkwise_fw_ln`` with 1 + weight and bias), so
     the LayerNorm normalises the float32 h before its rounding; with a
-    ``state`` that holds at S >= 1024, where the v2 kernel runs.  In
+    ``state`` that holds at every S > 1, where the v2 kernel runs.  In
     training it changes nothing.
 
     With a ``state`` (C (B, NH, DH, DH), n (B, NH, DH), float32) the cell
     runs in inference mode only and returns (h, (C, n)) after the S tokens,
-    as the JAX cell does: the v2 name at S >= 1024 runs the v2 kernel from
-    the state; otherwise (the v2 name below 1024 tokens on
-    ``chunkwise--native_autograd``, as in JAX) the inference wrapper of
-    :func:`make_backend`, so S = 1 is one call of ``step_kernel`` on every
-    route, and the rest goes through ``chunkwise_kernel`` and
+    as the JAX cell does.  The v2 name runs the v2 inference kernel from
+    the state at every S > 1 (JAX switches to its kernel only at S >= 1024,
+    a cut-over measured on a TPU, and runs ``chunkwise--native_autograd``
+    below it: in float32 the same function).  S = 1 on the v2 name, and
+    every S on the other routes, goes through the inference wrapper of
+    :func:`make_backend`: S = 1 is one call of ``step_kernel`` (the decode
+    path), and the rest goes through ``chunkwise_kernel`` and
     ``sequence_kernel``.
     """
 
@@ -544,7 +546,7 @@ class MatrixLSTMCell(nn.Module):
         cd = self.compute_dtype or q.dtype
         fused = self.fuse_outnorm and not self.training and self.chunkwise_kernel == V2_KERNEL
         if state is not None:
-            if fused and S >= 1024:
+            if fused and S > 1:
                 return self._fused(q, k, v, i_pre, f_pre, cd, state)
             h, new_state = self._stateful(q, k, v, i_pre, f_pre, cd, state)
             return self.outnorm(h.to(q.dtype)).reshape(B, S, H), new_state
@@ -578,13 +580,12 @@ class MatrixLSTMCell(nn.Module):
     def _mode(self) -> str:
         return self.mode or ("train_with_padding" if self.training else "inference")
 
-    def _registry_route(self, q, k, v, i_pre, f_pre, cd, chunkwise_kernel=None, state=None):
-        """h (B, NH, S, DH) of the registry kernel ``chunkwise_kernel`` (the
-        cell's by default); with ``state``, (h, (C, n)) of the inference
-        wrapper from it."""
+    def _registry_route(self, q, k, v, i_pre, f_pre, cd, state=None):
+        """h (B, NH, S, DH) of the cell's registry kernel; with ``state``,
+        (h, (C, n)) of the inference wrapper from it."""
         B, S, H = q.shape
         NH = self.num_heads
-        ck = chunkwise_kernel or self.chunkwise_kernel
+        ck = self.chunkwise_kernel
 
         def heads(x):
             return _cast(x, cd).reshape(B, S, NH, H // NH).transpose(1, 2).contiguous()
@@ -604,13 +605,12 @@ class MatrixLSTMCell(nn.Module):
         NH = self.num_heads
         if self._mode() != "inference":
             raise ValueError(f"a state is threaded in inference mode only, not {self._mode()!r}")
-        if self.chunkwise_kernel == V2_KERNEL and S >= 1024:
+        if self.chunkwise_kernel == V2_KERNEL and S > 1:
             h, new_state = self.kernel(
                 _cast(q, cd), _cast(k, cd), _cast(v, cd), i_pre.contiguous(), f_pre.contiguous(),
                 NH, state[0], state[1], eps=self.eps, return_last_states=True)
             return h.reshape(B, S, NH, H // NH), new_state
-        ck = "chunkwise--native_autograd" if self.chunkwise_kernel == V2_KERNEL else None
-        h, new_state = self._registry_route(q, k, v, i_pre, f_pre, cd, ck, state)
+        h, new_state = self._registry_route(q, k, v, i_pre, f_pre, cd, state=state)
         return h.transpose(1, 2), new_state
 
 
