@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                CUDA sources of csrc/ with nvcc (sm_90a), one nvcc each, all
                started together, and print the build time, what ptxas
                reports and, for the v2 forward and backward, the epilogue
-               backward, the FFN backward and the quadratic forward and
-               backward, the tensor-core (HMMA) instructions of each kernel
+               backward, the FFN backward, the quadratic forward and
+               backward and the v1 and exp backwards, the tensor-core (HMMA)
+               instructions of each kernel
                in the machine code (cuobjdump -sass); phases 28-34 run next,
                then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
@@ -67,7 +68,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                inference segments with initial states and dC_last, the
                training lengths padded to whole chunks, and a case with
                closed forget gates): float32 streams and products to 1e-4,
-               the route's bfloat16 streams and products to 2e-2;
+               the route's bfloat16 streams and products to 2e-2, and in
+               bfloat16 dq/dk/dv's outputs nearer their plain version in
+               mean error than the plain version with float32 products is
+               (rounding_shows);
 10. v1_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=V1).predict() on
                the images of phase 4: v1 forward launches exactly as derived
                from the wrappers' segment plan (v1_plan), no v2 launch;
@@ -82,7 +86,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                training lengths padded to whole chunks), and two more gate
                regimes, closed forget gates and large input gates (i in
                [5, 15]: m far from 0): float32 products to 1e-4, the route's
-               bfloat16 to 2e-2 (phase_exp_kernels);
+               bfloat16 to 2e-2, dq/dk/dv also in mean error as in
+               v1_kernels (phase_exp_kernels);
 13. exp_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=EXP).predict()
                on the images of phase 4: exact exp forward launches, no v1
                or v2 cell launch;
@@ -99,9 +104,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                head) at the flagship shapes and every S the route pads the
                flagship's sequences to (6656, 2048, 512, 128), float32 and
                bfloat16 (products likewise), open and closed forget gates;
-               in bfloat16 the forward's and dk/dv's outputs also nearer
-               their plain version in mean error than the plain version
-               with float32 products is (rounding_shows)
+               in bfloat16 the outputs of all three also nearer their
+               plain version in mean error than the plain version with
+               float32 products is (rounding_shows)
                (phase_parallel_kernels);
 17. parallel_train - detect_trainer(..., chunkwise_kernel=PAR): 3 bf16
                steps, exact forward, dq and dk/dv launches per step, no v1,
@@ -144,9 +149,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                float32 gradients with the kernels against float64, as
                e2e_grads (phase_wide_grads);
 27. times    - CUDA-event medians (and every window) of each kernel and its
-               plain version at each S (v1, exp: each (S, L); quadratic: each
-               padded S, with the floor of its one exp a causal pair at the
-               sampled SM clock, exp_floor_ms); for the v2 backward and the
+               plain version at each S (v1, exp: each (S, L), dq/dk/dv with
+               the floor of its one exp a causal pair of a chunk, B NH S
+               (L + 1) / 2 of them, at the sampled SM clock, exp_floor_ms;
+               quadratic: each padded S, with the floor of its one exp a
+               causal pair, exp_floor_ms); for the v2 backward and the
                FFN backward also the
                device time of each of their kernels (the dC scan and dq/dk/dv;
                the row pass, the weight gradients and the sums) from a
@@ -228,8 +235,9 @@ assigner entry, the sLSTM scan on the LM's generate; fw3's inference and
 train variants on their path, with "dh128" at vil-det-384's heads; the
 rows of the v2 forward (inference and train), the v2 backward, the
 epilogue backward and the FFN backward also "per_call_s6400" with each of
-their kernels' device ms; the quadratic kernels' "per_call_s6656" at every
-detector's heads with exp_floor_ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
+their kernels' device ms; the quadratic kernels' "per_call_s6656" and the
+v1 and exp dq/dk/dv's "per_call_s6656_l512" at every detector's heads with
+exp_floor_ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
 
@@ -1136,7 +1144,7 @@ PASSES = {"chunkwise_fw": FW_PASSES, "chunkwise_fw_train": FW_PASSES,
           "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3}}
 # the libraries whose kernels run their bf16 products on the tensor cores
 TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "parallel_fw",
-                "parallel_bw")
+                "parallel_bw", "chunkwise_v1_bw", "chunkwise_exp_bw")
 
 
 def ptxas_summary(log: str) -> list:
@@ -1395,7 +1403,9 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
     float32 streams with float32 products (1e-4), and the route's own
     bfloat16 streams and products (2e-2), relative to each output's
     largest |value|; initial states and dC_last on the inference segments,
-    closed forget gates on one case."""
+    closed forget gates on one case.  In bfloat16 dq/dk/dv's outputs must
+    also lie nearer their plain version in mean error than the plain version
+    with float32 products does, by more than half (rounding_shows)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1421,12 +1431,18 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
             torch.cuda.synchronize()
             ref_b = v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw)
             e_qkv = compare_outputs(f"v1 bw_dqkv S={S} L={L} {key}", got_b, ref_b, rel)
+            # bf16: nearer the plain version than its float32-products twin is
+            ratio = {} if dtype != torch.bfloat16 else {
+                "chunkwise_v1_bw_dqkv_mean_err_over_unrounded": rounding_shows(
+                    f"v1 bw_dqkv S={S} L={L} {gates}", got_b, ref_b, v1.chunkwise_bw_dqkv_plain(
+                        q, k, v, i, f, cs, den, dh, rdcs, **dict(kw, compute_dtype=torch.float32)))}
             for name, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv)):
                 worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
             emit({"phase": "v1_kernels", "widths": ws.cfg, "S": S, "L": L, "dtype": key,
                   "compute_dtype": key,
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
-                  **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))}})
+                  **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))},
+                  **ratio})
             del args, dh, dcl, got, ref, got_b, ref_b, dcs, rdcs
     return worst
 
@@ -1556,7 +1572,10 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
     denominator is tiny, and a row whose terms nearly cancel turns a float32
     rounding of den into a large relative change of h (its own error is
     reported as h_max_rel_err).  The predict variant's h and last states
-    must equal the training variant's bit for bit."""
+    must equal the training variant's bit for bit.  In bfloat16 dq/dk/dv's
+    outputs must also lie nearer their plain version in mean error than the
+    plain version with float32 products does, by more than half
+    (rounding_shows)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1593,9 +1612,13 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
                                    (rdcs, rdc0), rel)
             got_b = ex.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
             torch.cuda.synchronize()
-            ref_b = ex.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs,
-                                                   **kw)
+            bw = (q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs)
+            ref_b = ex.chunkwise_exp_bw_dqkv_plain(*bw, **kw)
             e_qkv = compare_outputs(f"exp bw_dqkv S={S} L={L} {gates} {key}", got_b, ref_b, rel)
+            ratio = {} if dtype != torch.bfloat16 else {
+                "chunkwise_exp_bw_dqkv_mean_err_over_unrounded": rounding_shows(
+                    f"exp bw_dqkv S={S} L={L} {gates}", got_b, ref_b,
+                    ex.chunkwise_exp_bw_dqkv_plain(*bw, **dict(kw, compute_dtype=torch.float32)))}
             for name, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv)):
                 worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
             emit({"phase": "exp_kernels", "widths": ws.cfg, "S": S, "L": L, "dtype": key,
@@ -1603,8 +1626,9 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
                   "m_last_range": [m_last.min().item(), m_last.max().item()],
                   "h_max_rel_err": h_rel,
-                  **{f"{n}_max_rel_err": e[1] for n, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv))}})
-            del args, dh, dcl, got, got_p, ref, got_b, ref_b, dcs, rdcs
+                  **{f"{n}_max_rel_err": e[1] for n, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv))},
+                  **ratio})
+            del args, dh, dcl, got, got_p, ref, got_b, ref_b, dcs, rdcs, bw
     return worst
 
 
@@ -1916,11 +1940,11 @@ def phase_parallel_kernels(pk, lengths, ws=FLAGSHIP):
     (products bfloat16), with open and with closed forget gates; the plain
     versions run over slices of batch * head (plain_in_slices).  Each
     output within GRAD_REL of its largest |value|; the backward kernels on
-    the forward kernel's den, given to both sides.  In bfloat16 the
-    forward's and dk/dv's outputs must also lie nearer their plain version
-    in mean error than the plain version with float32 products does, by
-    more than half (rounding_shows): a kernel that skipped the rounding of
-    its products' operands fails."""
+    the forward kernel's den, given to both sides.  In bfloat16 each
+    kernel's outputs must also lie nearer their plain version in mean error
+    than the plain version with float32 products does, by more than half
+    (rounding_shows): a kernel that skipped the rounding of its products'
+    operands fails."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1938,23 +1962,22 @@ def phase_parallel_kernels(pk, lengths, ws=FLAGSHIP):
                 torch.cuda.synchronize()
                 bw = (*args, den, dh)
 
-                def plain(name, compute=dtype):
+                def plain(name, compute=dtype):  # a tuple of outputs, dq's too
                     fn = functools.partial(getattr(pk, f"{name}_plain"), eps=EPS,
                                            compute_dtype=compute)
-                    return plain_in_slices(fn, bw if "bw" in name else args, S)
+                    out = plain_in_slices(fn, bw if "bw" in name else args, S)
+                    return tuple(out) if isinstance(out, list) else (out,)
 
                 got = {"parallel_fw": (h, den), "parallel_bw_dq": (dq,),
                        "parallel_bw_dkv": (dk, dv)}
                 refs = {name: plain(name) for name in PAR_KERNELS}
-                refs["parallel_bw_dq"] = (refs["parallel_bw_dq"],)
                 errs = {name: compare_outputs(f"{name} S={S} {gates} {key}", got[name],
                                               refs[name], rel) for name in PAR_KERNELS}
                 # bf16: each output nearer the plain version in mean error than
                 # its float32-products twin is (rounding_shows)
                 ratios = {name: rounding_shows(f"{name} S={S} {gates}", got[name], refs[name],
                                                plain(name, torch.float32))
-                          for name in ("parallel_fw", "parallel_bw_dkv")
-                          if dtype == torch.bfloat16}
+                          for name in PAR_KERNELS if dtype == torch.bfloat16}
                 for name, e in errs.items():
                     worst[name][key] = [max(a, b) for a, b in zip(worst[name][key], e)]
                 emit({"phase": "parallel_kernels", "widths": ws.cfg, "S": S, "dtype": key,
@@ -2202,6 +2225,28 @@ def exp_floor(S: int, sm_mhz, ws=FLAGSHIP):
     return B * NH * S * (S + 1) / 2 / (16 * sms * sm_mhz * 1e6) * 1e3
 
 
+def chunk_exp_floor(S: int, L: int, sm_mhz, ws=FLAGSHIP):
+    """Least time in ms for the one exp a causal pair of a chunk that the v1
+    and exp dq/dk/dv kernels take, B NH S (L + 1) / 2 of them, at 16 ex2 a
+    clock on each SM at the SM clock ``sm_mhz``; "not measured" without a
+    reading."""
+    floor = exp_floor(S, sm_mhz, ws)
+    return floor if isinstance(floor, str) else floor * (L + 1) / (S + 1)
+
+
+def timed_row(name, kern, plain, n, ws, bound, S, L):
+    """ms and plain_ms (in_turns) with the bound; for dq/dk/dv also the exps'
+    floor at the SM clock sampled while the kernel ran (chunk_exp_floor)."""
+    with ClockSampler() as clocks:
+        t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
+    row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
+           **dict(zip(("bound_ms", "bound_by"), bound))}
+    if name.endswith("dqkv"):
+        sm = clocks.summary["clocks.sm"]["median"] if clocks.summary_n else None
+        row.update(exp_floor_ms=chunk_exp_floor(S, L, sm, ws), sm_mhz=sm)
+    return row, t_kern, t_plain
+
+
 def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
     """Per-call times of the three quadratic kernels (bf16 streams and
     products) at each padded S of the route beside their plain versions (in
@@ -2306,12 +2351,9 @@ def v1_times(v1, card: str, plan, ws=FLAGSHIP, device="cuda"):
                 lambda: v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, dcs, **kw),
                 lambda: v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, dcs, **kw))
         for name, (kern, plain) in pairs.items():
-            n = iters_for(ws, 10)
-            t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
-            row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                   **dict(zip(("bound_ms", "bound_by"),
-                              v1_bound(name, S, L, states=infer and name == "chunkwise_v1_fw",
-                                       ws=ws)))}
+            row, t_kern, t_plain = timed_row(
+                name, kern, plain, iters_for(ws, 10), ws,
+                v1_bound(name, S, L, states=infer and name == "chunkwise_v1_fw", ws=ws), S, L)
             per[name][(S, L)] = row
             emit({"phase": "times", "what": name, "widths": ws.cfg, "card": card, "B": ws.B,
                   "S": S, "L": L, "dtype": "bfloat16",
@@ -2420,13 +2462,10 @@ def exp_times(ex, card: str, plan, ws=FLAGSHIP, device="cuda"):
                 lambda: ex.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc, mrow_qkv, dh,
                                                        dcs, **kw))
         for name, (kern, plain) in pairs.items():
-            n = iters_for(ws, 10)
-            t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
             fw = name == "chunkwise_exp_fw"
-            row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
-                   **dict(zip(("bound_ms", "bound_by"),
-                              v1_bound(name, S, L, states=infer and fw, save=not infer,
-                                       ws=ws)))}
+            row, t_kern, t_plain = timed_row(
+                name, kern, plain, iters_for(ws, 10), ws,
+                v1_bound(name, S, L, states=infer and fw, save=not infer, ws=ws), S, L)
             per[name][(S, L)] = row
             emit({"phase": "times", "what": name, "widths": ws.cfg, "card": card, "B": ws.B,
                   "S": S, "L": L, "dtype": "bfloat16",
@@ -3900,6 +3939,12 @@ def main() -> int:
         if name in PAR_KERNELS:  # per call at the longest padded S, every detector's heads
             row["per_call_s6656"] = {
                 cfg: {k: v for k, v in t[name][max(par_lengths)].items()
+                      if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
+                for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
+                               ("vil_det_384", w384_t))}
+        if name.endswith("dqkv"):  # per call at (6656, 512), every detector's heads
+            row["per_call_s6656_l512"] = {
+                cfg: {k: v for k, v in t[name][(max(par_lengths), 512)].items()
                       if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
                 for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
                                ("vil_det_384", w384_t))}

@@ -610,7 +610,9 @@ V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
     (512, 2, 2, 32, "open", False),
     (64, 2, 2, 64, "open", True),
     (32, 2, 1, 128, "closed", False),
-    (512, 2, 1, 128, "open", True),   # 32-row dq/dk/dv tiles at DH 128
+    (512, 2, 1, 128, "open", True),   # dk/dv in two 32-query steps a sub-tile at DH 128
+    (256, 2, 2, 64, "open", True),    # four 64-row sub-tiles a chunk at DH 64
+    (64, 3, 1, 128, "closed", False),  # one whole sub-tile a chunk at DH 128
 ]
 V1_TYPES = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
 
@@ -639,7 +641,9 @@ def assert_rel_close(got, ref, rel):
 def test_v1_kernels_match_plain_on_gpu(dtype, compute):
     """The forward, the dC scan and dq/dk/dv each against its plain version
     on the same inputs (the backward kernels on the plain forward's saved
-    states)."""
+    states).  With bfloat16 products dq, dk and dv also lie nearer the
+    plain version in mean error than its float32-products twin does
+    (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -659,8 +663,11 @@ def test_v1_kernels_match_plain_on_gpu(dtype, compute):
         assert_rel_close((dcs, dc0), (rdcs, rdc0), rel)
         got = v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, rdcs, **kw)
         torch.cuda.synchronize()
-        assert_rel_close(got, v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw),
-                         rel)
+        ref = v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw)
+        assert_rel_close(got, ref, rel)
+        if cd == torch.bfloat16:
+            assert_rounding_shows(got, ref, v1.chunkwise_bw_dqkv_plain(
+                q, k, v, i, f, cs, den, dh, rdcs, **dict(kw, compute_dtype=torch.float32)))
         assert (v1.LAUNCHES_FW, v1.LAUNCHES_BW_DC, v1.LAUNCHES_BW_DQKV) == tuple(
             n + 1 for n in before)
 
@@ -691,6 +698,8 @@ EXP_CASES = [  # (L, chunks, NH, DH, gates, initial (C, n, m) and dC_last)
     (64, 2, 2, 64, "large_i", True),
     (16, 3, 1, 128, "closed", False),
     (512, 2, 1, 128, "large_i", True),
+    (256, 2, 2, 64, "large_i", True),  # four 64-row sub-tiles a chunk at DH 64
+    (64, 3, 1, 128, "open", False),    # one whole sub-tile a chunk at DH 128
 ]
 
 
@@ -715,7 +724,9 @@ def exp_inputs(seed, L, chunks, NH, DH, gates, states, dt, qk_mean=0.0):
 def test_exp_kernels_match_plain_on_gpu(dtype, compute):
     """The exp forward (both variants), the dC scan and dq/dk/dv each against
     its plain version on the same inputs (the backward kernels on the plain
-    forward's saved rows)."""
+    forward's saved rows).  With bfloat16 products dq, dk and dv also lie
+    nearer the plain version in mean error than its float32-products twin
+    does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -742,8 +753,12 @@ def test_exp_kernels_match_plain_on_gpu(dtype, compute):
         got = exp.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
         torch.cuda.synchronize()
         assert all(g.dtype == dt for g in got)
-        assert_rel_close(got, exp.chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, cs, den, mc,
-                                                              mrow_qkv, dh, rdcs, **kw), rel)
+        bw = (q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs)
+        ref = exp.chunkwise_exp_bw_dqkv_plain(*bw, **kw)
+        assert_rel_close(got, ref, rel)
+        if cd == torch.bfloat16:
+            assert_rounding_shows(got, ref, exp.chunkwise_exp_bw_dqkv_plain(
+                *bw, **dict(kw, compute_dtype=torch.float32)))
         assert (exp.LAUNCHES_FW, exp.LAUNCHES_BW_DC, exp.LAUNCHES_BW_DQKV) == (
             before[0] + 2, before[1] + 1, before[2] + 1)
 
@@ -794,8 +809,8 @@ def test_parallel_kernels_match_plain_on_gpu(dtype, compute):
     """The quadratic forward, dq and dk/dv kernels each against its plain
     version on the same inputs (the backward kernels on the plain forward's
     den), each output in the storage type.  With bfloat16 products the
-    forward's and dk/dv's outputs also lie nearer the plain version in mean
-    error than its float32-products twin does (assert_rounding_shows)."""
+    forward's, dq's and dk/dv's outputs also lie nearer the plain version in
+    mean error than its float32-products twin does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -814,11 +829,14 @@ def test_parallel_kernels_match_plain_on_gpu(dtype, compute):
         dkv = par.parallel_bw_dkv(*args, den, dh, **kw)
         torch.cuda.synchronize()
         assert all(g.dtype == dt for g in (dq, *dkv))
-        assert_rel_close([dq], [par.parallel_bw_dq_plain(*args, den, dh, **kw)], rel)
+        dq_ref = par.parallel_bw_dq_plain(*args, den, dh, **kw)
+        assert_rel_close([dq], [dq_ref], rel)
         dkv_ref = par.parallel_bw_dkv_plain(*args, den, dh, **kw)
         assert_rel_close(dkv, dkv_ref, rel)
         if cd == torch.bfloat16:
             assert_rounding_shows(got, ref, par.parallel_fw_plain(*args, **kw32))
+            assert_rounding_shows([dq], [dq_ref], [par.parallel_bw_dq_plain(*args, den, dh,
+                                                                            **kw32)])
             assert_rounding_shows(dkv, dkv_ref, par.parallel_bw_dkv_plain(*args, den, dh, **kw32))
         assert (par.LAUNCHES_FW, par.LAUNCHES_BW_DQ, par.LAUNCHES_BW_DKV) == tuple(
             n + 1 for n in before)

@@ -25,6 +25,9 @@ predict path: the port refuses it and JAX's inference wrapper fails on it.
 
 import copy
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -178,6 +181,43 @@ def test_function_gradients_match_jax_grad(gates):
     g_ref = [np.asarray(x) for x in g_ref]
     floor = df_floor(args[0], args[1], g_ref[0], g_ref[1])
     assert_rel_close(g, g_ref, REL["float32"], ("dq", "dk", "dv", "di", "df"), {"df": floor})
+
+
+# The sequence of test_plain_versions_match_jax_kernels[64-float32-float32]
+# up to D, run in a fresh process: logsig, cumsum, the broadcast exponent,
+# the mask, then the port's _decay.  It prints D's largest relative error
+# against numpy's float64 exp of the same float32 exponents.
+DECAY_IN_A_FRESH_PROCESS = """
+import numpy as np, torch, torch.nn.functional as F
+from xlstm_yolo_tpu_torch.ops.chunkwise import _decay
+rng = np.random.default_rng(64)
+for _ in range(4):
+    rng.normal(size=(2, 3, 64, 16))
+i = torch.from_numpy(rng.normal(0, 1, (2, 3, 64)).astype(np.float32))
+f = torch.from_numpy(rng.normal(3, 1, (2, 3, 64)).astype(np.float32))
+b, li = torch.cumsum(F.logsigmoid(f), -1), F.logsigmoid(i)
+D = _decay(b, li).numpy().astype(np.float64)
+logD = (b[..., :, None] - b[..., None, :] + li[..., None, :]).numpy().astype(np.float64)
+causal = np.tril(np.ones((64, 64), bool))
+ref = np.where(causal, np.exp(np.where(causal, logD, 0.0)), 0.0)
+assert (D[..., ~causal] == 0).all()
+print(float((np.abs(D - ref) / np.where(causal, ref, 1.0)).max()))
+"""
+
+
+def test_decay_is_float32_accurate_on_a_process_first_call():
+    """The plain versions' D on the first call of fresh processes, against
+    float64 at 1e-6 relative: PyTorch's threaded CPU exp computed one
+    thread's slice of a process's first large float32 call about 1.5e-4
+    off, which failed the 64-float32-float32 case about one run in five;
+    ``_exp_f32`` takes float32 CPU tensors through float64."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    for _ in range(8):  # one at a time: processes started together hid the fault
+        p = subprocess.run([sys.executable, "-c", DECAY_IN_A_FRESH_PROCESS], env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert p.returncode == 0, p.stderr
+        assert float(p.stdout.strip().splitlines()[-1]) < 1e-6
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():

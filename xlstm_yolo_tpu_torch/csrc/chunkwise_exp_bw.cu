@@ -27,15 +27,14 @@
 //
 // Design.  The shared kernels of chunkwise_v1.cuh with the exp gate: the
 // dC scan is state_scan_kernel, one block per (batch, head); dq/dk/dv is
-// dqkv_kernel, every (batch * head, chunk, 64-row sub-tile, part) a block,
-// which reads the chunk's m_comb rows, so a sub-tile's D uses the whole
-// row's stabilizer.  Products are float32 FMA on the CUDA cores with
-// rounded operands.
+// dqkv_kernel, every (batch * head, chunk, 64-row sub-tile, part) a block
+// of 4 warps on the tensor cores in bf16 (see chunkwise_v1_bw.cu), which
+// reads the chunk's m_comb rows, so a sub-tile's D uses the whole row's
+// stabilizer.
 //
 // What bounds it.  The pair moves q, k, v, dh, dq, dk, dv once, the gates,
 // den and m_comb per row, and the states and m per chunk: bound by bytes
-// (PERF.md).  The (L x L) tiles in float32 FMA cost more; PERF.md holds
-// the times.
+// (PERF.md), beside one exp a causal pair of a chunk in each part.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -85,12 +84,10 @@ extern "C" int chunkwise_exp_bw_dqkv(const void* q, const void* k, const void* v
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const dim3 grid((S / L) * (L / tile_rows(L, dqkv_rows<D>())), B * NH, 2);
-    return launch_with_smem(dqkv_kernel<T, CT, D, true, T>, grid,
-                            sizeof(float) * dqkv_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), i, f, c_states,
-                            den, static_cast<const T*>(dh), dc_states, static_cast<T*>(dq),
-                            static_cast<T*>(dk), static_cast<T*>(dv), S, L, qk_scale, eps,
-                            MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
+    return launch_dqkv<T, CT, D, true, T>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
+        c_states, den, static_cast<const T*>(dh), dc_states, static_cast<T*>(dq),
+        static_cast<T*>(dk), static_cast<T*>(dv), B * NH, S, L, qk_scale, eps,
+        MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr}, st);
   });
 }

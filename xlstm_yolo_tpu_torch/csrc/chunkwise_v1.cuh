@@ -31,12 +31,14 @@
 // - h_kernel: h (and den, m_comb) of a (batch * head, chunk, 64-row
 //   sub-tile) from the state before the chunk;
 // - dqkv_kernel: dq, or dk and dv, of a (batch * head, chunk, 64-row
-//   sub-tile) from the states before and after the chunk.
+//   sub-tile) from the states before and after the chunk, on the tensor
+//   cores in bf16 with the quadratic backward's tile steps (parallel.cuh).
 #pragma once
 
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "parallel.cuh"
 
 namespace v1 {
 
@@ -48,18 +50,11 @@ using port::to_f32;
 constexpr int LMAX = 512;  // longest chunk
 constexpr int TR = 64;     // rows of a tile: a chunk longer than this runs in sub-tiles
 
-// Rows of the dq/dk/dv kernel's tiles: 64, and 32 at DH = 128, where 64
-// rows would need 271 KB of shared memory (163 KB at 32 rows).  Each sum
-// runs over the same terms in ascending order whatever the tile, so the
-// numbers do not depend on it.
-template <int DH>
-__host__ __device__ constexpr int dqkv_rows() { return DH >= 128 ? 32 : TR; }
-
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-__host__ __device__ constexpr int tile_rows(int L, int tr = TR) { return L < tr ? L : tr; }
+__host__ __device__ constexpr int tile_rows(int L) { return L < TR ? L : TR; }
 
 // The m arrays of the exp route (all null on the v1 route).
 struct MState {
@@ -393,14 +388,30 @@ __global__ void __launch_bounds__(NT) h_kernel(
   }
 }
 
-template <int DH>
-constexpr size_t dqkv_smem_floats() {
-  constexpr int TRD = dqkv_rows<DH>();
-  return 3 * LMAX                 // b, logsig(i) (exp: i), exp: m_comb
-         + 5 * TRD * (DH + 1)     // own-tile operands (3), other-tile operands (2)
-         + DH * (DH + 1)          // R(C_prev) or R(dC)
-         + 2 * TRD * (TRD + 1);   // P, SD tiles
-}
+// The tiling of the dq/dk/dv kernel: 4 warps, each 16 of a block's TR own
+// rows (the chunk's T_ = min(L, TR) rows of a sub-tile; at L 16 and 32 the
+// warps past T_ only stage), the other side's sub-tiles in steps of QW
+// columns (dk/dv).  Shared memory: the own tiles (dq: R(dhn); dk/dv: R(k),
+// R(v)), the walk's two buffers of two tiles (dq: R(k), R(v); dk/dv: R(q),
+// R(dhn)), which first hold the state (R(C_prev) or R(dC)), for dk/dv
+// R(k kf), and the chunk's raw gate rows; its gate rows, two rows of den
+// and each warp's score scratch (float32 products): 111 KB at DH 128 in
+// bf16 (two blocks an SM), 228 KB in float32.
+template <typename CT, int DH>
+struct DqkvTile {
+  static constexpr int LD = DH + tc::pad<CT>();
+  static constexpr int QW = DH >= 128 ? 32 : 64;
+  static constexpr int DQ_SCRATCH = par::scratch_floats<CT, TR / 8>();
+  static constexpr int SCRATCH =  // floats of a warp's scratch: dq one fragment, dk/dv two
+      DQ_SCRATCH > 2 * par::scratch_floats<CT, QW / 8>() ? DQ_SCRATCH
+                                                         : 2 * par::scratch_floats<CT, QW / 8>();
+  static constexpr size_t bytes =
+      sizeof(CT) * 6 * TR * LD + 4 * (3 * LMAX + 2 * TR + par::NTC / 32 * SCRATCH);
+};
+static_assert(DqkvTile<float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
+static_assert((4 * TR - 128 - TR) * DqkvTile<__nv_bfloat16, 128>::LD * 2 >= 2 * LMAX * 4,
+              "the raw gate rows fit in the walk's buffers beside the state and R(k kf)");
+static_assert(DqkvTile<__nv_bfloat16, 128>::bytes <= 232448 / 2, "two blocks an SM");
 
 // dq, dk, dv (in TO) of every chunk, independently, from the saved state
 // before the chunk (C_prev) and the gradient of the state after it (dC):
@@ -410,190 +421,242 @@ constexpr size_t dqkv_smem_floats() {
 //   dk = R(P)^T R(q) scale + (R(v) R(dC)^T) kf
 //   dv = R(SD)^T R(dhn) + R(k kf) R(dC)
 // where qf = e^b, kf = e^a (v1) or qf = e^{(b + m_prev) - m_comb},
-// kf = e^{a - m_new} (exp; m_prev, m_new from ms.mrow, m_comb per row).
+// kf = e^{a - m_new} (exp; m_prev, m_new from ms.mrow, m_comb per row: the
+// forward's, so a sub-tile's D uses the whole row's stabilizer).
 //
-// Every (batch * head, chunk, TRD-row sub-tile, part) is a block, part 0
-// computing dq of the sub-tile's rows (walking the key sub-tiles at or
-// before it) and part 1 dk and dv of its rows as keys (walking the query
-// sub-tiles at or after it).
+// Every (batch * head, chunk, sub-tile, part) is a block of 4 warps, part 0
+// computing dq of the sub-tile's rows and part 1 dk and dv of its rows as
+// keys.  A block stages its own rows and the state once; each warp first
+// makes its rows' state product(s) on the tensor cores (R(dhn) R(C_prev)^T,
+// or R(v) R(dC)^T and R(k kf) R(dC)), scaled per row into the accumulators
+// (dk's by kf / scale, since the walk's sum is scaled by scale at the end),
+// then walks the other side's sub-tiles of the chunk two deep by cp.async:
+// dq the key sub-tiles up to its own (par::dq_step), dk/dv the query
+// sub-tiles from its own on (par::dkv_step), with D from the chunk's gate
+// rows, masked before the exp on the diagonal sub-tile.  Blocks go heaviest
+// first: blockIdx.y counts the walk lengths down, dq's and dk/dv's blocks
+// of one length side by side.
 template <typename T, typename CT, int DH, bool EXP, typename TO>
-__global__ void __launch_bounds__(NT) dqkv_kernel(
+__global__ void __launch_bounds__(par::NTC) dqkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ ig, const float* __restrict__ fg,
     const float* __restrict__ c_states, const float* __restrict__ den, const T* __restrict__ dh,
     const float* __restrict__ dc_states, TO* __restrict__ dq, TO* __restrict__ dk,
     TO* __restrict__ dv, int S, int L, float qk_scale, float eps, MState ms) {
-  constexpr int TRD = dqkv_rows<DH>();
-  constexpr int DP = DH + 1;
-  constexpr int TP = TRD + 1;
-  constexpr int CPT = DH / 4;
-  extern __shared__ float smem[];
-  float* sb = smem;
-  float* sli = sb + LMAX;
-  float* smc = sli + LMAX;     // exp: m_comb of the chunk's rows
-  float* sA = smc + LMAX;      // own rows: R(dhn) (dq) | R(k) (dk, dv)
-  float* sB = sA + TRD * DP;    // own rows: unused    | R(v)
-  float* sKa = sB + TRD * DP;   // own rows: unused    | R(k kf)
-  float* sX = sKa + TRD * DP;   // other rows: R(v)    | R(q)
-  float* sY = sX + TRD * DP;    // other rows: R(k)    | R(dhn)
-  float* sS = sY + TRD * DP;    // (DH, DP) R(C_prev)  | R(dC)
-  float* sP = sS + DH * DP;     // (TRD, TP) P
-  float* sSD = sP + TRD * TP;   // (TRD, TP) SD (dk, dv only)
+  using Tl = DqkvTile<CT, DH>;
+  constexpr int LD = Tl::LD, NJ = DH / 8, NTH = par::NTC;
+  constexpr bool RAW = std::is_same<T, CT>::value;  // dh staged unchanged, scaled in place
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* own = reinterpret_cast<CT*>(smem_raw);  // 2 x (TR, LD): the own rows
+  CT* wk = own + 2 * TR * LD;                 // 4 x (TR, LD): the walk's buffers
+  float* sb = reinterpret_cast<float*>(wk + 4 * TR * LD);  // (LMAX) b of the chunk
+  float* sli = sb + LMAX;                     // (LMAX) logsig(i) (exp: i)
+  float* smc = sli + LMAX;                    // (LMAX) exp: m_comb
+  float* sden = smc + LMAX;                   // 2 x (TR) den of staged dh rows
+  float* scratch = sden + 2 * TR + threadIdx.x / 32 * Tl::SCRATCH;
 
-  const int tid = threadIdx.x;
-  const int T_ = tile_rows(L, TRD);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int T_ = tile_rows(L);
   const int tiles = L / T_;
-  const int c = blockIdx.x / tiles, st = blockIdx.x - c * tiles;
-  const int bh = blockIdx.y;
-  const bool part_q = blockIdx.z == 0;
   const int NC = S / L;
-  const size_t t0 = (size_t)bh * S + (size_t)c * L;
+  const int lvl = blockIdx.y / (2 * NC), c = blockIdx.y % NC;  // walks of tiles - lvl sub-tiles
+  const bool part_q = (blockIdx.y / NC & 1) == 0;
+  const int st = part_q ? tiles - 1 - lvl : lvl;
+  const int bh = blockIdx.x;
+  const size_t t0 = (size_t)bh * S + (size_t)c * L;  // first row of the chunk
   const size_t slot = (size_t)bh * NC + c;
-  const int o0 = st * T_;  // chunk row of the block's own first row
+  const int o0 = st * T_, l0 = 16 * warp;  // chunk rows of the own sub-tile, the warp's
+  const bool active = l0 < T_;             // T_ is 16, 32 or 64: whole warps
   const float m_prev = EXP ? ms.mrow[slot * 2] : 0.f;
   const float m_new = EXP ? ms.mrow[slot * 2 + 1] : 0.f;
+  const T* qc = q + t0 * DH;
+  const T* kc = k + t0 * DH;
+  const T* vc = v + t0 * DH;
+  const T* dhc = dh + t0 * DH;
+  const float* denc = den + t0;
 
-  chunk_gates<EXP>(ig + t0, fg + t0, L, sb, sli);
-  if (EXP)
-    for (int r = tid; r < L; r += NT) smc[r] = ms.m_comb[t0 + r];
-  const float* state = part_q ? c_states : dc_states;
-  for (int e = tid; e < DH * DH; e += NT)
-    sS[(e / DH) * DP + e % DH] = rt<CT>(state[slot * DH * DH + e]);
+  // the chunk's raw gate rows (rows the walk's buffers do not need yet) and
+  // m_comb by cp.async with the tiles; chunk_gates turns them into b and
+  // logsig(i) once they are in (gates_in)
+  float* rfg = reinterpret_cast<float*>(wk + (DH + TR) * LD);
+  float* rig = rfg + LMAX;
+  for (int r = threadIdx.x; r < L; r += NTH) {
+    tc::cp_async4(rfg + r, fg + t0 + r, true);
+    tc::cp_async4(rig + r, ig + t0 + r, true);
+    if (EXP) tc::cp_async4(smc + r, ms.m_comb + t0 + r, true);
+  }
+  auto gates_in = [&] {
+    chunk_gates<EXP>(rig, rfg, L, sb, sli);
+    __syncthreads();
+  };
+  // a sub-tile of dh (raw when T is CT, else R(dhn)) and its den rows into
+  // dst and sd; rows past the sub-tile zero
+  auto stage_dh = [&](CT* dst, float* sd, int p0) {
+    par::stage_tile<T, CT, DH, LD, TR, NTH>(dst, dhc, p0, p0 + T_, RAW ? nullptr : denc, eps);
+    for (int e = threadIdx.x; e < TR; e += NTH)
+      tc::cp_async4(sd + e, e < T_ ? denc + p0 + e : denc, e < T_);
+  };
+  // R(dhn) in place once a raw dh sub-tile is in
+  auto scale_dh = [&](CT* tile, const float* sd) {
+    if constexpr (RAW) {
+      par::scale_rows<CT, DH, LD, NTH>(tile, sd, eps);
+      __syncthreads();
+    }
+  };
+  const int row[2] = {o0 + l0 + g, o0 + l0 + g + 8};  // the lane's two own chunk rows
+  float acc1[NJ][4], acc2[NJ][4];  // dq | dk, dv
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc1[j][x] = acc2[j][x] = 0.f;
+
+  if (part_q) {
+    stage_dh(own, sden, o0);
+    par::stage_tile<float, CT, DH, LD, DH, NTH>(wk, c_states + slot * DH * DH, 0, DH);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    gates_in();
+    scale_dh(own, sden);
+    float rb[2] = {0.f, 0.f}, rm[2] = {0.f, 0.f};
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)  // R(dhn) R(C_prev)^T
+        tc::prod16<NJ, false, false>(acc1, own, LD, l0, wk, LD, 0, 16 * kk);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        rb[hh] = sb[row[hh]];
+        rm[hh] = EXP ? smc[row[hh]] : 0.f;
+        const float qf = EXP ? expf((rb[hh] + m_prev) - rm[hh]) : expf(rb[hh]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc1[j][2 * hh] *= qf;
+          acc1[j][2 * hh + 1] *= qf;
+        }
+      }
+    }
+    __syncthreads();  // the state's rows become the walk's buffers
+
+    auto prefetch = [&](int kt, int buf) {
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(wk + buf * TR * LD, kc, kt * T_, kt * T_ + T_);
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(wk + (2 + buf) * TR * LD, vc, kt * T_,
+                                              kt * T_ + T_);
+      tc::cp_async_commit();
+    };
+    prefetch(0, 0);
+    par::walk_tiles(0, st, prefetch, [](int, int) {}, [&](int kt, int buf) {
+      if (!active) return;
+      const int k0 = kt * T_;
+      // the diagonal sub-tile masks j > l before the exp (and so the zero
+      // columns past T_)
+      auto step = [&](auto diag) {
+        par::dq_step<DH>(acc1, own, l0, wk + buf * TR * LD, wk + (2 + buf) * TR * LD, LD,
+                         scratch, [&](int hh, int cc) {
+                           if (decltype(diag)::value && cc > l0 + g + 8 * hh)
+                             return -CUDART_INF_F;
+                           const float e = (rb[hh] - sb[k0 + cc]) + sli[k0 + cc];
+                           return EXP ? e - rm[hh] : e;
+                         });
+      };
+      if (kt == st) step(std::true_type{});
+      else step(std::false_type{});
+    });
+    if (!active) return;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const size_t off = (t0 + row[hh]) * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tc::st2(dq + off + 8 * j, acc1[j][2 * hh] * qk_scale, acc1[j][2 * hh + 1] * qk_scale);
+    }
+    return;
+  }
+
+  // dk, dv: the own R(k), R(v); R(dC) and R(k kf) in the walk's buffers
+  CT* sk = own;
+  CT* sv = own + TR * LD;
+  CT* skf = wk + DH * LD;
+  par::stage_tile<T, CT, DH, LD, TR, NTH>(sk, kc, o0, o0 + T_);
+  par::stage_tile<T, CT, DH, LD, TR, NTH>(sv, vc, o0, o0 + T_);
+  par::stage_tile<float, CT, DH, LD, DH, NTH>(wk, dc_states + slot * DH * DH, 0, DH);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
   __syncthreads();
-  const float g = sb[L - 1];
-  for (int e = tid; e < T_ * DH; e += NT) {
-    const int r = e / DH, d = e - r * DH;
-    const size_t row = t0 + o0 + r;
-    if (part_q) {
-      sA[r * DP + d] = rt<CT>(to_f32(dh[row * DH + d]) / (den[row] + eps));
-    } else {
-      const float kx = to_f32(k[row * DH + d]);
-      const float a = (g - sb[o0 + r]) + sli[o0 + r];
-      sA[r * DP + d] = rt<CT>(kx);
-      sB[r * DP + d] = rt<CT>(to_f32(v[row * DH + d]));
-      sKa[r * DP + d] = rt<CT>(kx * expf(EXP ? a - m_new : a));
+  gates_in();
+  const float gl = sb[L - 1];
+  for (int e = threadIdx.x; e < TR * DH / 2; e += NTH) {
+    const int r = e / (DH / 2), cc = 2 * (e - r * (DH / 2));
+    float2 x = make_float2(0.f, 0.f);
+    if (r < T_) {
+      const int l = o0 + r;
+      const float a = (gl - sb[l]) + sli[l];
+      const float kf = expf(EXP ? a - m_new : a);
+      if constexpr (RAW) x = tc::ld2(sk + r * LD + cc);  // k itself
+      else x = tc::ld2(kc + (size_t)l * DH + cc);
+      x.x *= kf;
+      x.y *= kf;
     }
+    tc::st2(skf + r * LD + cc, x.x, x.y);
   }
   __syncthreads();
-
-  const int row = tid / 4, cc = (tid % 4) * CPT;
-  const bool has_row = row < T_;
-  float a1[CPT], a2[CPT], i1[CPT], i2[CPT];
+  float bj[2] = {0.f, 0.f}, lj[2] = {0.f, 0.f};
+  if (active) {
 #pragma unroll
-  for (int x = 0; x < CPT; ++x) a1[x] = a2[x] = i1[x] = i2[x] = 0.f;
-  if (has_row) {  // inter-chunk parts
-#pragma unroll 4
-    for (int u = 0; u < DH; ++u) {
-      if (part_q) {  // R(dhn) R(C_prev)^T
-        const float dn = sA[row * DP + u];
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      tc::prod16<NJ, false, false>(acc1, sv, LD, l0, wk, LD, 0, 16 * kk);   // R(v) R(dC)^T
+      tc::prod16<NJ, false, true>(acc2, skf, LD, l0, wk, LD, 0, 16 * kk);   // R(k kf) R(dC)
+    }
 #pragma unroll
-        for (int x = 0; x < CPT; ++x) i1[x] = fmaf(dn, sS[(cc + x) * DP + u], i1[x]);
-      } else {  // R(v) R(dC)^T and R(k kf) R(dC)
-        const float vu = sB[row * DP + u], ku = sKa[row * DP + u];
+    for (int hh = 0; hh < 2; ++hh) {
+      bj[hh] = sb[row[hh]];
+      lj[hh] = sli[row[hh]];
+      const float a = (gl - bj[hh]) + lj[hh];
+      const float kf = expf(EXP ? a - m_new : a) / qk_scale;
 #pragma unroll
-        for (int x = 0; x < CPT; ++x) {
-          i1[x] = fmaf(vu, sS[(cc + x) * DP + u], i1[x]);
-          i2[x] = fmaf(ku, sS[u * DP + cc + x], i2[x]);
-        }
+      for (int j = 0; j < NJ; ++j) {
+        acc1[j][2 * hh] *= kf;
+        acc1[j][2 * hh + 1] *= kf;
       }
     }
   }
+  __syncthreads();  // the state's rows become the walk's buffers
 
-  const int TT = T_ / 4;
-  const int first = part_q ? 0 : st, last = part_q ? st : tiles - 1;
-  for (int ot = first; ot <= last; ++ot) {
-    const int p0 = ot * T_;  // chunk row of the other sub-tile
-    for (int e = tid; e < T_ * DH; e += NT) {
-      const int r = e / DH, d = e - r * DH;
-      const size_t rr = t0 + p0 + r;
-      if (part_q) {
-        sX[r * DP + d] = rt<CT>(to_f32(v[rr * DH + d]));
-        sY[r * DP + d] = rt<CT>(to_f32(k[rr * DH + d]));
-      } else {
-        sX[r * DP + d] = rt<CT>(to_f32(q[rr * DH + d]));
-        sY[r * DP + d] = rt<CT>(to_f32(dh[rr * DH + d]) / (den[rr] + eps));
-      }
-    }
-    __syncthreads();
-    if (tid < TT * TT) {
-      // tile rows are queries l, columns keys j: for dq the queries are the
-      // own rows (P = sA sX^T); for dk, dv the keys are (P = sY sB^T,
-      // SD = sX sA^T scale)
-      const int ti = tid / TT, tj = tid % TT;
-      const float* Lp = part_q ? sA : sY;  // query-side operand of P
-      const float* Rp = part_q ? sX : sB;  // key-side operand of P
-      float ap[4][4] = {}, as[4][4] = {};
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float la[4], rb[4], qa[4], kb[4];
+  auto prefetch = [&](int qt, int buf) {
+    par::stage_tile<T, CT, DH, LD, TR, NTH>(wk + buf * TR * LD, qc, qt * T_, qt * T_ + T_);
+    stage_dh(wk + (2 + buf) * TR * LD, sden + buf * TR, qt * T_);
+    tc::cp_async_commit();
+  };
+  prefetch(st, 0);
+  par::walk_tiles(
+      st, tiles - 1, prefetch,
+      [&](int, int buf) { scale_dh(wk + (2 + buf) * TR * LD, sden + buf * TR); },
+      [&](int qt, int buf) {
+        if (!active) return;
+        const int p0 = qt * T_;
+        // the diagonal sub-tile masks l < j, and the zero columns past T_,
+        // before the exp
+        auto step = [&](auto diag) {
+          par::dkv_step<DH, Tl::QW>(
+              acc1, acc2, sk, sv, l0, wk + buf * TR * LD, wk + (2 + buf) * TR * LD, LD, scratch,
+              qk_scale, [&](int hh, int cc) {
+                if (decltype(diag)::value && (cc < l0 + g + 8 * hh || cc >= T_))
+                  return -CUDART_INF_F;
+                const float e = (sb[p0 + cc] - bj[hh]) + lj[hh];
+                return EXP ? e - smc[p0 + cc] : e;
+              });
+        };
+        if (qt == st) step(std::true_type{});
+        else step(std::false_type{});
+      });
+  if (!active) return;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          la[r] = Lp[(ti * 4 + r) * DP + d];
-          rb[r] = Rp[(tj * 4 + r) * DP + d];
-          qa[r] = part_q ? 0.f : sX[(ti * 4 + r) * DP + d];
-          kb[r] = part_q ? 0.f : sA[(tj * 4 + r) * DP + d];
-        }
+  for (int hh = 0; hh < 2; ++hh) {
+    const size_t off = (t0 + row[hh]) * DH + 2 * t;
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            ap[r][s] = fmaf(la[r], rb[s], ap[r][s]);
-            as[r][s] = fmaf(qa[r], kb[s], as[r][s]);
-          }
-      }
-      const int lq0 = part_q ? o0 : p0, lk0 = part_q ? p0 : o0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int l = lq0 + ti * 4 + r;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int j = lk0 + tj * 4 + s;
-          // the exponent is masked before exp: b_l - b_j > 0 above the diagonal
-          const float ld = sb[l] - sb[j] + sli[j];
-          const float dm = j <= l ? expf(EXP ? ld - smc[l] : ld) : 0.f;
-          sP[(ti * 4 + r) * TP + tj * 4 + s] = ap[r][s] * dm;
-          sSD[(ti * 4 + r) * TP + tj * 4 + s] = (as[r][s] * qk_scale) * dm;
-        }
-      }
-    }
-    __syncthreads();
-    if (has_row) {
-      if (part_q) {  // dq: sum_j R(P[row, j]) R(k_j)
-        for (int j = 0; j < T_; ++j) {
-          const float p = rt<CT>(sP[row * TP + j]);
-#pragma unroll
-          for (int x = 0; x < CPT; ++x) a1[x] = fmaf(p, sY[j * DP + cc + x], a1[x]);
-        }
-      } else {  // dk: sum_l R(P[l, row]) R(q_l); dv: sum_l R(SD[l, row]) R(dhn_l)
-        for (int l = 0; l < T_; ++l) {
-          const float p = rt<CT>(sP[l * TP + row]);
-          const float s = rt<CT>(sSD[l * TP + row]);
-#pragma unroll
-          for (int x = 0; x < CPT; ++x) {
-            a1[x] = fmaf(p, sX[l * DP + cc + x], a1[x]);
-            a2[x] = fmaf(s, sY[l * DP + cc + x], a2[x]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (has_row) {
-    const int l = o0 + row;
-    const size_t off = (t0 + l) * DH + cc;
-    if (part_q) {
-      const float eb = (EXP ? expf((sb[l] + m_prev) - smc[l]) : expf(sb[l])) * qk_scale;
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) from_f32(a1[x] * qk_scale + i1[x] * eb, dq + off + x);
-    } else {
-      const float a = (g - sb[l]) + sli[l];
-      const float ea = expf(EXP ? a - m_new : a);
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) {
-        from_f32(a1[x] * qk_scale + i1[x] * ea, dk + off + x);
-        from_f32(a2[x] + i2[x], dv + off + x);
-      }
+    for (int j = 0; j < NJ; ++j) {
+      tc::st2(dk + off + 8 * j, acc1[j][2 * hh] * qk_scale, acc1[j][2 * hh + 1] * qk_scale);
+      tc::st2(dv + off + 8 * j, acc2[j][2 * hh], acc2[j][2 * hh + 1]);
     }
   }
 }
@@ -603,6 +666,22 @@ using port::launch_with_smem;
 
 inline bool chunk_ok(int S, int L) {
   return L >= 16 && L <= LMAX && (L & (L - 1)) == 0 && S > 0 && S % L == 0;
+}
+
+// Launches dqkv_kernel over B * NH heads of S rows in chunks of L; the CUDA
+// error code.
+template <typename T, typename CT, int DH, bool EXP, typename TO>
+int launch_dqkv(const T* q, const T* k, const T* v, const float* i, const float* f,
+                const float* c_states, const float* den, const T* dh, const float* dc_states,
+                TO* dq, TO* dk, TO* dv, int BNH, int S, int L, float qk_scale, float eps,
+                MState ms, cudaStream_t st) {
+  const size_t smem = DqkvTile<CT, DH>::bytes;
+  cudaError_t err = port::allow_smem(dqkv_kernel<T, CT, DH, EXP, TO>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BNH, 2 * (S / L) * (L / tile_rows(L)));
+  dqkv_kernel<T, CT, DH, EXP, TO><<<grid, par::NTC, smem, st>>>(
+      q, k, v, i, f, c_states, den, dh, dc_states, dq, dk, dv, S, L, qk_scale, eps, ms);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace v1

@@ -26,20 +26,23 @@
 // (chunkwise_v1.cuh), one block per (batch, head), a (L x DH)^T (L x DH)
 // product per chunk.  The dq/dk/dv kernel is independent per (batch * head,
 // chunk): dqkv_kernel (chunkwise_v1.cuh), every (batch * head, chunk,
-// 64-row sub-tile, part) a block, part 0 computing dq of the sub-tile's rows
-// (walking the key sub-tiles at or before it) and part 1 dk and dv of its
-// rows as keys (walking the query sub-tiles at or after it), so a chunk of
-// 512 rows needs no (512 x 512)
-// tile in shared memory.  2 * 96 * S / 64 blocks at batch 8 fill the card.
-// At DH = 128 the sub-tiles have 32 rows (`dqkv_rows`), so that a block's
-// operands fit in 163 KB of shared memory; the sums run over the same terms
-// in the same order, so the numbers do not change.
-// Products are float32 FMA on the CUDA cores with rounded operands.
+// 64-row sub-tile, part) a block of 4 warps, part 0 computing dq of the
+// sub-tile's rows (walking the key sub-tiles at or before it) and part 1 dk
+// and dv of its rows as keys (walking the query sub-tiles at or after it),
+// so a chunk of 512 rows needs no (512 x 512) tile in shared memory.  It is
+// the quadratic backward confined to a chunk plus the state products: each
+// warp owns 16 rows, makes its state product(s) on the tensor cores, then
+// takes the other side's sub-tiles, staged two deep by cp.async, through
+// the quadratic kernels' tile steps (par::dq_step, par::dkv_step in
+// parallel.cuh: mma.sync m16n8k16 in bf16 with the score fragment kept in
+// registers and one exp a causal pair; float32 FMA in the same layout with
+// float32 products).  Blocks go heaviest first.
 //
 // What bounds it.  The pair moves q, k, v, dh, dq, dk, dv once, the gates,
-// den and the states per chunk: bound by bytes (PERF.md).  This first
-// version recomputes the (L x L) tiles in float32 FMA, whose work grows
-// with L; PERF.md holds its times.
+// den and the states per chunk: bound by bytes (PERF.md).  The kernel
+// also takes one exp a causal pair of a chunk in each part, B NH S (L + 1)
+// / 2 of them, and recomputes P in both parts; PERF.md holds its times
+// beside the bound and the exps' floor.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,11 +86,9 @@ extern "C" int chunkwise_v1_bw_dqkv(const void* q, const void* k, const void* v,
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    const dim3 grid((S / L) * (L / tile_rows(L, dqkv_rows<D>())), B * NH, 2);
-    return launch_with_smem(dqkv_kernel<T, CT, D, false, float>, grid,
-                            sizeof(float) * dqkv_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), i, f, c_states,
-                            den, static_cast<const T*>(dh), dc_states, dq, dk, dv, S, L,
-                            qk_scale, eps, MState{});
+    return launch_dqkv<T, CT, D, false, float>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f,
+        c_states, den, static_cast<const T*>(dh), dc_states, dq, dk, dv, B * NH, S, L, qk_scale,
+        eps, MState{}, st);
   });
 }

@@ -182,10 +182,16 @@ __global__ void __launch_bounds__(NT, 1) ffn_rows_kernel(
   tc::cp_async_wait<0>();
   __syncthreads();
 
-  for (int c = tid; c < D; c += NT) {  // dbd: column sums of g (rows past M are 0)
-    float s = 0.f;
-    for (int r = 0; r < TR; ++r) s += to_f32(sg[r * LDG + c]);
-    prow[D + c] = s;
+  // dbd: column sums of g (rows past M are 0) in 8 interleaved partial sums
+  // added pairwise, near a tree sum's rounding: dbd cancels to rounding in
+  // a detector, and a 64-term running sum was twice as far from float64 as
+  // PyTorch's sum
+  for (int c = tid; c < D; c += NT) {
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = 0; r < TR; r += 8)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] += to_f32(sg[(r + j) * LDG + c]);
+    prow[D + c] = ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
   }
 
   float acc[NTD][4];

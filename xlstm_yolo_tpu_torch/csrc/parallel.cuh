@@ -16,31 +16,30 @@
 // D is not factored into e^{b_l} e^{-b_j}: with closed forget gates b
 // spans hundreds within a tile and the factors overflow.
 //
-// Rounding points.  R(x) = rt<CT>(x) rounds x to the compute type CT and
-// back where the TPU kernels cast the operands of a product; sums are
-// float32.  The row sums of the denominator stay unrounded.
+// Rounding points.  R(x) rounds x to the compute type CT where the TPU
+// kernels cast the operands of a product (on the way into shared memory,
+// or packing a fragment to bf16); sums are float32.  The row sums of the
+// denominator stay unrounded.
 //
-// Two designs share this file.
+// The three kernels share one design on the tensor cores: a block owns 64
+// query rows (the forward and dQ, NTC = 128 threads) or 128 key rows (dK/dV
+// with bf16 products), each warp 16 whole rows, and walks the 64-row tiles
+// on the other side of the causal diagonal, staged in shared memory two
+// deep (walk_tiles, stage_tile: cp.async when the storage type is the
+// compute type, else through registers, rounding on the way in).  The
+// products are tc::prod16 (csrc/mma.cuh): mma.sync m16n8k16 with bf16
+// operands and float32 sums for CT = bf16, the same fragment layout as
+// float32 FMA for CT = float.  A score fragment (the accumulator of a
+// product) is scaled by D in registers, one exp per pair (decay_pairs), and
+// becomes the A operand of the next product (score_times): the accumulator
+// layout of two 8-column n-tiles is the A layout of one 16-deep step, so in
+// bf16 it never leaves the registers.  dq_step and dkv_step are one tile of
+// the dQ and the dK/dV walks; the chunkwise dq/dk/dv kernel
+// (chunkwise_v1.cuh) walks a chunk's sub-tiles with the same two functions.
+// The forward keeps its own loop: its exps also feed den's row sums, and
+// through walk_tiles and decay_pairs it took 12-15 % longer at DH 128.
 //
-// The forward and dK/dV (tensor cores): a block owns 64 query rows (the
-// forward, NTC = 128 threads) or 128 key rows (dK/dV with bf16 products),
-// each warp 16 whole rows, and walks the 64-row tiles on the other side of
-// the causal diagonal, staged in shared memory two deep (stage_tile: cp.async
-// when the storage type is the compute type, else through registers,
-// rounding on the way in).  The products are tc::prod16 (csrc/mma.cuh):
-// mma.sync m16n8k16 with bf16 operands and float32 sums for CT = bf16, the
-// same fragment layout as float32 FMA for CT = float.  A score fragment
-// (the accumulator of a product) is scaled by D in registers, one exp per
-// pair, and becomes the A operand of the next product (score_times): the
-// accumulator layout of two 8-column n-tiles is the A layout of one
-// 16-deep step, so in bf16 it never leaves the registers.
-//
-// dQ (float32 FMA on the CUDA cores): a block of NT = 256 threads owns 64
-// query rows and walks the key tiles one at a time through shared memory.
-// A (64 x 64) score tile is 16 x 16 threads of 4 x 4 register tiles
-// (tile_dot); a row of the output is 4 threads of DH / 4 columns.
-//
-// Both launch the tiles with the longest walks first (heavy_first), so that
+// All launch the tiles with the longest walks first (heavy_first), so that
 // the causal triangle's short walks fill the tail.
 #pragma once
 
@@ -54,24 +53,10 @@
 namespace par {
 
 using port::dispatch;
-using port::from_f32;
-using port::launch_with_smem;
-using port::NT;
-using port::rt;
-using port::to_f32;
 
-constexpr int TR = 64;      // rows of a tile
-constexpr int TP = TR + 1;  // padded row of a (TR, TR) tile in shared memory
+constexpr int TR = 64;  // rows of a tile
 
 __host__ __device__ constexpr int tiles(int S) { return (S + TR - 1) / TR; }
-
-// Shared memory of a dQ block: three (TR, DH + 1) operand tiles, a (TR,
-// TP) score tile and three rows of TR; 42 KB at DH = 32, 66 KB at 64, 114
-// KB at 128 (dynamic).
-template <int DH>
-constexpr size_t qtile_smem_floats() {
-  return 3 * TR * (DH + 1) + TR * TP + 3 * TR;
-}
 
 // The tile of block index x when the tiles with the longest walks go first:
 // query tiles walk the key tiles before them (long = late tile), key tiles
@@ -80,66 +65,7 @@ __device__ __forceinline__ int heavy_first(int x, int n, bool queries) {
   return queries ? n - 1 - x : x;
 }
 
-// dst[r * (DH + 1) + d] = R(x[r0 + r, d] / (den[r0 + r] + eps)) for the TR
-// rows of a tile (den null: no division), zeros past S.
-template <typename T, typename CT, int DH>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, const float* __restrict__ den,
-                                          float eps, int r0, int S, float* dst) {
-  constexpr int DP = DH + 1;
-  for (int e = threadIdx.x; e < TR * DH; e += NT) {
-    const int r = e / DH, d = e - r * DH;
-    const int row = r0 + r;
-    float val = 0.f;
-    if (row < S) {
-      val = to_f32(x[(size_t)row * DH + d]);
-      if (den) val = val / (den[row] + eps);
-    }
-    dst[r * DP + d] = rt<CT>(val);
-  }
-}
-
-// dst[r] = src[r0 + r] for the TR rows of a tile, zeros past S.
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int r0, int S,
-                                          float* dst) {
-  for (int r = threadIdx.x; r < TR; r += NT) dst[r] = r0 + r < S ? src[r0 + r] : 0.f;
-}
-
-// acc[r][s] = sum_d A[a_r, d] B[b_s, d] with a_r = 4 ti + r, b_s = 4 tj + s,
-// for the (TR, DH + 1) tiles A and B in shared memory, d in order.
-template <int DH>
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bm, int ti, int tj,
-                                         float acc[4][4]) {
-  constexpr int DP = DH + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[r] = A[(ti * 4 + r) * DP + d];
-      b[r] = Bm[(tj * 4 + r) * DP + d];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
-  }
-}
-
-// D[l, j] for query l and key j (absolute rows) from their gate rows: the
-// exponent is masked before exp, and rows past S get 0.
-__device__ __forceinline__ float decay(int l, int j, int S, float bl, float bj, float lij) {
-  return (j <= l && l < S) ? expf((bl - bj) + lij) : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// the tensor-core kernels (forward, dK/dV)
-// ---------------------------------------------------------------------------
-
-constexpr int NTC = 128;  // threads of a forward block: 4 warps of 16 rows
+constexpr int NTC = 128;  // threads of a forward or dQ block: 4 warps of 16 rows
 
 // The (ROWS, LD) tile dst[r * LD + c] = R(x[r0 + r, c]) of a (S, DH)
 // stream, zeros past S, by the NTH threads of a block: cp.async when T is
@@ -229,6 +155,93 @@ __device__ __forceinline__ void score_times(float (&acc)[NJ][4], const float (&s
 template <typename CT, int NS>
 __host__ __device__ constexpr int scratch_floats() {
   return std::is_same<CT, float>::value ? 16 * (8 * NS + 4) : 0;
+}
+
+// Walks tiles first..last staged two deep, buffer (t - first) % 2 for tile
+// t: the caller has issued prefetch(first, 0); prefetch(t, buf) issues tile
+// t's copies into buffer buf and commits them.  Once tile t is in (every
+// thread waited, the block synchronised, so every warp is also done with
+// tile t - 1), ready(t, buf) runs (it synchronises the block itself if it
+// writes the tile), then tile t + 1's copies start and step(t, buf) uses
+// tile t while they fly.
+template <typename Prefetch, typename Ready, typename Step>
+__device__ __forceinline__ void walk_tiles(int first, int last, Prefetch prefetch, Ready ready,
+                                           Step step) {
+  for (int t = first; t <= last; ++t) {
+    const int buf = (t - first) & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    ready(t, buf);
+    if (t < last) prefetch(t + 1, buf ^ 1);
+    step(t, buf);
+  }
+}
+
+// f(n, x, e^{ex(hh, c)}) for each entry s[n][x] of a warp's (16 x 8 NS)
+// fragment: the lane's row g + 8 hh (hh = x / 2) and the tile column c = 8 n
+// + 2 t + x % 2.  ex gives the exponent of D, masked (-inf) where the pair
+// is not causal, so the exp never sees an overflowing exponent.
+template <int NS, typename Ex, typename F>
+__device__ __forceinline__ void decay_pairs(Ex ex, F f) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) f(n, x, __expf(ex(x >> 1, 8 * n + 2 * t + (x & 1))));
+}
+
+// One key tile of a warp's dq walk: P = R(dhn) R(v)^T as a (16 x TR)
+// fragment (the warp's rows l0.. of the staged R(dhn) tile sn, the key
+// tile's R(v) cv), scaled by D (decay_pairs, ex(hh, key column)), then
+// acc += R(P) R(k) (ck, ldmatrix .trans in bf16).
+template <int DH, typename CT, typename Ex>
+__device__ __forceinline__ void dq_step(float (&acc)[DH / 8][4], const CT* sn, int l0,
+                                        const CT* ck, const CT* cv, int ld, float* scratch,
+                                        Ex ex) {
+  constexpr int NS = TR / 8;
+  float p[NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)  // dhn . v
+    tc::prod16<NS, false, false>(p, sn, ld, l0, cv, ld, 0, 16 * kk);
+  decay_pairs<NS>(ex, [&](int n, int x, float d) { p[n][x] *= d; });
+  score_times<NS, DH / 8>(acc, p, scratch, ck, ld);
+}
+
+// One query tile of a warp's dk/dv walk (the warp's 16 keys at row j0 of the
+// own R(k) and R(v) tiles sk, sv; the query tile's R(q) cq and R(dhn) cn),
+// QW query columns a step, one step's fragments live at a time: S^T = R(k)
+// R(q)^T and P^T = R(v) R(dhn)^T as (16 x QW) fragments share one exp a
+// pair (ex(hh, query column)), S^T also scaled by qk_scale, then dv += R(S^T
+// D) R(dhn) and dk += R(P^T D) R(q).  scratch: two of the warp's score
+// scratches (float32 products).
+template <int DH, int QW, typename CT, typename Ex>
+__device__ __forceinline__ void dkv_step(float (&ak)[DH / 8][4], float (&av)[DH / 8][4],
+                                         const CT* sk, const CT* sv, int j0, const CT* cq,
+                                         const CT* cn, int ld, float* scratch, float qk_scale,
+                                         Ex ex) {
+  constexpr int NS = QW / 8;  // n-tiles of 8 queries in a score fragment
+  constexpr int NJ = DH / 8;  // n-tiles of 8 columns of dk and dv
+#pragma unroll 1  // one QW step's fragments live at a time (DH 128: registers)
+  for (int qo = 0; qo < TR; qo += QW) {
+    float st[NS][4], pt[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) st[n][x] = pt[n][x] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      tc::prod16<NS, false, false>(st, sk, ld, j0, cq, ld, qo, 16 * kk);  // k . q
+      tc::prod16<NS, false, false>(pt, sv, ld, j0, cn, ld, qo, 16 * kk);  // v . dhn
+    }
+    decay_pairs<NS>([&](int hh, int c) { return ex(hh, qo + c); }, [&](int n, int x, float d) {
+      st[n][x] = (st[n][x] * qk_scale) * d;
+      pt[n][x] *= d;
+    });
+    score_times<NS, NJ>(av, st, scratch, cn + qo * ld, ld);  // dv += R(S D)^T R(dhn)
+    score_times<NS, NJ>(ak, pt, scratch + scratch_floats<CT, NS>(), cq + qo * ld, ld);
+  }
 }
 
 }  // namespace par

@@ -27,12 +27,21 @@
 // score products: >= 0.51 ms at DH 32 (16 ex2 a clock on each of 132 SMs
 // at 1980 MHz), 0.25 ms at DH 128.
 //
-// dQ (parallel_bw_dq_kernel): a block of 256 threads owns 64 query rows
-// and walks the key tiles up to the diagonal through shared memory, the P
-// tile in shared memory between the two products, as float32 FMA on the
-// CUDA cores (parallel.cuh's tile_dot).
+// dQ (parallel_bw_dq_kernel) has the forward's streams, products and exps,
+// and its design (parallel_fw.cu): a block of 4 warps owns 64 query rows,
+// each warp 16, stages the block's dh once and scales it in place to
+// R(dhn) (float32 division, then the rounding; divided on the way in when
+// the storage type is not the compute type), and walks the key tiles up to
+// its diagonal, staging R(k), R(v) and the gate rows two deep by cp.async.
+// Per key tile a warp makes P = R(dhn) R(v)^T as a (16 x 64) fragment on the
+// tensor cores, scales it by D in registers (one __expf a pair; only the
+// diagonal tile is masked, and rows past S have b = -inf, so the zero rows
+// of a ragged last tile meet no overflowing e^{-b_j}), and multiplies it,
+// rounded to bf16, by K (ldmatrix .trans) into dq, 16 x DH a warp in
+// registers (dq_step, parallel.cuh).  Shared memory at DH 128: 87 KB in
+// bf16, 188 KB in float32.
 //
-// dK/dV (parallel_bw_dkv_kernel), on the tensor cores: a block owns 128
+// dK/dV (parallel_bw_dkv_kernel): a block owns 128
 // key rows with bf16 products (8 warps; 64 rows and 4 warps with float32
 // products, whose tiles would not fit), each warp 16 keys, and walks the
 // query tiles from the block's diagonal on (the column-causal walk),
@@ -45,7 +54,7 @@
 // exp a pair in registers (only the warp's diagonal tile and a ragged
 // last tile are masked; a tile wholly before its keys is skipped), and
 // multiplies them, rounded to bf16, by dhn and Q (ldmatrix .trans) into dv
-// and dk without leaving the registers.  The trouble is registers: the dk
+// and dk without leaving the registers (dkv_step, parallel.cuh).  The trouble is registers: the dk
 // and dv accumulators of 16 x DH and the two fragments come to ~200 a
 // thread at DH 128 with 64 queries a step, so at DH 128 a query tile is
 // taken in two steps of QW = 32 columns, one live at a time (-Xptxas -v
@@ -61,66 +70,104 @@
 
 using namespace par;
 
+namespace {
+
+template <typename CT, int DH>
+struct DqSmem {
+  static constexpr int LD = DH + tc::pad<CT>();
+  static constexpr size_t bytes =
+      sizeof(CT) * 5 * TR * LD + 4 * (5 * TR + 4 * scratch_floats<CT, TR / 8>());
+};
+static_assert(DqSmem<float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
+
+}  // namespace
+
 template <typename T, typename CT, int DH>
-__global__ void __launch_bounds__(NT) parallel_bw_dq_kernel(
+__global__ void __launch_bounds__(NTC) parallel_bw_dq_kernel(
     const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ b,
     const float* __restrict__ li, const float* __restrict__ den, const T* __restrict__ dh,
     T* __restrict__ dq, int S, float qk_scale, float eps) {
-  constexpr int DP = DH + 1;
-  constexpr int CPT = DH / 4;
-  extern __shared__ float smem[];  // qtile_smem_floats<DH>()
-  float* sdn = smem;            // (TR, DP) R(dh / (den + eps)) of the query rows
-  float* sv = sdn + TR * DP;    // (TR, DP) R(v) of the key tile
-  float* sk = sv + TR * DP;     // (TR, DP) R(k) of the key tile
-  float* sp = sk + TR * DP;     // (TR, TP) P
-  float* sbq = sp + TR * TP;    // (TR) b of the query rows
-  float* sbk = sbq + TR;        // (TR) b of the key rows
-  float* slk = sbk + TR;        // (TR) logsig(i) of the key rows
+  constexpr int LD = DqSmem<CT, DH>::LD;
+  constexpr int NJ = DH / 8;  // n-tiles of 8 columns of dq
+  constexpr bool RAW = std::is_same<T, CT>::value;  // dh staged unchanged, scaled in place
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* sn = reinterpret_cast<CT*>(smem_raw);  // (TR, LD) dh, then R(dhn)
+  CT* sk = sn + TR * LD;                     // 2 x (TR, LD) R(k) of a key tile
+  CT* sv = sk + 2 * TR * LD;                 // 2 x (TR, LD) R(v)
+  float* sbk = reinterpret_cast<float*>(sv + 2 * TR * LD);  // 2 x (TR) b of the keys
+  float* slk = sbk + 2 * TR;                                // 2 x (TR) logsig(i)
+  float* sdq = slk + 2 * TR;                                // (TR) den of the query rows
+  float* scratch = sdq + TR + threadIdx.x / 32 * scratch_floats<CT, TR / 8>();
 
-  const int tid = threadIdx.x;
-  const int qt = heavy_first(blockIdx.x, tiles(S), true);
-  const size_t base = (size_t)blockIdx.y * S;
-  const int q0 = qt * TR;
-  load_tile<T, CT, DH>(dh + base * DH, den + base, eps, q0, S, sdn);
-  load_rows(b + base, q0, S, sbq);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = heavy_first(blockIdx.y, tiles(S), true);
+  const size_t base = (size_t)blockIdx.x * S;  // first row of this (batch, head)
+  const int q0 = qt * TR, l0 = 16 * warp;
+  const T* kb = k + base * DH;
+  const T* vb = v + base * DH;
 
-  const int ti = tid / 16, tj = tid % 16;
-  const int row = tid / 4, cc = (tid % 4) * CPT;
-  float acc_q[CPT];
-#pragma unroll
-  for (int x = 0; x < CPT; ++x) acc_q[x] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
+  auto prefetch = [&](int kt, int buf) {
     const int k0 = kt * TR;
-    __syncthreads();
-    load_tile<T, CT, DH>(v + base * DH, nullptr, 0.f, k0, S, sv);
-    load_tile<T, CT, DH>(k + base * DH, nullptr, 0.f, k0, S, sk);
-    load_rows(b + base, k0, S, sbk);
-    load_rows(li + base, k0, S, slk);
-    __syncthreads();
-    float acc[4][4];
-    tile_dot<DH>(sdn, sv, ti, tj, acc);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int lr = ti * 4 + r;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int jr = tj * 4 + s;
-        sp[lr * TP + jr] = acc[r][s] * decay(q0 + lr, k0 + jr, S, sbq[lr], sbk[jr], slk[jr]);
-      }
+    stage_tile<T, CT, DH, LD>(sk + buf * TR * LD, kb, k0, S);
+    stage_tile<T, CT, DH, LD>(sv + buf * TR * LD, vb, k0, S);
+    for (int e = threadIdx.x; e < TR; e += NTC) {
+      const bool ok = k0 + e < S;
+      tc::cp_async4(sbk + buf * TR + e, ok ? b + base + k0 + e : b, ok);
+      tc::cp_async4(slk + buf * TR + e, ok ? li + base + k0 + e : li, ok);
     }
-    __syncthreads();
-    for (int j = 0; j < TR; ++j) {
-      const float p = rt<CT>(sp[row * TP + j]);
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) acc_q[x] = fmaf(p, sk[j * DP + cc + x], acc_q[x]);
-    }
+    tc::cp_async_commit();
+  };
+  stage_tile<T, CT, DH, LD>(sn, dh + base * DH, q0, S, RAW ? nullptr : den + base, eps);
+  for (int e = threadIdx.x; e < TR; e += NTC) {
+    const bool ok = q0 + e < S;
+    tc::cp_async4(sdq + e, ok ? den + base + q0 + e : den, ok);
   }
+  prefetch(0, 0);  // one group with the dh tile
 
-  const int l = q0 + row;
-  if (l < S) {
+  // b of the warp's two rows of each lane; -inf past S, so that D is 0 there
+  float bq[2];
 #pragma unroll
-    for (int x = 0; x < CPT; ++x) from_f32(acc_q[x] * qk_scale, dq + (base + l) * DH + cc + x);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int l = q0 + l0 + g + 8 * hh;
+    bq[hh] = l < S ? b[base + l] : -CUDART_INF_F;
+  }
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  walk_tiles(
+      0, qt, prefetch,
+      [&](int kt, int) {
+        if (RAW && kt == 0) {  // dh is in: R(dhn) in place
+          scale_rows<CT, DH, LD, NTC>(sn, sdq, eps);
+          __syncthreads();
+        }
+      },
+      [&](int kt, int buf) {
+        const float* cb = sbk + buf * TR;
+        const float* cl = slk + buf * TR;
+        // the diagonal tile masks j > l before the exp
+        auto step = [&](auto diag) {
+          dq_step<DH>(acc, sn, l0, sk + buf * TR * LD, sv + buf * TR * LD, LD, scratch,
+                      [&](int hh, int c) {
+                        return decltype(diag)::value && c > l0 + g + 8 * hh
+                                   ? -CUDART_INF_F
+                                   : (bq[hh] - cb[c]) + cl[c];
+                      });
+        };
+        if (kt == qt) step(std::true_type{});
+        else step(std::false_type{});
+      });
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int l = q0 + l0 + g + 8 * hh;
+    if (l >= S) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      tc::st2(dq + (base + l) * DH + 8 * j + 2 * t, acc[j][2 * hh] * qk_scale,
+              acc[j][2 * hh + 1] * qk_scale);
   }
 }
 
@@ -208,57 +255,31 @@ __global__ void __launch_bounds__(DkvTile<CT, DH>::NTH, DkvTile<CT, DH>::MIN_BLO
 #pragma unroll
     for (int x = 0; x < 4; ++x) ak[j][x] = av[j][x] = 0.f;
 
-  for (int qt = first; qt < NQ; ++qt) {
-    const int buf = (qt - first) & 1, q0 = qt * TR;
-    const CT* cq = sq + buf * TR * LD;
-    CT* cn = sn + buf * TR * LD;
-    const float* cb = sbq + buf * TR;
-    tc::cp_async_wait<0>();
-    __syncthreads();  // query tile qt is in; every warp is done with tile qt - 1
-    if constexpr (RAW) {
-      scale_rows<CT, DH, LD, NTH>(cn, sdq + buf * TR, eps);
-      __syncthreads();
-    }
-    if (qt + 1 < NQ) prefetch(qt + 1, buf ^ 1);
-    if (qt < diag) continue;  // every query of the tile precedes the warp's keys
-
-    // the diagonal tile masks l < j, a ragged last tile l >= S, before the exp
-    auto walk = [&](auto masked) {
-#pragma unroll 1  // one QW step's fragments live at a time (DH 128: registers)
-      for (int qo = 0; qo < TR; qo += QW) {
-        float st[NS][4], pt[NS][4];
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) st[n][x] = pt[n][x] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          tc::prod16<NS, false, false>(st, sk, LD, j0, cq, LD, qo, 16 * kk);  // k . q
-          tc::prod16<NS, false, false>(pt, sv, LD, j0, cn, LD, qo, 16 * kk);  // v . dhn
+  walk_tiles(
+      first, NQ - 1, prefetch,
+      [&](int, int buf) {
+        if constexpr (RAW) {  // the dh tile is in: R(dhn) in place
+          scale_rows<CT, DH, LD, NTH>(sn + buf * TR * LD, sdq + buf * TR, eps);
+          __syncthreads();
         }
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const int l = qo + 8 * n + 2 * t;
-          const float2 bl = *reinterpret_cast<const float2*>(cb + l);
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int hh = x >> 1, e = x & 1;
-            float ex = ((e ? bl.y : bl.x) - bj[hh]) + lj[hh];
-            if (decltype(masked)::value &&
-                (q0 + l + e < k0 + j0 + g + 8 * hh || q0 + l + e >= S))
-              ex = -CUDART_INF_F;
-            const float d = __expf(ex);
-            st[n][x] = (st[n][x] * qk_scale) * d;
-            pt[n][x] *= d;
-          }
-        }
-        score_times<NS, NJ>(av, st, scratch, cn + qo * LD, LD);  // dv += R(S D)^T R(dhn)
-        score_times<NS, NJ>(ak, pt, scratch + scratch_floats<CT, NS>(), cq + qo * LD, LD);
-      }
-    };
-    if (qt == diag || q0 + TR > S) walk(std::true_type{});
-    else walk(std::false_type{});
-  }
+      },
+      [&](int qt, int buf) {
+        if (qt < diag) return;  // every query of the tile precedes the warp's keys
+        const int q0 = qt * TR;
+        const float* cb = sbq + buf * TR;
+        // the diagonal tile masks l < j, a ragged last tile l >= S, before the exp
+        auto step = [&](auto masked) {
+          dkv_step<DH, QW>(ak, av, sk, sv, j0, sq + buf * TR * LD, sn + buf * TR * LD, LD,
+                           scratch, qk_scale, [&](int hh, int c) {
+                             return decltype(masked)::value &&
+                                            (q0 + c < k0 + j0 + g + 8 * hh || q0 + c >= S)
+                                        ? -CUDART_INF_F
+                                        : (cb[c] - bj[hh]) + lj[hh];
+                           });
+        };
+        if (qt == diag || q0 + TR > S) step(std::true_type{});
+        else step(std::false_type{});
+      });
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -284,10 +305,13 @@ extern "C" int parallel_bw_dq(const void* k, const void* v, const float* b, cons
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    return launch_with_smem(parallel_bw_dq_kernel<T, CT, D>, dim3(tiles(S), BNH),
-                            sizeof(float) * qtile_smem_floats<D>(), st, static_cast<const T*>(k),
-                            static_cast<const T*>(v), b, li, den, static_cast<const T*>(dh),
-                            static_cast<T*>(dq), S, qk_scale, eps);
+    const size_t smem = DqSmem<CT, D>::bytes;
+    cudaError_t err = port::allow_smem(parallel_bw_dq_kernel<T, CT, D>, smem);
+    if (err != cudaSuccess) return (int)err;
+    parallel_bw_dq_kernel<T, CT, D><<<dim3(BNH, tiles(S)), NTC, smem, st>>>(
+        static_cast<const T*>(k), static_cast<const T*>(v), b, li, den,
+        static_cast<const T*>(dh), static_cast<T*>(dq), S, qk_scale, eps);
+    return (int)cudaGetLastError();
   });
 }
 

@@ -164,13 +164,27 @@ def _gates(i, f, L):
     return b, (g[..., None] - b) + logi, logi, g
 
 
+def _exp_f32(x):
+    """e^x, to float32 accuracy on every call.
+
+    On the CPU, PyTorch hands a large float32 ``exp`` to MKL's vector math
+    in slices, one a thread; in the first such call of a process one
+    thread's slice comes back about 1.5e-4 off (relative), whatever the
+    values (-inf entries or not), and a single thread never shows it.  A
+    float64 ``exp`` has the same fault at ~3e-9, which rounding to float32
+    removes, so float32 CPU tensors take that route."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.exp(x.double()).float()
+    return torch.exp(x)
+
+
 def _decay(b, logi):
     """D = tril(e^{b_l - b_j + logsig(i_j)}), the exponent masked before exp."""
     L = b.shape[-1]
     causal = torch.ones(L, L, dtype=torch.bool, device=b.device).tril()
     logD = b[..., :, None] - b[..., None, :] + logi[..., None, :]
-    return torch.exp(torch.where(causal, logD, torch.full((), -torch.inf, dtype=b.dtype,
-                                                          device=b.device)))
+    return _exp_f32(torch.where(causal, logD, torch.full((), -torch.inf, dtype=b.dtype,
+                                                        device=b.device)))
 
 
 def _rounder(compute_dtype, acc):

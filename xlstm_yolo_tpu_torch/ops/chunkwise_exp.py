@@ -53,6 +53,7 @@ from xlstm_yolo_tpu_torch.ops.chunkwise import (
     _check_saved,
     _chunks,
     _codes,
+    _exp_f32,
     _rounder,
     gate_grad_terms,
 )
@@ -160,7 +161,7 @@ def chunkwise_exp_fw_plain(q, k, v, i, f, c_initial=None, n_initial=None, m_init
     m_states = torch.stack(m_states, dim=2)
     logD = _log_decay(b, ic)
     m_comb = torch.maximum(b + m_states[..., None], logD.amax(-1))
-    sd = (R(qc) @ R(kc).transpose(-1, -2)) * scale * torch.exp(logD - m_comb[..., None])
+    sd = (R(qc) @ R(kc).transpose(-1, -2)) * scale * _exp_f32(logD - m_comb[..., None])
     qbar = qc * torch.exp((b + m_states[..., None]) - m_comb)[..., None] * scale
     num = R(sd) @ R(vc) + R(qbar) @ R(c_states)
     den_raw = sd.sum(-1) + (qbar * n_states[..., None, :]).sum(-1)
@@ -210,7 +211,7 @@ def chunkwise_exp_bw_dqkv_plain(q, k, v, i, f, c_states, den, m_comb, mrow, dh, 
     b, a, ic, _ = _gates(i, f, L)
     mc = m_comb.reshape(B, NH, NC, L)
     m_prev, m_new = mrow[..., 0, None], mrow[..., 1, None]
-    D = torch.exp(_log_decay(b, ic) - mc[..., None])
+    D = _exp_f32(_log_decay(b, ic) - mc[..., None])
     dhn = _chunks(dh.to(acc), L) / (den.reshape(B, NH, NC, L, 1) + eps)
     Pm = (R(dhn) @ R(vc).transpose(-1, -2)) * D
     sd = (R(qc) @ R(kc).transpose(-1, -2)) * scale * D
