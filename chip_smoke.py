@@ -9,10 +9,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                started together, and print the build time, what ptxas
                reports and, for the v2 forward and backward, the epilogue
                backward, the FFN backward, the quadratic forward and
-               backward and the v1 and exp backwards, the tensor-core (HMMA)
-               instructions of each kernel
-               in the machine code (cuobjdump -sass); phases 28-34 run next,
-               then 2-27;
+               backward and the v1 and exp forwards and backwards, the
+               tensor-core (HMMA) instructions of each kernel in the machine
+               code (cuobjdump -sass; each of these libraries must show
+               some); phases 28-34 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -69,9 +69,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                training lengths padded to whole chunks, and a case with
                closed forget gates): float32 streams and products to 1e-4,
                the route's bfloat16 streams and products to 2e-2, and in
-               bfloat16 dq/dk/dv's outputs nearer their plain version in
-               mean error than the plain version with float32 products is
-               (rounding_shows);
+               bfloat16 the forward's and dq/dk/dv's outputs nearer their
+               plain version in mean error than the plain version with
+               float32 products is (rounding_shows);
 10. v1_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=V1).predict() on
                the images of phase 4: v1 forward launches exactly as derived
                from the wrappers' segment plan (v1_plan), no v2 launch;
@@ -86,8 +86,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                training lengths padded to whole chunks), and two more gate
                regimes, closed forget gates and large input gates (i in
                [5, 15]: m far from 0): float32 products to 1e-4, the route's
-               bfloat16 to 2e-2, dq/dk/dv also in mean error as in
-               v1_kernels (phase_exp_kernels);
+               bfloat16 to 2e-2, the forward (h as h (den + eps)) and
+               dq/dk/dv also in mean error as in v1_kernels
+               (phase_exp_kernels);
 13. exp_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=EXP).predict()
                on the images of phase 4: exact exp forward launches, no v1
                or v2 cell launch;
@@ -149,9 +150,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                float32 gradients with the kernels against float64, as
                e2e_grads (phase_wide_grads);
 27. times    - CUDA-event medians (and every window) of each kernel and its
-               plain version at each S (v1, exp: each (S, L), dq/dk/dv with
-               the floor of its one exp a causal pair of a chunk, B NH S
-               (L + 1) / 2 of them, at the sampled SM clock, exp_floor_ms;
+               plain version at each S (v1, exp: each (S, L), the forward
+               and dq/dk/dv with the floor of their one exp a causal pair of
+               a chunk, B NH S (L + 1) / 2 of them, at the sampled SM clock,
+               exp_floor_ms;
                quadratic: each padded S, with the floor of its one exp a
                causal pair, exp_floor_ms); for the v2 backward and the
                FFN backward also the
@@ -222,6 +224,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                scan, output pass; inference and train), the v2 backward (dC
                scan, dq/dk/dv), the epilogue backward and the FFN backward
                (row pass, weight gradients, sums) at each S and every
+               detector's widths, and of the v1 and exp forwards (state
+               pass, output pass; train variant) at (6656, 512) at every
                detector's widths, bf16, from torch.profiler traces, and each
                pass of the v2 forward and backward alone in CUDA-event
                windows (phase_passes_times; the times phases print them
@@ -292,6 +296,10 @@ BF16_TOL = 2e-2  # bfloat16 in, same rounded inputs on both sides; h rounded onc
 # the plain version rounds intermediate products to bfloat16, the kernels
 # keep them in float32 and round each output once)
 GRAD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+# The v1 and exp forwards' outputs the products reach by less than this of
+# their mean |value| (C with closed gates, every key scaled to ~0; m, n)
+# show no rounding: their bf16-vs-float32 gap is at float32's resolution.
+FW_MIN_GAP = 1e-5
 # the bfloat16 v2 forward against its two plain passes (fw_split: the same
 # operands rounded, float32 sums in another order): h within BF16_TOL, C
 # within BF16_STATE_REL of its largest |value|, n and den within F32_TOL,
@@ -586,17 +594,19 @@ def unrounded(args):
     return (*(a.float() for a in args[:3]), *args[3:])
 
 
-def rounding_shows(what: str, got, ref, unrounded_ref) -> float:
+def rounding_shows(what: str, got, ref, unrounded_ref, min_gap: float = 0.0) -> float:
     """Each bf16 output lies nearer its rounding plain version ``ref`` in
     mean |error| than the unrounded version is, by more than half, so a
     kernel that skipped the rounding of its products' operands fails (the
     mean is what a few operands rounded one step the other way barely
-    move).  Returns the largest ratio of the two mean distances."""
+    move).  An output whose gap is at most ``min_gap`` of its mean |value|
+    is one the products reach below float32's resolution, and is skipped.
+    Returns the largest ratio of the two mean distances."""
     worst = 0.0
     for j, (a, b, c) in enumerate(zip(got, ref, unrounded_ref)):
         a, b, c = a.double(), b.double(), c.double()
         gap = (c - b).abs().mean().item()
-        if gap == 0:  # no product reaches it
+        if gap <= min_gap * b.abs().mean().item():  # no product reaches it (measurably)
             continue
         ratio = (a - b).abs().mean().item() / gap
         if ratio >= 0.5:
@@ -1138,13 +1148,17 @@ def ffn_matmul_yardstick(f_args, ws) -> float:
 # the kernels of each redesigned function (bf16), by name in a profiler
 # trace, with their launches a call
 FW_PASSES = {"fw_state_kernel": 1, "fw_out_kernel": 1}
+CHUNK_FW_PASSES = {"fw_scan_kernel": 1, "fw_h_kernel": 1}  # the v1 and exp forwards' template
+CHUNK_FW_SHAPE = (6656, 512)  # (S, L) of their passes' readings: the routes' largest call
 PASSES = {"chunkwise_fw": FW_PASSES, "chunkwise_fw_train": FW_PASSES,
           "chunkwise_bw": {"bw_dc_kernel": 1, "bw_dqkv_kernel": 1},
           "epilogue_bw": {"epilogue_rows_kernel": 1, "wgrad_tc_kernel": 1, "reduce_kernel": 2},
-          "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3}}
+          "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3},
+          "chunkwise_v1_fw": CHUNK_FW_PASSES, "chunkwise_exp_fw": CHUNK_FW_PASSES}
 # the libraries whose kernels run their bf16 products on the tensor cores
 TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "parallel_fw",
-                "parallel_bw", "chunkwise_v1_bw", "chunkwise_exp_bw")
+                "parallel_bw", "chunkwise_v1_fw", "chunkwise_v1_bw", "chunkwise_exp_fw",
+                "chunkwise_exp_bw")
 
 
 def ptxas_summary(log: str) -> list:
@@ -1184,12 +1198,14 @@ def sass_mma_counts(library) -> dict | str:
     return counts
 
 
-def phase_passes_times(cw, epi, ffn, card: str) -> dict:
+def phase_passes_times(cw, epi, ffn, v1, ex, card: str) -> dict:
     """The device time of each kernel of the redesigned functions, the v2
     forward (state scan, output pass; inference and train variants), the v2
     backward (dC scan, dq/dk/dv), the epilogue backward and the FFN backward
-    (row pass, weight gradients, sums), at each S and every detector's
-    widths, bf16, from a torch.profiler trace of 10 calls
+    (row pass, weight gradients, sums), at each S, and the v1 and exp
+    forwards (state pass, output pass; the train variant) at
+    CHUNK_FW_SHAPE, at every detector's widths, bf16, from a torch.profiler
+    trace of 10 calls
     (kernels_device_ms), and each pass of the v2 forward and backward alone
     through its wrapper in CUDA-event windows.  It runs early:
     in this script's long process, traces taken after its later phases
@@ -1241,10 +1257,22 @@ def phase_passes_times(cw, epi, ffn, card: str) -> dict:
                         iters=n, reps=3, warm_s=0.1))}}
             per["ffn_bw"][S] = {"passes_device_ms": kernels_device_ms(
                 lambda: ffn.ffn_bwd(*f_args), PASSES["ffn_bw"])}
-            for name in PASSES:
-                emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg, "card": card,
-                      "B": B, "S": S, "dtype": "bfloat16", **per[name][S]})
+            for name, by_s in per.items():
+                if S in by_s:
+                    emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg,
+                          "card": card, "B": B, "S": S, "dtype": "bfloat16", **by_s[S]})
             del args, cs, ns, den, dh, e_args, f_args, dcs
+        S, L = CHUNK_FW_SHAPE
+        kw = dict(chunk_size=L, eps=EPS)
+        a1 = v1_inputs(S, torch.bfloat16, seed=S, ws=ws)[0]
+        a2 = exp_inputs(S, torch.bfloat16, seed=S, ws=ws)[0]
+        for name, fn in (("chunkwise_v1_fw", lambda: v1.chunkwise_fw(*a1, **kw)),
+                         ("chunkwise_exp_fw", lambda: ex.chunkwise_exp_fw(*a2, **kw))):
+            per[name][(S, L)] = {"passes_device_ms": kernels_device_ms(fn, PASSES[name])}
+            emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg, "card": card,
+                  "B": B, "S": S, "L": L, "dtype": "bfloat16", "variant": "train",
+                  **per[name][(S, L)]})
+        del a1, a2
         out[ws.cfg] = per
     return out
 
@@ -1405,7 +1433,8 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
     largest |value|; initial states and dC_last on the inference segments,
     closed forget gates on one case.  In bfloat16 dq/dk/dv's outputs must
     also lie nearer their plain version in mean error than the plain version
-    with float32 products does, by more than half (rounding_shows)."""
+    with float32 products does, by more than half (rounding_shows), and so
+    must the forward's."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1421,6 +1450,11 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
             torch.cuda.synchronize()
             ref = v1.chunkwise_fw_plain(*args, **kw)
             e_fw = compare_outputs(f"v1 fw S={S} L={L} {key}", got, ref, rel)
+            ratio_fw = {} if dtype != torch.bfloat16 else {
+                "chunkwise_v1_fw_mean_err_over_unrounded": rounding_shows(
+                    f"v1 fw S={S} L={L} {gates}", got, ref,
+                    v1.chunkwise_fw_plain(*args, **dict(kw, compute_dtype=torch.float32)),
+                    FW_MIN_GAP)}
             q, k, v, i, f = args[:5]
             _, den, cs = ref[:3]
             dcs, dc0 = v1.chunkwise_bw_dc(q, f, dh, den, dcl, **kw)
@@ -1442,7 +1476,7 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
                   "compute_dtype": key,
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
                   **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))},
-                  **ratio})
+                  **ratio_fw, **ratio})
             del args, dh, dcl, got, ref, got_b, ref_b, dcs, rdcs
     return worst
 
@@ -1572,10 +1606,10 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
     denominator is tiny, and a row whose terms nearly cancel turns a float32
     rounding of den into a large relative change of h (its own error is
     reported as h_max_rel_err).  The predict variant's h and last states
-    must equal the training variant's bit for bit.  In bfloat16 dq/dk/dv's
-    outputs must also lie nearer their plain version in mean error than the
-    plain version with float32 products does, by more than half
-    (rounding_shows)."""
+    must equal the training variant's bit for bit.  In bfloat16 the
+    forward's outputs (h as its numerator, as above) and dq/dk/dv's must
+    also lie nearer their plain version in mean error than the plain version
+    with float32 products does, by more than half (rounding_shows)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1594,9 +1628,13 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
             torch.cuda.synchronize()
             ref = ex.chunkwise_exp_fw_plain(*args, **kw)
             num = lambda out: out[0].float() * (out[1] + EPS)[..., None]  # noqa: E731
-            e_fw = compare_outputs(f"exp fw S={S} L={L} {gates} {key}",
-                                   [num(got), *got[1:5], *got[5]], [num(ref), *ref[1:5], *ref[5]],
-                                   rel)
+            outs = lambda out: [num(out), *out[1:5], *out[5]]  # noqa: E731
+            e_fw = compare_outputs(f"exp fw S={S} L={L} {gates} {key}", outs(got), outs(ref), rel)
+            ratio_fw = {} if dtype != torch.bfloat16 else {
+                "chunkwise_exp_fw_mean_err_over_unrounded": rounding_shows(
+                    f"exp fw S={S} L={L} {gates}", outs(got), outs(ref), outs(
+                        ex.chunkwise_exp_fw_plain(*args, **dict(kw, compute_dtype=torch.float32))),
+                    FW_MIN_GAP)}
             h_rel = ((got[0].float() - ref[0].float()).abs().max()
                      / ref[0].float().abs().max()).item()
             if not (torch.equal(got_p[0], got[0])
@@ -1627,7 +1665,7 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
                   "m_last_range": [m_last.min().item(), m_last.max().item()],
                   "h_max_rel_err": h_rel,
                   **{f"{n}_max_rel_err": e[1] for n, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv))},
-                  **ratio})
+                  **ratio_fw, **ratio})
             del args, dh, dcl, got, got_p, ref, got_b, ref_b, dcs, rdcs, bw
     return worst
 
@@ -2235,13 +2273,14 @@ def chunk_exp_floor(S: int, L: int, sm_mhz, ws=FLAGSHIP):
 
 
 def timed_row(name, kern, plain, n, ws, bound, S, L):
-    """ms and plain_ms (in_turns) with the bound; for dq/dk/dv also the exps'
-    floor at the SM clock sampled while the kernel ran (chunk_exp_floor)."""
+    """ms and plain_ms (in_turns) with the bound; for the forward and
+    dq/dk/dv also the exps' floor at the SM clock sampled while the kernel
+    ran (chunk_exp_floor)."""
     with ClockSampler() as clocks:
         t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
     row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
            **dict(zip(("bound_ms", "bound_by"), bound))}
-    if name.endswith("dqkv"):
+    if name.endswith(("dqkv", "_fw")):
         sm = clocks.summary["clocks.sm"]["median"] if clocks.summary_n else None
         row.update(exp_floor_ms=chunk_exp_floor(S, L, sm, ws), sm_mhz=sm)
     return row, t_kern, t_plain
@@ -3708,12 +3747,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = cuda_build.build_all()
+    sass_mma = {k: sass_mma_counts(built[k]["library"]) for k in TC_LIBRARIES}
     emit({"phase": "setup", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card,
           "build_s": time.perf_counter() - t0,
           "libraries": {k: v["library"].name for k, v in built.items()},
           "ptxas": {k: ptxas_summary(v["log"]) for k, v in built.items()},
-          "sass_mma": {k: sass_mma_counts(built[k]["library"]) for k in TC_LIBRARIES}})
+          "sass_mma": sass_mma})
+    for lib, counts in sass_mma.items():  # "" is in every kernel's name
+        need = CHUNK_FW_PASSES if lib in ("chunkwise_v1_fw", "chunkwise_exp_fw") else {"": 1}
+        if isinstance(counts, dict) and not all(any(k in fn for fn in counts) for k in need):
+            raise AssertionError(f"{lib}: no HMMA in the machine code of {list(need)}: {counts}")
 
     def timed(name, fn, *args, **kw):
         t = time.perf_counter()
@@ -3729,7 +3773,7 @@ def main() -> int:
     # the sub-chunked forward fw3, beside the v2 forward
     worst_fw3, fw3_launches = timed("fw3_kernel", phase_fw3_kernel, f3, cw)
     fw3_t = timed("fw3_times", phase_fw3_times, f3, cw, card)
-    passes_t = timed("passes_times", phase_passes_times, cw, epi, ffn, card)
+    passes_t = timed("passes_times", phase_passes_times, cw, epi, ffn, v1, ex, card)
 
     worst = timed("kernel", phase_kernel, cw)
     timed("model", phase_model, cw, "vil-det-192.yaml", B, 640, launches_expected=20)
@@ -3942,13 +3986,15 @@ def main() -> int:
                       if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
                 for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
                                ("vil_det_384", w384_t))}
-        if name.endswith("dqkv"):  # per call at (6656, 512), every detector's heads
+        if name.endswith(("dqkv", "v1_fw", "exp_fw")):  # per call at (6656, 512), every heads
             row["per_call_s6656_l512"] = {
-                cfg: {k: v for k, v in t[name][(max(par_lengths), 512)].items()
-                      if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
-                for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
-                               ("vil_det_384", w384_t))}
-        if name in PASSES:  # per call at S 6400: each kernel's device ms
+                cfg: {**{k: v for k, v in t[name][CHUNK_FW_SHAPE].items()
+                         if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")},
+                      **passes_t[ws.cfg].get(name, {}).get(CHUNK_FW_SHAPE, {})}
+                for cfg, t, ws in (("vil_det_192", flag_t, FLAGSHIP),
+                                   ("vil_det_256", wide_t[WIDE[0].cfg], WIDE[0]),
+                                   ("vil_det_384", w384_t, WIDE[-1]))}
+        elif name in PASSES:  # per call at S 6400: each kernel's device ms
             row["per_call_s6400"] = {
                 cfg: {k: v for k, v in t[name][SEQ_LENS[0]].items()
                       if k in ("ms", "bound_ms", "passes_device_ms", "passes_event_ms")}

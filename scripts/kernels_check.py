@@ -1,5 +1,5 @@
-"""Quick check of the port's quadratic and chunkwise backward CUDA kernels
-on one GPU, from the root of the repository:
+"""Quick check of the port's quadratic kernels and the v1 and exp chunkwise
+kernels on one GPU, from the root of the repository:
 
     python3 scripts/kernels_check.py            # build, tests, times
     python3 scripts/kernels_check.py --times --root DIR --label parent
@@ -10,9 +10,16 @@ routes' sources, prints each kernel's registers and spills (``nvcc -Xptxas
 the quadratic kernels, the v1 and exp kernels and the stateful cell, then
 prints one JSON line per detector's heads and S (6656 and 2048, batch 8,
 bf16): the best of three CUDA-event windows of a call of the quadratic
-forward, dq and dk/dv and of the v1 and exp dq/dk/dv at the route's chunk
-there (512 at 6656, 256 at 2048), the SM clock, the exps' floors and the
-bounds (this checkout's chip_smoke.py helpers).  ``--times`` prints only
+forward, dq and dk/dv, and, at the route's chunk there (512 at 6656, 256
+at 2048), of the v1 and exp forwards (train: no initial state, the exp
+forward saving its rows; predict: from initial states, the exp forward
+saving none) and dq/dk/dv, the SM clock, the exps' floors and the bounds
+(this checkout's chip_smoke.py helpers); then, per detector's heads, one
+line of the v1 and exp forwards' best windows, and one of their device ms
+a call from a profiler trace, at every (S, L) of the route's plan
+(chip_smoke.py's v1_plan of vil-det-192: the inference segments from
+initial states, the exp forward saving nothing, and the padded training
+lengths).  ``--times`` prints only
 the times; ``--root`` takes the package from another checkout (an
 unpacked parent commit, to time its kernels on the same card).  Exits
 non-zero without a card or when a test fails.  A few minutes, where the
@@ -41,16 +48,21 @@ def times(cs, label: str):
     from xlstm_yolo_tpu_torch.ops import chunkwise_exp as ex
     from xlstm_yolo_tpu_torch.ops import parallel as pk
 
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    plan = cs.v1_plan(YOLO("vil-det-192.yaml", device="cpu", chunkwise_kernel=cs.V1).model)
     for ws in (cs.FLAGSHIP, *cs.WIDE):
         for S, L in ((6656, 512), (2048, 256)):
             args, dh = cs.par_inputs(S, torch.bfloat16, seed=S, ws=ws)
             _, den = pk.parallel_fw(*args)
             bw = (*args, den, dh)
             a1, dh1, _ = cs.v1_inputs(S, torch.bfloat16, seed=S, ws=ws)
+            a1s = cs.v1_inputs(S, torch.bfloat16, states=True, seed=S + 1, ws=ws)[0]
             kw = dict(chunk_size=L, eps=cs.EPS)
             _, den1, c1, *_ = v1.chunkwise_fw(*a1, **kw)
             dc1, _ = v1.chunkwise_bw_dc(a1[0], a1[4], dh1, den1, **kw)
             a2, dh2, _ = cs.exp_inputs(S, torch.bfloat16, seed=S, ws=ws)
+            a2s = cs.exp_inputs(S, torch.bfloat16, states=True, seed=S + 1, ws=ws)[0]
             _, den2, mc2, c2, ms2, (_, _, ml2) = ex.chunkwise_exp_fw(*a2, **kw)
             mrow_dc, mrow_qkv = ex.m_rows(a2[4], ms2, ml2, L)
             dc2, _ = ex.chunkwise_exp_bw_dc(a2[0], a2[4], dh2, den2, mc2, mrow_dc, **kw)
@@ -60,6 +72,10 @@ def times(cs, label: str):
                     ("fw", lambda: pk.parallel_fw(*args)),
                     ("dq", lambda: pk.parallel_bw_dq(*bw)),
                     ("dkv", lambda: pk.parallel_bw_dkv(*bw)),
+                    ("v1_fw_train", lambda: v1.chunkwise_fw(*a1, **kw)),
+                    ("v1_fw_predict", lambda: v1.chunkwise_fw(*a1s, **kw)),
+                    ("exp_fw_train", lambda: ex.chunkwise_exp_fw(*a2, **kw)),
+                    ("exp_fw_predict", lambda: ex.chunkwise_exp_fw(*a2s, save_states=False, **kw)),
                     ("v1_dqkv", lambda: v1.chunkwise_bw_dqkv(*a1[:5], c1, den1, dh1, dc1, **kw)),
                     ("exp_dqkv", lambda: ex.chunkwise_exp_bw_dqkv(*a2[:5], c2, den2, mc2,
                                                                   mrow_qkv, dh2, dc2, **kw))):
@@ -73,10 +89,69 @@ def times(cs, label: str):
             row["chunk_exp_floor"] = cs.chunk_exp_floor(S, L, row["sm"], ws)
             row["bound_fw_dq"] = cs.parallel_bound("parallel_bw_dq", S, ws=ws)[0]
             row["bound_dkv"] = cs.parallel_bound("parallel_bw_dkv", S, ws=ws)[0]
+            row["bound_v1_fw_train"] = cs.v1_bound("chunkwise_v1_fw", S, L, ws=ws)[0]
+            row["bound_v1_fw_predict"] = cs.v1_bound("chunkwise_v1_fw", S, L, states=True,
+                                                     ws=ws)[0]
+            row["bound_exp_fw_train"] = cs.v1_bound("chunkwise_exp_fw", S, L, ws=ws)[0]
+            row["bound_exp_fw_predict"] = cs.v1_bound("chunkwise_exp_fw", S, L, states=True,
+                                                      save=False, ws=ws)[0]
             row["bound_v1_dqkv"] = cs.v1_bound("chunkwise_v1_bw_dqkv", S, L, ws=ws)[0]
             row["bound_exp_dqkv"] = cs.v1_bound("chunkwise_exp_bw_dqkv", S, L, ws=ws)[0]
             print(json.dumps(row), flush=True)
-            del args, dh, den, bw, a1, dh1, den1, c1, dc1, a2, dh2, den2, mc2, c2, ms2, dc2
+            del args, dh, den, bw, a1, a1s, dh1, den1, c1, dc1, a2, a2s, dh2, den2, mc2, c2, ms2
+            del dc2
+        forward_times(cs, label, ws, plan)
+
+
+def forward_device_ms(cs, fn, calls: int = 20):
+    """Device ms a call of fn's kernels in namespace v1 (the v1 and exp
+    forwards' two passes, in any version of the package), from a
+    torch.profiler trace of ``calls`` calls (chip_smoke.py's device_busy);
+    a small operation opens the trace, and a trace that lost any of the
+    2 ``calls`` kernel events is taken again, up to three times, else
+    "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ours = [r for r in cs.device_busy(prof, 1.0).get("top", []) if "v1::" in r["kernel"]]
+        if sum(r["calls"] for r in ours) == 2 * calls:
+            return sum(r["device_ms"] for r in ours) / calls
+    return "not measured"
+
+
+def forward_times(cs, label: str, ws, plan):
+    """The v1 and exp forwards at every (S, L) of the plan: the best window
+    (ms, host clock around the calls) and the device ms a call of their
+    kernels (at S <= 128 the window is the host's launch time)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.ops import chunkwise as v1
+    from xlstm_yolo_tpu_torch.ops import chunkwise_exp as ex
+
+    row = {"root": label, "widths": ws.cfg, "what": "forward_by_shape"}
+    dev = {"root": label, "widths": ws.cfg, "what": "forward_device_ms_by_shape"}
+    for S, L in sorted(set(plan["train"]) | set(plan["infer"])):
+        infer = (S, L) in plan["infer"]
+        kw = dict(chunk_size=L, eps=cs.EPS)
+        a1 = cs.v1_inputs(S, torch.bfloat16, states=infer, seed=S, ws=ws)[0]
+        a2 = cs.exp_inputs(S, torch.bfloat16, states=infer, seed=S, ws=ws)[0]
+        for name, fn in (("v1_fw", lambda: v1.chunkwise_fw(*a1, **kw)),
+                         ("exp_fw", lambda: ex.chunkwise_exp_fw(*a2, save_states=not infer,
+                                                                **kw))):
+            key = f"{name} {S} {L} {'predict' if infer else 'train'}"
+            row[key] = min(cs.time_cuda(fn, iters=5, reps=3, warm_s=0.1))
+            dev[key] = forward_device_ms(cs, fn)
+        del a1, a2
+    print(json.dumps(row), flush=True)
+    print(json.dumps(dev), flush=True)
 
 
 def main() -> int:

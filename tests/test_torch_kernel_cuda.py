@@ -613,17 +613,27 @@ V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
     (512, 2, 1, 128, "open", True),   # dk/dv in two 32-query steps a sub-tile at DH 128
     (256, 2, 2, 64, "open", True),    # four 64-row sub-tiles a chunk at DH 64
     (64, 3, 1, 128, "closed", False),  # one whole sub-tile a chunk at DH 128
+    (512, 8, 1, 128, "open", True),    # the state pass's carry over eight chunks
+    (64, 3, 2, 32, "small_i", True),   # h mostly R(qbar) R(C_prev): its rounding shows
 ]
 V1_TYPES = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+# The v1 and exp forwards' outputs the products reach by less than this of
+# their mean |value| (C and den with small or closed gates, where every key
+# is scaled to ~0) show no rounding (assert_rounding_shows): their bf16-vs-
+# float32 gap falls to 1e-7 - 1e-15, at or below float32's resolution.
+FW_MIN_GAP = 1e-5
 
 
 def v1_inputs(seed, L, chunks, NH, DH, gates, states, dt):
-    """(B, NH, S, DH) streams, (B, NH, S) gates, states, dh and dC_last."""
+    """(B, NH, S, DH) streams, (B, NH, S) gates (open: i ~ N(0, 1), f ~
+    N(2, 1); closed: f ~ U(-60, -20); small_i: i ~ N(-12, 1), so that D is
+    at most ~e^-9 and h mostly the inter-chunk product), states, dh and
+    dC_last."""
     rng = np.random.default_rng(seed)
     S = L * chunks
     q, k, v, dh = (cu(rng.normal(size=(2, NH, S, DH)), dt) for _ in range(4))
-    i = cu(rng.normal(0, 1, (2, NH, S)))
-    f = cu(rng.normal(2, 1, (2, NH, S)) if gates == "open" else rng.uniform(-60, -20, (2, NH, S)))
+    i = cu(rng.normal(-12 if gates == "small_i" else 0, 1, (2, NH, S)))
+    f = cu(rng.uniform(-60, -20, (2, NH, S)) if gates == "closed" else rng.normal(2, 1, (2, NH, S)))
     c0, n0, dcl = (cu(rng.normal(size=s)) if states else None
                    for s in ((2, NH, DH, DH), (2, NH, DH), (2, NH, DH, DH)))
     return (q, k, v, i, f, c0, n0), dh, dcl
@@ -641,9 +651,9 @@ def assert_rel_close(got, ref, rel):
 def test_v1_kernels_match_plain_on_gpu(dtype, compute):
     """The forward, the dC scan and dq/dk/dv each against its plain version
     on the same inputs (the backward kernels on the plain forward's saved
-    states).  With bfloat16 products dq, dk and dv also lie nearer the
-    plain version in mean error than its float32-products twin does
-    (assert_rounding_shows)."""
+    states).  With bfloat16 products the forward's outputs and dq, dk and dv
+    also lie nearer the plain version in mean error than its
+    float32-products twin does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -655,6 +665,9 @@ def test_v1_kernels_match_plain_on_gpu(dtype, compute):
         torch.cuda.synchronize()
         ref = v1.chunkwise_fw_plain(*args, **kw)
         assert_rel_close(got, ref, rel)
+        if cd == torch.bfloat16:  # small_i's C, and den, barely see the products
+            assert_rounding_shows(got, ref, v1.chunkwise_fw_plain(
+                *args, **dict(kw, compute_dtype=torch.float32)), min_gap=FW_MIN_GAP)
         q, k, v, i, f = args[:5]
         _, den, cs = ref[:3]
         dcs, dc0 = v1.chunkwise_bw_dc(q, f, dh, den, dcl, **kw)
@@ -700,18 +713,21 @@ EXP_CASES = [  # (L, chunks, NH, DH, gates, initial (C, n, m) and dC_last)
     (512, 2, 1, 128, "large_i", True),
     (256, 2, 2, 64, "large_i", True),  # four 64-row sub-tiles a chunk at DH 64
     (64, 3, 1, 128, "open", False),    # one whole sub-tile a chunk at DH 128
+    (512, 8, 1, 128, "large_i", True),  # the state pass's carry over eight chunks
+    (64, 3, 2, 32, "small_i", True),    # h mostly R(qbar) R(C_prev) (scale not a power of 2)
 ]
 
 
 def exp_inputs(seed, L, chunks, NH, DH, gates, states, dt, qk_mean=0.0):
     """(B, NH, S, DH) streams (q, k ~ N(qk_mean, 1)), (B, NH, S) gates
-    (open: i ~ N(0, 1), f ~ N(2, 1); large_i: i ~ U(5, 15); closed: f ~
-    U(-60, -20)), (C, n, m), dh and dC_last."""
+    (open: i ~ N(0, 1), f ~ N(2, 1); large_i: i ~ U(5, 15); small_i: i ~
+    N(-12, 1); closed: f ~ U(-60, -20)), (C, n, m), dh and dC_last."""
     rng = np.random.default_rng(seed)
     S = L * chunks
     q, k, v, dh = (cu(rng.normal(size=(2, NH, S, DH)) + (qk_mean if j < 2 else 0.0), dt)
                    for j in range(4))
-    i = cu(rng.uniform(5, 15, (2, NH, S)) if gates == "large_i" else rng.normal(0, 1, (2, NH, S)))
+    i = cu(rng.uniform(5, 15, (2, NH, S)) if gates == "large_i"
+           else rng.normal(-12 if gates == "small_i" else 0, 1, (2, NH, S)))
     f = cu(rng.uniform(-60, -20, (2, NH, S)) if gates == "closed" else rng.normal(2, 1, (2, NH, S)))
     c0, n0, dcl = (cu(rng.normal(size=s)) if states else None
                    for s in ((2, NH, DH, DH), (2, NH, DH), (2, NH, DH, DH)))
@@ -724,7 +740,10 @@ def exp_inputs(seed, L, chunks, NH, DH, gates, states, dt, qk_mean=0.0):
 def test_exp_kernels_match_plain_on_gpu(dtype, compute):
     """The exp forward (both variants), the dC scan and dq/dk/dv each against
     its plain version on the same inputs (the backward kernels on the plain
-    forward's saved rows).  With bfloat16 products dq, dk and dv also lie
+    forward's saved rows).  With bfloat16 products the forward's outputs
+    (h as its numerator h (den + eps): with large input gates a row whose
+    denominator cancels to its tiny floor e^{-m_comb} turns a float32
+    rounding of den into a large change of h) and dq, dk and dv also lie
     nearer the plain version in mean error than its float32-products twin
     does (assert_rounding_shows)."""
     needs_cuda()
@@ -739,6 +758,10 @@ def test_exp_kernels_match_plain_on_gpu(dtype, compute):
         ref = exp.chunkwise_exp_fw_plain(*args, **kw)
         num = lambda out: out[0].float() * (out[1] + EPS)[..., None]  # noqa: E731
         assert_rel_close([num(got), *got[1:5], *got[5]], [num(ref), *ref[1:5], *ref[5]], rel)
+        if cd == torch.bfloat16:  # h as its numerator, as above
+            ref32 = exp.chunkwise_exp_fw_plain(*args, **dict(kw, compute_dtype=torch.float32))
+            assert_rounding_shows([num(got), *got[1:4]], [num(ref), *ref[1:4]],
+                                  [num(ref32), *ref32[1:4]], min_gap=FW_MIN_GAP)
         got_p = exp.chunkwise_exp_fw(*args, save_states=False, **kw)
         assert got_p[1:5] == (None,) * 4
         assert torch.equal(got_p[0], got[0])  # the same arithmetic, fewer stores
@@ -1023,20 +1046,24 @@ FW3_CASES = [  # (S, L, Lb, NH, DH, gates, initial states)
 ]
 
 
-def assert_rounding_shows(got, ref, ref_f32):
+def assert_rounding_shows(got, ref, ref_f32, min_gap=0.0):
     """With bfloat16 products: each output that a product feeds (all but
     n_last) lies within half the plain version's own bfloat16-vs-float32
     gap of the plain version, in mean |a - b| over mean |b|, so a kernel
     that skipped the operands' rounding would fail.  The mean is what a
-    few operands rounded one step the other way barely move."""
+    few operands rounded one step the other way barely move.  An output
+    whose gap is at most ``min_gap`` of its mean |value| is one the
+    products reach below float32's own resolution (a kernel's float32 sums
+    in another order move it more than the rounding does), and is
+    skipped."""
     for a, b, c in list(zip(got, ref, ref_f32))[:4]:
         if a is None:
             continue
         a, b, c = a.double(), b.double(), c.double()
         size = b.abs().mean().item()
         gap = (c - b).abs().mean().item()
-        if size == 0 or gap == 0:  # no product reaches it (the initial or zero state)
-            continue
+        if size == 0 or gap <= min_gap * size:  # no product reaches it (the initial or
+            continue                            # zero state), or below float32's resolution
         assert (a - b).abs().mean().item() < gap / 2
 
 

@@ -23,24 +23,30 @@
 //
 // Design.  The TPU fuses the forward into one serial grid (`BNH`, `NC`)
 // that carries (C, n, m) in VMEM.  Here, as on the v1 route, two launches
-// of the shared kernels of chunkwise_v1.cuh with the exp gate:
-//   1. state_scan_kernel: one block per (batch, head) walks the chunks; per
-//      chunk warp 0 takes the max of a over the chunk, then the block scales
-//      and accumulates the chunk's keys;
-//   2. h_kernel: every (batch * head, chunk, 64-row sub-tile) is a block.
-//      A 512-row chunk's (L x L) tiles do not fit in shared memory, so a
-//      block walks 64 x 64 key sub-tiles.  The trap: m_comb of row l is the
-//      max over the whole row of the chunk, not over a sub-tile's columns.
-//      The block first takes it over every column j <= l of its rows (gates
-//      only, L / 4 comparisons a thread: cheap), by the very expression the
-//      TPU kernel maximises (`:93-96`), so m_comb and every e^{. - m_comb}
-//      equal the plain version's bit for bit, given the same b.
-// Products are float32 FMA on the CUDA cores with rounded operands.
+// of the kernels of chunkwise_v1.cuh with the exp gate (launch_fw), on the
+// tensor cores for bf16 products (float32 FMA in the same tiling for
+// float32 products):
+//   1. fw_scan_kernel, the state pass: a block of 4 warps per (batch *
+//      head, 16 rows of C).  A chunk's keys are rounded after their scaling
+//      by e^{a - m_new}, and m_new depends on the m before the chunk, so no
+//      increment can be taken ahead against another stabilizer: every block
+//      of a head computes the same m from the gates alone (warp 0 takes the
+//      max of a over the chunk), one writes it, and each block adds
+//      gbar C + R(kbar[:, rows])^T R(v) on the mma in 64-row tiles.
+//   2. fw_h_kernel, the output pass: every (batch * head, chunk, 64-row
+//      sub-tile) is a block of 4 warps of 16 rows, walking the chunk's key
+//      sub-tiles on the mma as on the v1 route.  The trap: m_comb of row l
+//      is the max over the whole row of the chunk, not over a sub-tile's
+//      columns.  Each warp first takes it over every column j <= l of its
+//      rows (gates only, l / 4 comparisons a lane: cheap), by the very
+//      expression the TPU kernel maximises (`:93-96`), so m_comb and every
+//      e^{. - m_comb} equal the plain version's bit for bit, given the same
+//      b; qbar is rounded after its stabilized row factor.
 //
 // What bounds it.  The function moves q, k, v and h once, the gates, the
 // states per chunk, and in training den and m_comb per row: bound by bytes
-// (PERF.md).  The (L x L) products in float32 FMA cost more at L = 512; it
-// is a first, right version, and PERF.md holds its times.
+// (PERF.md holds its times beside the bound).  It also takes one exp a
+// causal pair of a chunk.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,18 +74,9 @@ extern "C" int chunkwise_exp_fw(const void* q, const void* k, const void* v, con
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dh)::value;
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k);
-    const T* vt = static_cast<const T*>(v);
-    const int err = launch_with_smem(
-        state_scan_kernel<T, CT, D, false, true>, dim3(B * NH),
-        sizeof(float) * scan_smem_floats<D>(), st, kt, vt, i, f, nullptr, c0, n0, c_states,
-        n_states, c_last, n_last, S, L, qk_scale, eps,
-        MState{m0, m_states, m_last, nullptr, nullptr, nullptr});
-    if (err != 0) return err;
-    return launch_with_smem(h_kernel<T, CT, D, true>, dim3((S / L) * (L / tile_rows(L)), B * NH),
-                            sizeof(float) * h_smem_floats<D>(), st, qt, kt, vt, i, f, c_states,
-                            n_states, static_cast<T*>(h), den, S, L, qk_scale, eps,
-                            MState{nullptr, m_states, nullptr, nullptr, nullptr, m_comb});
+    return launch_fw<T, CT, D, true>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f, c0,
+        n0, static_cast<T*>(h), den, c_states, n_states, c_last, n_last, B * NH, S, L, qk_scale,
+        eps, MState{m0, m_states, m_last, nullptr, nullptr, m_comb}, st);
   });
 }

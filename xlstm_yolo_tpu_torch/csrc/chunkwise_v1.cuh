@@ -3,7 +3,7 @@
 // input gate) and the exp route (chunkwise_exp_fw.cu, chunkwise_exp_bw.cu,
 // exponential input gate with the max stabilizer m).  Every kernel takes
 // the gate as a template parameter EXP; with EXP = false it is the v1
-// kernel as it was.
+// kernel.
 //
 // Layout: q, k, v, h, dh (B * NH, S, DH) in the storage type T (float32 or
 // bfloat16); gates i, f and the per-row den and m_comb (B * NH, S) float32;
@@ -11,9 +11,10 @@
 // S is a multiple of the chunk length L.
 //
 // Rounding points.  The JAX kernels cast the operands of every product to
-// their compute dtype and sum in float32; rt<CT>(x) rounds x to the compute
-// type CT and back, at the same operands.  Row sums (the denominator, n)
-// stay unrounded.
+// their compute dtype and sum in float32; R(x) rounds x to the compute
+// type CT at the same operands (rt<CT>, or on the way into shared memory,
+// or packing a fragment to bf16).  Row sums (the denominator, n) stay
+// unrounded.
 //
 // Gates of one chunk, b = inclusive cumsum of logsig(f), g = b[L - 1]:
 //   v1:  a = (g - b) + logsig(i),  D[l, j] = e^{(b_l - b_j) + logsig(i_j)}
@@ -25,14 +26,22 @@
 // e^{(g + m_prev) - m_new} and the new keys by e^{a - m_new}.
 //
 // - chunk_gates: the gate rows of one chunk in shared memory;
-// - state_scan_kernel: the serial pass over the chunks of one (batch, head)
-//   that carries a DH x DH state (the forward's C, n and m, or the
-//   backward's dC), one block each;
-// - h_kernel: h (and den, m_comb) of a (batch * head, chunk, 64-row
-//   sub-tile) from the state before the chunk;
+// - fw_scan_kernel: the forward's state pass, C, n (exp: m) before each
+//   chunk and after the last; a block of 4 warps per (batch * head, 16 rows
+//   of C) walks the chunks in 64-row tiles, the chunk's update on the
+//   tensor cores;
+// - fw_h_kernel: the forward's output pass, h (and den, m_comb) of a
+//   (batch * head, chunk, 64-row sub-tile) from the state before the chunk:
+//   the quadratic forward's loop (parallel_fw.cu) confined to the chunk,
+//   plus the inter-chunk product in the same accumulators;
+// - state_scan_kernel: the backward's dC scan, one block per (batch, head)
+//   walking the chunks in reverse, float32 FMA;
 // - dqkv_kernel: dq, or dk and dv, of a (batch * head, chunk, 64-row
 //   sub-tile) from the states before and after the chunk, on the tensor
 //   cores in bf16 with the quadratic backward's tile steps (parallel.cuh).
+// The tensor-core kernels run their products through tc::prod16 and
+// par::score_times: mma.sync m16n8k16 with bf16 operands and float32 sums
+// for CT = bf16, the same tiling as float32 FMA for CT = float.
 #pragma once
 
 #include <math_constants.h>
@@ -58,14 +67,14 @@ __host__ __device__ constexpr int tile_rows(int L) { return L < TR ? L : TR; }
 
 // The m arrays of the exp route (all null on the v1 route).
 struct MState {
-  const float* m0;      // forward scan: m before the first chunk (B * NH), null for 0
-  float* m_states;      // forward scan: m before each chunk (B * NH, NC) (out);
-                        // h_kernel: the same (in)
-  float* m_last;        // forward scan: m after the last chunk (B * NH) (out)
+  const float* m0;      // state pass: m before the first chunk (B * NH), null for 0
+  float* m_states;      // state pass: m before each chunk (B * NH, NC) (out);
+                        // output pass: the same (in)
+  float* m_last;        // state pass: m after the last chunk (B * NH) (out)
   const float* mrow;    // backward: per chunk [m_prev, gbar] (dC scan) or
                         // [m_prev, m_new] (dq/dk/dv), (B * NH, NC, 2)
   const float* m_comb;  // backward: the forward's m_comb per row (B * NH, S)
-  float* mcomb_out;     // h_kernel: m_comb per row (out), null in predict
+  float* mcomb_out;     // output pass: m_comb per row (out), null in predict
 };
 
 // sb[r] = sum_{t <= r} logsig(f[t]) and, if ig, sli[r] = logsig(i[r]) (EXP:
@@ -100,7 +109,7 @@ __device__ __forceinline__ void chunk_gates(const float* __restrict__ ig,
 // m_comb of chunk row l over the whole row (every column j <= l, not only
 // a sub-tile's): the 4 consecutive lanes of a row (part = lane % 4) take
 // every 4th column and combine with shuffles.  All 32 lanes of the warp
-// call it (a warp holds 8 whole rows of a tile).
+// call it (a warp holds 8 whole rows of a fragment).
 __device__ __forceinline__ float row_mcomb(const float* sb, const float* si, int l, float m_prev,
                                            int part) {
   const float bl = sb[l];
@@ -111,48 +120,390 @@ __device__ __forceinline__ float row_mcomb(const float* sb, const float* si, int
   return fmaxf(bl + m_prev, mx);
 }
 
-// One block per (batch, head) walks its chunks, forward (BW = false) or in
-// reverse (BW = true), carrying a DH x DH state in registers: thread t owns
-// row t / (DH / EPT) and EPT consecutive columns.
-//
-//   forward:  stores C, n (EXP: m) before chunk c into states / n_states
-//             (m_states), then
-//               v1:  C <- e^g C + R(k e^a)^T R(v),  n <- e^g n + sum_l k_l e^{a_l}
-//               exp: m_new = max(g + m, max_l a_l), gbar = e^{(g + m) - m_new},
-//                    C <- gbar C + R(k e^{a - m_new})^T R(v), n likewise, m <- m_new;
-//             x = k, y = v, s0 = c0, n0 (m0);  s_last = C, n_last = n (m_last)
-//             after the last chunk
-//   backward: stores dC after chunk c into states, then
-//               dC <- gbar dC + R(q qf scale)^T R(dh / (den + eps)),
-//             qf = e^b (v1; gbar = e^g) or e^{(b + m_prev) - m_comb} (exp; m_prev
-//             and gbar from mrow); x = q, y = dh, s0 = dC_last;  s_last = dC0
-//
-// A chunk is read in tiles of TR rows staged in shared memory (dynamic:
-// scan_smem_floats, 72 KB at DH = 128).
-template <int DH>
-constexpr size_t scan_smem_floats() {
-  return 3 * LMAX          // b, logsig(i) (exp: i), the row factor
-         + 2 * TR * (DH + 1)  // R(x * row factor), R(y)
-         + 1;              // exp forward: m_new of the chunk
+// The state pass's tiling: a block of 4 warps per (batch * head, TRW rows
+// i0.. of C), warp w holding columns 8 w NTW.. of those rows (DH 16: warps
+// 0 and 1).  Shared memory: a tile's R(v) and raw k columns i0.., two deep;
+// R(kbar) of those columns; the chunk's raw and scanned gate rows and row
+// factors: 52 KB at DH 128 in bf16, 91 KB in float32.
+template <typename T, typename CT, int DH>
+struct ScanTile {
+  static constexpr int TRW = 16;                      // rows of C a block owns
+  static constexpr int NTW = DH >= 32 ? DH / 32 : 1;  // n-tiles of 8 columns a warp
+  static constexpr int LDK = TRW + tc::pad<CT>(), LDV = DH + tc::pad<CT>();
+  static constexpr size_t bytes = sizeof(CT) * (2 * TR * LDV + TR * LDK) +
+                                  sizeof(T) * 2 * TR * TRW + 4 * (5 * LMAX + 4 * TRW + 1);
+};
+
+// The forward's state pass.  Per chunk c the block stores rows i0.. of the
+// state before it, C and n (exp: one block of the head also m), in float32,
+// then
+//   v1:  C <- e^g C + R(k e^a)^T R(v),  n <- e^g n + sum_l k_l e^{a_l}
+//   exp: m_new = max(g + m, max_l a_l), gbar = e^{(g + m) - m_new},
+//        C <- gbar C + R(k e^{a - m_new})^T R(v), n likewise, m <- m_new
+// and after the last chunk c_last, n_last (m_last).  C lives in float32
+// registers in the accumulator layout, scaled by e^g (gbar) once the
+// chunk's gates are in, the increment's products summing into it.  Every
+// block of a head computes the same m from the gates alone, so a chunk's
+// keys are scaled by the m_new of the whole head before they are rounded.
+// A chunk is read in tiles of T_ = min(L, 64) rows: the next tile's v, k
+// columns (and, at a chunk's first tile, its gates) load by cp.async while
+// the current one is scaled, rounded and multiplied (R(kbar)^T R(v), 16
+// rows a step); n sums the unrounded kbar, each thread one column's rows of
+// a tile, the warps' sums meeting once a chunk.  The launch bounds ask for
+// at least one block an SM: without that minimum ptxas squeezed the DH 128
+// instantiation into 128 registers with spills.
+template <typename T, typename CT, int DH, bool EXP>
+__global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
+    const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ ig,
+    const float* __restrict__ fg, const float* __restrict__ c0, const float* __restrict__ n0,
+    float* __restrict__ c_states, float* __restrict__ n_states, float* __restrict__ c_last,
+    float* __restrict__ n_last, int S, int L, MState ms) {
+  using Tl = ScanTile<T, CT, DH>;
+  constexpr int TRW = Tl::TRW, NTW = Tl::NTW, LDK = Tl::LDK, LDV = Tl::LDV, NTH = par::NTC;
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* sv = reinterpret_cast<CT*>(smem_raw);      // 2 x (TR, LDV) R(v) of a tile
+  CT* skb = sv + 2 * TR * LDV;                   // (TR, LDK) R(kbar), columns i0..
+  T* rk = reinterpret_cast<T*>(skb + TR * LDK);  // 2 x (TR, TRW) k, columns i0..
+  float* rfg = reinterpret_cast<float*>(rk + 2 * TR * TRW);  // (LMAX) f of the chunk
+  float* rig = rfg + LMAX;     // (LMAX) i
+  float* sb = rig + LMAX;      // (LMAX) b
+  float* sli = sb + LMAX;      // (LMAX) logsig(i) (exp: i)
+  float* sfac = sli + LMAX;    // (LMAX) e^a (exp: e^{a - m_new})
+  float* sn = sfac + LMAX;     // (4, TRW) each warp's sums of kbar
+  float* smax = sn + 4 * TRW;  // exp: m_new of the chunk
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, i0 = blockIdx.y * TRW;
+  const int NC = S / L, T_ = tile_rows(L), tiles = L / T_;
+  const bool active = warp * NTW * 8 < DH;
+  const int nc0 = warp * NTW * 8;  // the warp's first column of C
+  const bool writes_m = EXP && blockIdx.y == 0 && tid == 0;
+  const size_t rows0 = (size_t)bh * S;
+  const T* kb = k + rows0 * DH + i0;
+  const T* vb = v + rows0 * DH;
+
+  // tile tt of chunk c into buffer buf, with the chunk's gates at its first
+  auto prefetch = [&](int c, int tt, int buf) {
+    const int r0 = c * L + tt * T_;
+    for (int e = tid; e < T_ * (TRW / E); e += NTH) {
+      const int r = e / (TRW / E), cc = E * (e - r * (TRW / E));
+      tc::cp_async16(rk + (buf * TR + r) * TRW + cc, kb + (size_t)(r0 + r) * DH + cc, true);
+    }
+    par::stage_tile<T, CT, DH, LDV, TR, NTH>(sv + buf * TR * LDV, vb, r0, r0 + T_);
+    if (tt == 0)
+      for (int r = tid; r < L; r += NTH) {
+        tc::cp_async4(rfg + r, fg + rows0 + r0 + r, true);
+        tc::cp_async4(rig + r, ig + rows0 + r0 + r, true);
+      }
+    tc::cp_async_commit();
+  };
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = i0 + g + 8 * (x >> 1), m = nc0 + 8 * j + 2 * t + (x & 1);
+      acc[j][x] = (active && c0) ? c0[((size_t)bh * DH + i) * DH + m] : 0.f;
+    }
+  float nn = (tid < TRW && n0) ? n0[(size_t)bh * DH + i0 + tid] : 0.f;
+  float m = (EXP && ms.m0) ? ms.m0[bh] : 0.f;  // every thread holds the stabilizer
+  const int col = tid % TRW;  // the k column this thread scales (NTH is a multiple of TRW)
+
+  prefetch(0, 0, 0);
+  for (int c = 0; c < NC; ++c) {
+    const size_t slot = (size_t)bh * NC + c;
+    if (active) {  // the state before chunk c
+      float* out = c_states + slot * DH * DH;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          tc::st2(out + (size_t)(i0 + g + 8 * hh) * DH + nc0 + 8 * j + 2 * t, acc[j][2 * hh],
+                  acc[j][2 * hh + 1]);
+    }
+    if (tid < TRW) n_states[slot * DH + i0 + tid] = nn;
+    if (writes_m) ms.m_states[slot] = m;
+    float npart = 0.f, eg = 0.f;
+    for (int tt = 0; tt < tiles; ++tt) {
+      const int buf = (c * tiles + tt) & 1;
+      tc::cp_async_wait<0>();
+      __syncthreads();  // tile tt is in; every warp is done with the other buffer
+      if (tt == 0) {  // the chunk's gate rows, m_new and row factors
+        chunk_gates<EXP>(rig, rfg, L, sb, sli);
+        __syncthreads();
+        const float gl = sb[L - 1];
+        float m_new = 0.f;
+        if constexpr (EXP) {  // m_new = max(g + m, max_l a_l)
+          if (warp == 0) {
+            float mx = -CUDART_INF_F;
+            for (int r = lane; r < L; r += 32) mx = fmaxf(mx, (gl - sb[r]) + sli[r]);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+            if (lane == 0) *smax = fmaxf(gl + m, mx);
+          }
+          __syncthreads();
+          m_new = *smax;
+          eg = expf((gl + m) - m_new);
+          m = m_new;
+        } else {
+          eg = expf(gl);
+        }
+        for (int r = tid; r < L; r += NTH) {
+          const float a = (gl - sb[r]) + sli[r];
+          sfac[r] = expf(EXP ? a - m_new : a);
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[j][x] *= eg;
+        __syncthreads();
+      }
+      if (tt + 1 < tiles) prefetch(c, tt + 1, buf ^ 1);
+      else if (c + 1 < NC) prefetch(c + 1, 0, buf ^ 1);
+      const T* ck = rk + buf * TR * TRW;
+      for (int e = tid; e < T_ * TRW; e += NTH) {
+        const int r = e / TRW;
+        const float x = to_f32(ck[e]) * sfac[tt * T_ + r];
+        npart += x;
+        from_f32(x, skb + r * LDK + col);
+      }
+      __syncthreads();
+      if (active)
+        for (int kk = 0; kk < T_ / 16; ++kk)
+          tc::prod16<NTW, true, true>(acc, skb, LDK, 0, sv + buf * TR * LDV, LDV, nc0, 16 * kk);
+    }
+    npart += __shfl_xor_sync(0xffffffffu, npart, 16);
+    if (lane < TRW) sn[warp * TRW + lane] = npart;
+    __syncthreads();
+    if (tid < TRW) nn = fmaf(eg, nn, (sn[tid] + sn[TRW + tid]) + (sn[2 * TRW + tid] + sn[3 * TRW + tid]));
+  }
+  if (active)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = i0 + g + 8 * (x >> 1), mc = nc0 + 8 * j + 2 * t + (x & 1);
+        c_last[((size_t)bh * DH + i) * DH + mc] = acc[j][x];
+      }
+  if (tid < TRW) n_last[(size_t)bh * DH + i0 + tid] = nn;
+  if (writes_m) ms.m_last[bh] = m;
 }
 
-template <typename T, typename CT, int DH, bool BW, bool EXP>
+// The output pass's tiling: 4 warps, each 16 of a block's TR query rows
+// (the chunk's T_ rows of a sub-tile; at L 16 and 32 the warps past T_
+// only stage).  Shared memory: R(q) of the own rows; the walk's two
+// buffers of R(k) and R(v), whose second first holds R(C_prev) and R(qbar)
+// (at DH 128 they reach into the first); the chunk's raw and scanned gate
+// rows, n_prev, and each warp's score scratch (float32 products): 96 KB at
+// DH 128 in bf16 (two blocks an SM), 195 KB in float32.
+template <typename CT, int DH>
+struct OutTile {
+  static constexpr int LD = DH + tc::pad<CT>();
+  static constexpr bool EARLY = DH <= TR;  // the state leaves buffer 0 to the first key tile
+  static constexpr int SCRATCH = par::scratch_floats<CT, TR / 8>();
+  static constexpr size_t bytes =
+      sizeof(CT) * 5 * TR * LD + 4 * (4 * LMAX + DH + par::NTC / 32 * SCRATCH);
+};
+static_assert(OutTile<float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
+static_assert(OutTile<__nv_bfloat16, 128>::bytes <= 232448 / 2, "two blocks an SM");
+
+// h of one (batch * head, chunk, T_-row sub-tile) from the state before the
+// chunk (c_states, n_states; exp: m_states):
+//   h   = (R(qbar) R(C_prev) + R((R(q) R(k)^T scale) D) R(v)) / (den + eps)
+//   den = max(|qbar . n_prev + rowsum((R(q) R(k)^T scale) D)|, 1)    (v1)
+//         max(|...|, e^{-m_comb})                                    (exp)
+// with qbar = (q e^b) scale (v1) or (q e^{(b + m_prev) - m_comb}) scale
+// (exp), rounded itself (not R(q) times the factor: scale is not a power
+// of two).  den_out (and, exp, ms.mcomb_out) per row where not null.
+//
+// A block stages R(q) of its rows, R(C_prev), n_prev and the chunk's raw
+// gates in one cp.async group (through registers, rounding, where the
+// storage type is not the compute type), and turns the gates into b and
+// logsig(i).  Each warp then takes m_comb of its rows over the whole row of
+// the chunk (row_mcomb, exp), stages R(qbar) of its own rows, sums n_inter
+// from the unrounded qbar, and makes R(qbar) R(C_prev) on the tensor cores
+// into the accumulators of h.  Then it walks the key sub-tiles up to its
+// own, staged two deep by cp.async (par::walk_tiles), as parallel_fw_kernel
+// walks its key tiles: the (16 x TR) fragment R(q) R(k)^T, scaled in
+// registers to (s scale) D with one __expf a pair (only the diagonal
+// sub-tile masked, the exponent before the exp, which also masks the zero
+// columns past T_), its row sums for den, and the fragment packed to bf16
+// as the A operand of the product with R(v) (par::score_times): no score
+// tile goes to shared memory.  Blocks go heaviest first: blockIdx.y counts
+// the walk lengths down.
+template <typename T, typename CT, int DH, bool EXP>
+__global__ void __launch_bounds__(par::NTC) fw_h_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ ig, const float* __restrict__ fg,
+    const float* __restrict__ c_states, const float* __restrict__ n_states, T* __restrict__ h,
+    float* __restrict__ den_out, int S, int L, float qk_scale, float eps, MState ms) {
+  using Tl = OutTile<CT, DH>;
+  constexpr int LD = Tl::LD, NS = TR / 8, NJ = DH / 8, NTH = par::NTC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* sq = reinterpret_cast<CT*>(smem_raw);  // (TR, LD) R(q)
+  CT* wk = sq + TR * LD;                     // buffer b: R(k) at 2 b TR rows, R(v) after it
+  CT* sqb = wk + 3 * TR * LD;                // (TR, LD) R(qbar), until the walk
+  CT* sC = sqb - DH * LD;                    // (DH, LD) R(C_prev), until the walk
+  float* rfg = reinterpret_cast<float*>(wk + 4 * TR * LD);  // (LMAX) f of the chunk
+  float* rig = rfg + LMAX;  // (LMAX) i
+  float* sb = rig + LMAX;   // (LMAX) b
+  float* sli = sb + LMAX;   // (LMAX) logsig(i) (exp: i)
+  float* sn = sli + LMAX;   // (DH) n_prev
+  float* scratch = sn + DH + threadIdx.x / 32 * Tl::SCRATCH;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int T_ = tile_rows(L), tiles = L / T_, NC = S / L;
+  const int lvl = blockIdx.y / NC, c = blockIdx.y - lvl * NC;
+  const int st = tiles - 1 - lvl;  // the sub-tile: the longest walks first
+  const int bh = blockIdx.x;
+  const size_t t0 = (size_t)bh * S + (size_t)c * L;  // first row of the chunk
+  const size_t slot = (size_t)bh * NC + c;
+  const int q0 = st * T_, l0 = 16 * warp;  // chunk row of the sub-tile, the warp's first row
+  const bool active = l0 < T_;             // T_ is 16, 32 or 64: whole warps
+  const float m_prev = EXP ? ms.m_states[slot] : 0.f;
+  const T* qc = q + t0 * DH;
+  const T* kc = k + t0 * DH;
+  const T* vc = v + t0 * DH;
+
+  auto prefetch = [&](int kt, int buf) {
+    CT* dst = wk + 2 * buf * TR * LD;
+    par::stage_tile<T, CT, DH, LD, TR, NTH>(dst, kc, kt * T_, kt * T_ + T_);
+    par::stage_tile<T, CT, DH, LD, TR, NTH>(dst + TR * LD, vc, kt * T_, kt * T_ + T_);
+    tc::cp_async_commit();
+  };
+  for (int r = threadIdx.x; r < L; r += NTH) {
+    tc::cp_async4(rfg + r, fg + t0 + r, true);
+    tc::cp_async4(rig + r, ig + t0 + r, true);
+  }
+  for (int r = threadIdx.x; r < DH; r += NTH) tc::cp_async4(sn + r, n_states + slot * DH + r, true);
+  par::stage_tile<T, CT, DH, LD, TR, NTH>(sq, qc, q0, q0 + T_);
+  par::stage_tile<float, CT, DH, LD, DH, NTH>(sC, c_states + slot * DH * DH, 0, DH);
+  tc::cp_async_commit();
+  if constexpr (Tl::EARLY) {
+    prefetch(0, 0);
+    tc::cp_async_wait<1>();
+  } else {
+    tc::cp_async_wait<0>();
+  }
+  __syncthreads();
+  chunk_gates<EXP>(rig, rfg, L, sb, sli);
+  __syncthreads();
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float rb[2] = {0.f, 0.f}, rm[2] = {0.f, 0.f}, n_inter[2] = {0.f, 0.f};
+  if (active) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int lr = l0 + g + 8 * hh, row = q0 + lr;  // the lane's row: in the tile, the chunk
+      rb[hh] = sb[row];
+      if constexpr (EXP) rm[hh] = row_mcomb(sb, sli, row, m_prev, t);
+      const float qf = EXP ? expf((rb[hh] + m_prev) - rm[hh]) : expf(rb[hh]);
+      float ni = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int cc = 8 * j + 2 * t;
+        const float2 x = tc::ld2(qc + (size_t)row * DH + cc);
+        const float a0 = (x.x * qf) * qk_scale, a1 = (x.y * qf) * qk_scale;
+        tc::st2(sqb + lr * LD + cc, a0, a1);
+        ni = fmaf(a0, sn[cc], ni);
+        ni = fmaf(a1, sn[cc + 1], ni);
+      }
+      n_inter[hh] = tc::sum_over_cols(ni);
+    }
+    __syncwarp();  // the warp's R(qbar) rows are in
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)  // R(qbar) R(C_prev)
+      tc::prod16<NJ, false, true>(acc, sqb, LD, l0, sC, LD, 0, 16 * kk);
+  }
+  if constexpr (!Tl::EARLY) {
+    __syncthreads();  // the state's rows become the walk's buffers
+    prefetch(0, 0);
+  }
+
+  float rsum[2] = {0.f, 0.f};
+  par::walk_tiles(0, st, prefetch, [](int, int) {}, [&](int kt, int buf) {
+    if (!active) return;
+    const CT* ck = wk + 2 * buf * TR * LD;
+    const int k0 = kt * T_;
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      tc::prod16<NS, false, false>(s, sq, LD, l0, ck, LD, 0, 16 * kk);
+    // sd = (s scale) D; the diagonal sub-tile masks j > l before the exp
+    auto decay = [&](auto diag) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int j = 8 * n + 2 * t;
+        const float2 bj = *reinterpret_cast<const float2*>(sb + k0 + j);
+        const float2 lj = *reinterpret_cast<const float2*>(sli + k0 + j);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int hh = x >> 1, e = x & 1;
+          float ex = (rb[hh] - (e ? bj.y : bj.x)) + (e ? lj.y : lj.x);
+          if (EXP) ex -= rm[hh];
+          if (decltype(diag)::value && j + e > l0 + g + 8 * hh) ex = -CUDART_INF_F;
+          const float sd = (s[n][x] * qk_scale) * __expf(ex);
+          rsum[hh] += sd;
+          s[n][x] = sd;
+        }
+      }
+    };
+    if (kt == st) decay(std::true_type{});
+    else decay(std::false_type{});
+    par::score_times<NS, NJ>(acc, s, scratch, ck + TR * LD, LD);  // h += R(sd) R(v)
+  });
+  if (!active) return;
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float n_intra = tc::sum_over_cols(rsum[hh]);
+    const float floor_ = EXP ? expf(-rm[hh]) : 1.f;
+    const float den = fmaxf(fabsf(n_inter[hh] + n_intra), floor_);
+    const size_t r = t0 + q0 + l0 + g + 8 * hh;
+    if (t == 0 && den_out) den_out[r] = den;
+    if (EXP && t == 0 && ms.mcomb_out) ms.mcomb_out[r] = rm[hh];
+    const float inv = den + eps;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      tc::st2(h + r * DH + 8 * j + 2 * t, acc[j][2 * hh] / inv, acc[j][2 * hh + 1] / inv);
+  }
+}
+
+// The backward's dC scan: one block per (batch, head) walks its chunks in
+// reverse, carrying dC in registers (thread t owns row t / (DH / EPT) and
+// EPT consecutive columns).  It stores dC after chunk c into states, then
+//   dC <- gbar dC + R(q qf scale)^T R(dh / (den + eps)),
+// qf = e^b (v1; gbar = e^g) or e^{(b + m_prev) - m_comb} (exp; m_prev and
+// gbar from ms.mrow), and dC before the first chunk into s_last.  A chunk
+// is read in tiles of TR rows staged in shared memory (dynamic:
+// scan_smem_floats, 69 KB at DH = 128).
+template <int DH>
+constexpr size_t scan_smem_floats() {
+  return 2 * LMAX               // b, the row factor
+         + 2 * TR * (DH + 1);  // R(q qf scale), R(dh / (den + eps))
+}
+
+template <typename T, typename CT, int DH, bool EXP>
 __global__ void __launch_bounds__(NT) state_scan_kernel(
-    const T* __restrict__ x, const T* __restrict__ y, const float* __restrict__ ig,
-    const float* __restrict__ fg, const float* __restrict__ den, const float* __restrict__ s0,
-    const float* __restrict__ n0, float* __restrict__ states, float* __restrict__ n_states,
-    float* __restrict__ s_last, float* __restrict__ n_last, int S, int L, float qk_scale,
-    float eps, MState ms) {
+    const T* __restrict__ q, const T* __restrict__ dh, const float* __restrict__ fg,
+    const float* __restrict__ den, const float* __restrict__ s0, float* __restrict__ states,
+    float* __restrict__ s_last, int S, int L, float qk_scale, float eps, MState ms) {
   constexpr int EPT = DH * DH / NT;  // state entries per thread
   constexpr int TPR = DH / EPT;      // threads per state row
   constexpr int DP = DH + 1;
   extern __shared__ float smem[];
   float* sb = smem;            // (LMAX)
-  float* sli = sb + LMAX;      // (LMAX)
-  float* sfac = sli + LMAX;    // (LMAX) the row factor: e^a (forward), e^b (backward), stabilized
-  float* sa = sfac + LMAX;     // (TR, DP) R(x * row factor)
-  float* sy = sa + TR * DP;    // (TR, DP) R(y), divided by den + eps in the backward
-  float& smax = sy[TR * DP];   // exp forward: m_new of the chunk
+  float* sfac = sb + LMAX;     // (LMAX) the row factor qf
+  float* sa = sfac + LMAX;     // (TR, DP) R(q qf scale)
+  float* sy = sa + TR * DP;    // (TR, DP) R(dh / (den + eps))
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -164,62 +515,37 @@ __global__ void __launch_bounds__(NT) state_scan_kernel(
   float st[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e) st[e] = s0 ? s0[(size_t)bh * DH * DH + dr * DH + dc0 + e] : 0.f;
-  float nst = (!BW && n0 && tid < DH) ? n0[(size_t)bh * DH + tid] : 0.f;
-  float m = (EXP && !BW && ms.m0) ? ms.m0[bh] : 0.f;  // every thread holds the stabilizer
 
   for (int it = 0; it < NC; ++it) {
-    const int c = BW ? NC - 1 - it : it;
+    const int c = NC - 1 - it;
     const size_t t0 = rows0 + (size_t)c * L;
     const size_t slot = (size_t)bh * NC + c;
 #pragma unroll
     for (int e = 0; e < EPT; ++e) states[slot * DH * DH + dr * DH + dc0 + e] = st[e];
-    if (!BW && tid < DH) n_states[slot * DH + tid] = nst;
-    if (EXP && !BW && tid == 0) ms.m_states[slot] = m;
 
-    chunk_gates<EXP>(BW ? nullptr : ig + t0, fg + t0, L, sb, sli);
+    chunk_gates<EXP>(nullptr, fg + t0, L, sb, nullptr);
     __syncthreads();
-    const float g = sb[L - 1];
     float eg;
     if constexpr (!EXP) {
-      for (int r = tid; r < L; r += NT) sfac[r] = BW ? expf(sb[r]) : expf((g - sb[r]) + sli[r]);
-      eg = expf(g);
-    } else if constexpr (BW) {
+      for (int r = tid; r < L; r += NT) sfac[r] = expf(sb[r]);
+      eg = expf(sb[L - 1]);
+    } else {
       const float m_prev = ms.mrow[slot * 2];
       eg = ms.mrow[slot * 2 + 1];
       for (int r = tid; r < L; r += NT) sfac[r] = expf((sb[r] + m_prev) - ms.m_comb[t0 + r]);
-    } else {
-      if (tid < 32) {  // m_new = max(g + m, max_l a_l)
-        float mx = -CUDART_INF_F;
-        for (int r = tid; r < L; r += 32) mx = fmaxf(mx, (g - sb[r]) + sli[r]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        if (tid == 0) smax = fmaxf(g + m, mx);
-      }
-      __syncthreads();
-      const float m_new = smax;
-      eg = expf((g + m) - m_new);
-      for (int r = tid; r < L; r += NT) sfac[r] = expf(((g - sb[r]) + sli[r]) - m_new);
-      m = m_new;
     }
     __syncthreads();
 
     float acc[EPT];
 #pragma unroll
     for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
-    float nacc = 0.f;
     for (int r0 = 0; r0 < L; r0 += T_) {
       for (int e = tid; e < T_ * DH; e += NT) {
         const int r = e / DH, d = e - r * DH;
         const size_t off = (t0 + r0 + r) * DH + d;
-        const float a = BW ? (to_f32(x[off]) * sfac[r0 + r]) * qk_scale
-                           : to_f32(x[off]) * sfac[r0 + r];
-        const float b = BW ? to_f32(y[off]) / (den[t0 + r0 + r] + eps) : to_f32(y[off]);
-        sa[r * DP + d] = rt<CT>(a);
-        sy[r * DP + d] = rt<CT>(b);
+        sa[r * DP + d] = rt<CT>((to_f32(q[off]) * sfac[r0 + r]) * qk_scale);
+        sy[r * DP + d] = rt<CT>(to_f32(dh[off]) / (den[t0 + r0 + r] + eps));
       }
-      if (!BW && tid < DH)  // n sums the unrounded k e^a
-        for (int r = 0; r < T_; ++r)
-          nacc = fmaf(to_f32(x[(t0 + r0 + r) * DH + tid]), sfac[r0 + r], nacc);
       __syncthreads();
       for (int r = 0; r < T_; ++r) {
         const float a = sa[r * DP + dr];
@@ -230,162 +556,9 @@ __global__ void __launch_bounds__(NT) state_scan_kernel(
     }
 #pragma unroll
     for (int e = 0; e < EPT; ++e) st[e] = fmaf(eg, st[e], acc[e]);
-    if (!BW && tid < DH) nst = fmaf(eg, nst, nacc);
   }
 #pragma unroll
   for (int e = 0; e < EPT; ++e) s_last[(size_t)bh * DH * DH + dr * DH + dc0 + e] = st[e];
-  if (!BW && tid < DH) n_last[(size_t)bh * DH + tid] = nst;
-  if (EXP && !BW && tid == 0) ms.m_last[bh] = m;
-}
-
-template <int DH>
-constexpr size_t h_smem_floats() {
-  return 2 * LMAX                 // b, logsig(i) (exp: i)
-         + 4 * TR * (DH + 1)      // R(q), qbar, R(k), R(v)
-         + DH * (DH + 1) + DH     // R(C_prev), n_prev
-         + TR * (TR + 1)          // sd tile
-         + TR;                    // exp: m_comb of the tile's rows
-}
-
-// h of one (batch * head, chunk, TR-row sub-tile) from the state before the
-// chunk (c_states, n_states; exp: m_states), walking the key sub-tiles at
-// or before its own:
-//   h   = (R(qbar) R(C_prev) + R(R(q) R(k)^T scale * D) R(v)) / (den + eps)
-//   den = max(|qbar . n_prev + rowsum(R(q) R(k)^T scale * D)|, 1)   (v1)
-//         max(|...|, e^{-m_comb})                                    (exp)
-// with qbar = q e^b scale (v1) or q e^{(b + m_prev) - m_comb} scale (exp).
-// den_out (and, exp, ms.mcomb_out) per row where not null.
-template <typename T, typename CT, int DH, bool EXP>
-__global__ void __launch_bounds__(NT) h_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ ig, const float* __restrict__ fg,
-    const float* __restrict__ c_states, const float* __restrict__ n_states, T* __restrict__ h,
-    float* __restrict__ den_out, int S, int L, float qk_scale, float eps, MState ms) {
-  constexpr int DP = DH + 1;
-  constexpr int CPT = DH / 4;  // output columns per thread, 4 threads per row
-  extern __shared__ float smem[];
-  float* sb = smem;
-  float* sli = sb + LMAX;
-  float* sq = sli + LMAX;     // (TR, DP) R(q)
-  float* sqb = sq + TR * DP;  // (TR, DP) qbar, unrounded
-  float* sk = sqb + TR * DP;  // (TR, DP) R(k) of the key sub-tile
-  float* sv = sk + TR * DP;   // (TR, DP) R(v) of the key sub-tile
-  float* sC = sv + TR * DP;   // (DH, DP) R(C_prev)
-  float* sn = sC + DH * DP;   // (DH) n_prev
-  float* ssd = sn + DH;       // (TR, TR + 1) sd
-  float* smc = ssd + TR * (TR + 1);  // (TR) exp: m_comb of the tile's rows
-
-  const int tid = threadIdx.x;
-  const int T_ = tile_rows(L);
-  const int tiles = L / T_;
-  const int c = blockIdx.x / tiles, st = blockIdx.x - c * tiles;
-  const int bh = blockIdx.y;
-  const int NC = S / L;
-  const size_t t0 = (size_t)bh * S + (size_t)c * L;  // first row of the chunk
-  const size_t slot = (size_t)bh * NC + c;
-  const float m_prev = EXP ? ms.m_states[slot] : 0.f;
-
-  chunk_gates<EXP>(ig + t0, fg + t0, L, sb, sli);
-  for (int e = tid; e < DH * DH; e += NT)
-    sC[(e / DH) * DP + e % DH] = rt<CT>(c_states[slot * DH * DH + e]);
-  if (tid < DH) sn[tid] = n_states[slot * DH + tid];
-  __syncthreads();
-  const int q0 = st * T_;  // chunk row of the first query row
-  const int row = tid / 4, cc = (tid % 4) * CPT;
-  const bool has_row = row < T_;  // T_ is 16, 32 or 64: whole warps
-  if constexpr (EXP) {
-    if (has_row) {
-      const float mc = row_mcomb(sb, sli, q0 + row, m_prev, tid % 4);
-      if (tid % 4 == 0) smc[row] = mc;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < T_ * DH; e += NT) {
-    const int r = e / DH, d = e - r * DH;
-    const float x = to_f32(q[(t0 + q0 + r) * DH + d]);
-    sq[r * DP + d] = rt<CT>(x);
-    sqb[r * DP + d] = EXP ? (x * expf((sb[q0 + r] + m_prev) - smc[r])) * qk_scale
-                          : (x * expf(sb[q0 + r])) * qk_scale;
-  }
-  __syncthreads();
-
-  float hi[CPT], ha[CPT];  // inter- and intra-chunk parts of the numerator
-#pragma unroll
-  for (int x = 0; x < CPT; ++x) hi[x] = ha[x] = 0.f;
-  float n_inter = 0.f, n_intra = 0.f;
-  if (has_row) {
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float qb = sqb[row * DP + d];
-      n_inter = fmaf(qb, sn[d], n_inter);
-      const float qr = rt<CT>(qb);
-#pragma unroll
-      for (int x = 0; x < CPT; ++x) hi[x] = fmaf(qr, sC[d * DP + cc + x], hi[x]);
-    }
-  }
-
-  const int TT = T_ / 4;  // 4 x 4 register tiles per side of a (T_, T_) tile
-  for (int kt = 0; kt <= st; ++kt) {
-    const int k0 = kt * T_;
-    for (int e = tid; e < T_ * DH; e += NT) {
-      const int r = e / DH, d = e - r * DH;
-      const size_t off = (t0 + k0 + r) * DH + d;
-      sk[r * DP + d] = rt<CT>(to_f32(k[off]));
-      sv[r * DP + d] = rt<CT>(to_f32(v[off]));
-    }
-    __syncthreads();
-    if (tid < TT * TT) {  // sd = R(q) R(k)^T scale * D, masked above the diagonal
-      const int ti = tid / TT, tj = tid % TT;
-      float acc[4][4] = {};
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float qa[4], kb[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          qa[r] = sq[(ti * 4 + r) * DP + d];
-          kb[r] = sk[(tj * 4 + r) * DP + d];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(qa[r], kb[s], acc[r][s]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int l = q0 + ti * 4 + r;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int j = k0 + tj * 4 + s;
-          // the exponent is masked before exp: b_l - b_j > 0 above the diagonal
-          const float ld = sb[l] - sb[j] + sli[j];
-          ssd[(ti * 4 + r) * (TR + 1) + tj * 4 + s] =
-              j <= l ? (acc[r][s] * qk_scale) * expf(EXP ? ld - smc[ti * 4 + r] : ld) : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-    if (has_row) {
-      for (int j = 0; j < T_; ++j) {
-        const float s = ssd[row * (TR + 1) + j];
-        n_intra += s;
-        const float sr = rt<CT>(s);
-#pragma unroll
-        for (int x = 0; x < CPT; ++x) ha[x] = fmaf(sr, sv[j * DP + cc + x], ha[x]);
-      }
-    }
-    __syncthreads();
-  }
-
-  if (has_row) {
-    const float floor_ = EXP ? expf(-smc[row]) : 1.f;
-    const float den = fmaxf(fabsf(n_inter + n_intra), floor_);
-    const size_t r = t0 + q0 + row;
-    if (cc == 0 && den_out) den_out[r] = den;
-    if (EXP && cc == 0 && ms.mcomb_out) ms.mcomb_out[r] = smc[row];
-    const float inv = den + eps;
-#pragma unroll
-    for (int x = 0; x < CPT; ++x) from_f32((hi[x] + ha[x]) / inv, h + r * DH + cc + x);
-  }
 }
 
 // The tiling of the dq/dk/dv kernel: 4 warps, each 16 of a block's TR own
@@ -666,6 +839,27 @@ using port::launch_with_smem;
 
 inline bool chunk_ok(int S, int L) {
   return L >= 16 && L <= LMAX && (L & (L - 1)) == 0 && S > 0 && S % L == 0;
+}
+
+// Launches the forward's two passes, fw_scan_kernel then fw_h_kernel, over
+// B * NH heads of S rows in chunks of L; the CUDA error code.
+template <typename T, typename CT, int DH, bool EXP>
+int launch_fw(const T* q, const T* k, const T* v, const float* i, const float* f,
+              const float* c0, const float* n0, T* h, float* den, float* c_states,
+              float* n_states, float* c_last, float* n_last, int BNH, int S, int L,
+              float qk_scale, float eps, MState ms, cudaStream_t st) {
+  using Scan = ScanTile<T, CT, DH>;
+  const size_t out_bytes = OutTile<CT, DH>::bytes;
+  cudaError_t err = port::allow_smem(fw_scan_kernel<T, CT, DH, EXP>, Scan::bytes);
+  if (err == cudaSuccess) err = port::allow_smem(fw_h_kernel<T, CT, DH, EXP>, out_bytes);
+  if (err != cudaSuccess) return (int)err;
+  fw_scan_kernel<T, CT, DH, EXP><<<dim3(BNH, DH / Scan::TRW), par::NTC, Scan::bytes, st>>>(
+      k, v, i, f, c0, n0, c_states, n_states, c_last, n_last, S, L, ms);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fw_h_kernel<T, CT, DH, EXP><<<dim3(BNH, S / tile_rows(L)), par::NTC, out_bytes, st>>>(
+      q, k, v, i, f, c_states, n_states, h, den, S, L, qk_scale, eps, ms);
+  return (int)cudaGetLastError();
 }
 
 // Launches dqkv_kernel over B * NH heads of S rows in chunks of L; the CUDA

@@ -66,10 +66,10 @@ extern "C" int chunkwise_v1_bw_dc(const void* q, const float* f, const void* dh,
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    return launch_with_smem(state_scan_kernel<T, CT, D, true, false>, dim3(B * NH),
+    return launch_with_smem(state_scan_kernel<T, CT, D, false>, dim3(B * NH),
                             sizeof(float) * scan_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(dh), nullptr, f, den, dc_last, nullptr,
-                            dc_states, nullptr, dc0, nullptr, S, L, qk_scale, eps, MState{});
+                            static_cast<const T*>(dh), f, den, dc_last, dc_states, dc0, S, L,
+                            qk_scale, eps, MState{});
   });
 }
 

@@ -18,25 +18,30 @@
 //
 // Design.  The TPU runs its grid in order and fuses the whole forward into
 // one kernel that carries (C, n) in VMEM (`chunkwise.py:7-11`).  Hopper's
-// blocks run in no order, so the forward is two launches:
-//   1. state_scan_kernel (chunkwise_v1.cuh): one block per (batch, head)
-//      walks the chunks and writes C, n before each and the last states;
-//      a chunk is a (L x DH)^T (L x DH) product, read in tiles of 64 rows;
-//   2. h_kernel (chunkwise_v1.cuh): every (batch * head, chunk, 64-row
-//      sub-tile) is its own block, 96 * S / 64 blocks at the flagship's
-//      batch 8.  It reads the
-//      chunk's C and n, builds the gate rows of the chunk, and walks the
-//      key sub-tiles at or before its own: a chunk of 512 rows makes
-//      (512 x 512) score and decay tiles (1 MB in float32), which do not fit
-//      in 227 KB of shared memory, so it takes them 64 x 64 at a time.
-// Products are float32 FMA on the CUDA cores with the operands rounded
-// as above (no tensor cores yet).
+// blocks run in no order, so the forward is two launches of the kernels of
+// chunkwise_v1.cuh (launch_fw), their products in the mma fragment layout
+// (tc::prod16): mma.sync m16n8k16 with bf16 operands and float32 sums for
+// bf16 products, float32 FMA in the same tiling for float32 products.
+//   1. fw_scan_kernel, the state pass: a block of 4 warps per (batch *
+//      head, 16 rows of C), B NH DH / 16 blocks, walks the chunks in 64-row
+//      tiles with C's rows in float32 registers (the accumulator layout);
+//      per chunk it stores the state before it, then adds
+//      e^g C + R(kbar[:, rows])^T R(v) on the mma, while the next tile's k
+//      columns, v and gates load by cp.async.
+//   2. fw_h_kernel, the output pass: every (batch * head, chunk, 64-row
+//      sub-tile) is a block of 4 warps of 16 rows (B NH S / 64 blocks),
+//      heaviest first.  A warp stages R(qbar) of its rows and makes
+//      R(qbar) R(C_prev) on the mma, then walks the chunk's key sub-tiles up
+//      to its own, two deep by cp.async, as the quadratic forward walks its
+//      key tiles (parallel_fw.cu): the (16 x 64) score fragment is scaled by
+//      D in registers, one exp a pair, summed for den and fed, packed to
+//      bf16, to the product with R(v).  A 512-row chunk never needs its
+//      (512 x 512) score tile.
 //
 // What bounds it.  The function moves q, k, v and h once, the gates, and
 // the states per chunk (B * NH * NC * (DH + 1) * DH floats): bound by bytes
-// at every L (PERF.md).  This version's (L x L) intra-chunk products grow
-// with L, and on float32 FMA at L = 512 they cost more than the bytes; it
-// is a first, right version, and PERF.md holds its times.
+// at every L (PERF.md holds its times beside the bound).  It also takes one
+// exp a causal pair of a chunk, B NH S (L + 1) / 2 of them.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,16 +67,9 @@ extern "C" int chunkwise_v1_fw(const void* q, const void* k, const void* v, cons
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dh)::value;
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k);
-    const T* vt = static_cast<const T*>(v);
-    const int err = launch_with_smem(
-        state_scan_kernel<T, CT, D, false, false>, dim3(B * NH),
-        sizeof(float) * scan_smem_floats<D>(), st, kt, vt, i, f, nullptr, c0, n0, c_states,
-        n_states, c_last, n_last, S, L, qk_scale, eps, MState{});
-    if (err != 0) return err;
-    return launch_with_smem(h_kernel<T, CT, D, false>, dim3((S / L) * (L / tile_rows(L)), B * NH),
-                            sizeof(float) * h_smem_floats<D>(), st, qt, kt, vt, i, f, c_states,
-                            n_states, static_cast<T*>(h), den, S, L, qk_scale, eps, MState{});
+    return launch_fw<T, CT, D, false>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), i, f, c0,
+        n0, static_cast<T*>(h), den, c_states, n_states, c_last, n_last, B * NH, S, L, qk_scale,
+        eps, MState{}, st);
   });
 }
