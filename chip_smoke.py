@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                backward and the v1 and exp forwards and backwards, the
                tensor-core (HMMA) instructions of each kernel in the machine
                code (cuobjdump -sass; each of these libraries must show
-               some); phases 28-34 run next, then 2-27;
+               some, the v1 and exp forwards in both passes, their
+               backwards in the dC increments and dq/dk/dv); phases 28-34 run next, then 2-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -69,9 +70,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                training lengths padded to whole chunks, and a case with
                closed forget gates): float32 streams and products to 1e-4,
                the route's bfloat16 streams and products to 2e-2, and in
-               bfloat16 the forward's and dq/dk/dv's outputs nearer their
-               plain version in mean error than the plain version with
-               float32 products is (rounding_shows);
+               bfloat16 the forward's, the dC scan's and dq/dk/dv's
+               outputs nearer their plain version in mean error than the
+               plain version with float32 products is (rounding_shows);
 10. v1_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=V1).predict() on
                the images of phase 4: v1 forward launches exactly as derived
                from the wrappers' segment plan (v1_plan), no v2 launch;
@@ -86,8 +87,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                training lengths padded to whole chunks), and two more gate
                regimes, closed forget gates and large input gates (i in
                [5, 15]: m far from 0): float32 products to 1e-4, the route's
-               bfloat16 to 2e-2, the forward (h as h (den + eps)) and
-               dq/dk/dv also in mean error as in v1_kernels
+               bfloat16 to 2e-2, the forward (h as h (den + eps)), the dC
+               scan and dq/dk/dv also in mean error as in v1_kernels
                (phase_exp_kernels);
 13. exp_predict - YOLO("vil-det-192.yaml", chunkwise_kernel=EXP).predict()
                on the images of phase 4: exact exp forward launches, no v1
@@ -144,7 +145,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 25. train_384 - 3 bf16 steps of detect_trainer("vil-det-384.yaml") as phase
                8, one step of vil-det-256 (train_256), and one step of
                vil-det-384 on each of the v1, exp and quadratic routes, each
-               with exact launches; then a 64-token decode through
+               with exact launches (v1 and exp: then one more step, and one
+               in a profiler trace, its device time and busy share); then a 64-token decode through
                MatrixLSTMCell(768, 6, step_kernel="step--pallas");
 26. wide_grads - a ViLBlockPair of vil-det-384's widths at S = 1600: its
                float32 gradients with the kernels against float64, as
@@ -225,8 +227,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                scan, dq/dk/dv), the epilogue backward and the FFN backward
                (row pass, weight gradients, sums) at each S and every
                detector's widths, and of the v1 and exp forwards (state
-               pass, output pass; train variant) at (6656, 512) at every
-               detector's widths, bf16, from torch.profiler traces, and each
+               pass, output pass; train variant) and dC scans (increments,
+               combine) at (6656, 512) at every detector's widths, bf16, from torch.profiler traces, and each
                pass of the v2 forward and backward alone in CUDA-event
                windows (phase_passes_times; the times phases print them
                beside each call's time).
@@ -240,9 +242,10 @@ train variants on their path, with "dh128" at vil-det-384's heads; the
 rows of the v2 forward (inference and train), the v2 backward, the
 epilogue backward and the FFN backward also "per_call_s6400" with each of
 their kernels' device ms; the quadratic kernels' "per_call_s6656" and the
-v1 and exp dq/dk/dv's "per_call_s6656_l512" at every detector's heads with
-exp_floor_ms), and last {"ok": true, "device": {...}}.  Without a CUDA device, or without
-the package beside this script, it exits non-zero and prints no result.
+v1 and exp forwards', dC scans' and dq/dk/dv's "per_call_s6656_l512" at
+every detector's heads, with each pass's device ms or exp_floor_ms), and
+last {"ok": true, "device": {...}}.  Without a CUDA device, or without the
+package beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -1149,12 +1152,14 @@ def ffn_matmul_yardstick(f_args, ws) -> float:
 # trace, with their launches a call
 FW_PASSES = {"fw_state_kernel": 1, "fw_out_kernel": 1}
 CHUNK_FW_PASSES = {"fw_scan_kernel": 1, "fw_h_kernel": 1}  # the v1 and exp forwards' template
+CHUNK_DC_PASSES = {"dc_inc_kernel": 1, "dc_combine_kernel": 1}  # and their dC scans'
 CHUNK_FW_SHAPE = (6656, 512)  # (S, L) of their passes' readings: the routes' largest call
 PASSES = {"chunkwise_fw": FW_PASSES, "chunkwise_fw_train": FW_PASSES,
           "chunkwise_bw": {"bw_dc_kernel": 1, "bw_dqkv_kernel": 1},
           "epilogue_bw": {"epilogue_rows_kernel": 1, "wgrad_tc_kernel": 1, "reduce_kernel": 2},
           "ffn_bw": {"ffn_rows_kernel": 1, "wgrad_tc_kernel": 2, "reduce_kernel": 3},
-          "chunkwise_v1_fw": CHUNK_FW_PASSES, "chunkwise_exp_fw": CHUNK_FW_PASSES}
+          "chunkwise_v1_fw": CHUNK_FW_PASSES, "chunkwise_exp_fw": CHUNK_FW_PASSES,
+          "chunkwise_v1_bw_dc": CHUNK_DC_PASSES, "chunkwise_exp_bw_dc": CHUNK_DC_PASSES}
 # the libraries whose kernels run their bf16 products on the tensor cores
 TC_LIBRARIES = ("chunkwise_fw", "chunkwise_bw", "epilogue_bw", "ffn_bw", "parallel_fw",
                 "parallel_bw", "chunkwise_v1_fw", "chunkwise_v1_bw", "chunkwise_exp_fw",
@@ -1203,10 +1208,10 @@ def phase_passes_times(cw, epi, ffn, v1, ex, card: str) -> dict:
     forward (state scan, output pass; inference and train variants), the v2
     backward (dC scan, dq/dk/dv), the epilogue backward and the FFN backward
     (row pass, weight gradients, sums), at each S, and the v1 and exp
-    forwards (state pass, output pass; the train variant) at
-    CHUNK_FW_SHAPE, at every detector's widths, bf16, from a torch.profiler
-    trace of 10 calls
-    (kernels_device_ms), and each pass of the v2 forward and backward alone
+    forwards (state pass, output pass; the train variant) and dC scans
+    (increments, combine) at CHUNK_FW_SHAPE, at every detector's widths,
+    bf16, from a torch.profiler trace of 10 calls (kernels_device_ms), and
+    each pass of the v2 forward and backward alone
     through its wrapper in CUDA-event windows.  It runs early:
     in this script's long process, traces taken after its later phases
     missed most kernel events of these calls (PR 9, run 2), which no probe
@@ -1264,15 +1269,22 @@ def phase_passes_times(cw, epi, ffn, v1, ex, card: str) -> dict:
             del args, cs, ns, den, dh, e_args, f_args, dcs
         S, L = CHUNK_FW_SHAPE
         kw = dict(chunk_size=L, eps=EPS)
-        a1 = v1_inputs(S, torch.bfloat16, seed=S, ws=ws)[0]
-        a2 = exp_inputs(S, torch.bfloat16, seed=S, ws=ws)[0]
-        for name, fn in (("chunkwise_v1_fw", lambda: v1.chunkwise_fw(*a1, **kw)),
-                         ("chunkwise_exp_fw", lambda: ex.chunkwise_exp_fw(*a2, **kw))):
+        a1, dh1, _ = v1_inputs(S, torch.bfloat16, seed=S, ws=ws)
+        a2, dh2, _ = exp_inputs(S, torch.bfloat16, seed=S, ws=ws)
+        den1 = v1.chunkwise_fw(*a1, **kw)[1]
+        _, den2, mc2, _, ms2, (_, _, ml2) = ex.chunkwise_exp_fw(*a2, **kw)
+        mrow2 = ex.m_rows(a2[4], ms2, ml2, L)[0]
+        for name, fn in (
+                ("chunkwise_v1_fw", lambda: v1.chunkwise_fw(*a1, **kw)),
+                ("chunkwise_exp_fw", lambda: ex.chunkwise_exp_fw(*a2, **kw)),
+                ("chunkwise_v1_bw_dc", lambda: v1.chunkwise_bw_dc(a1[0], a1[4], dh1, den1, **kw)),
+                ("chunkwise_exp_bw_dc", lambda: ex.chunkwise_exp_bw_dc(a2[0], a2[4], dh2, den2,
+                                                                       mc2, mrow2, **kw))):
             per[name][(S, L)] = {"passes_device_ms": kernels_device_ms(fn, PASSES[name])}
             emit({"phase": "times", "what": f"{name}_passes", "widths": ws.cfg, "card": card,
-                  "B": B, "S": S, "L": L, "dtype": "bfloat16", "variant": "train",
-                  **per[name][(S, L)]})
-        del a1, a2
+                  "B": B, "S": S, "L": L, "dtype": "bfloat16",
+                  "variant": "train" if name.endswith("fw") else "", **per[name][(S, L)]})
+        del a1, a2, dh1, dh2, den1, den2, mc2, ms2, ml2, mrow2
         out[ws.cfg] = per
     return out
 
@@ -1434,7 +1446,8 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
     closed forget gates on one case.  In bfloat16 dq/dk/dv's outputs must
     also lie nearer their plain version in mean error than the plain version
     with float32 products does, by more than half (rounding_shows), and so
-    must the forward's."""
+    must the forward's and the dC scan's (those the products reach by more
+    than FW_MIN_GAP of their mean |value|)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1461,6 +1474,12 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
             torch.cuda.synchronize()
             rdcs, rdc0 = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw)
             e_dc = compare_outputs(f"v1 bw_dc S={S} L={L} {key}", (dcs, dc0), (rdcs, rdc0), rel)
+            ratio_dc = {} if dtype != torch.bfloat16 else {
+                "chunkwise_v1_bw_dc_mean_err_over_unrounded": rounding_shows(
+                    f"v1 bw_dc S={S} L={L} {gates}", (dcs, dc0), (rdcs, rdc0),
+                    v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl,
+                                             **dict(kw, compute_dtype=torch.float32)),
+                    FW_MIN_GAP)}
             got_b = v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, rdcs, **kw)
             torch.cuda.synchronize()
             ref_b = v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw)
@@ -1476,7 +1495,7 @@ def phase_v1_kernels(v1, shapes, device="cuda", ws=FLAGSHIP):
                   "compute_dtype": key,
                   "gates": gates, "initial_states": states, "dc_last": states, "rel_tol": rel,
                   **{f"{n}_max_rel_err": e[1] for n, e in zip(V1_KERNELS, (e_fw, e_dc, e_qkv))},
-                  **ratio_fw, **ratio})
+                  **ratio_fw, **ratio_dc, **ratio})
             del args, dh, dcl, got, ref, got_b, ref_b, dcs, rdcs
     return worst
 
@@ -1607,9 +1626,10 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
     rounding of den into a large relative change of h (its own error is
     reported as h_max_rel_err).  The predict variant's h and last states
     must equal the training variant's bit for bit.  In bfloat16 the
-    forward's outputs (h as its numerator, as above) and dq/dk/dv's must
-    also lie nearer their plain version in mean error than the plain version
-    with float32 products does, by more than half (rounding_shows)."""
+    forward's outputs (h as its numerator, as above), the dC scan's and
+    dq/dk/dv's must also lie nearer their plain version in mean error than
+    the plain version with float32 products does, by more than half
+    (rounding_shows)."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -1648,6 +1668,12 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
             rdcs, rdc0 = ex.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, dcl, **kw)
             e_dc = compare_outputs(f"exp bw_dc S={S} L={L} {gates} {key}", (dcs, dc0),
                                    (rdcs, rdc0), rel)
+            ratio_dc = {} if dtype != torch.bfloat16 else {
+                "chunkwise_exp_bw_dc_mean_err_over_unrounded": rounding_shows(
+                    f"exp bw_dc S={S} L={L} {gates}", (dcs, dc0), (rdcs, rdc0),
+                    ex.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, dcl,
+                                                 **dict(kw, compute_dtype=torch.float32)),
+                    FW_MIN_GAP)}
             got_b = ex.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
             torch.cuda.synchronize()
             bw = (q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs)
@@ -1665,7 +1691,7 @@ def phase_exp_kernels(ex, shapes, device="cuda", ws=FLAGSHIP):
                   "m_last_range": [m_last.min().item(), m_last.max().item()],
                   "h_max_rel_err": h_rel,
                   **{f"{n}_max_rel_err": e[1] for n, e in zip(EXP_KERNELS, (e_fw, e_dc, e_qkv))},
-                  **ratio_fw, **ratio})
+                  **ratio_fw, **ratio_dc, **ratio})
             del args, dh, dcl, got, got_p, ref, got_b, ref_b, dcs, rdcs, bw
     return worst
 
@@ -2586,6 +2612,25 @@ def phase_exp_times(ex, card: str, plan, yolo_exp, yolo_v2, device="cuda"):
                   "warm-up; busy share from a trace of 3 exp forwards; tails timed between "
                   "synchronises in 3 instrumented forwards"})
     return per, out
+
+
+def traced_step(step, state, batch) -> dict:
+    """One train step, then one more in a torch.profiler trace: the traced
+    step's device time, busy share and largest kernels (device_busy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(9)
+    state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+    busy = device_busy(prof, start.elapsed_time(end))
+    return {**{k: v for k, v in busy.items() if k != "top"}, "top": busy.get("top", [])[:8]}
 
 
 def phase_step_times(card: str, routes):
@@ -3755,7 +3800,9 @@ def main() -> int:
           "ptxas": {k: ptxas_summary(v["log"]) for k, v in built.items()},
           "sass_mma": sass_mma})
     for lib, counts in sass_mma.items():  # "" is in every kernel's name
-        need = CHUNK_FW_PASSES if lib in ("chunkwise_v1_fw", "chunkwise_exp_fw") else {"": 1}
+        need = (CHUNK_FW_PASSES if lib in ("chunkwise_v1_fw", "chunkwise_exp_fw") else
+                {"dc_inc_kernel": 1, "dqkv_kernel": 1}
+                if lib in ("chunkwise_v1_bw", "chunkwise_exp_bw") else {"": 1})
         if isinstance(counts, dict) and not all(any(k in fn for fn in counts) for k in need):
             raise AssertionError(f"{lib}: no HMMA in the machine code of {list(need)}: {counts}")
 
@@ -3838,10 +3885,14 @@ def main() -> int:
     m384, st384, step384, batch384, t384 = timed("train_384", phase_train, cw, epi, ffn, steps,
                                                  cfg="vil-det-384.yaml")
     timed("train_256", phase_train, cw, epi, ffn, steps, cfg="vil-det-256.yaml", n_steps=1)
-    t384.update(timed("train_384", phase_v1_train, v1, cw, epi, ffn, steps,
-                      cfg="vil-det-384.yaml", n_steps=1)[4])
-    t384.update(timed("train_384", phase_exp_train, ex, v1, cw, epi, ffn, steps,
-                      cfg="vil-det-384.yaml", n_steps=1)[4])
+    for route, fn, args in (("v1", phase_v1_train, (v1, cw, epi, ffn, steps)),
+                            ("exp", phase_exp_train, (ex, v1, cw, epi, ffn, steps))):
+        out = timed("train_384", fn, *args, cfg="vil-det-384.yaml", n_steps=1)
+        t384.update(out[4])
+        emit({"phase": "times", "what": "train_step_traced", "route": route, "card": card,
+              "cfg": "vil-det-384", "imgsz": 640, "batch": B, "compute_dtype": "bfloat16",
+              **traced_step(out[2], out[1], out[3])})
+        del out
     t384.update(timed("train_384", phase_parallel_train, pk, ex, v1, cw, epi, ffn, steps,
                       cfg="vil-det-384.yaml", n_steps=1)[4])
     decode384 = timed("decode", phase_decode, stp, cw, card, WIDE[-1])
@@ -3986,7 +4037,7 @@ def main() -> int:
                       if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")}
                 for cfg, t in (("vil_det_192", flag_t), ("vil_det_256", wide_t[WIDE[0].cfg]),
                                ("vil_det_384", w384_t))}
-        if name.endswith(("dqkv", "v1_fw", "exp_fw")):  # per call at (6656, 512), every heads
+        if name.endswith(("dqkv", "bw_dc", "v1_fw", "exp_fw")):  # per call at (6656, 512)
             row["per_call_s6656_l512"] = {
                 cfg: {**{k: v for k, v in t[name][CHUNK_FW_SHAPE].items()
                          if k in ("ms", "plain_ms", "bound_ms", "exp_floor_ms", "sm_mhz")},

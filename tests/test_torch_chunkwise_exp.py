@@ -53,6 +53,7 @@ CASES = [  # (L, chunks, DH, compute dtype, gates, initial (C, n, m) and dC_last
     (64, 2, 64, "float32", "open", True),       # vil-det-256's head dim
     (32, 3, 128, "bfloat16", "large_i", False),  # vil-det-384's head dim
     (16, 2, 128, "float32", "closed", True),
+    (16, 13, 32, "bfloat16", "large_i", True),  # dC combined over the plan's 13 chunks
 ]
 IDS = [f"L{c[0]}-{c[3]}-{c[4]}-{'states' if c[5] else 'nostates'}"
        + (f"-DH{c[2]}" if c[2] > 32 else "") for c in CASES]

@@ -41,6 +41,7 @@ CASES = [  # (L, chunks, DH, compute dtype, initial states and dC_last)
     (64, 2, 64, "float32", True),     # vil-det-256's head dim
     (32, 3, 128, "bfloat16", False),  # vil-det-384's head dim
     (16, 2, 128, "float32", True),
+    (16, 13, 32, "bfloat16", True),   # dC combined over the plan's 13 chunks
 ]
 IDS = [f"L{c[0]}-{c[3]}-{'states' if c[4] else 'nostates'}" + (f"-DH{c[2]}" if c[2] > 32 else "")
        for c in CASES]

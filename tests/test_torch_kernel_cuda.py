@@ -615,6 +615,8 @@ V1_CASES = [  # (L, chunks, NH, DH, gates, initial states and dC_last)
     (64, 3, 1, 128, "closed", False),  # one whole sub-tile a chunk at DH 128
     (512, 8, 1, 128, "open", True),    # the state pass's carry over eight chunks
     (64, 3, 2, 32, "small_i", True),   # h mostly R(qbar) R(C_prev): its rounding shows
+    (64, 13, 2, 32, "open", True),     # dC carried over the plan's 13 chunks
+    (64, 13, 1, 128, "closed", True),
 ]
 V1_TYPES = [("float32", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
 # The v1 and exp forwards' outputs the products reach by less than this of
@@ -651,9 +653,9 @@ def assert_rel_close(got, ref, rel):
 def test_v1_kernels_match_plain_on_gpu(dtype, compute):
     """The forward, the dC scan and dq/dk/dv each against its plain version
     on the same inputs (the backward kernels on the plain forward's saved
-    states).  With bfloat16 products the forward's outputs and dq, dk and dv
-    also lie nearer the plain version in mean error than its
-    float32-products twin does (assert_rounding_shows)."""
+    states).  With bfloat16 products the forward's outputs, the dC scan's
+    and dq, dk and dv also lie nearer the plain version in mean error than
+    its float32-products twin does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -674,6 +676,9 @@ def test_v1_kernels_match_plain_on_gpu(dtype, compute):
         torch.cuda.synchronize()
         rdcs, rdc0 = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw)
         assert_rel_close((dcs, dc0), (rdcs, rdc0), rel)
+        if cd == torch.bfloat16:  # closed gates: the increments ~e^-20 of dC_last
+            assert_rounding_shows((dcs, dc0), (rdcs, rdc0), v1.chunkwise_bw_dc_plain(
+                q, f, dh, den, dcl, **dict(kw, compute_dtype=torch.float32)), min_gap=FW_MIN_GAP)
         got = v1.chunkwise_bw_dqkv(q, k, v, i, f, cs, den, dh, rdcs, **kw)
         torch.cuda.synchronize()
         ref = v1.chunkwise_bw_dqkv_plain(q, k, v, i, f, cs, den, dh, rdcs, **kw)
@@ -715,6 +720,8 @@ EXP_CASES = [  # (L, chunks, NH, DH, gates, initial (C, n, m) and dC_last)
     (64, 3, 1, 128, "open", False),    # one whole sub-tile a chunk at DH 128
     (512, 8, 1, 128, "large_i", True),  # the state pass's carry over eight chunks
     (64, 3, 2, 32, "small_i", True),    # h mostly R(qbar) R(C_prev) (scale not a power of 2)
+    (64, 13, 2, 32, "large_i", True),   # dC carried over the plan's 13 chunks
+    (64, 13, 1, 128, "closed", True),
 ]
 
 
@@ -743,9 +750,9 @@ def test_exp_kernels_match_plain_on_gpu(dtype, compute):
     forward's saved rows).  With bfloat16 products the forward's outputs
     (h as its numerator h (den + eps): with large input gates a row whose
     denominator cancels to its tiny floor e^{-m_comb} turns a float32
-    rounding of den into a large change of h) and dq, dk and dv also lie
-    nearer the plain version in mean error than its float32-products twin
-    does (assert_rounding_shows)."""
+    rounding of den into a large change of h), the dC scan's and dq, dk and
+    dv also lie nearer the plain version in mean error than its
+    float32-products twin does (assert_rounding_shows)."""
     needs_cuda()
     dt, cd = getattr(torch, dtype), getattr(torch, compute)
     rel = 1e-4 if cd == torch.float32 else 2e-2
@@ -773,6 +780,10 @@ def test_exp_kernels_match_plain_on_gpu(dtype, compute):
         torch.cuda.synchronize()
         rdcs, rdc0 = exp.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow_dc, dcl, **kw)
         assert_rel_close((dcs, dc0), (rdcs, rdc0), rel)
+        if cd == torch.bfloat16:
+            assert_rounding_shows((dcs, dc0), (rdcs, rdc0), exp.chunkwise_exp_bw_dc_plain(
+                q, f, dh, den, mc, mrow_dc, dcl, **dict(kw, compute_dtype=torch.float32)),
+                min_gap=FW_MIN_GAP)
         got = exp.chunkwise_exp_bw_dqkv(q, k, v, i, f, cs, den, mc, mrow_qkv, dh, rdcs, **kw)
         torch.cuda.synchronize()
         assert all(g.dtype == dt for g in got)
@@ -803,6 +814,50 @@ def test_exp_function_matches_plain_on_gpu():
                                     m_initial=t[7], eps=EPS, compute_dtype=torch.float32)
         out[dev] = [g.cpu() for g in torch.autograd.grad((h * dh.to(dev)).sum(), t[:6])]
     assert_grads_close(out["cuda"], out["cpu"], torch.float32)
+
+
+DC_PLAN = [(6656, 512), (2048, 512), (512, 256), (128, 64)]  # the detectors' training (S, L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["v1", "exp"])
+@pytest.mark.parametrize("DH", [32, 64, 128])
+def test_dc_scans_match_plain_on_gpu(route, DH):
+    """The v1 and exp dC scans alone at every (S, L) of the detectors'
+    training plan (up to 13 chunks), bfloat16 streams and products, with
+    dC_last on every other shape: within 2e-2 of each output's largest
+    |value|, nearer the plain version in mean error than its
+    float32-products twin is (assert_rounding_shows), one launch a call."""
+    needs_cuda()
+    NH = 256 // DH // 2
+    for j, (S, L) in enumerate(DC_PLAN):
+        states = j % 2 == 0
+        kw = dict(chunk_size=L, eps=EPS, compute_dtype=torch.bfloat16)
+        kw32 = dict(kw, compute_dtype=torch.float32)
+        if route == "v1":
+            args, dh, dcl = v1_inputs(S + DH, L, S // L, NH, DH, "open", states, torch.bfloat16)
+            q, f = args[0], args[4]
+            den = v1.chunkwise_fw_plain(*args, **kw)[1]
+            before = v1.LAUNCHES_BW_DC
+            got = v1.chunkwise_bw_dc(q, f, dh, den, dcl, **kw)
+            torch.cuda.synchronize()
+            assert v1.LAUNCHES_BW_DC == before + 1
+            ref = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw)
+            ref32 = v1.chunkwise_bw_dc_plain(q, f, dh, den, dcl, **kw32)
+        else:
+            args, dh, dcl = exp_inputs(S + DH, L, S // L, NH, DH, "large_i", states,
+                                       torch.bfloat16)
+            q, f = args[0], args[4]
+            _, den, mc, _, ms, (_, _, m_last) = exp.chunkwise_exp_fw_plain(*args, **kw)
+            mrow = exp.m_rows(f, ms, m_last, L)[0]
+            before = exp.LAUNCHES_BW_DC
+            got = exp.chunkwise_exp_bw_dc(q, f, dh, den, mc, mrow, dcl, **kw)
+            torch.cuda.synchronize()
+            assert exp.LAUNCHES_BW_DC == before + 1
+            ref = exp.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow, dcl, **kw)
+            ref32 = exp.chunkwise_exp_bw_dc_plain(q, f, dh, den, mc, mrow, dcl, **kw32)
+        assert_rel_close(got, ref, 2e-2)
+        assert_rounding_shows(got, ref, ref32)
 
 
 PAR_CASES = [  # (S, NH, DH, gates): one tile, ragged tiles, several tiles

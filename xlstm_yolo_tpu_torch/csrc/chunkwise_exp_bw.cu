@@ -26,7 +26,9 @@
 // writes them; the wrapper computes the gate gradients from them.
 //
 // Design.  The shared kernels of chunkwise_v1.cuh with the exp gate: the
-// dC scan is state_scan_kernel, one block per (batch, head); dq/dk/dv is
+// dC scan is dc_inc_kernel, every chunk's increment at once on the tensor
+// cores, then dc_combine_kernel, the reverse scale-and-add by gbar_k (see
+// chunkwise_v1_bw.cu); dq/dk/dv is
 // dqkv_kernel, every (batch * head, chunk, 64-row sub-tile, part) a block
 // of 4 warps on the tensor cores in bf16 (see chunkwise_v1_bw.cu), which
 // reads the chunk's m_comb rows, so a sub-tile's D uses the whole row's
@@ -60,11 +62,10 @@ extern "C" int chunkwise_exp_bw_dc(const void* q, const float* f, const void* dh
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    return launch_with_smem(state_scan_kernel<T, CT, D, true>, dim3(B * NH),
-                            sizeof(float) * scan_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(dh), f, den, dc_last, dc_states, dc0, S, L,
-                            qk_scale, eps,
-                            MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr});
+    return launch_dc<T, CT, D, true>(static_cast<const T*>(q), static_cast<const T*>(dh), f, den,
+                                     dc_last, dc_states, dc0, nullptr, B * NH, S, L, qk_scale,
+                                     eps, MState{nullptr, nullptr, nullptr, mrow, m_comb, nullptr},
+                                     st);
   });
 }
 

@@ -12,8 +12,8 @@
 //
 // Rounding points.  The JAX kernels cast the operands of every product to
 // their compute dtype and sum in float32; R(x) rounds x to the compute
-// type CT at the same operands (rt<CT>, or on the way into shared memory,
-// or packing a fragment to bf16).  Row sums (the denominator, n) stay
+// type CT at the same operands (on the way into shared memory, or packing
+// a fragment to bf16).  Row sums (the denominator, n) stay
 // unrounded.
 //
 // Gates of one chunk, b = inclusive cumsum of logsig(f), g = b[L - 1]:
@@ -34,8 +34,11 @@
 //   (batch * head, chunk, 64-row sub-tile) from the state before the chunk:
 //   the quadratic forward's loop (parallel_fw.cu) confined to the chunk,
 //   plus the inter-chunk product in the same accumulators;
-// - state_scan_kernel: the backward's dC scan, one block per (batch, head)
-//   walking the chunks in reverse, float32 FMA;
+// - dc_inc_kernel, dc_combine_kernel: the backward's dC scan in two
+//   passes, every chunk's increment R(qbar)^T R(dhn) at once on the tensor
+//   cores (a block of 4 warps per (min(DH, 64) rows of dC, chunk,
+//   batch * head)),
+//   then the reverse scale-and-add of the increments, elementwise;
 // - dqkv_kernel: dq, or dk and dv, of a (batch * head, chunk, 64-row
 //   sub-tile) from the states before and after the chunk, on the tensor
 //   cores in bf16 with the quadratic backward's tile steps (parallel.cuh).
@@ -53,7 +56,6 @@ namespace v1 {
 
 using port::from_f32;
 using port::NT;
-using port::rt;
 using port::to_f32;
 
 constexpr int LMAX = 512;  // longest chunk
@@ -477,88 +479,174 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
   }
 }
 
-// The backward's dC scan: one block per (batch, head) walks its chunks in
-// reverse, carrying dC in registers (thread t owns row t / (DH / EPT) and
-// EPT consecutive columns).  It stores dC after chunk c into states, then
-//   dC <- gbar dC + R(q qf scale)^T R(dh / (den + eps)),
-// qf = e^b (v1; gbar = e^g) or e^{(b + m_prev) - m_comb} (exp; m_prev and
-// gbar from ms.mrow), and dC before the first chunk into s_last.  A chunk
-// is read in tiles of TR rows staged in shared memory (dynamic:
-// scan_smem_floats, 69 KB at DH = 128).
-template <int DH>
-constexpr size_t scan_smem_floats() {
-  return 2 * LMAX               // b, the row factor
-         + 2 * TR * (DH + 1);  // R(q qf scale), R(dh / (den + eps))
+// The backward's dC scan, dC_{k-1} = gbar_k dC_k + R(qbar_k)^T R(dhn_k) from
+// dC_last (or zeros), with qbar = (q qf) scale, qf = e^b (v1; gbar = e^g)
+// or e^{(b + m_prev) - m_comb} (exp; m_prev and gbar from ms.mrow), and
+// dhn = dh / (den + eps).  Every increment R(qbar_k)^T R(dhn_k) depends on
+// chunk k alone, so the scan is two passes: dc_inc_kernel makes all of them
+// at once on the tensor cores, writing chunk k's into the dC slot k - 1 (a
+// chunk's into dc0), and dc_combine_kernel walks the chunks in reverse,
+// a float32 scale-and-add of NC matrices an entry.
+//
+// The increment pass's tiling: a block of 4 warps per (TRW = min(DH, 64)
+// rows i0.. of dC, chunk, batch * head), so that each dh tile is staged and
+// divided by den + eps DH / TRW times in all (with 16 rows a block, as the
+// forward's state pass, 8 times at DH 128 took 0.52 of a 0.54 ms call at
+// (6656, 512), B 8, on an H100 at 700 W; PERF.md).  The warps split those rows in RG groups of 16 and the
+// columns in CG groups of 8 NTW (DH 16: warps 0 and 1 hold 8 columns each,
+// 2 and 3 only stage).  Shared memory: a tile's R(dhn) and raw q columns
+// i0.., two deep, with dh's den rows; R(qbar) of those columns; the chunk's
+// raw f, b, row factors and (exp) m_comb rows: 67.5 KB at DH 128 in bf16
+// (three blocks an SM), 123.5 KB in float32.
+template <typename T, typename CT, int DH>
+struct IncTile {
+  static constexpr int TRW = DH < TR ? DH : TR;  // rows of dC a block owns
+  static constexpr int RG = TRW / 16;            // warps along those rows, 16 rows each
+  static constexpr int CG = 4 / RG;              // and along the columns
+  static constexpr int NTW = DH / 8 / CG > 0 ? DH / 8 / CG : 1;  // n-tiles of 8 columns a warp
+  static constexpr int LDQ = TRW + tc::pad<CT>(), LDY = DH + tc::pad<CT>();
+  static constexpr size_t bytes = sizeof(CT) * (2 * TR * LDY + TR * LDQ) +
+                                  sizeof(T) * 2 * TR * TRW + 4 * (4 * LMAX + 2 * TR);
+};
+static_assert(IncTile<__nv_bfloat16, __nv_bfloat16, 128>::bytes <= 232448 / 3,
+              "three blocks an SM");
+static_assert(IncTile<float, float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
+
+// Chunk c's increment R(qbar_c)^T R(dhn_c), rows i0.. of it, into the dC
+// slot c - 1 (c = 0: dc0); v1: also gbar_c = e^{g_c} into gbar (B * NH, NC),
+// by the blocks of i0 = 0.  The chunk is read in tiles of T_ = min(L, 64)
+// rows: the next tile's q columns and dh rows (and, with the first, the
+// gates) load by cp.async while the current one is scaled, rounded and
+// multiplied, 16 rows a step, into float32 accumulators: q's columns to
+// R((q qf) scale), dh's rows to R(dh / (den + eps)), float32 division then
+// round-to-nearest-even (in place when dh lands raw, T = CT; through
+// registers otherwise).
+template <typename T, typename CT, int DH, bool EXP>
+__global__ void __launch_bounds__(par::NTC) dc_inc_kernel(
+    const T* __restrict__ q, const T* __restrict__ dh, const float* __restrict__ fg,
+    const float* __restrict__ den, float* __restrict__ dc_states, float* __restrict__ dc0,
+    float* __restrict__ gbar, int S, int L, float qk_scale, float eps, MState ms) {
+  using Tl = IncTile<T, CT, DH>;
+  constexpr int TRW = Tl::TRW, NTW = Tl::NTW, LDQ = Tl::LDQ, LDY = Tl::LDY, NTH = par::NTC;
+  constexpr int E = 16 / sizeof(T);                 // elements of a 16-byte copy
+  constexpr bool RAW = std::is_same<T, CT>::value;  // dh staged unchanged, scaled in place
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CT* sy = reinterpret_cast<CT*>(smem_raw);      // 2 x (TR, LDY) R(dhn) of a tile
+  CT* sqb = sy + 2 * TR * LDY;                   // (TR, LDQ) R(qbar), columns i0..
+  T* rq = reinterpret_cast<T*>(sqb + TR * LDQ);  // 2 x (TR, TRW) q, columns i0..
+  float* rfg = reinterpret_cast<float*>(rq + 2 * TR * TRW);  // (LMAX) f of the chunk
+  float* sb = rfg + LMAX;     // (LMAX) b
+  float* smc = sb + LMAX;     // (LMAX) exp: m_comb
+  float* sfac = smc + LMAX;   // (LMAX) the row factor qf
+  float* sden = sfac + LMAX;  // 2 x (TR) den of the staged dh rows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = blockIdx.x * TRW, c = blockIdx.y, bh = blockIdx.z;
+  const int NC = S / L, T_ = tile_rows(L), tiles = L / T_;
+  const int m0 = 16 * (warp % Tl::RG);          // the warp's first row of dC, from i0
+  const int nc0 = warp / Tl::RG * NTW * 8;      // and its first column
+  const bool active = nc0 < DH;
+  const size_t t0 = (size_t)bh * S + (size_t)c * L;  // first row of the chunk
+  const size_t slot = (size_t)bh * NC + c;
+  const T* qc = q + t0 * DH + i0;
+  const T* dhc = dh + t0 * DH;
+  const float* denc = den + t0;
+
+  // tile tt into buffer buf
+  auto prefetch = [&](int tt, int buf) {
+    const int r0 = tt * T_;
+    for (int e = tid; e < T_ * (TRW / E); e += NTH) {
+      const int r = e / (TRW / E), cc = E * (e - r * (TRW / E));
+      tc::cp_async16(rq + (buf * TR + r) * TRW + cc, qc + (size_t)(r0 + r) * DH + cc, true);
+    }
+    par::stage_tile<T, CT, DH, LDY, TR, NTH>(sy + buf * TR * LDY, dhc, r0, r0 + T_,
+                                             RAW ? nullptr : denc, eps);
+    if constexpr (RAW)
+      for (int e = tid; e < TR; e += NTH)
+        tc::cp_async4(sden + buf * TR + e, e < T_ ? denc + r0 + e : denc, e < T_);
+    tc::cp_async_commit();
+  };
+
+  for (int r = tid; r < L; r += NTH) {
+    tc::cp_async4(rfg + r, fg + t0 + r, true);
+    if (EXP) tc::cp_async4(smc + r, ms.m_comb + t0 + r, true);
+  }
+  prefetch(0, 0);  // one group with the gates
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int col = tid % TRW;  // the q column this thread scales (NTH is a multiple of TRW)
+  for (int tt = 0; tt < tiles; ++tt) {
+    const int buf = tt & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile tt is in; every warp is done with the other buffer and R(qbar)
+    if (tt + 1 < tiles) prefetch(tt + 1, buf ^ 1);
+    if (tt == 0) {  // the chunk's b and row factors, while tile 1 loads
+      chunk_gates<EXP>(nullptr, rfg, L, sb, nullptr);
+      __syncthreads();
+      const float m_prev = EXP ? ms.mrow[slot * 2] : 0.f;
+      for (int r = tid; r < L; r += NTH)
+        sfac[r] = EXP ? expf((sb[r] + m_prev) - smc[r]) : expf(sb[r]);
+      if (!EXP && blockIdx.x == 0 && tid == 0) gbar[slot] = expf(sb[L - 1]);
+      __syncthreads();
+    }
+    const T* cq = rq + buf * TR * TRW;
+    for (int e = tid; e < T_ * TRW; e += NTH) {
+      const int r = e / TRW;
+      from_f32((to_f32(cq[e]) * sfac[tt * T_ + r]) * qk_scale, sqb + r * LDQ + col);
+    }
+    if constexpr (RAW) par::scale_rows<CT, DH, LDY, NTH>(sy + buf * TR * LDY, sden + buf * TR, eps);
+    __syncthreads();
+    if (active)
+      for (int kk = 0; kk < T_ / 16; ++kk)  // R(qbar)^T R(dhn)
+        tc::prod16<NTW, true, true>(acc, sqb, LDQ, m0, sy + buf * TR * LDY, LDY, nc0, 16 * kk);
+  }
+  if (!active) return;
+  float* out = c == 0 ? dc0 + (size_t)bh * DH * DH : dc_states + (slot - 1) * DH * DH;
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      tc::st2(out + (size_t)(i0 + m0 + g + 8 * hh) * DH + nc0 + 8 * j + 2 * t, acc[j][2 * hh],
+              acc[j][2 * hh + 1]);
 }
 
-template <typename T, typename CT, int DH, bool EXP>
-__global__ void __launch_bounds__(NT) state_scan_kernel(
-    const T* __restrict__ q, const T* __restrict__ dh, const float* __restrict__ fg,
-    const float* __restrict__ den, const float* __restrict__ s0, float* __restrict__ states,
-    float* __restrict__ s_last, int S, int L, float qk_scale, float eps, MState ms) {
-  constexpr int EPT = DH * DH / NT;  // state entries per thread
-  constexpr int TPR = DH / EPT;      // threads per state row
-  constexpr int DP = DH + 1;
-  extern __shared__ float smem[];
-  float* sb = smem;            // (LMAX)
-  float* sfac = sb + LMAX;     // (LMAX) the row factor qf
-  float* sa = sfac + LMAX;     // (TR, DP) R(q qf scale)
-  float* sy = sa + TR * DP;    // (TR, DP) R(dh / (den + eps))
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int dr = tid / TPR, dc0 = (tid % TPR) * EPT;
-  const int NC = S / L;
-  const int T_ = tile_rows(L);
-  const size_t rows0 = (size_t)bh * S;  // row offset of this (batch, head)
-
-  float st[EPT];
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) st[e] = s0 ? s0[(size_t)bh * DH * DH + dr * DH + dc0 + e] : 0.f;
-
-  for (int it = 0; it < NC; ++it) {
-    const int c = NC - 1 - it;
-    const size_t t0 = rows0 + (size_t)c * L;
-    const size_t slot = (size_t)bh * NC + c;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) states[slot * DH * DH + dr * DH + dc0 + e] = st[e];
-
-    chunk_gates<EXP>(nullptr, fg + t0, L, sb, nullptr);
-    __syncthreads();
-    float eg;
-    if constexpr (!EXP) {
-      for (int r = tid; r < L; r += NT) sfac[r] = expf(sb[r]);
-      eg = expf(sb[L - 1]);
-    } else {
-      const float m_prev = ms.mrow[slot * 2];
-      eg = ms.mrow[slot * 2 + 1];
-      for (int r = tid; r < L; r += NT) sfac[r] = expf((sb[r] + m_prev) - ms.m_comb[t0 + r]);
-    }
-    __syncthreads();
-
-    float acc[EPT];
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[e] = 0.f;
-    for (int r0 = 0; r0 < L; r0 += T_) {
-      for (int e = tid; e < T_ * DH; e += NT) {
-        const int r = e / DH, d = e - r * DH;
-        const size_t off = (t0 + r0 + r) * DH + d;
-        sa[r * DP + d] = rt<CT>((to_f32(q[off]) * sfac[r0 + r]) * qk_scale);
-        sy[r * DP + d] = rt<CT>(to_f32(dh[off]) / (den[t0 + r0 + r] + eps));
-      }
-      __syncthreads();
-      for (int r = 0; r < T_; ++r) {
-        const float a = sa[r * DP + dr];
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) acc[e] = fmaf(a, sy[r * DP + dc0 + e], acc[e]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) st[e] = fmaf(eg, st[e], acc[e]);
+// The combine pass over the increments dc_inc_kernel left: a thread owns 4
+// entries of a head's dC and walks the chunks in reverse,
+//   slot NC - 1 <- dC_last (or zeros),
+//   slot k - 1  <- gbar_k slot k + slot k - 1   (k = NC - 1 .. 1),
+//   dc0         <- gbar_0 slot 0 + dc0,
+// the plain loop's float32 multiply, then add, each rounded (no FMA), in
+// its order; gbar_k from gbar (B * NH, NC) (v1) or mrow's second column
+// (exp, [m_prev, gbar] per chunk).  Grid (ceil(DH^2 / 4 / NT), B * NH).
+template <bool EXP>
+__global__ void __launch_bounds__(NT) dc_combine_kernel(
+    const float* __restrict__ gbar, const float* __restrict__ dc_last, float* dc_states,
+    float* dc0, int NC, int n) {
+  const int e = 4 * (blockIdx.x * NT + threadIdx.x);
+  if (e >= n) return;
+  const size_t bh = blockIdx.y;
+  float* const first = dc_states + bh * NC * n + e;  // dC after chunk 0
+  float* const before = dc0 + bh * n + e;           // dC before chunk 0
+  auto at = [&](int k) {  // where chunk k's increment lies, and dC before chunk k goes
+    return reinterpret_cast<float4*>(k > 0 ? first + (size_t)(k - 1) * n : before);
+  };
+  float4 cur = dc_last ? *reinterpret_cast<const float4*>(dc_last + bh * n + e)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  *reinterpret_cast<float4*>(first + (size_t)(NC - 1) * n) = cur;
+  float4 inc = *at(NC - 1);
+  for (int k = NC - 1; k >= 0; --k) {
+    const float gk = gbar[(bh * NC + k) * (EXP ? 2 : 1)];
+    const float4 next = k > 0 ? *at(k - 1) : inc;  // the next increment's load flies
+    cur.x = __fadd_rn(__fmul_rn(gk, cur.x), inc.x);
+    cur.y = __fadd_rn(__fmul_rn(gk, cur.y), inc.y);
+    cur.z = __fadd_rn(__fmul_rn(gk, cur.z), inc.z);
+    cur.w = __fadd_rn(__fmul_rn(gk, cur.w), inc.w);
+    *at(k) = cur;
+    inc = next;
   }
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) s_last[(size_t)bh * DH * DH + dr * DH + dc0 + e] = st[e];
 }
 
 // The tiling of the dq/dk/dv kernel: 4 warps, each 16 of a block's TR own
@@ -835,7 +923,6 @@ __global__ void __launch_bounds__(par::NTC) dqkv_kernel(
 }
 
 using port::dispatch;
-using port::launch_with_smem;
 
 inline bool chunk_ok(int S, int L) {
   return L >= 16 && L <= LMAX && (L & (L - 1)) == 0 && S > 0 && S % L == 0;
@@ -859,6 +946,26 @@ int launch_fw(const T* q, const T* k, const T* v, const float* i, const float* f
   if (err != cudaSuccess) return (int)err;
   fw_h_kernel<T, CT, DH, EXP><<<dim3(BNH, S / tile_rows(L)), par::NTC, out_bytes, st>>>(
       q, k, v, i, f, c_states, n_states, h, den, S, L, qk_scale, eps, ms);
+  return (int)cudaGetLastError();
+}
+
+// Launches the dC scan's two passes, dc_inc_kernel then dc_combine_kernel,
+// over B * NH heads of S rows in chunks of L (v1: gbar a (B * NH, NC)
+// scratch; exp: ms.mrow); the CUDA error code.
+template <typename T, typename CT, int DH, bool EXP>
+int launch_dc(const T* q, const T* dh, const float* f, const float* den, const float* dc_last,
+              float* dc_states, float* dc0, float* gbar, int BNH, int S, int L, float qk_scale,
+              float eps, MState ms, cudaStream_t st) {
+  using Inc = IncTile<T, CT, DH>;
+  cudaError_t err = port::allow_smem(dc_inc_kernel<T, CT, DH, EXP>, Inc::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int NC = S / L, n = DH * DH;
+  dc_inc_kernel<T, CT, DH, EXP><<<dim3(DH / Inc::TRW, NC, BNH), par::NTC, Inc::bytes, st>>>(
+      q, dh, f, den, dc_states, dc0, gbar, S, L, qk_scale, eps, ms);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dc_combine_kernel<EXP><<<dim3((n / 4 + NT - 1) / NT, BNH), NT, 0, st>>>(
+      EXP ? ms.mrow + 1 : gbar, dc_last, dc_states, dc0, NC, n);
   return (int)cudaGetLastError();
 }
 

@@ -22,9 +22,13 @@
 // in float32; the wrapper computes the gate gradients from dq and dk and
 // casts them, as `_bw` does.
 //
-// Design.  The dC scan is the serial part: state_scan_kernel
-// (chunkwise_v1.cuh), one block per (batch, head), a (L x DH)^T (L x DH)
-// product per chunk.  The dq/dk/dv kernel is independent per (batch * head,
+// Design.  The dC scan runs in two passes (chunkwise_v1.cuh launch_dc):
+// dc_inc_kernel makes every chunk's increment R(qbar)^T R(dhn) at once, a
+// block of 4 warps per (min(DH, 64) rows of dC, chunk, batch * head) on the
+// tensor cores, into the dC slots it leaves for them; dc_combine_kernel
+// then walks the chunks in reverse, dC_{k-1} = e^{g_k} dC_k + increment_k,
+// elementwise in float32 (e^{g_k} from a (B * NH, NC) scratch the first
+// pass fills).  The dq/dk/dv kernel is independent per (batch * head,
 // chunk): dqkv_kernel (chunkwise_v1.cuh), every (batch * head, chunk,
 // 64-row sub-tile, part) a block of 4 warps, part 0 computing dq of the
 // sub-tile's rows (walking the key sub-tiles at or before it) and part 1 dk
@@ -39,7 +43,8 @@
 // float32 products).  Blocks go heaviest first.
 //
 // What bounds it.  The pair moves q, k, v, dh, dq, dk, dv once, the gates,
-// den and the states per chunk: bound by bytes (PERF.md).  The kernel
+// den and the states per chunk: bound by bytes (PERF.md; the dC scan
+// writes its states, and the combine reads and writes them again).  The kernel
 // also takes one exp a causal pair of a chunk in each part, B NH S (L + 1)
 // / 2 of them, and recomputes P in both parts; PERF.md holds its times
 // beside the bound and the exps' floor.
@@ -54,22 +59,22 @@ using namespace v1;
 // dtype, cdtype: 0 = float32, 1 = bfloat16 (storage of q and dh; compute
 // type of the products).  den (B, NH, S) from chunkwise_v1_fw; dc_last
 // (B, NH, DH, DH) may be null.  Outputs dc_states (B, NH, NC, DH, DH) and
-// dc0 (B, NH, DH, DH) float32.  Returns a CUDA error code; 1000 for a
-// dtype, head size or chunk the kernels do not take.
+// dc0 (B, NH, DH, DH) float32; gbar is a (B, NH, NC) float32 scratch.
+// Returns a CUDA error code; 1000 for a dtype, head size or chunk the
+// kernels do not take.
 extern "C" int chunkwise_v1_bw_dc(const void* q, const float* f, const void* dh,
                                   const float* den, const float* dc_last, float* dc_states,
-                                  float* dc0, int B, int NH, int S, int DH, int L, int dtype,
-                                  int cdtype, float qk_scale, float eps, void* stream) {
+                                  float* dc0, float* gbar, int B, int NH, int S, int DH, int L,
+                                  int dtype, int cdtype, float qk_scale, float eps, void* stream) {
   if (!chunk_ok(S, L)) return 1000;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, cdtype, DH, [&](auto t, auto ct, auto dhd) -> int {
     using T = decltype(t);
     using CT = decltype(ct);
     constexpr int D = decltype(dhd)::value;
-    return launch_with_smem(state_scan_kernel<T, CT, D, false>, dim3(B * NH),
-                            sizeof(float) * scan_smem_floats<D>(), st, static_cast<const T*>(q),
-                            static_cast<const T*>(dh), f, den, dc_last, dc_states, dc0, S, L,
-                            qk_scale, eps, MState{});
+    return launch_dc<T, CT, D, false>(static_cast<const T*>(q), static_cast<const T*>(dh), f, den,
+                                      dc_last, dc_states, dc0, gbar, B * NH, S, L, qk_scale, eps,
+                                      MState{}, st);
   });
 }
 

@@ -28,7 +28,8 @@ denominator stay unrounded.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 ``*_plain`` version for CPU tensors.  ``LAUNCHES_FW``, ``LAUNCHES_BW_DC``
-and ``LAUNCHES_BW_DQKV`` count kernel launches.
+and ``LAUNCHES_BW_DQKV`` count kernel calls (the forward's two passes and
+the dC scan's two, the increments and the combine, each counted once).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ __all__ = [
 ]
 
 LAUNCHES_FW = 0       # launches of the forward kernel
-LAUNCHES_BW_DC = 0    # launches of the dC reverse-scan kernel
+LAUNCHES_BW_DC = 0    # calls of the dC scan (two kernels a call)
 LAUNCHES_BW_DQKV = 0  # launches of the dq/dk/dv kernel
 
 CHUNK_SIZES = (16, 32, 64, 128, 256, 512)  # the kernels' chunk lengths
@@ -70,7 +71,7 @@ def _declare_fw(lib):
 
 
 def _declare_bw(lib):
-    lib.chunkwise_v1_bw_dc.argtypes = [P] * 7 + [I] * 7 + [CF, CF, P]
+    lib.chunkwise_v1_bw_dc.argtypes = [P] * 8 + [I] * 7 + [CF, CF, P]
     lib.chunkwise_v1_bw_dqkv.argtypes = [P] * 12 + [I] * 7 + [CF, CF, P]
     lib.chunkwise_v1_bw_dc.restype = lib.chunkwise_v1_bw_dqkv.restype = I
 
@@ -333,6 +334,8 @@ def chunkwise_bw_dc(q, f, dh, den, dc_last=None, chunk_size: int = 128,
     Returns dc_states (B, NH, NC, DH, DH), the gradient of the state after
     each chunk (slot NC - 1 holds ``dc_last`` or zeros), and dc0
     (B, NH, DH, DH), that of the state before the first chunk; float32.
+    On the card one call is two kernels, counted as one launch: every
+    chunk's increment at once, then the reverse combine.
     """
     global LAUNCHES_BW_DC
     if q.device.type == "cpu":
@@ -345,12 +348,14 @@ def chunkwise_bw_dc(q, f, dh, den, dc_last=None, chunk_size: int = 128,
     _check_cuda(q, chunk_size, compute_dtype, [q, f, dh, den, dc_last])
     scale = DH ** -0.5 if qk_scale is None else qk_scale
     lib = cuda_build.load("chunkwise_v1_bw", _declare_bw)
-    dc_states = torch.empty(B, NH, S // chunk_size, DH, DH, dtype=torch.float32, device=q.device)
+    NC = S // chunk_size
+    dc_states = torch.empty(B, NH, NC, DH, DH, dtype=torch.float32, device=q.device)
     dc0 = torch.empty(B, NH, DH, DH, dtype=torch.float32, device=q.device)
+    gbar = torch.empty(B, NH, NC, dtype=torch.float32, device=q.device)  # e^g per chunk
     with torch.cuda.device(q.device):
         cuda_build.launch(
             lib.chunkwise_v1_bw_dc, "chunkwise_v1_bw_dc",
-            *cuda_build.pointers(q, f, dh, den, dc_last, dc_states, dc0),
+            *cuda_build.pointers(q, f, dh, den, dc_last, dc_states, dc0, gbar),
             B, NH, S, DH, chunk_size, *_codes(q, compute_dtype), float(scale), float(eps))
     LAUNCHES_BW_DC += 1
     return dc_states, dc0

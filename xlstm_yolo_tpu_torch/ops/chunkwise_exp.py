@@ -38,7 +38,8 @@ Pallas kernels cast; the row sums stay unrounded.
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 ``*_plain`` version for CPU tensors.  ``LAUNCHES_FW``, ``LAUNCHES_BW_DC`` and
 ``LAUNCHES_BW_DQKV`` count kernel calls (the forward's call is two
-launches, the state scan and h, counted once).
+launches, the state scan and h, and the dC scan's two, the increments and
+the combine, each counted once).
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ __all__ = [
 ]
 
 LAUNCHES_FW = 0       # calls of the forward kernels
-LAUNCHES_BW_DC = 0    # launches of the dC reverse-scan kernel
+LAUNCHES_BW_DC = 0    # calls of the dC scan (two kernels a call)
 LAUNCHES_BW_DQKV = 0  # launches of the dq/dk/dv kernel
 
 
