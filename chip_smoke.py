@@ -124,7 +124,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                tokens one at a time with state=, exactly one step launch
                each, against one stateful call over the 64 tokens, which is
                exactly one launch of the v2 inference kernel; us per token
-               and the step kernel's time per call;
+               and the step kernel's time per call (CUDA-event window,
+               device time from a profiler trace, the host's issue time);
 21. refusal  - YOLO(..., chunkwise_kernel=PAR).predict raises the port's
                ValueError (the route has no predict path, as in JAX);
 22. wide_kernels - phases 2, 5, 9, 12, 16 and 19 again at the widths of
@@ -184,11 +185,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                entry task_aligned_assign_pallas_metric (one launch a call,
                counted) against task_aligned_assign at the tolerances of
                tests/test_tal_kernel.py (phase_tal_kernel);
-29. slstm_kernel - the sLSTM scan kernel against its plain loop at DH 8,
-               32 and 128, S 128, 97 and 2048, with and without an initial
-               state, and large input gates; float32, within 1e-5 of each
-               output's largest value, or, where rounding compounds over
-               2048 steps beyond that, against float64 (phase_slstm_kernel);
+29. slstm_kernel - the sLSTM scan kernel (a thread-block cluster per head
+               and group of batch rows) against its plain loop at DH 8, 32
+               and 128, S 128, 97 and 2048, with and without an initial
+               state, and large input gates, and at DH 48 and 256; float32,
+               within 1e-5 of each output's largest value, or, where
+               rounding compounds over 2048 steps beyond that, against
+               float64 (phase_slstm_kernel);
 30. lm       - the xLSTM language model at full width (dim 512, 6 blocks,
                sLSTM at 1, vocabulary 50 304), float32, batch 8, 128-token
                prompts: forward logits with the kernels and with the plain
@@ -196,7 +199,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                sLSTM and 5 v2-inference launches a forward and 32 and 160
                in a 32-token greedy generate, the same tokens as the plain
                generate; forward ms, tokens per second, the sLSTM kernel per
-               call (phase_lm);
+               call (device ms from a profiler trace, microseconds a step,
+               its launch plan), also at S 2048 (phase_lm);
 31. tal_times - the TAL kernel, its plain version and both assigners per
                call at batch 8, M 8 and 128 (phase_tal_times);
 32. fw3_kernel - the sub-chunked forward fw3 (state pass, then output pass)
@@ -2165,7 +2169,10 @@ def phase_step_kernel(stp, ws=FLAGSHIP):
 
 def step_times(stp, ws=FLAGSHIP) -> dict:
     """Per-call times of the step kernel and the plain step at one token,
-    float32 and bfloat16, in turns plain, kernel, kernel, plain."""
+    float32 and bfloat16, in turns plain, kernel, kernel, plain (CUDA-event
+    windows of 200 calls: the rate at which the wrapper issues calls); the
+    kernel's device ms from a profiler trace of 200 calls; the host's issue
+    ms a call (host clock around 1000 calls, no synchronise; best of 3)."""
     import torch
 
     from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
@@ -2178,8 +2185,18 @@ def step_times(stp, ws=FLAGSHIP) -> dict:
         t_plain = time_cuda(plain, iters=50, reps=3)
         t_kern = time_cuda(kern, iters=200, reps=3) + time_cuda(kern, iters=200, reps=3)
         t_plain += time_cuda(plain, iters=50, reps=3)
+        dev = kernels_device_ms(kern, {"step_kernel": 1}, calls=200)["step_kernel"]
+        issue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                kern()
+            issue.append(time.perf_counter() - t0)  # s for 1000 calls: ms a call
+            torch.cuda.synchronize()
         per_call[key] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                          **dict(zip(("bound_ms", "bound_by"), step_bound(dtype.itemsize, ws=ws))),
+                         "device_ms": dev, "host_issue_ms": min(issue),
                          "ms_runs": t_kern, "plain_ms_runs": t_plain}
     return per_call
 
@@ -3016,7 +3033,9 @@ TAL_CASES = ((8, 8, False), (8, 128, False), (16, 8, True), (16, 128, True))  # 
 TAL_TOL = {"target_bboxes": dict(rtol=1e-6, atol=0.0), "target_scores": dict(rtol=2e-5, atol=1e-7)}
 SLSTM_NH, SLSTM_B = 4, 8
 SLSTM_CASES = [(dh, S, state, False) for dh in (8, 32, 128) for S in (128, 97, 2048)
-               for state in (False, True)] + [(dh, 512, True, True) for dh in (8, 32, 128)]
+               for state in (False, True)] + [(dh, 512, True, True) for dh in (8, 32, 128)] + [
+    (48, 97, True, False), (48, 2048, False, True), (256, 128, True, False),
+    (256, 2048, False, False)]  # DH no multiple of the cluster's CTAs; 16 CTAs a cluster
 SLSTM_REL = 1e-5  # of each output's largest |value|: float32, recurrent sums in another order
 LM = dict(vocab_size=50304, dim=512, num_blocks=6, slstm_at=(1,))  # xLSTM-7B's vocabulary
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 32
@@ -3279,6 +3298,11 @@ def phase_slstm_kernel(sk):
     return worst
 
 
+def per_step_us(device_ms, S: int):
+    """Microseconds a step of a scan of S steps that took ``device_ms``."""
+    return device_ms * 1e3 / S if isinstance(device_ms, float) else device_ms
+
+
 def lm_cells(model):
     from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell
     from xlstm_yolo_tpu_torch.nn.xlstm import sLSTMCell
@@ -3416,7 +3440,9 @@ def phase_lm(cw, sk, card: str):
         t_plain += time_cuda(plain, iters=2, reps=2, warm_s=0.0)
         dev_ms = kernels_device_ms(kern, {"slstm_kernel": 1})["slstm_kernel"]
         wx_long, R_long, _ = slstm_inputs(128, 2048, False, False, seed=99)
-        t_long = time_cuda(lambda: sk.slstm_sequence(wx_long, R_long), iters=3, reps=3)
+        long = lambda: sk.slstm_sequence(wx_long, R_long)  # noqa: E731
+        t_long = time_cuda(long, iters=3, reps=3)
+        dev_long = kernels_device_ms(long, {"slstm_kernel": 1}, calls=5)["slstm_kernel"]
     DH = wx.shape[-1]
     bound_ms, bound_by = slstm_bound(LM_BATCH, LM_PROMPT, cell.num_heads, DH, False)
     bound_long = slstm_bound(SLSTM_B, 2048, SLSTM_NH, 128, False)
@@ -3427,16 +3453,22 @@ def phase_lm(cw, sk, card: str):
              "generate_tokens_per_s": gen_tokens / min(gen_s, gen2_s),
              "generate_plain_tokens_per_s": gen_tokens / gen_plain_s,
              "slstm": {"ms": statistics.median(t_kern), "device_ms": dev_ms,
+                       "us_per_step": per_step_us(dev_ms, LM_PROMPT),
                        "plain_ms": statistics.median(t_plain),
                        "bound_ms": bound_ms, "bound_by": bound_by, "ms_runs": t_kern,
-                       "plain_ms_runs": t_plain, "shape": list(wx.shape)},
-             "slstm_S2048": {"ms": statistics.median(t_long), "bound_ms": bound_long[0],
-                             "bound_by": bound_long[1], "shape": list(wx_long.shape)}}
+                       "plain_ms_runs": t_plain, "shape": list(wx.shape),
+                       "plan": sk.plan(LM_BATCH, cell.num_heads, DH)},
+             "slstm_S2048": {"ms": statistics.median(t_long), "device_ms": dev_long,
+                             "us_per_step": per_step_us(dev_long, 2048),
+                             "bound_ms": bound_long[0], "bound_by": bound_long[1],
+                             "shape": list(wx_long.shape)}}
     emit({"phase": "times", "what": "lm", "card": card, **LM, "batch": LM_BATCH,
           "prompt": LM_PROMPT, **times,
           "note": "forward: CUDA-event windows of 5 forwards at (8, 128) tokens, in turns "
                   "kernels, plain, kernels; generate: host clock around 32 new tokens of 8 "
-                  "sequences (full-prefix recompute), the second run after the first"})
+                  "sequences (full-prefix recompute), the second run after the first; slstm: "
+                  "ms the CUDA-event window of a call, device_ms from a profiler trace, plan "
+                  "the kernel's CTAs a cluster (K) and batch rows a cluster (G)"})
     return {"launches": gen_launches, "forward_launches": fwd_launches, **times}
 
 
@@ -3940,7 +3972,8 @@ def main() -> int:
         the main path (t: per-call times by S or (S, L)); the step kernel's
         per call at float32."""
         if name == "mlstm_step":
-            return {k: t[name]["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            return {k: t[name]["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "device_ms", "host_issue_ms")}
         d = dist[name]
         out = {key: sum(n * t[name][k][key] for k, n in d.items())
                for key in ("ms", "plain_ms", "bound_ms")}
@@ -4009,7 +4042,9 @@ def main() -> int:
                     "softmax, so no single PyTorch call computes the function",
         "mlstm_step": f"step--pallas; launches: one per token of a {DECODE_TOKENS}-token decode "
                       "(MatrixLSTMCell(384, 12), batch 8, float32); times per call at B 8, "
-                      f"NH 12, DH 32, float32; the decode {decode['us_per_token']:.4g} us per "
+                      "NH 12, DH 32, float32: ms the CUDA-event window of 200 calls (the "
+                      "wrapper's issue rate), device_ms from a profiler trace, host_issue_ms "
+                      f"the host's time a call; the decode {decode['us_per_token']:.4g} us per "
                       "token",
         "chunkwise_fw_ln": "the inference forward with the per-head LayerNorm fused in "
                            "(MatrixLSTMCell(fuse_outnorm=True), which no config sets); "
@@ -4071,6 +4106,7 @@ def main() -> int:
         "max_abs_err": worst_slstm,
         **{k: lm_out["slstm"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "device_ms": lm_out["slstm"]["device_ms"],
+        "us_per_step": lm_out["slstm"]["us_per_step"], "plan": lm_out["slstm"]["plan"],
         "S2048": lm_out["slstm_S2048"],
         "note": f"the LM's sLSTM cell; launches in a {LM_NEW}-token greedy generate of the LM "
                 f"(batch {LM_BATCH}); times per call at the LM's forward (B 8, S 128, 4 heads "

@@ -1,30 +1,47 @@
-"""Quick check of the port's quadratic kernels and the v1 and exp chunkwise
-kernels on one GPU, from the root of the repository:
+"""Quick check of a set of the port's kernels on one GPU, from the root of
+the repository:
 
-    python3 scripts/kernels_check.py            # build, tests, times
+    python3 scripts/kernels_check.py                 # the sLSTM scan and the step
     python3 scripts/kernels_check.py --times --root DIR --label parent
+    python3 scripts/kernels_check.py --set chunkwise # the quadratic, v1 and exp kernels
 
-Builds ``csrc/parallel_fw.cu``, ``csrc/parallel_bw.cu`` and the v1 and exp
-routes' sources, prints each kernel's registers and spills (``nvcc -Xptxas
--v``) and its tensor-core (HMMA) instructions, runs the ``cuda`` tests of
-the quadratic kernels, the v1 and exp kernels and the stateful cell, then
-prints one JSON line per detector's heads and S (6656 and 2048, batch 8,
-bf16): the best of three CUDA-event windows of a call of the quadratic
-forward, dq and dk/dv, and, at the route's chunk there (512 at 6656, 256
-at 2048), of the v1 and exp forwards (train: no initial state, the exp
-forward saving its rows; predict: from initial states, the exp forward
-saving none), dC scans and dq/dk/dv, the SM clock, the exps' floors and
-the bounds (this checkout's chip_smoke.py helpers); then, per detector's
-heads, one line of the v1 and exp forwards' and dC scans' best windows,
-and one of the device ms a call of each of their kernels from a profiler
-trace, at every (S, L) of the route's plan (chip_smoke.py's v1_plan of
-vil-det-192: the forwards at the inference segments from initial states,
-the exp forward saving nothing, and both at the padded training lengths,
-where the dC scans run).  ``--times`` prints only
-the times; ``--root`` takes the package from another checkout (an
-unpacked parent commit, to time its kernels on the same card).  Exits
-non-zero without a card or when a test fails.  A few minutes, where the
-full smoke takes ten.
+Builds the set's sources, prints each kernel's registers and spills
+(``nvcc -Xptxas -v``) and its tensor-core (HMMA) instructions, runs the set's
+``cuda`` tests, then prints its times as JSON lines.  ``--times`` prints
+only the times; ``--root`` takes the package from another checkout (an
+unpacked parent commit, to time its kernels on the same card, in turns
+parent, change, change, parent).  Exits non-zero without a card or when a
+test fails.
+
+``recurrent`` (the default): the sLSTM scan (``csrc/slstm.cu``) at B 3 and
+8, NH 4, DH 8, 32, 48, 128 and 256 (the LM's call is B 8, S 128, DH 128),
+S 128 and 2048, float32: the device ms a call from a torch.profiler trace
+of 10 calls, the microseconds a step (device ms / S), the best of three
+CUDA-event windows and the bound (chip_smoke.py's slstm_bound), and the
+launch plan (CTAs a cluster, batch rows a cluster) where the package has
+one; the one-token step (``csrc/step.cu``) at B 8 and each detector's heads
+(NH 3 of DH 16, 12 of 32, 8 of 64, 6 of 128), float32 and bfloat16: the
+device microseconds a call from a trace of 200 calls, the host's issue
+time a call (host clock around 1000 calls, no synchronise), the call
+window (CUDA events around 200 calls, as chip_smoke.py's step_times) and
+the bound; and the decode's microseconds a token of MatrixLSTMCell(384,
+12) and (768, 6) (chip_smoke.py's phase_decode: 64 tokens, host clock, 5
+runs).  About a minute after the build.
+
+``chunkwise``: the quadratic kernels and the v1 and exp chunkwise kernels:
+one JSON line per detector's heads and S (6656 and 2048, batch 8, bf16):
+the best of three CUDA-event windows of a call of the quadratic forward, dq
+and dk/dv, and, at the route's chunk there (512 at 6656, 256 at 2048), of
+the v1 and exp forwards (train: no initial state, the exp forward saving
+its rows; predict: from initial states, the exp forward saving none), dC
+scans and dq/dk/dv, the SM clock, the exps' floors and the bounds (this
+checkout's chip_smoke.py helpers); then, per detector's heads, one line of
+the v1 and exp forwards' and dC scans' best windows, and one of the device
+ms a call of each of their kernels from a profiler trace, at every (S, L)
+of the route's plan (chip_smoke.py's v1_plan of vil-det-192: the forwards
+at the inference segments from initial states, the exp forward saving
+nothing, and both at the padded training lengths, where the dC scans run).
+A few minutes, where the full smoke takes ten.
 """
 
 import argparse
@@ -37,13 +54,110 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-SOURCES = ["parallel_fw", "parallel_bw", "chunkwise_v1_fw", "chunkwise_v1_bw",
-           "chunkwise_exp_fw", "chunkwise_exp_bw"]
-TESTS = ("parallel or stateful or v1_kernels or exp_kernels or v1_function or exp_function "
-         "or dc_scans")
+SLSTM_SHAPES = [(B, DH, S) for B in (3, 8) for DH in (8, 32, 48, 128, 256) for S in (128, 2048)]
+SLSTM_NH = 4
+STEP_HEADS = ((3, 16), (12, 32), (8, 64), (6, 128))  # (NH, DH) at B 8
+DECODE_WIDTHS = ((384, 12), (768, 6))  # MatrixLSTMCell(H, NH) of vil-det-192 and -384
 
 
-def times(cs, label: str):
+def slstm_device_ms(cs, fn, calls: int = 10):
+    """Device ms a call of the sLSTM kernel (any version: its name holds
+    slstm_kernel), from chip_smoke.py's kernels_device_ms."""
+    return cs.kernels_device_ms(fn, {"slstm_kernel": 1}, calls=calls)["slstm_kernel"]
+
+
+def recurrent_times(cs, label: str):
+    """The sLSTM scan's and the step's times (module docstring)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.ops import slstm as sk
+    from xlstm_yolo_tpu_torch.ops import step as stp
+
+    for B, DH, S in SLSTM_SHAPES:
+        g = torch.Generator().manual_seed(B * DH + S)
+        wx = torch.randn(B, S, 4, SLSTM_NH, DH, generator=g).cuda()
+        R = torch.empty(4 * SLSTM_NH * DH, DH)
+        torch.nn.init.orthogonal_(R, generator=g)
+        R = R.reshape(4, SLSTM_NH, DH, DH).cuda()
+        with torch.no_grad():
+            fn = lambda: sk.slstm_sequence(wx, R)  # noqa: E731
+            dev = slstm_device_ms(cs, fn)
+            win = cs.time_cuda(fn, iters=3 if S > 128 else 20, reps=3, warm_s=0.1)
+        row = {"root": label, "kernel": "slstm", "B": B, "NH": SLSTM_NH, "DH": DH, "S": S,
+               "device_ms": dev, "us_per_step": dev * 1e3 / S if isinstance(dev, float) else dev,
+               "window_ms": min(win),
+               "bound_ms": cs.slstm_bound(B, S, SLSTM_NH, DH, False)[0]}
+        if hasattr(sk, "plan"):
+            row["plan"] = sk.plan(B, SLSTM_NH, DH)
+        print(json.dumps(row), flush=True)
+        del wx, R
+    for NH, DH in STEP_HEADS:
+        ws = cs.Widths(f"NH {NH}, DH {DH}", 8, NH, DH, NH * DH, 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cs.step_inputs(dtype, "open", seed=11, ws=ws)
+            fn = lambda: stp.mlstm_siging_step_kernel(*args, eps=cs.EPS)  # noqa: E731
+            dev = cs.kernels_device_ms(fn, {"step_kernel": 1}, calls=200)["step_kernel"]
+            win = cs.time_cuda(fn, iters=200, reps=3, warm_s=0.2)
+            issue = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                issue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            print(json.dumps({
+                "root": label, "kernel": "step", "B": 8, "NH": NH, "DH": DH,
+                "dtype": str(dtype).split(".")[-1],
+                "device_us": dev * 1e3 if isinstance(dev, float) else dev,
+                "host_issue_us": min(issue), "host_issue_us_runs": issue,
+                "window_us": min(win) * 1e3, "window_us_runs": [t * 1e3 for t in win],
+                "bound_us": cs.step_bound(dtype.itemsize, ws=ws)[0] * 1e3}), flush=True)
+            del args
+    for H, NH in DECODE_WIDTHS:
+        print(json.dumps({"root": label, "kernel": "decode", "cell": f"MatrixLSTMCell({H}, {NH})",
+                          "batch": 8, "tokens": cs.DECODE_TOKENS,
+                          "us_per_token_runs": decode_us(cs, stp, H, NH)}), flush=True)
+
+
+def decode_us(cs, stp, H: int, NH: int) -> list:
+    """Microseconds a token of a 64-token float32 decode of MatrixLSTMCell(H,
+    NH, step_kernel="step--pallas") at batch 8 from zeros (host clock around
+    the loop, ending in a synchronise; 5 runs), as chip_smoke.py's
+    phase_decode; each run makes one step launch a token."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.layers import MatrixLSTMCell, reset_parameters
+
+    DH = H // NH
+    cell = MatrixLSTMCell(H, NH, step_kernel="step--pallas")
+    reset_parameters(cell, torch.Generator().manual_seed(0))
+    cs.perturb_ifgates(cell, seed=9)
+    cell = cell.cuda().eval()
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(8, cs.DECODE_TOKENS, H, generator=g).cuda() for _ in range(3))
+    zeros = (torch.zeros(8, NH, DH, DH, device="cuda"), torch.zeros(8, NH, DH, device="cuda"))
+
+    def decode():
+        st = zeros
+        for t in range(cs.DECODE_TOKENS):
+            _, st = cell(q[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], state=st)
+
+    runs = []
+    with torch.inference_mode():
+        decode()
+        for _ in range(5):
+            torch.cuda.synchronize()
+            before = stp.LAUNCHES
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / cs.DECODE_TOKENS * 1e6)
+            assert stp.LAUNCHES - before == cs.DECODE_TOKENS
+    return runs
+
+
+def chunkwise_times(cs, label: str):
     import torch
 
     from xlstm_yolo_tpu_torch.ops import chunkwise as v1
@@ -176,12 +290,23 @@ def shape_times(cs, label: str, ws, plan):
     print(json.dumps(dev), flush=True)
 
 
+SETS = {  # sources, the cuda tests' -k expression, the times
+    "recurrent": (["slstm", "step"], "slstm or step", recurrent_times),
+    "chunkwise": (["parallel_fw", "parallel_bw", "chunkwise_v1_fw", "chunkwise_v1_bw",
+                   "chunkwise_exp_fw", "chunkwise_exp_bw"],
+                  "parallel or stateful or v1_kernels or exp_kernels or v1_function or "
+                  "exp_function or dc_scans", chunkwise_times),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(ROOT), help="the checkout whose package is timed")
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--times", action="store_true", help="only the times")
+    ap.add_argument("--set", choices=SETS, default="recurrent", help="the kernels checked")
     opt = ap.parse_args()
+    sources, tests_k, times = SETS[opt.set]
     sys.path.insert(0, opt.root)
     import torch
 
@@ -197,7 +322,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
-    built = cuda_build.build_all(SOURCES)
+    built = cuda_build.build_all(sources)
     print("build_s", time.perf_counter() - t0, flush=True)
     rc = 0
     if not opt.times:
@@ -207,7 +332,7 @@ def main() -> int:
             print(name, "HMMA", json.dumps(cs.sass_mma_counts(out["library"])), flush=True)
         tests = subprocess.run([sys.executable, "-m", "pytest", "-m", "cuda",
                                 "tests/test_torch_kernel_cuda.py", "-q", "-p", "no:cacheprovider",
-                                "-k", TESTS], capture_output=True, text=True, cwd=opt.root)
+                                "-k", tests_k], capture_output=True, text=True, cwd=opt.root)
         print(tests.stdout[-6000:], tests.stderr[-3000:], flush=True)
         rc = tests.returncode
     times(cs, opt.label)

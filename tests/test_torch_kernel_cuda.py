@@ -6,9 +6,11 @@ them), the epilogue
 backward, the FFN backward (at every detector's widths), the v1 and exp
 routes' forward, dC scan and dq/dk/dv kernels
 at every chunk length, the quadratic forward, dq and dk/dv kernels, and the
-one-token step, at head dims 16 and 32 (the flagship, vil-det-tiny), 64
+one-token step (also from the inference wrapper's token views, and on a
+side stream), at head dims 16 and 32 (the flagship, vil-det-tiny), 64
 (vil-det-256) and 128 (vil-det-384), and the row kernels at all their
-widths; the fused TAL metric stage, the sLSTM scan, and the sub-chunked
+widths; the fused TAL metric stage, the sLSTM scan (head dims 8 to 256,
+ragged batch groups, S 0 and 2048, and its launch plan), and the sub-chunked
 forward fw3 (both variants, and its states fed to the v2 backward).  This
 file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
@@ -42,7 +44,10 @@ seed.  Tolerances:
   operand by one bfloat16 step).  The TAL metric stage: align, overlaps
   and mask_pos equal bit for bit (both sides round every operation once,
   in the same order).  The sLSTM scan (float32): each output within 1e-5
-  of its largest |value| (its recurrent sums in another order).  The exp
+  of its largest |value| (its recurrent sums in another order) or, where
+  float32 rounding compounds over 2048 steps beyond that, at most twice as
+  far from the plain scan in float64 as the float32 plain scan is, as
+  chip_smoke.py's phase_slstm_kernel holds it.  The exp
   forward's h is held as its
   numerator h (den + eps) beside den: the floor e^{-m_comb} of its
   denominator is tiny once m is large, so a row whose terms nearly cancel
@@ -973,29 +978,77 @@ def test_parallel_function_matches_plain_on_gpu():
     assert_grads_close(out["cuda"], out["cpu"], torch.float32)
 
 
+STEP_CASES = [  # (B, NH, DH, gates, q/k/v as the inference wrapper's token view)
+    (8, 12, 32, "open", False), (8, 12, 32, "closed", False),  # the flagship's heads
+    (8, 3, 16, "open", False), (3, 3, 16, "closed", False),
+    (8, 8, 64, "open", False), (3, 8, 64, "closed", False),    # vil-det-256's heads
+    (8, 6, 128, "open", False), (8, 6, 128, "closed", False),  # vil-det-384's heads
+    (3, 6, 128, "open", True), (8, 12, 32, "open", True),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_step_kernel_matches_plain_on_gpu(dtype):
-    """The step kernel against ``mlstm_siging_step`` at the flagship's heads
-    (B 8, NH 12, DH 32), at DH 16 and at the larger detectors' (NH 8, DH
-    64; NH 6, DH 128), open and closed forget gates: h in the storage type,
-    (C', n') float32."""
+    """The step kernel against ``mlstm_siging_step`` at every detector's
+    heads (DH 16 to 128, one to four 32-column slabs of C), B 8 and 3, open
+    and closed forget gates, and q, k, v as the inference wrapper hands
+    them (``x[:, :, 0]`` of a (B, NH, 1, DH) tensor): h in the storage
+    type, (C', n') float32; one launch a call."""
     needs_cuda()
     dt = getattr(torch, dtype)
-    for NH, DH, gates in ((12, 32, "open"), (12, 32, "closed"), (3, 16, "open"),
-                          (8, 64, "open"), (6, 128, "open"), (6, 128, "closed")):
-        rng = np.random.default_rng(NH + DH)
-        q, k, v = (cu(rng.normal(size=(8, NH, DH)), dt) for _ in range(3))
-        i = cu(rng.normal(0, 2, (8, NH)))
-        f = cu(rng.normal(2, 1, (8, NH)) if gates == "open" else rng.uniform(-60, -20, (8, NH)))
-        c, n = cu(rng.normal(size=(8, NH, DH, DH))), cu(rng.normal(size=(8, NH, DH)))
+    for B, NH, DH, gates, view in STEP_CASES:
+        rng = np.random.default_rng(NH + DH + (B != 8) * 1000 + view * 2000)
+        shape = (B, NH, 1, DH) if view else (B, NH, DH)
+        q, k, v = (cu(rng.normal(size=shape), dt) for _ in range(3))
+        if view:
+            q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+        i = cu(rng.normal(0, 2, (B, NH)))
+        f = cu(rng.normal(2, 1, (B, NH)) if gates == "open" else rng.uniform(-60, -20, (B, NH)))
+        c, n = cu(rng.normal(size=(B, NH, DH, DH))), cu(rng.normal(size=(B, NH, DH)))
         before = step.LAUNCHES
         h, (c1, n1) = step.mlstm_siging_step_kernel(q, k, v, i, f, c, n, eps=EPS)
         torch.cuda.synchronize()
-        assert step.LAUNCHES == before + 1 and h.dtype == dt
+        assert step.LAUNCHES == before + 1 and h.dtype == dt and h.shape == (B, NH, DH)
         hp, (cp, np_) = mlstm_siging_step(q, k, v, i, f, c, n, eps=EPS)
         assert_rel_close([h], [hp], 1e-4 if dt == torch.float32 else 2e-2)
         assert_rel_close([c1, n1], [cp, np_], 1e-4)
+
+
+@pytest.mark.cuda
+def test_step_wrapper_launches_on_the_current_stream_on_gpu():
+    """The wrapper's stream handle (PyTorch's raw getter) is the current
+    stream's, on the default stream and inside ``torch.cuda.stream``; a
+    call on a side stream gives the default stream's result, and the
+    wrapper still refuses what the kernel does not take (a head dim outside
+    HEAD_DIMS, mixed dtypes, a misaligned start)."""
+    from xlstm_yolo_tpu_torch.ops import cuda_build
+
+    needs_cuda()
+    dev = torch.cuda.current_device()
+    assert cuda_build.stream_handle(dev) == torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(5)
+    q, k, v = (cu(rng.normal(size=(8, 6, 128))) for _ in range(3))
+    i, f = cu(rng.normal(size=(8, 6))), cu(rng.normal(2, 1, (8, 6)))
+    c, n = cu(rng.normal(size=(8, 6, 128, 128))), cu(rng.normal(size=(8, 6, 128)))
+    h0, (c0, n0) = step.mlstm_siging_step_kernel(q, k, v, i, f, c, n, eps=EPS)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert cuda_build.stream_handle(dev) == side.cuda_stream
+        h1, (c1, n1) = step.mlstm_siging_step_kernel(q, k, v, i, f, c, n, eps=EPS)
+    side.synchronize()
+    torch.cuda.synchronize()
+    for a, b in ((h0, h1), (c0, c1), (n0, n1)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head dim"):
+        step.mlstm_siging_step_kernel(q[..., :48], k[..., :48], v[..., :48], i, f,
+                                      c[..., :48, :48], n[..., :48], eps=EPS)
+    with pytest.raises(ValueError, match="k must be"):
+        step.mlstm_siging_step_kernel(q, k.bfloat16(), v, i, f, c, n, eps=EPS)
+    flat = torch.zeros(8 * 6 * 128 + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        step.mlstm_siging_step_kernel(flat[1:].view(8, 6, 128), k, v, i, f, c, n, eps=EPS)
 
 
 def tal_inputs(seed, B, M, nc=80, size=640):
@@ -1042,34 +1095,79 @@ def test_tal_metric_kernel_matches_plain_on_gpu(B, M, k_arr):
         assert torch.equal(a, b)
 
 
+SLSTM_CASES = [  # (B, NH, DH, S, initial state, input gates + 12)
+    (3, 4, 8, 37, False, False), (3, 4, 32, 97, True, False), (3, 2, 48, 20, True, True),
+    (3, 4, 128, 128, True, True), (3, 4, 128, 300, False, False),
+    (9, 4, 128, 64, True, False),   # a ragged last group of batch rows
+    (9, 2, 48, 40, False, True),    # ragged rows, DH no multiple of the cluster's CTAs
+    (3, 2, 256, 50, True, False),   # 16 CTAs a cluster (the non-portable size)
+    (8, 4, 256, 97, False, True),
+    (3, 2, 48, 2048, True, False),  # a long scan: float32 rounding compounds
+    (3, 4, 128, 0, True, False), (9, 2, 48, 0, False, False),  # S 0: the initial state
+]
+SLSTM_REL = 1e-5  # chip_smoke.py's, and its float64 criterion (factor 2) beyond it
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("NH,DH,S,state,big_i", [
-    (4, 8, 37, False, False), (4, 32, 97, True, False), (2, 48, 20, True, True),
-    (4, 128, 128, True, True), (4, 128, 300, False, False)])
-def test_slstm_kernel_matches_plain_on_gpu(NH, DH, S, state, big_i):
-    """The sLSTM scan kernel against its plain loop (float32, B 3): hs and
-    the last (h, c, n, m), with and without an initial state, and with
-    large input gates (m far from 0); one launch a call; bfloat16 wx gives
-    bfloat16 hs."""
+@pytest.mark.parametrize("B,NH,DH,S,state,big_i", SLSTM_CASES)
+def test_slstm_kernel_matches_plain_on_gpu(B, NH, DH, S, state, big_i):
+    """The sLSTM scan kernel against its plain loop (float32): hs and the
+    last (h, c, n, m) within SLSTM_REL of each output's largest |value| or,
+    at S 2048 only, where float32 rounding compounds beyond that, at most
+    twice as far from the plain loop in float64 as the float32 plain loop
+    is (+ SLSTM_REL of the largest |value|), as chip_smoke.py's
+    phase_slstm_kernel; one launch a call; bfloat16 wx gives bfloat16 hs;
+    at S 0 the last state is the initial one."""
     needs_cuda()
-    rng = np.random.default_rng(DH + S)
-    wx = rng.normal(size=(3, S, 4, NH, DH))
+    rng = np.random.default_rng(DH + S + (B != 3) * B)
+    wx = rng.normal(size=(B, S, 4, NH, DH))
     if big_i:
         wx[:, :, 1] += 12.0
     q, _ = np.linalg.qr(rng.normal(size=(4 * NH * DH, DH)))
     R = cu(q.reshape(4, NH, DH, DH))
     st = None
     if state:
-        st = (cu(rng.normal(size=(3, NH, DH))), cu(rng.normal(size=(3, NH, DH))),
-              cu(rng.uniform(0.5, 2, (3, NH, DH))), cu(rng.uniform(-2, 8, (3, NH, DH))))
+        st = (cu(rng.normal(size=(B, NH, DH))), cu(rng.normal(size=(B, NH, DH))),
+              cu(rng.uniform(0.5, 2, (B, NH, DH))), cu(rng.uniform(-2, 8, (B, NH, DH))))
     before = slstm.LAUNCHES
     hs, last = slstm.slstm_sequence(cu(wx), R, st)
     torch.cuda.synchronize()
-    assert slstm.LAUNCHES == before + 1 and hs.shape == (3, S, NH * DH)
+    assert slstm.LAUNCHES == before + 1 and hs.shape == (B, S, NH * DH)
     hp, lp = slstm.slstm_sequence_plain(cu(wx), R, st)
-    assert_rel_close([hs, *last], [hp, *lp], 1e-5)
+    h64, l64 = slstm.slstm_sequence_plain(cu(wx, torch.float64), R.double(),
+                                          None if st is None else tuple(t.double() for t in st))
+    for name, a, b, r in zip(("hs", "h", "c", "n", "m"), (hs, *last), (hp, *lp), (h64, *l64)):
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item() if b.numel() else 0.0
+        err = (a - b).abs().max().item() if b.numel() else 0.0
+        if err > SLSTM_REL * scale:
+            assert S >= 2048, (name, err, scale)  # the float64 criterion at long scans only
+            err_k, err_p = ((t.double() - r).abs().max().item() for t in (a, b))
+            assert err_k <= 2.0 * err_p + SLSTM_REL * scale, (name, err, err_k, err_p)
+    if S == 0:
+        want = st if st is not None else (torch.zeros(B, NH, DH, device="cuda"),) * 4
+        for a, b in zip(last, want):
+            assert torch.equal(a, b)
     hb, _ = slstm.slstm_sequence(cu(wx, torch.bfloat16), R, st)
-    assert hb.dtype == torch.bfloat16
+    assert hb.dtype == torch.bfloat16 and slstm.LAUNCHES == before + 2
+
+
+@pytest.mark.cuda
+def test_slstm_plan_on_gpu():
+    """The kernel's launch plan: K CTAs a cluster (a power of two up to 16),
+    each owning U <= 8 NU units of a head (NU 4 a warp up to DH 64, else 2),
+    ND 32-wide slices of d a lane, G of 1, 2 or 4 batch rows a cluster; at
+    the LM's call (B 8, NH 4, DH 128) 8 CTAs of 16 units, at DH 32 one
+    CTA."""
+    needs_cuda()
+    for B, NH, DH in ((8, 4, 128), (3, 4, 8), (9, 2, 48), (8, 4, 256), (64, 4, 128), (1, 1, 1)):
+        p = slstm.plan(B, NH, DH)
+        assert p["K"] in (1, 2, 4, 8, 16) and p["U"] * p["K"] >= DH
+        assert p["NU"] == (4 if DH <= 64 else 2) and p["U"] <= 8 * p["NU"]
+        assert p["G"] in (1, 2, 4)
+        assert 32 * p["ND"] >= DH and (p["ND"] == 1 or 16 * p["ND"] < DH)
+    assert {k: slstm.plan(8, 4, 128)[k] for k in ("K", "U")} == {"K": 8, "U": 16}
+    assert slstm.plan(8, 4, 32)["K"] == 1
 
 
 @pytest.mark.cuda

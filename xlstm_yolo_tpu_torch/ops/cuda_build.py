@@ -128,14 +128,37 @@ def row_stride(t) -> int:
     return rs
 
 
-def launch(fn, name: str, *args) -> None:
-    """Call a C launcher on the current stream; raise on a CUDA error."""
+def stream_handle(device: int) -> int:
+    """The current CUDA stream of device index ``device``, as the handle a
+    C launcher takes: PyTorch's raw getter where it has one (no Stream
+    object is made), else ``torch.cuda.current_stream(device).cuda_stream``."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(device) if raw is not None else torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_on(fn, name: str, device: int, *args) -> None:
+    """Call a C launcher on the current stream of device index ``device``,
+    entering that device's context only where it is not the current one;
+    raise on a CUDA error."""
+    import torch
+
+    if device == torch.cuda.current_device():
+        err = fn(*args, stream_handle(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream_handle(device))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def launch(fn, name: str, *args) -> None:
+    """Call a C launcher on the current device's current stream; raise on a
+    CUDA error."""
+    import torch
+
+    launch_on(fn, name, torch.cuda.current_device(), *args)
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -20,22 +20,37 @@ kernel is: on the card a call that would need a gradient raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import I, P
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
-__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "slstm_sequence", "slstm_sequence_plain"]
+__all__ = ["LAUNCHES", "MAX_HEAD_DIM", "plan", "slstm_sequence", "slstm_sequence_plain"]
 
 LAUNCHES = 0  # launches of the scan kernel
 
-MAX_HEAD_DIM = 256  # the kernel's largest head dim (four outputs a thread)
+MAX_HEAD_DIM = 256  # the kernel's largest head dim (a cluster of 16 CTAs of 16 units)
 
 
 def _declare(lib):
     lib.slstm_forward.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.slstm_forward.restype = I
+    lib.slstm_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
+    lib.slstm_plan.restype = I
+
+
+def plan(B: int, NH: int, DH: int) -> dict:
+    """The kernel's launch plan for (B, NH, DH) on the current CUDA device
+    (``plan_for`` in ``csrc/slstm.cu``): K CTAs a cluster, U units of a
+    head a CTA, ND values of d a lane per 32, G batch rows a cluster, NU
+    units a warp."""
+    out = (I * 5)()
+    if cuda_build.load("slstm", _declare).slstm_plan(B, NH, DH, out) != 0:
+        raise ValueError(f"no plan for B {B}, NH {NH}, DH {DH}")
+    return dict(zip(("K", "U", "ND", "G", "NU"), out))
 
 
 def _check(wx, R, state):
@@ -88,9 +103,11 @@ def slstm_sequence(wx, R, state=None):
     optional (h, c, n, m), each (B, NH, DH), zeros by default.  Returns hs
     (B, S, NH*DH) in wx's dtype and the last (h, c, n, m) in float32.
 
-    CUDA tensors go through the hand-written kernel, in float32 (or this
-    raises: also where autograd would need a gradient of the call, since the
-    kernel has no backward); CPU tensors go through the plain version.
+    CUDA tensors go through the hand-written kernel, in float32 (one
+    thread-block cluster per head and group of batch rows, :func:`plan`),
+    or this raises: also where autograd would need a gradient of the call,
+    since the kernel has no backward; CPU tensors go through the plain
+    version.
     """
     global LAUNCHES
     if wx.device.type == "cpu":
@@ -111,8 +128,7 @@ def slstm_sequence(wx, R, state=None):
     hs = torch.empty(B, S, NH * DH, dtype=f32, device=wx.device)
     last = [torch.empty(B, NH, DH, dtype=f32, device=wx.device) for _ in range(4)]
     lib = cuda_build.load("slstm", _declare)
-    with torch.cuda.device(wx.device):
-        cuda_build.launch(lib.slstm_forward, "slstm_forward",
-                          *cuda_build.pointers(wxf, Rf, *st, hs, *last), B, S, NH, DH)
+    cuda_build.launch_on(lib.slstm_forward, "slstm_forward", wxf.get_device(),
+                         *cuda_build.pointers(wxf, Rf, *st, hs, *last), B, S, NH, DH)
     LAUNCHES += 1
     return hs.to(wx.dtype), tuple(last)
