@@ -181,7 +181,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                640 px (A 8400, nc 80), batch 8 and a stacked 16 with k 10
                for one half and 1 for the other, M 8 (the smoke's gts) and
                128 (the JAX dataset's max_targets): mask_pos equal, align
-               and overlaps bit-equal or within 2e-5; then the assigner
+               and overlaps bit-equal or within 2e-5; then TAL_EXTRA (one
+               row, B 8 at M 300, topk 1 and 17, one NaN box: align and
+               overlaps bit-equal, mask_pos equal, a NaN metric never
+               selected); then the assigner
                entry task_aligned_assign_pallas_metric (one launch a call,
                counted) against task_aligned_assign at the tolerances of
                tests/test_tal_kernel.py (phase_tal_kernel);
@@ -203,17 +206,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                its launch plan), also at S 2048 (phase_lm);
 31. tal_times - the TAL kernel, its plain version and both assigners per
                call at batch 8, M 8 and 128 (phase_tal_times);
-32. fw3_kernel - the sub-chunked forward fw3 (state pass, then output pass)
-               against its plain version at every (S, L, Lb) of FW3_SHAPES
-               (the v2 cell's S 6400/1600/400/100 with L 640/400/400/100,
-               and tests/test_fw3.py's cases) at the widths of all three
+32. fw3_kernel - the sub-chunked forward fw3 (gate rows, state pass, output
+               pass) against its plain version at every (S, L, Lb) of
+               FW3_SHAPES (the v2 cell's S 6400/1600/400/100 with L
+               640/400/400/100, tests/test_fw3.py's cases, and sub-chunks
+               of 8, 100 and 640 rows) at the widths of all three
                detectors, batch 8: q float32 and bfloat16, products float32
                and bfloat16, open and closed forget gates, with and without
                initial states, both variants; every output within F32_TOL
                or BF16_TOL of its largest value, and with bfloat16 products
                within half the plain version's bfloat16-vs-float32-products
                gap in mean error (a kernel that skipped the operands'
-               rounding fails), two launches a call; then
+               rounding fails), three launches a call; then
                its path with counts set to 0: the inference variant at the
                v2 cell's (S, L) and the drop-in contract (the train
                variant's states fed to the v2 backward kernel at L 64, the
@@ -221,7 +225,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 33. fw3_times - fw3 in both variants beside the port's v2 inference and
                train forwards on the same inputs and the plain version, per
                call at each flagship S, DH 32 and 128, with its bound, each
-               pass's device time at S 6400 and the scratch buffer's size;
+               kernel's device time at S 6400 and the scratch's size;
                besides the JAX cell's L, both variants at the v2 kernels'
                L 64 with sub-chunks 32 and 64 (bfloat16 products, as v2's:
                like for like; the train variant's states are what the v2
@@ -3029,6 +3033,10 @@ def predict_times(yolo, card: str) -> dict:
 
 TAL_SIZE, TAL_NC = 640, 80  # A = 8400 anchors at strides 8, 16, 32
 TAL_CASES = ((8, 8, False), (8, 128, False), (16, 8, True), (16, 128, True))  # B, M, k 10/1
+# (B, M, topk, a NaN box): one row (a cluster of 8 CTAs), 2400 rows (a CTA a
+# row), topk 1 and 17 (two rounds of the kernel's 16-row lists), a NaN box
+TAL_EXTRA = ((1, 1, 10, False), (8, 300, 10, False), (8, 8, 1, False), (8, 128, 17, False),
+             (8, 8, 10, True))
 # the assigner entries against each other (tests/test_tal_kernel.py's tolerances)
 TAL_TOL = {"target_bboxes": dict(rtol=1e-6, atol=0.0), "target_scores": dict(rtol=2e-5, atol=1e-7)}
 SLSTM_NH, SLSTM_B = 4, 8
@@ -3128,10 +3136,69 @@ def kernels_device_ms(fn, launches: dict, calls: int = 10) -> dict:
     return {**out, "events": events, "calls": calls}
 
 
+def tal_mask_without_nan(args, align, topk: int, eps: float = 1e-9):
+    """mask_pos with a NaN metric never taken, as the kernel takes it: the
+    plain version's top-k rounds over align with each NaN as -inf, and its
+    in-box mask.  (The plain version's row max is NaN on such a row, and it
+    takes none of the row.)"""
+    import torch
+
+    _, _, anc, _, gb, mask_gt = args
+    B, M, A = align.shape
+    ax, ay = anc[:, 0][None, None], anc[:, 1][None, None]
+    gx1, gy1, gx2, gy2 = (gb[..., j][..., None] for j in range(4))
+    valid = ((ax - gx1 > eps) & (ay - gy1 > eps) & (gx2 - ax > eps) & (gy2 - ay > eps)
+             & mask_gt[..., None])
+    live = torch.where(torch.isnan(align), float("-inf"), align)
+    iota = torch.arange(A, device=align.device)
+    sel = torch.zeros_like(valid)
+    for _ in range(topk):
+        idx = torch.where(live == live.amax(-1, keepdim=True), iota, A).amin(-1, keepdim=True)
+        oh = iota == idx
+        sel |= oh
+        live = torch.where(oh, float("-inf"), live)
+    return sel & valid
+
+
+def phase_tal_extra(tk) -> dict:
+    """TAL_EXTRA against the plain version: align and overlaps bit-equal (NaN
+    where it has NaN), mask_pos equal; with a NaN box (a predicted box of
+    image 0 inside a valid gt), mask_pos as tal_mask_without_nan."""
+    import torch
+
+    out = {"bit_equal": True}
+    for j, (Bt, M, topk, nan) in enumerate(TAL_EXTRA):
+        args = tal_inputs(200 + j, Bt, M)
+        if nan:
+            scores, pb, anc, labels, gb, mask = args
+            m = int(mask[0].nonzero()[0, 0])
+            x1, y1, x2, y2 = gb[0, m].tolist()
+            a = int(((anc[:, 0] > x1) & (anc[:, 0] < x2) & (anc[:, 1] > y1)
+                     & (anc[:, 1] < y2)).nonzero()[0, 0])
+            pb = pb.clone()
+            pb[0, a, 2] = float("nan")
+            args = (scores, pb, anc, labels, gb, mask)
+        got = tk.tal_metric(*args, topk=topk)
+        torch.cuda.synchronize()
+        ref = tk.tal_metric_plain(*args, topk=topk)
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        want = tal_mask_without_nan(args, ref[0], topk) if nan else ref[2]
+        if not torch.equal(got[2], want):
+            raise AssertionError(f"tal_metric: mask_pos differs at B {Bt}, M {M}, topk {topk}"
+                                 f"{', NaN box' if nan else ''}")
+        emit({"phase": "tal_kernel", "what": "extra", "B": Bt, "M": M, "topk": topk,
+              "nan_box": nan, "nan_metrics": int(torch.isnan(got[0]).sum().item()),
+              "positives": int(got[2].sum().item()), "bit_equal": True,
+              "cluster_ctas": tk.cluster_size(Bt * M)})
+    return out
+
+
 def phase_tal_kernel(tk):
-    """The TAL metric kernel against its plain version on the card, then the
-    assigner entry with the kernel (the path: one launch a call, counted)
-    against the default eager ``task_aligned_assign``."""
+    """The TAL metric kernel against its plain version on the card (and
+    TAL_EXTRA, phase_tal_extra), then the assigner entry with the kernel
+    (the path: one launch a call, counted) against the default eager
+    ``task_aligned_assign``."""
     import torch
 
     from xlstm_yolo_tpu_torch.utils import tal
@@ -3158,6 +3225,7 @@ def phase_tal_kernel(tk):
         worst["max_abs_err"] = max(worst["max_abs_err"], *errs)
         worst["bit_equal"] &= bits
         calls.append((args, k))
+    phase_tal_extra(tk)
     # the path: the assigner entry, counts set to 0 just before
     tk.LAUNCHES = 0
     fused = [tal.task_aligned_assign_pallas_metric(*args, topk=10, num_classes=TAL_NC,
@@ -3215,8 +3283,8 @@ def phase_tal_times(tk, card: str) -> dict:
               "A": args[0].shape[1], "nc": TAL_NC, **out[M],
               "note": "ms: the kernel's device time a call (torch.profiler trace of 10 "
                       "calls; the wrapper's time where the trace has no kernel event); the rest CUDA-event windows of 20 calls, in turns wrapper, plain, "
-                      "fused assign, eager assign, tail, then back (the wrapper's atan, cast and "
-                      "k ops included); eager metric stage = eager assign - tail"})
+                      "fused assign, eager assign, tail, then back (the wrapper's host ops "
+                      "included); eager metric stage = eager assign - tail"})
     return out
 
 
@@ -3477,7 +3545,10 @@ def phase_lm(cw, sk, card: str):
 # 1600 -> 400; 400 and 100 in one chunk, Lb = L) and tests/test_fw3.py's
 # cases, (S, L, Lb)
 FW3_PATH = ((6400, 640, 128), (1600, 400, 128), (400, 400, 128), (100, 100, 128))
-FW3_SHAPES = FW3_PATH + ((1024, 256, 128), (900, 256, 128), (512, 512, 256))
+# and sub-chunks of 8, 100 and (sub_chunk 300 not dividing 640) 640 rows
+FW3_SHAPES = FW3_PATH + ((1024, 256, 128), (900, 256, 128), (512, 512, 256), (1000, 16, 8),
+                         (1000, 400, 100), (1500, 640, 300))
+FW3_KERNELS = {"fw3_gates": 1, "fw_scan_kernel": 1, "fw_h_kernel": 1}  # a call's kernels
 FW3_WIDTHS = (FLAGSHIP,) + WIDE
 # (q/k/v type, product type, forget gates, initial states): each shape and
 # width runs all four, so every type pair, gate regime and state option runs
@@ -3603,8 +3674,9 @@ def phase_fw3_kernel(f3, cw):
                     torch.cuda.synchronize()
                     name = "chunkwise_fw3_train" if save else "chunkwise_fw3"
                     made = fw3_counts(f3)[name] - before[name]
-                    if made != 2:
-                        raise AssertionError(f"one fw3 call made {made} launches, not 2")
+                    if made != f3.LAUNCHES_PER_CALL:
+                        raise AssertionError(f"one fw3 call made {made} launches, not "
+                                             f"{f3.LAUNCHES_PER_CALL}")
                     if not save and (got[1] is not None or got[2] is not None):
                         raise AssertionError("the inference variant returned saved states")
                     errs = fw3_errors(got, ref, tols)
@@ -3668,7 +3740,8 @@ def phase_fw3_kernel(f3, cw):
                   "grad_rel": GRAD_REL[dtype]})
     torch.cuda.synchronize()
     launches = fw3_counts(f3)
-    want = {"chunkwise_fw3": 2 * len(FW3_PATH), "chunkwise_fw3_train": 2 * 2 * len(subs)}
+    n = f3.LAUNCHES_PER_CALL
+    want = {"chunkwise_fw3": n * len(FW3_PATH), "chunkwise_fw3_train": n * 2 * len(subs)}
     if launches != want:
         raise AssertionError(f"the fw3 path made {launches} launches, not {want}")
     return worst, launches
@@ -3697,8 +3770,9 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
     heads (DH 32) and vil-det-384's (DH 128): CUDA-event windows of the
     kernel in both variants, the port's v2 inference and train forwards
     on the same inputs, and the plain version, in turns (and back); the
-    bound; at S 6400 the device time of each pass from a torch.profiler
-    trace, and the scratch buffer's size.  In the same turns, the
+    bound; at S 6400 the device time of each kernel (FW3_KERNELS) from a
+    torch.profiler trace, and the scratch's size (the state before each
+    sub-chunk, C in the compute type, and the gate rows).  In the same turns, the
     configurations that compare like with like with the v2 kernels (L 64,
     bfloat16 products, as theirs): the inference variant (``l64_32``,
     ``l64_64``) and the train variant (``drop_in_32``, ``drop_in_64``, whose
@@ -3742,13 +3816,13 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
                    **dict(zip(("bound_ms", "bound_by"), fw3_bound(S, L, Lb, ws=ws))),
                    **dict(zip(("train_bound_ms", "train_bound_by"),
                               fw3_bound(S, L, Lb, ws=ws, train=True))),
-                   "scratch_mb": ws.B * NC * NB * ws.NH * (ws.DH ** 2 + ws.DH) * 4 / 1e6,
+                   "scratch_mb": ws.B * NC * NB * ws.NH * (
+                       ws.DH ** 2 * 2 + ws.DH * 4 + (3 * f3.walked_rows(Lb_) + 1) * 4) / 1e6,
                    "Lb": Lb_, "runs": runs}
             if S == FW3_PATH[0][0]:
                 for name in ("fw3", "fw3_train"):
-                    passes = kernels_device_ms(fns[name], {"fw3_states": 1, "fw3_out": 1})
-                    row[f"{name}_passes_device_ms"] = {p: passes[p] for p in ("fw3_states",
-                                                                              "fw3_out")}
+                    passes = kernels_device_ms(fns[name], FW3_KERNELS)
+                    row[f"{name}_passes_device_ms"] = {p: passes[p] for p in FW3_KERNELS}
             per[S] = row
             emit({"phase": "times", "what": "fw3", "widths": ws.cfg, "card": card, "B": ws.B,
                   "S": S, "L": L, "NH": ws.NH, "DH": ws.DH, "dtype": "bfloat16",
@@ -3758,7 +3832,8 @@ def phase_fw3_times(f3, cw, card: str) -> dict:
                           "(L 64, bfloat16 products) on the same inputs, fw3 runs at the JAX "
                           "cell's L; l64_<Lb> and drop_in_<Lb> are fw3's inference and train "
                           "variants at v2's L 64, like for like; passes_device_ms from a "
-                          "torch.profiler trace of 10 calls"})
+                          "torch.profiler trace of 10 calls: the gate rows, the state pass "
+                          "(fw_scan_kernel) and the output pass (fw_h_kernel)"})
         out[ws.cfg] = per
     return out
 
@@ -4098,8 +4173,8 @@ def main() -> int:
         "note": "task_aligned_assign_pallas_metric; launches: one per assigner call of phase "
                 f"tal_kernel ({len(TAL_CASES)} calls); times per call at 640 px, batch 8, "
                 f"M {M_GTS} (m128: M 128), topk 10, ms the kernel's device time, wrapper_ms "
-                "the wrapper's call with its atan and cast ops; no one PyTorch call computes "
-                "the stage"})
+                "the wrapper's call (its host ops: casts only where an operand is not in the "
+                "kernel's type); no one PyTorch call computes the stage"})
     rows.append({
         "name": "slstm_forward", "route": "cuda", "source": "xlstm_yolo_tpu_torch/csrc/slstm.cu",
         "replaces": f"{pallas}/slstm.py:42", "launches": lm_out["launches"]["slstm_forward"],
@@ -4121,8 +4196,9 @@ def main() -> int:
             "max_rel_err": worst_fw3["bfloat16"], "max_rel_err_float32": worst_fw3["float32"],
             "rounding_err_over_gap": worst_fw3["rounding_err_over_gap"],
             "dh128": fw3_numbers(fw3_t[WIDE[-1].cfg], train),
-            "note": "fw3 (unwired, as in JAX); launches (two a call: the state pass and the "
-                    "output pass) on its path in phase fw3_kernel: the inference variant at "
+            "note": "fw3 (unwired, as in JAX); launches (three a call: the gate rows, the "
+                    "state pass and the output pass) on its path in phase fw3_kernel: the "
+                    "inference variant at "
                     "the v2 cell's (S, L) pairs, the train variant feeding the v2 backward at "
                     "L 64; times per call at B 8, S 6400, L 640, Lb 128, bf16 q/k/v and "
                     "products, NH 12 x DH 32 (dh128: NH 6 x DH 128); forward_ms summed over "

@@ -4,6 +4,7 @@ the repository:
     python3 scripts/kernels_check.py                 # the sLSTM scan and the step
     python3 scripts/kernels_check.py --times --root DIR --label parent
     python3 scripts/kernels_check.py --set chunkwise # the quadratic, v1 and exp kernels
+    python3 scripts/kernels_check.py --set unwired   # fw3 and the TAL metric
 
 Builds the set's sources, prints each kernel's registers and spills
 (``nvcc -Xptxas -v``) and its tensor-core (HMMA) instructions, runs the set's
@@ -42,6 +43,21 @@ of the route's plan (chip_smoke.py's v1_plan of vil-det-192: the forwards
 at the inference segments from initial states, the exp forward saving
 nothing, and both at the padded training lengths, where the dC scans run).
 A few minutes, where the full smoke takes ten.
+
+``unwired``: the two kernels no path of the detector runs.  ``fw3``
+(``csrc/chunkwise_fw3.cu``) at each (S, L, Lb) of chip_smoke.py's FW3_PATH,
+batch 8, bf16 q/k/v and products, at vil-det-192's heads (12 of 32) and
+vil-det-384's (6 of 128): one JSON line each with the best of three
+CUDA-event windows of a call and the device ms a call of each of its
+kernels from a profiler trace of 10 calls, for the inference and train
+variants, the port's v2 forward (inference and train) on the same inputs
+and, at S 6400, fw3 like for like at v2's L 64 (sub-chunks 32 and 64, both
+variants), beside the bounds (chip_smoke.py's fw3_bound).  The TAL metric
+(``csrc/tal_metric.cu``) at 640 px, batch 8, M 8 and 128, topk 10: the
+device ms a call (trace of 10 calls), the call window (CUDA events around
+20 calls, best of three) and the host's issue time a call (host clock
+around 200 calls, no synchronise, best of three), and, where the package
+has ``cluster_size``, the device ms with each cluster size.
 """
 
 import argparse
@@ -224,41 +240,11 @@ def chunkwise_times(cs, label: str):
         shape_times(cs, label, ws, plan)
 
 
-def device_ms_by_kernel(cs, fn, calls: int = 20):
-    """Device ms a call of each kernel of fn in namespace v1 (the v1 and exp
-    forwards' and dC scans' passes, in any version of the package), by the
-    kernel's name, and their "total", from a torch.profiler trace of
-    ``calls`` calls (chip_smoke.py's device_busy); a small operation opens
-    the trace, and a trace that lost any kernel event is taken again, up to
-    three times, else "not measured"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device="cuda").add_(1)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ours = {}
-        for r in cs.device_busy(prof, 1.0).get("top", []):
-            if "v1::" in r["kernel"]:
-                name = r["kernel"].split("v1::", 1)[1].split("<", 1)[0]
-                ms, n = ours.get(name, (0.0, 0))
-                ours[name] = (ms + r["device_ms"], n + r["calls"])
-        if ours and all(n == calls for _, n in ours.values()):
-            per = {name: ms / calls for name, (ms, _) in ours.items()}
-            return {"total": sum(per.values()), **per}
-    return "not measured"
-
-
 def shape_times(cs, label: str, ws, plan):
     """The v1 and exp forwards at every (S, L) of the plan and their dC
     scans at every training (S, L): the best window (ms, CUDA events around
     the calls; at S <= 128 the host's launch time) and the device ms a call
-    of each of their kernels (device_ms_by_kernel)."""
+    of each of their kernels (kernels_ms)."""
     import torch
 
     from xlstm_yolo_tpu_torch.ops import chunkwise as v1
@@ -284,10 +270,109 @@ def shape_times(cs, label: str, ws, plan):
                                                                        mc2, mrow2, **kw))]
         for key, fn in fns:
             row[key] = min(cs.time_cuda(fn, iters=5, reps=3, warm_s=0.1))
-            dev[key] = device_ms_by_kernel(cs, fn)
+            dev[key] = kernels_ms(cs, fn, calls=20)
         del a1, a2, dh1, dh2, fns
     print(json.dumps(row), flush=True)
     print(json.dumps(dev), flush=True)
+
+
+def kernels_ms(cs, fn, calls: int = 10):
+    """Device ms a call of each kernel of fn, by its name (up to its
+    template arguments), and their "total", from a torch.profiler trace of
+    ``calls`` calls; the opening operation's elementwise kernels are left
+    out.  A trace that lost a kernel event is taken again, up to three
+    times, else "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ours = {}
+        for r in cs.device_busy(prof, 1.0).get("top", []):
+            if "elementwise" in r["kernel"]:
+                continue
+            name = r["kernel"].replace("void ", "").split("<", 1)[0].split("(", 1)[0]
+            ms, n = ours.get(name, (0.0, 0))
+            ours[name] = (ms + r["device_ms"], n + r["calls"])
+        if ours and all(n % calls == 0 for _, n in ours.values()):
+            per = {name: ms / calls for name, (ms, _) in ours.items()}
+            return {"total": sum(per.values()), **per}
+    return "not measured"
+
+
+def unwired_times(cs, label: str):
+    """fw3's and the TAL metric's times (module docstring)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.ops import chunkwise_fw3 as f3
+    from xlstm_yolo_tpu_torch.ops import chunkwise_v2 as cw
+    from xlstm_yolo_tpu_torch.ops import tal_metric as tk
+
+    for ws in (cs.FLAGSHIP, cs.WIDE[-1]):
+        for S, L, Lb in cs.FW3_PATH:
+            q, k, v, i, f, _, _ = cs.fw3_args(cs.fw3_streams(S, ws, seed=S), "bfloat16", "open",
+                                              False)
+            kw = dict(chunk_size=L, sub_chunk=Lb, eps=cs.EPS)
+            fns = {"fw3": lambda: f3.fw3(q, k, v, i, f, ws.NH, save_states=False, **kw),
+                   "fw3_train": lambda: f3.fw3(q, k, v, i, f, ws.NH, **kw),
+                   "v2": lambda: cw.mlstm_siging_chunkwise_fw(q, k, v, i, f, ws.NH, eps=cs.EPS),
+                   "v2_train": lambda: cw.mlstm_siging_chunkwise_fw_train(q, k, v, i, f, ws.NH,
+                                                                          eps=cs.EPS)}
+            bounds = {"fw3": cs.fw3_bound(S, L, Lb, ws=ws)[0],
+                      "fw3_train": cs.fw3_bound(S, L, Lb, ws=ws, train=True)[0]}
+            if S == cs.FW3_PATH[0][0]:
+                for sub in cs.FW3_DROP_IN[1]:
+                    for name, train in (("l64", False), ("drop_in", True)):
+                        fns[f"{name}_{sub}"] = (
+                            lambda sub=sub, train=train: f3.fw3(
+                                q, k, v, i, f, ws.NH, chunk_size=cw.CHUNK_SIZE, sub_chunk=sub,
+                                eps=cs.EPS, save_states=train))
+                        bounds[f"{name}_{sub}"] = cs.fw3_bound(S, cw.CHUNK_SIZE, sub, ws=ws,
+                                                               train=train)[0]
+            row = {"root": label, "kernel": "fw3", "widths": ws.cfg, "S": S, "L": L, "Lb": Lb,
+                   "B": ws.B, "NH": ws.NH, "DH": ws.DH, "window_ms": {}, "device_ms": {},
+                   "bound_ms": bounds}
+            for name, fn in fns.items():
+                row["window_ms"][name] = min(cs.time_cuda(fn, iters=5, reps=3, warm_s=0.1))
+                row["device_ms"][name] = kernels_ms(cs, fn)
+            print(json.dumps(row), flush=True)
+            del q, k, v, i, f, fns
+    for M in (8, 128):
+        args = cs.tal_inputs(7, 8, M)
+        fn = lambda: tk.tal_metric(*args, topk=10)  # noqa: E731
+        dev = cs.kernels_device_ms(fn, {"tal_metric_kernel": 1})["tal_metric_kernel"]
+        win = cs.time_cuda(fn, iters=20, reps=3, warm_s=0.2)
+        issue = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            issue.append((time.perf_counter() - t0) / 200 * 1e3)
+            torch.cuda.synchronize()
+        row = {"root": label, "kernel": "tal_metric", "B": 8, "M": M, "A": args[0].shape[1],
+               "device_ms": dev, "window_ms": min(win), "window_ms_runs": win,
+               "host_issue_ms": min(issue), "host_issue_ms_runs": issue,
+               "bound_ms": cs.tal_bound(8, M, args[0].shape[1])[0]}
+        if hasattr(tk, "cluster_size"):
+            chosen, by_size = tk.cluster_size, {}
+            try:
+                for n in (1, 2, 4, 8):
+                    tk.cluster_size = lambda rows, n=n: n
+                    by_size[n] = cs.kernels_device_ms(fn, {"tal_metric_kernel": 1})[
+                        "tal_metric_kernel"]
+            finally:
+                tk.cluster_size = chosen
+            row["cluster_ctas"] = chosen(8 * M)
+            row["device_ms_by_cluster_ctas"] = by_size
+        print(json.dumps(row), flush=True)
+        del args
 
 
 SETS = {  # sources, the cuda tests' -k expression, the times
@@ -296,6 +381,8 @@ SETS = {  # sources, the cuda tests' -k expression, the times
                    "chunkwise_exp_fw", "chunkwise_exp_bw"],
                   "parallel or stateful or v1_kernels or exp_kernels or v1_function or "
                   "exp_function or dc_scans", chunkwise_times),
+    "unwired": (["chunkwise_fw3", "tal_metric", "chunkwise_fw", "chunkwise_bw"], "fw3 or tal",
+                unwired_times),
 }
 
 

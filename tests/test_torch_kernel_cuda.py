@@ -43,7 +43,8 @@ seed.  Tolerances:
   bfloat16 (a float32 sum in another order can flip the rounding of an
   operand by one bfloat16 step).  The TAL metric stage: align, overlaps
   and mask_pos equal bit for bit (both sides round every operation once,
-  in the same order).  The sLSTM scan (float32): each output within 1e-5
+  in the same order; a NaN metric, which no selection takes, where the
+  plain version's row max takes none of its row).  The sLSTM scan (float32): each output within 1e-5
   of its largest |value| (its recurrent sums in another order) or, where
   float32 rounding compounds over 2048 steps beyond that, at most twice as
   far from the plain scan in float64 as the float32 plain scan is, as
@@ -1051,9 +1052,10 @@ def test_step_wrapper_launches_on_the_current_stream_on_gpu():
         step.mlstm_siging_step_kernel(flat[1:].view(8, 6, 128), k, v, i, f, c, n, eps=EPS)
 
 
-def tal_inputs(seed, B, M, nc=80, size=640):
+def tal_inputs(seed, B, M, nc=80, size=640, first_valid=False):
     """Scores, predicted boxes near the anchors of a ``size`` px image
-    (strides 8, 16, 32), padded gts (about half valid), labels, mask."""
+    (strides 8, 16, 32), padded gts (about half valid; with
+    ``first_valid`` each image's first), labels, mask."""
     rng = np.random.default_rng(seed)
     pts = []
     for s in (8, 16, 32):
@@ -1070,29 +1072,120 @@ def tal_inputs(seed, B, M, nc=80, size=640):
     gwh = rng.uniform(8, 300, (B, M, 2))
     gboxes = np.concatenate([gxy, np.minimum(gxy + gwh, size)], -1)
     mask = rng.uniform(0, 1, (B, M)) < 0.5
+    if first_valid:
+        mask[:, 0] = True
     gboxes[~mask] = 0.0
     labels = rng.integers(0, nc, (B, M))
     return (cu(scores), cu(pboxes), cu(anc), cu(labels, torch.int32), cu(gboxes),
             cu(mask, torch.bool))
 
 
+def small_tal_inputs(seed, B, M, ties=False, degenerate=False, nc=11, A=200):
+    """tests/test_torch_tal_metric.py's inputs: A anchors in a 320 px
+    square, M gts (about 70 % valid), nc classes; ``ties``: gts of 20-60 px
+    and predictions of 2-6 px, so most rows have fewer than k anchors of
+    non-zero metric and the lowest index among zeros decides;
+    ``degenerate``: image 0 without a valid gt, image 1 of zero-area gts."""
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(0, 1, (B, A, nc)).astype(np.float32)
+    anc = rng.uniform(0, 320, (A, 2)).astype(np.float32)
+    pxy = rng.uniform(0, 280, (B, A, 2)).astype(np.float32)
+    pwh = rng.uniform(*((2, 6) if ties else (5, 120)), (B, A, 2)).astype(np.float32)
+    gxy = rng.uniform(0, 250, (B, M, 2)).astype(np.float32)
+    gwh = rng.uniform(*((20, 60) if ties else (30, 160)), (B, M, 2)).astype(np.float32)
+    gboxes = np.concatenate([gxy, gxy + gwh], -1)
+    mask = rng.uniform(0, 1, (B, M)) > 0.3
+    if degenerate:
+        mask[0] = False
+        gboxes[1] = 0.0
+    return (cu(scores), cu(np.concatenate([pxy, pxy + pwh], -1)), cu(anc),
+            cu(rng.integers(0, nc, (B, M)), torch.int32), cu(gboxes), cu(mask, torch.bool))
+
+
+def tal_mask_without_nan(args, align, topk, karr, eps=1e-9):
+    """mask_pos with a NaN metric never taken: the plain version's top-k
+    rounds over align with each NaN as -inf (with a finite metric at every
+    other anchor, a NaN then never wins a round), and the plain version's
+    in-box mask."""
+    _, _, anc, _, gb, mask_gt = args
+    B, M, A = align.shape
+    ax, ay = anc[:, 0][None, None], anc[:, 1][None, None]
+    gx1, gy1, gx2, gy2 = (gb[..., j][..., None] for j in range(4))
+    valid = ((ax - gx1 > eps) & (ay - gy1 > eps) & (gx2 - ax > eps) & (gy2 - ay > eps)
+             & mask_gt[..., None])
+    live = torch.where(torch.isnan(align), float("-inf"), align)
+    iota = torch.arange(A, device=align.device)
+    counts = (torch.full((B,), topk, device=align.device) if karr is None else karr)[:, None, None]
+    sel = torch.zeros_like(valid)
+    for r in range(topk):
+        idx = torch.where(live == live.amax(-1, keepdim=True), iota, A).amin(-1, keepdim=True)
+        oh = iota == idx
+        sel |= oh & (r < counts)
+        live = torch.where(oh, float("-inf"), live)
+    return sel & valid
+
+
+TAL_CASES = [  # (B, M, topk, per-sample k, inputs): 640 px (A 8400, nc 80) or small
+    (2, 8, 10, None, "640"),
+    (4, 24, 10, (10, 1, 10, 1), "640"),
+    (1, 1, 10, None, "640"),        # one row: a cluster of 8 CTAs
+    (1, 8, 10, None, "640"),
+    (8, 8, 10, None, "640"),        # the smoke's gts
+    (8, 128, 10, (10, 1) * 4, "640"),  # the dataset's max_targets, the E2E loss's k 10/1
+    (8, 300, 10, None, "640"),      # 2400 rows: one CTA a row
+    (8, 8, 1, None, "640"),         # topk 1
+    (8, 8, 17, None, "640"),        # topk above the lists' 16 rows: two rounds
+    (2, 128, 17, (17, 3), "640"),
+    (3, 9, 10, None, "ties"),       # zero-metric ties decide
+    (3, 9, 10, None, "degenerate"),  # no valid gt; zero-area gts
+    (4, 9, 10, (10, 1, 10, 1), "small"),
+    (3, 9, 10, None, "odd"),        # A 203, no multiple of 4: one anchor a step
+    (2, 8, 10, None, "nan"),        # one predicted box NaN
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,M,k_arr", [(2, 8, None), (4, 24, (10, 1, 10, 1))])
-def test_tal_metric_kernel_matches_plain_on_gpu(B, M, k_arr):
-    """The TAL metric kernel against its plain version at 640 px (A 8400,
-    nc 80), with a per-sample k: align, overlaps and mask_pos bit-equal;
-    one launch a call."""
+@pytest.mark.parametrize("B,M,topk,k_arr,inputs", TAL_CASES)
+def test_tal_metric_kernel_matches_plain_on_gpu(B, M, topk, k_arr, inputs):
+    """The TAL metric kernel against its plain version, one launch a call:
+    align and overlaps bit-equal (NaN where it has NaN), mask_pos equal; with
+    a NaN box, mask_pos as the kernel always took it (tal_mask_without_nan:
+    the top-k of the row's other anchors), where the plain version's row max
+    is NaN and takes nothing."""
     needs_cuda()
-    args = tal_inputs(B + M, B, M)
+    if inputs in ("640", "nan"):
+        args = tal_inputs(B + M, B, M, first_valid=True)
+    else:
+        args = small_tal_inputs(B + M, B, M, ties=inputs == "ties",
+                                degenerate=inputs == "degenerate",
+                                A=203 if inputs == "odd" else 200)
+    if inputs == "nan":
+        # a predicted box inside gt 0 of image 0 (its centre's anchor)
+        pb, gb = args[1].clone(), args[4]
+        anc = args[2]
+        gx1, gy1, gx2, gy2 = gb[0, 0].tolist()
+        inside = ((anc[:, 0] > gx1) & (anc[:, 0] < gx2) & (anc[:, 1] > gy1)
+                  & (anc[:, 1] < gy2)).nonzero()
+        assert len(inside) and bool(args[5][0, 0])
+        pb[0, inside[0, 0], 2] = float("nan")
+        args = (args[0], pb, *args[2:])
+    nc = args[0].shape[-1]
     karr = None if k_arr is None else torch.tensor(k_arr, dtype=torch.int32, device="cuda")
     before = tal_metric.LAUNCHES
-    got = tal_metric.tal_metric(*args, topk=10, topk_arr=karr)
+    got = tal_metric.tal_metric(*args, topk=topk, num_classes=nc, topk_arr=karr)
     torch.cuda.synchronize()
     assert tal_metric.LAUNCHES == before + 1
-    ref = tal_metric.tal_metric_plain(*args, topk=10, topk_arr=karr)
-    assert got[2].dtype == torch.bool and got[2].any()
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    ref = tal_metric.tal_metric_plain(*args, topk=topk, num_classes=nc, topk_arr=karr)
+    for a, b in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    if inputs == "nan":
+        assert torch.isnan(got[0]).any()
+        assert torch.equal(got[2], tal_mask_without_nan(args, ref[0], topk, karr))
+        assert not torch.equal(got[2], ref[2])  # the plain version takes none of that row
+    else:
+        assert torch.equal(got[2], ref[2])
+    if inputs != "degenerate":
+        assert got[2].any()
 
 
 SLSTM_CASES = [  # (B, NH, DH, S, initial state, input gates + 12)
@@ -1190,12 +1283,17 @@ def test_slstm_cell_refuses_a_gradient_on_gpu():
     assert slstm.LAUNCHES == before + 1 and y.shape == x.shape
 
 
-FW3_CASES = [  # (S, L, Lb, NH, DH, gates, initial states)
+FW3_CASES = [  # (S, L, sub_chunk, NH, DH, gates, initial states)
     (200, 64, 32, 2, 16, "open", True),      # several chunks, ragged
     (900, 256, 128, 12, 32, "closed", False),  # ragged, the flagship's heads
     (100, 100, 128, 8, 64, "open", True),    # degenerate: Lb = L, not a whole row tile
     (512, 512, 256, 6, 128, "open", False),  # two sub-chunks of 256 (four row tiles)
     (1600, 400, 128, 6, 128, "closed", True),  # the v2 cell's S 1600 at vil-det-384's heads
+    (203, 16, 8, 4, 32, "closed", True),     # Lb 8: half a 16-row tile, ragged
+    (1000, 400, 100, 3, 64, "open", False),  # Lb 100: a whole and a ragged tile, ragged S
+    (900, 400, 128, 12, 32, "open", True),   # Lb = L = 400: seven tiles, the last ragged
+    (1500, 640, 300, 2, 128, "open", True),  # Lb = L = 640, above 512 rows: the gates' carry
+    (1300, 640, 300, 4, 16, "closed", False),
 ]
 
 
@@ -1223,8 +1321,8 @@ def assert_rounding_shows(got, ref, ref_f32, min_gap=0.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,compute", V1_TYPES + [("bfloat16", "float32")])
 def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
-    """Both variants of the fw3 kernel against the plain version on the
-    same inputs, two launches a call: h within 1e-4 of its largest |value|
+    """Both variants of the fw3 kernels against the plain version on the
+    same inputs, three launches a call: h within 1e-4 of its largest |value|
     (2e-2 where q or the products are bfloat16), the denominators and
     states within 1e-4 (2e-2 with bfloat16 products; with them also
     nearer the plain version than its float32-products twin is, as
@@ -1249,7 +1347,7 @@ def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
             got = chunkwise_fw3.fw3(*args, save_states=save, **kw)
             torch.cuda.synchronize()
             after = chunkwise_fw3.LAUNCHES_FW3_TRAIN if save else chunkwise_fw3.LAUNCHES_FW3
-            assert after == before + 2
+            assert after == before + chunkwise_fw3.LAUNCHES_PER_CALL == before + 3
             outs = [(a, b, s_rel if j else h_rel)
                     for j, (a, b) in enumerate(zip(got, ref)) if a is not None]
             assert len(outs) == (5 if save else 3)

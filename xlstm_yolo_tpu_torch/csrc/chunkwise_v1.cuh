@@ -42,12 +42,17 @@
 // - dqkv_kernel: dq, or dk and dv, of a (batch * head, chunk, 64-row
 //   sub-tile) from the states before and after the chunk, on the tensor
 //   cores in bf16 with the quadratic backward's tile steps (parallel.cuh).
+// The forward's two kernels also run fw3, the sub-chunked forward
+// (chunkwise_fw3.cu), with their F3 parameter set: they then walk fw3's
+// sub-chunks as their chunks, in its (B, S, NH * DH) layout (Sub).
 // The tensor-core kernels run their products through tc::prod16 and
 // par::score_times: mma.sync m16n8k16 with bf16 operands and float32 sums
 // for CT = bf16, the same tiling as float32 FMA for CT = float.
 #pragma once
 
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "parallel.cuh"
@@ -66,6 +71,35 @@ __device__ __forceinline__ float log_sigmoid(float x) {
 }
 
 __host__ __device__ constexpr int tile_rows(int L) { return L < TR ? L : TR; }
+
+// fw3's sub-chunks, which fw_scan_kernel and fw_h_kernel walk as their
+// chunks when F3 is set (the defaults: the v1 and exp routes).  q, k, v and
+// h are (B, S, NH * DH) rows, a head a DH-wide column slice of each; chunk
+// c is the sub-chunk of the Lb rows from c Lb, walked as the kernels' L
+// rows (Lb rounded up to whole tiles), its rows past Lb or S loaded as
+// zeros.  The gate rows come made, one set for both passes, with a carry
+// over 64-row tiles (fw3_gates_kernel), so no pass holds a sub-chunk's
+// gates: a tile's rows arrive with the tile.  The state before each
+// sub-chunk goes to the (B, NS, NH) slots of c_states, C in the compute
+// type (all the output pass reads); the train variant also stores every
+// NB-th in float32 (cstates) and den by chunk (n_out).
+struct Sub {
+  int NH = 1;                  // heads a row of q, k, v and h holds
+  int Lb = 0;                  // rows of a sub-chunk
+  int NB = 1;                  // sub-chunks a chunk
+  int NS = 0;                  // sub-chunks: NB times the chunks, the last rows past S
+  const float* b = nullptr;    // (B * NH, NS, L) b from the sub-chunk's start
+  const float* li = nullptr;   // (B * NH, NS, L) logsig(i), -inf past Lb and S
+  const float* fac = nullptr;  // (B * NH, NS, L) e^a, 0 there
+  const float* eg = nullptr;   // (B * NH, NS) e^g
+  float* cstates = nullptr;    // (B, NS / NB, NH, DH, DH) float32, or null
+  float* n_out = nullptr;      // (B, NS / NB, NH, NB Lb) den, or null
+};
+
+// The type of the stored states before each chunk: float32 on the v1 and
+// exp routes, the compute type for fw3.
+template <typename CT, bool F3>
+using StateT = typename std::conditional<F3, CT, float>::type;
 
 // The m arrays of the exp route (all null on the v1 route).
 struct MState {
@@ -126,19 +160,21 @@ __device__ __forceinline__ float row_mcomb(const float* sb, const float* si, int
 // i0.. of C), warp w holding columns 8 w NTW.. of those rows (DH 16: warps
 // 0 and 1).  Shared memory: a tile's R(v) and raw k columns i0.., two deep;
 // R(kbar) of those columns; the chunk's raw and scanned gate rows and row
-// factors: 52 KB at DH 128 in bf16, 91 KB in float32.
-template <typename T, typename CT, int DH>
+// factors (F3: a tile's row factors, two deep, and e^g): 52 KB at DH 128 in
+// bf16, 91 KB in float32.
+template <typename T, typename CT, int DH, bool F3 = false>
 struct ScanTile {
   static constexpr int TRW = 16;                      // rows of C a block owns
   static constexpr int NTW = DH >= 32 ? DH / 32 : 1;  // n-tiles of 8 columns a warp
   static constexpr int LDK = TRW + tc::pad<CT>(), LDV = DH + tc::pad<CT>();
+  static constexpr int GATES = F3 ? 2 * TR + 2 : 5 * LMAX;  // floats of the gate rows
   static constexpr size_t bytes = sizeof(CT) * (2 * TR * LDV + TR * LDK) +
-                                  sizeof(T) * 2 * TR * TRW + 4 * (5 * LMAX + 4 * TRW + 1);
+                                  sizeof(T) * 2 * TR * TRW + 4 * (GATES + 4 * TRW + 1);
 };
 
 // The forward's state pass.  Per chunk c the block stores rows i0.. of the
-// state before it, C and n (exp: one block of the head also m), in float32,
-// then
+// state before it, C and n (exp: one block of the head also m), in float32
+// (F3: C in CT, and every NB-th C also in float32), then
 //   v1:  C <- e^g C + R(k e^a)^T R(v),  n <- e^g n + sum_l k_l e^{a_l}
 //   exp: m_new = max(g + m, max_l a_l), gbar = e^{(g + m) - m_new},
 //        C <- gbar C + R(k e^{a - m_new})^T R(v), n likewise, m <- m_new
@@ -148,57 +184,81 @@ struct ScanTile {
 // block of a head computes the same m from the gates alone, so a chunk's
 // keys are scaled by the m_new of the whole head before they are rounded.
 // A chunk is read in tiles of T_ = min(L, 64) rows: the next tile's v, k
-// columns (and, at a chunk's first tile, its gates) load by cp.async while
-// the current one is scaled, rounded and multiplied (R(kbar)^T R(v), 16
-// rows a step); n sums the unrounded kbar, each thread one column's rows of
-// a tile, the warps' sums meeting once a chunk.  The launch bounds ask for
-// at least one block an SM: without that minimum ptxas squeezed the DH 128
-// instantiation into 128 registers with spills.
-template <typename T, typename CT, int DH, bool EXP>
+// columns (and, at a chunk's first tile, its gates; F3: every tile's row
+// factors e^a, and e^g with the first) load by cp.async while the current
+// one is scaled, rounded and multiplied (R(kbar)^T R(v), 16 rows a step); n
+// sums the unrounded kbar, each thread one column's rows of a tile, the
+// warps' sums meeting once a chunk.  The launch bounds ask for at least one
+// block an SM: without that minimum ptxas squeezed the DH 128 instantiation
+// into 128 registers with spills.
+template <typename T, typename CT, int DH, bool EXP, bool F3 = false>
 __global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
     const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ ig,
     const float* __restrict__ fg, const float* __restrict__ c0, const float* __restrict__ n0,
-    float* __restrict__ c_states, float* __restrict__ n_states, float* __restrict__ c_last,
-    float* __restrict__ n_last, int S, int L, MState ms) {
-  using Tl = ScanTile<T, CT, DH>;
+    StateT<CT, F3>* __restrict__ c_states, float* __restrict__ n_states,
+    float* __restrict__ c_last, float* __restrict__ n_last, int S, int L, MState ms, Sub sub) {
+  using Tl = ScanTile<T, CT, DH, F3>;
   constexpr int TRW = Tl::TRW, NTW = Tl::NTW, LDK = Tl::LDK, LDV = Tl::LDV, NTH = par::NTC;
   constexpr int E = 16 / sizeof(T);  // elements of a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CT* sv = reinterpret_cast<CT*>(smem_raw);      // 2 x (TR, LDV) R(v) of a tile
   CT* skb = sv + 2 * TR * LDV;                   // (TR, LDK) R(kbar), columns i0..
   T* rk = reinterpret_cast<T*>(skb + TR * LDK);  // 2 x (TR, TRW) k, columns i0..
-  float* rfg = reinterpret_cast<float*>(rk + 2 * TR * TRW);  // (LMAX) f of the chunk
-  float* rig = rfg + LMAX;     // (LMAX) i
-  float* sb = rig + LMAX;      // (LMAX) b
-  float* sli = sb + LMAX;      // (LMAX) logsig(i) (exp: i)
-  float* sfac = sli + LMAX;    // (LMAX) e^a (exp: e^{a - m_new})
-  float* sn = sfac + LMAX;     // (4, TRW) each warp's sums of kbar
-  float* smax = sn + 4 * TRW;  // exp: m_new of the chunk
+  float* fb = reinterpret_cast<float*>(rk + 2 * TR * TRW);
+  float* rfg = fb;                        // (LMAX) f of the chunk
+  float* rig = rfg + LMAX;                // (LMAX) i
+  float* sb = rig + LMAX;                 // (LMAX) b
+  float* sli = sb + LMAX;                 // (LMAX) logsig(i) (exp: i)
+  float* sfac = F3 ? fb : sli + LMAX;     // (LMAX) e^a (exp: e^{a - m_new}); F3: 2 x (TR)
+  float* seg = fb + 2 * TR;               // F3: e^g, two slots
+  float* sn = fb + Tl::GATES;             // (4, TRW) each warp's sums of kbar
+  float* smax = sn + 4 * TRW;             // exp: m_new of the chunk
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, i0 = blockIdx.y * TRW;
-  const int NC = S / L, T_ = tile_rows(L), tiles = L / T_;
+  const int NC = F3 ? sub.NS : S / L, T_ = tile_rows(L), tiles = L / T_;
   const bool active = warp * NTW * 8 < DH;
   const int nc0 = warp * NTW * 8;  // the warp's first column of C
   const bool writes_m = EXP && blockIdx.y == 0 && tid == 0;
   const size_t rows0 = (size_t)bh * S;
-  const T* kb = k + rows0 * DH + i0;
-  const T* vb = v + rows0 * DH;
+  // F3: batch hb, head hd of the (B, S, NH * DH) rows, ld elements apart
+  const int hb = F3 ? bh / sub.NH : bh, hd = F3 ? bh - hb * sub.NH : 0;
+  const int ld = F3 ? sub.NH * DH : DH;
+  const T* kb = F3 ? k + (size_t)hb * S * ld + hd * DH + i0 : k + rows0 * DH + i0;
+  const T* vb = F3 ? v + (size_t)hb * S * ld + hd * DH : v + rows0 * DH;
 
   // tile tt of chunk c into buffer buf, with the chunk's gates at its first
+  // (F3: the tile's row factors, and e^g with the first; rows past the
+  // sub-chunk or S zero)
   auto prefetch = [&](int c, int tt, int buf) {
-    const int r0 = c * L + tt * T_;
-    for (int e = tid; e < T_ * (TRW / E); e += NTH) {
-      const int r = e / (TRW / E), cc = E * (e - r * (TRW / E));
-      tc::cp_async16(rk + (buf * TR + r) * TRW + cc, kb + (size_t)(r0 + r) * DH + cc, true);
-    }
-    par::stage_tile<T, CT, DH, LDV, TR, NTH>(sv + buf * TR * LDV, vb, r0, r0 + T_);
-    if (tt == 0)
-      for (int r = tid; r < L; r += NTH) {
-        tc::cp_async4(rfg + r, fg + rows0 + r0 + r, true);
-        tc::cp_async4(rig + r, ig + rows0 + r0 + r, true);
+    if constexpr (F3) {
+      const int c0r = c * sub.Lb;                         // the sub-chunk's first row
+      const int nv = max(0, min(sub.Lb, S - c0r)), r0 = tt * T_;  // its rows with data
+      for (int e = tid; e < T_ * (TRW / E); e += NTH) {
+        const int r = e / (TRW / E), cc = E * (e - r * (TRW / E));
+        const bool ok = r0 + r < nv;
+        tc::cp_async16(rk + (buf * TR + r) * TRW + cc,
+                       ok ? kb + (size_t)(c0r + r0 + r) * ld + cc : kb, ok);
       }
+      par::stage_tile<T, CT, DH, LDV, TR, NTH>(sv + buf * TR * LDV, vb + (size_t)c0r * ld, r0,
+                                               min(r0 + T_, nv), nullptr, 0.f, ld);
+      const size_t gr = ((size_t)bh * NC + c) * L + r0;
+      for (int r = tid; r < T_; r += NTH) tc::cp_async4(sfac + buf * TR + r, sub.fac + gr + r, true);
+      if (tt == 0 && tid == 0) tc::cp_async4(seg + (c & 1), sub.eg + (size_t)bh * NC + c, true);
+    } else {
+      const int r0 = c * L + tt * T_;
+      for (int e = tid; e < T_ * (TRW / E); e += NTH) {
+        const int r = e / (TRW / E), cc = E * (e - r * (TRW / E));
+        tc::cp_async16(rk + (buf * TR + r) * TRW + cc, kb + (size_t)(r0 + r) * DH + cc, true);
+      }
+      par::stage_tile<T, CT, DH, LDV, TR, NTH>(sv + buf * TR * LDV, vb, r0, r0 + T_);
+      if (tt == 0)
+        for (int r = tid; r < L; r += NTH) {
+          tc::cp_async4(rfg + r, fg + rows0 + r0 + r, true);
+          tc::cp_async4(rig + r, ig + rows0 + r0 + r, true);
+        }
+    }
     tc::cp_async_commit();
   };
 
@@ -216,15 +276,26 @@ __global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
 
   prefetch(0, 0, 0);
   for (int c = 0; c < NC; ++c) {
-    const size_t slot = (size_t)bh * NC + c;
+    // the slot of the state before chunk c: (B * NH, NC); F3 (B, NS, NH)
+    const size_t slot = F3 ? ((size_t)hb * NC + c) * sub.NH + hd : (size_t)bh * NC + c;
     if (active) {  // the state before chunk c
-      float* out = c_states + slot * DH * DH;
+      StateT<CT, F3>* out = c_states + slot * DH * DH;
 #pragma unroll
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           tc::st2(out + (size_t)(i0 + g + 8 * hh) * DH + nc0 + 8 * j + 2 * t, acc[j][2 * hh],
                   acc[j][2 * hh + 1]);
+      if constexpr (F3)
+        if (sub.cstates && c % sub.NB == 0) {  // every NB-th also in float32
+          float* o = sub.cstates + (((size_t)hb * (NC / sub.NB) + c / sub.NB) * sub.NH + hd) * DH * DH;
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              tc::st2(o + (size_t)(i0 + g + 8 * hh) * DH + nc0 + 8 * j + 2 * t, acc[j][2 * hh],
+                      acc[j][2 * hh + 1]);
+        }
     }
     if (tid < TRW) n_states[slot * DH + i0 + tid] = nn;
     if (writes_m) ms.m_states[slot] = m;
@@ -233,7 +304,15 @@ __global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
       const int buf = (c * tiles + tt) & 1;
       tc::cp_async_wait<0>();
       __syncthreads();  // tile tt is in; every warp is done with the other buffer
-      if (tt == 0) {  // the chunk's gate rows, m_new and row factors
+      if constexpr (F3) {
+        if (tt == 0) {  // the sub-chunk's e^g came with its first tile
+          eg = seg[c & 1];
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) acc[j][x] *= eg;
+        }
+      } else if (tt == 0) {  // the chunk's gate rows, m_new and row factors
         chunk_gates<EXP>(rig, rfg, L, sb, sli);
         __syncthreads();
         const float gl = sb[L - 1];
@@ -268,7 +347,7 @@ __global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
       const T* ck = rk + buf * TR * TRW;
       for (int e = tid; e < T_ * TRW; e += NTH) {
         const int r = e / TRW;
-        const float x = to_f32(ck[e]) * sfac[tt * T_ + r];
+        const float x = to_f32(ck[e]) * (F3 ? sfac[buf * TR + r] : sfac[tt * T_ + r]);
         npart += x;
         from_f32(x, skb + r * LDK + col);
       }
@@ -299,15 +378,17 @@ __global__ void __launch_bounds__(par::NTC, 1) fw_scan_kernel(
 // only stage).  Shared memory: R(q) of the own rows; the walk's two
 // buffers of R(k) and R(v), whose second first holds R(C_prev) and R(qbar)
 // (at DH 128 they reach into the first); the chunk's raw and scanned gate
-// rows, n_prev, and each warp's score scratch (float32 products): 96 KB at
-// DH 128 in bf16 (two blocks an SM), 195 KB in float32.
-template <typename CT, int DH>
+// rows (F3: b and logsig(i) of the walk's two tiles and b of the own rows),
+// n_prev, and each warp's score scratch (float32 products): 96 KB at DH 128
+// in bf16 (two blocks an SM), 195 KB in float32.
+template <typename CT, int DH, bool F3 = false>
 struct OutTile {
   static constexpr int LD = DH + tc::pad<CT>();
   static constexpr bool EARLY = DH <= TR;  // the state leaves buffer 0 to the first key tile
   static constexpr int SCRATCH = par::scratch_floats<CT, TR / 8>();
+  static constexpr int GATES = F3 ? 5 * TR : 4 * LMAX;  // floats of the gate rows
   static constexpr size_t bytes =
-      sizeof(CT) * 5 * TR * LD + 4 * (4 * LMAX + DH + par::NTC / 32 * SCRATCH);
+      sizeof(CT) * 5 * TR * LD + 4 * (GATES + DH + par::NTC / 32 * SCRATCH);
 };
 static_assert(OutTile<float, 128>::bytes <= 232448, "a block's shared memory on Hopper");
 static_assert(OutTile<__nv_bfloat16, 128>::bytes <= 232448 / 2, "two blocks an SM");
@@ -319,71 +400,103 @@ static_assert(OutTile<__nv_bfloat16, 128>::bytes <= 232448 / 2, "two blocks an S
 //         max(|...|, e^{-m_comb})                                    (exp)
 // with qbar = (q e^b) scale (v1) or (q e^{(b + m_prev) - m_comb}) scale
 // (exp), rounded itself (not R(q) times the factor: scale is not a power
-// of two).  den_out (and, exp, ms.mcomb_out) per row where not null.
+// of two).  den_out (and, exp, ms.mcomb_out) per row where not null; F3:
+// den into sub.n_out, h and den of the sub-chunk's Lb rows only (h of
+// those before S).
 //
 // A block stages R(q) of its rows, R(C_prev), n_prev and the chunk's raw
 // gates in one cp.async group (through registers, rounding, where the
 // storage type is not the compute type), and turns the gates into b and
-// logsig(i).  Each warp then takes m_comb of its rows over the whole row of
-// the chunk (row_mcomb, exp), stages R(qbar) of its own rows, sums n_inter
-// from the unrounded qbar, and makes R(qbar) R(C_prev) on the tensor cores
-// into the accumulators of h.  Then it walks the key sub-tiles up to its
-// own, staged two deep by cp.async (par::walk_tiles), as parallel_fw_kernel
-// walks its key tiles: the (16 x TR) fragment R(q) R(k)^T, scaled in
-// registers to (s scale) D with one __expf a pair (only the diagonal
-// sub-tile masked, the exponent before the exp, which also masks the zero
-// columns past T_), its row sums for den, and the fragment packed to bf16
-// as the A operand of the product with R(v) (par::score_times): no score
-// tile goes to shared memory.  Blocks go heaviest first: blockIdx.y counts
-// the walk lengths down.
-template <typename T, typename CT, int DH, bool EXP>
+// logsig(i) (F3: b of its rows, made).  Each warp then takes m_comb of its
+// rows over the whole row of the chunk (row_mcomb, exp), stages R(qbar) of
+// its own rows, sums n_inter from the unrounded qbar, and makes R(qbar)
+// R(C_prev) on the tensor cores into the accumulators of h.  Then it walks
+// the key sub-tiles up to its own, staged two deep by cp.async
+// (par::walk_tiles; F3: with their gate rows), as parallel_fw_kernel walks
+// its key tiles: the (16 x TR) fragment R(q) R(k)^T, scaled in registers to
+// (s scale) D with one __expf a pair (only the diagonal sub-tile masked,
+// the exponent before the exp, which also masks the zero columns past T_),
+// its row sums for den, and the fragment packed to bf16 as the A operand of
+// the product with R(v) (par::score_times): no score tile goes to shared
+// memory.  Blocks go heaviest first: blockIdx.y counts the walk lengths
+// down (F3: blockIdx.y + 65535 blockIdx.z, past 65535 blocks).
+template <typename T, typename CT, int DH, bool EXP, bool F3 = false>
 __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ ig, const float* __restrict__ fg,
-    const float* __restrict__ c_states, const float* __restrict__ n_states, T* __restrict__ h,
-    float* __restrict__ den_out, int S, int L, float qk_scale, float eps, MState ms) {
-  using Tl = OutTile<CT, DH>;
+    const StateT<CT, F3>* __restrict__ c_states, const float* __restrict__ n_states,
+    T* __restrict__ h, float* __restrict__ den_out, int S, int L, float qk_scale, float eps,
+    MState ms, Sub sub) {
+  using Tl = OutTile<CT, DH, F3>;
   constexpr int LD = Tl::LD, NS = TR / 8, NJ = DH / 8, NTH = par::NTC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   CT* sq = reinterpret_cast<CT*>(smem_raw);  // (TR, LD) R(q)
   CT* wk = sq + TR * LD;                     // buffer b: R(k) at 2 b TR rows, R(v) after it
   CT* sqb = wk + 3 * TR * LD;                // (TR, LD) R(qbar), until the walk
   CT* sC = sqb - DH * LD;                    // (DH, LD) R(C_prev), until the walk
-  float* rfg = reinterpret_cast<float*>(wk + 4 * TR * LD);  // (LMAX) f of the chunk
+  float* fb = reinterpret_cast<float*>(wk + 4 * TR * LD);
+  float* rfg = fb;          // (LMAX) f of the chunk
   float* rig = rfg + LMAX;  // (LMAX) i
   float* sb = rig + LMAX;   // (LMAX) b
   float* sli = sb + LMAX;   // (LMAX) logsig(i) (exp: i)
-  float* sn = sli + LMAX;   // (DH) n_prev
+  float* sgb = fb;          // F3: 2 x (TR) b of the walk's tiles
+  float* sgl = fb + 2 * TR;  // F3: 2 x (TR) their logsig(i)
+  float* sob = fb + 4 * TR;  // F3: (TR) b of the own rows
+  float* sn = fb + Tl::GATES;  // (DH) n_prev
   float* scratch = sn + DH + threadIdx.x / 32 * Tl::SCRATCH;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int T_ = tile_rows(L), tiles = L / T_, NC = S / L;
-  const int lvl = blockIdx.y / NC, c = blockIdx.y - lvl * NC;
+  const int T_ = tile_rows(L), tiles = L / T_, NC = F3 ? sub.NS : S / L;
+  const int yid = F3 ? blockIdx.y + 65535 * blockIdx.z : blockIdx.y;
+  if (F3 && yid >= NC * tiles) return;
+  const int lvl = yid / NC, c = yid - lvl * NC;
   const int st = tiles - 1 - lvl;  // the sub-tile: the longest walks first
   const int bh = blockIdx.x;
-  const size_t t0 = (size_t)bh * S + (size_t)c * L;  // first row of the chunk
-  const size_t slot = (size_t)bh * NC + c;
+  // F3: batch hb, head hd of the (B, S, NH * DH) rows, ld elements apart
+  const int hb = F3 ? bh / sub.NH : bh, hd = F3 ? bh - hb * sub.NH : 0;
+  const int ld = F3 ? sub.NH * DH : DH;
+  const int c0r = F3 ? c * sub.Lb : c * L;                 // the chunk's first row
+  const int nv = F3 ? max(0, min(sub.Lb, S - c0r)) : L;  // its rows that hold data
+  const size_t t0 = (size_t)hb * S + c0r;  // first row of the chunk
+  const size_t slot = F3 ? ((size_t)hb * NC + c) * sub.NH + hd : (size_t)bh * NC + c;
   const int q0 = st * T_, l0 = 16 * warp;  // chunk row of the sub-tile, the warp's first row
   const bool active = l0 < T_;             // T_ is 16, 32 or 64: whole warps
   const float m_prev = EXP ? ms.m_states[slot] : 0.f;
-  const T* qc = q + t0 * DH;
-  const T* kc = k + t0 * DH;
-  const T* vc = v + t0 * DH;
+  const T* qc = q + t0 * ld + hd * DH;
+  const T* kc = k + t0 * ld + hd * DH;
+  const T* vc = v + t0 * ld + hd * DH;
+  const size_t grow = ((size_t)bh * NC + c) * L;  // F3: the chunk's gate rows
 
   auto prefetch = [&](int kt, int buf) {
     CT* dst = wk + 2 * buf * TR * LD;
-    par::stage_tile<T, CT, DH, LD, TR, NTH>(dst, kc, kt * T_, kt * T_ + T_);
-    par::stage_tile<T, CT, DH, LD, TR, NTH>(dst + TR * LD, vc, kt * T_, kt * T_ + T_);
+    if constexpr (F3) {  // rows past the sub-chunk or S zero, with their gate rows
+      const int r1 = min(kt * T_ + T_, nv);
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(dst, kc, kt * T_, r1, nullptr, 0.f, ld);
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(dst + TR * LD, vc, kt * T_, r1, nullptr, 0.f, ld);
+      for (int r = threadIdx.x; r < T_; r += NTH) {
+        tc::cp_async4(sgb + buf * TR + r, sub.b + grow + kt * T_ + r, true);
+        tc::cp_async4(sgl + buf * TR + r, sub.li + grow + kt * T_ + r, true);
+      }
+    } else {  // whole tiles: with F3's runtime bound here, sub-tile-0 blocks went
+              // wrong at 8+ chunks, DH 128, bf16 (cause not found; PERF.md §7)
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(dst, kc, kt * T_, kt * T_ + T_);
+      par::stage_tile<T, CT, DH, LD, TR, NTH>(dst + TR * LD, vc, kt * T_, kt * T_ + T_);
+    }
     tc::cp_async_commit();
   };
-  for (int r = threadIdx.x; r < L; r += NTH) {
-    tc::cp_async4(rfg + r, fg + t0 + r, true);
-    tc::cp_async4(rig + r, ig + t0 + r, true);
+  if constexpr (F3) {
+    for (int r = threadIdx.x; r < T_; r += NTH) tc::cp_async4(sob + r, sub.b + grow + q0 + r, true);
+  } else {
+    for (int r = threadIdx.x; r < L; r += NTH) {
+      tc::cp_async4(rfg + r, fg + t0 + r, true);
+      tc::cp_async4(rig + r, ig + t0 + r, true);
+    }
   }
   for (int r = threadIdx.x; r < DH; r += NTH) tc::cp_async4(sn + r, n_states + slot * DH + r, true);
-  par::stage_tile<T, CT, DH, LD, TR, NTH>(sq, qc, q0, q0 + T_);
-  par::stage_tile<float, CT, DH, LD, DH, NTH>(sC, c_states + slot * DH * DH, 0, DH);
+  if constexpr (F3) par::stage_tile<T, CT, DH, LD, TR, NTH>(sq, qc, q0, min(q0 + T_, nv), nullptr, 0.f, ld);
+  else par::stage_tile<T, CT, DH, LD, TR, NTH>(sq, qc, q0, q0 + T_);
+  par::stage_tile<StateT<CT, F3>, CT, DH, LD, DH, NTH>(sC, c_states + slot * DH * DH, 0, DH);
   tc::cp_async_commit();
   if constexpr (Tl::EARLY) {
     prefetch(0, 0);
@@ -392,8 +505,10 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
     tc::cp_async_wait<0>();
   }
   __syncthreads();
-  chunk_gates<EXP>(rig, rfg, L, sb, sli);
-  __syncthreads();
+  if constexpr (!F3) {
+    chunk_gates<EXP>(rig, rfg, L, sb, sli);
+    __syncthreads();
+  }
 
   float acc[NJ][4];
 #pragma unroll
@@ -403,14 +518,15 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int lr = l0 + g + 8 * hh, row = q0 + lr;  // the lane's row: in the tile, the chunk
-      rb[hh] = sb[row];
+      rb[hh] = F3 ? sob[lr] : sb[row];
       if constexpr (EXP) rm[hh] = row_mcomb(sb, sli, row, m_prev, t);
       const float qf = EXP ? expf((rb[hh] + m_prev) - rm[hh]) : expf(rb[hh]);
       float ni = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int cc = 8 * j + 2 * t;
-        const float2 x = tc::ld2(qc + (size_t)row * DH + cc);
+        const float2 x = (!F3 || row < nv) ? tc::ld2(qc + (size_t)row * ld + cc)
+                                           : make_float2(0.f, 0.f);
         const float a0 = (x.x * qf) * qk_scale, a1 = (x.y * qf) * qk_scale;
         tc::st2(sqb + lr * LD + cc, a0, a1);
         ni = fmaf(a0, sn[cc], ni);
@@ -433,6 +549,8 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
     if (!active) return;
     const CT* ck = wk + 2 * buf * TR * LD;
     const int k0 = kt * T_;
+    const float* tb = F3 ? sgb + buf * TR : sb + k0;   // the key tile's b
+    const float* tl = F3 ? sgl + buf * TR : sli + k0;  // and logsig(i) (exp: i)
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -444,8 +562,8 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         const int j = 8 * n + 2 * t;
-        const float2 bj = *reinterpret_cast<const float2*>(sb + k0 + j);
-        const float2 lj = *reinterpret_cast<const float2*>(sli + k0 + j);
+        const float2 bj = *reinterpret_cast<const float2*>(tb + j);
+        const float2 lj = *reinterpret_cast<const float2*>(tl + j);
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const int hh = x >> 1, e = x & 1;
@@ -469,13 +587,25 @@ __global__ void __launch_bounds__(par::NTC) fw_h_kernel(
     const float n_intra = tc::sum_over_cols(rsum[hh]);
     const float floor_ = EXP ? expf(-rm[hh]) : 1.f;
     const float den = fmaxf(fabsf(n_inter[hh] + n_intra), floor_);
-    const size_t r = t0 + q0 + l0 + g + 8 * hh;
-    if (t == 0 && den_out) den_out[r] = den;
-    if (EXP && t == 0 && ms.mcomb_out) ms.mcomb_out[r] = rm[hh];
+    const int rr = q0 + l0 + g + 8 * hh;  // the lane's row of the chunk
+    const size_t r = t0 + rr;
+    if constexpr (F3) {
+      if (rr >= sub.Lb) continue;  // padding past the sub-chunk
+      if (t == 0 && sub.n_out) {
+        const int cn = c / sub.NB, sub_c = c - cn * sub.NB;
+        sub.n_out[(((size_t)hb * (NC / sub.NB) + cn) * sub.NH + hd) * sub.NB * sub.Lb +
+                  sub_c * sub.Lb + rr] = den;
+      }
+      if (rr >= nv) continue;  // past S
+    } else {
+      if (t == 0 && den_out) den_out[r] = den;
+      if (EXP && t == 0 && ms.mcomb_out) ms.mcomb_out[r] = rm[hh];
+    }
     const float inv = den + eps;
+    T* hr = h + r * ld + hd * DH;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      tc::st2(h + r * DH + 8 * j + 2 * t, acc[j][2 * hh] / inv, acc[j][2 * hh + 1] / inv);
+      tc::st2(hr + 8 * j + 2 * t, acc[j][2 * hh] / inv, acc[j][2 * hh + 1] / inv);
   }
 }
 
@@ -941,11 +1071,11 @@ int launch_fw(const T* q, const T* k, const T* v, const float* i, const float* f
   if (err == cudaSuccess) err = port::allow_smem(fw_h_kernel<T, CT, DH, EXP>, out_bytes);
   if (err != cudaSuccess) return (int)err;
   fw_scan_kernel<T, CT, DH, EXP><<<dim3(BNH, DH / Scan::TRW), par::NTC, Scan::bytes, st>>>(
-      k, v, i, f, c0, n0, c_states, n_states, c_last, n_last, S, L, ms);
+      k, v, i, f, c0, n0, c_states, n_states, c_last, n_last, S, L, ms, Sub{});
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fw_h_kernel<T, CT, DH, EXP><<<dim3(BNH, S / tile_rows(L)), par::NTC, out_bytes, st>>>(
-      q, k, v, i, f, c_states, n_states, h, den, S, L, qk_scale, eps, ms);
+      q, k, v, i, f, c_states, n_states, h, den, S, L, qk_scale, eps, ms, Sub{});
   return (int)cudaGetLastError();
 }
 

@@ -68,20 +68,21 @@ __device__ __forceinline__ int heavy_first(int x, int n, bool queries) {
 constexpr int NTC = 128;  // threads of a forward or dQ block: 4 warps of 16 rows
 
 // The (ROWS, LD) tile dst[r * LD + c] = R(x[r0 + r, c]) of a (S, DH)
-// stream, zeros past S, by the NTH threads of a block: cp.async when T is
-// CT (the caller commits and waits), else through registers, rounded to CT
-// on the way in.  With den (T not CT only): R(x / (den + eps)), float32
-// division, then the rounding.
+// stream whose rows lie ld elements apart (DH unless given), zeros past S,
+// by the NTH threads of a block: cp.async when T is CT (the caller commits
+// and waits), else through registers, rounded to CT on the way in.  With
+// den (T not CT only): R(x / (den + eps)), float32 division, then the
+// rounding.
 template <typename T, typename CT, int DH, int LD, int ROWS = TR, int NTH = NTC>
 __device__ __forceinline__ void stage_tile(CT* dst, const T* __restrict__ x, int r0, int S,
                                            const float* __restrict__ den = nullptr,
-                                           float eps = 0.f) {
+                                           float eps = 0.f, int ld = DH) {
   if constexpr (std::is_same<T, CT>::value) {
     constexpr int E = 16 / sizeof(T), CR = DH / E;  // elements a copy, copies a row
     for (int e = threadIdx.x; e < ROWS * CR; e += NTH) {
       const int r = e / CR, c = E * (e - r * CR);
       const bool ok = r0 + r < S;
-      tc::cp_async16(dst + r * LD + c, ok ? x + (size_t)(r0 + r) * DH + c : x, ok);
+      tc::cp_async16(dst + r * LD + c, ok ? x + (size_t)(r0 + r) * ld + c : x, ok);
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * DH / 2; e += NTH) {
@@ -89,7 +90,7 @@ __device__ __forceinline__ void stage_tile(CT* dst, const T* __restrict__ x, int
       const int row = r0 + r;
       float2 val = make_float2(0.f, 0.f);
       if (row < S) {
-        val = tc::ld2(x + (size_t)row * DH + c);
+        val = tc::ld2(x + (size_t)row * ld + c);
         if (den) {
           const float dd = den[row] + eps;
           val.x /= dd;

@@ -11,12 +11,16 @@ so that the v2 backward takes them unchanged.
   (``_pack_gates_sub``), used by the plain version;
 - :func:`fw3_plain` — the plain version, any device, float64 too;
 - :func:`fw3` — CPU tensors go to the plain version, CUDA tensors to
-  ``csrc/chunkwise_fw3.cu``: a state pass (``fw3_states``) that writes the
-  state before every sub-chunk, then an output pass (``fw3_out``) with one
-  block per (batch, head, sub-chunk, tile of 64 rows).
+  ``csrc/chunkwise_fw3.cu``: the gate rows of every sub-chunk
+  (``fw3_gates``), a state pass on the tensor cores that writes the state
+  before every sub-chunk in the compute type (``fw3_states``), then an
+  output pass with one block per (batch, head, sub-chunk, tile of 64 rows)
+  (``fw3_out``); the two passes are the v1 forward's kernels
+  (``csrc/chunkwise_v1.cuh``) walking fw3's sub-chunks as their chunks.
 
 ``LAUNCHES_FW3`` (``save_states=False``) and ``LAUNCHES_FW3_TRAIN``
-(``save_states=True``) count kernel launches, two a call.
+(``save_states=True``) count kernel launches, ``LAUNCHES_PER_CALL`` (3) a
+call.
 """
 
 from __future__ import annotations
@@ -29,20 +33,22 @@ from xlstm_yolo_tpu_torch.ops.cuda_build import F as CF
 from xlstm_yolo_tpu_torch.ops.cuda_build import HEAD_DIMS, I, P
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
-__all__ = ["LAUNCHES_FW3", "LAUNCHES_FW3_TRAIN", "SUB_CHUNK", "fw3", "fw3_plain", "geometry",
-           "pack_gates_sub"]
+__all__ = ["LAUNCHES_FW3", "LAUNCHES_FW3_TRAIN", "LAUNCHES_PER_CALL", "SUB_CHUNK", "fw3",
+           "fw3_plain", "geometry", "pack_gates_sub", "walked_rows"]
 
-LAUNCHES_FW3 = 0        # kernel launches of the inference variant (two a call)
-LAUNCHES_FW3_TRAIN = 0  # kernel launches of the train variant (two a call)
+LAUNCHES_PER_CALL = 3   # the gate rows, the state pass, the output pass
+LAUNCHES_FW3 = 0        # kernel launches of the inference variant
+LAUNCHES_FW3_TRAIN = 0  # kernel launches of the train variant
 
 SUB_CHUNK = 128  # Lb when sub_chunk is None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _declare(lib):
-    lib.fw3_states.argtypes = [P] * 11 + [I] * 8 + [P]
-    lib.fw3_out.argtypes = [P] * 9 + [I] * 8 + [CF, CF, P]
-    lib.fw3_states.restype = lib.fw3_out.restype = I
+    lib.fw3_gates.argtypes = [P] * 3 + [I] * 5 + [P]
+    lib.fw3_states.argtypes = [P] * 10 + [I] * 8 + [P]
+    lib.fw3_out.argtypes = [P] * 8 + [I] * 8 + [CF, CF, P]
+    lib.fw3_gates.restype = lib.fw3_states.restype = lib.fw3_out.restype = I
 
 
 def _count(save_states: bool):
@@ -64,6 +70,14 @@ def geometry(S: int, chunk_size: int, sub_chunk: int | None):
     if L % Lb:
         Lb = L
     return L, Lb, -(-S // L), L // Lb
+
+
+def walked_rows(Lb: int) -> int:
+    """The rows the kernels walk for a sub-chunk of Lb rows: whole 64-row
+    tiles, or Lb rounded up to 16 below 64 (``padded`` in
+    ``csrc/chunkwise_fw3.cu``)."""
+    t = 64 if Lb >= 64 else -(-Lb // 16) * 16
+    return -(-Lb // t) * t
 
 
 def _check(q, k, v, i, f, num_heads, c_initial, n_initial, compute_dtype):
@@ -218,9 +232,11 @@ def fw3(q, k, v, i, f, num_heads: int, c_initial=None, n_initial=None, chunk_siz
     states float32.
 
     CPU tensors go through :func:`fw3_plain`.  CUDA tensors go through the
-    kernel, which takes DHQK = DHHV in ``HEAD_DIMS``, q/k/v float32 or
+    kernels, which take DHQK = DHHV in ``HEAD_DIMS``, q/k/v float32 or
     bfloat16, float32 gates and states, all contiguous and 16-byte
-    aligned; anything else raises.
+    aligned; anything else raises.  Besides the outputs they use a scratch
+    of the state before each sub-chunk, C in ``compute_dtype``, and the
+    gate rows, float32.
     """
     kw = dict(chunk_size=chunk_size, sub_chunk=sub_chunk, qk_scale=qk_scale, eps=eps,
               compute_dtype=compute_dtype, save_states=save_states)
@@ -239,30 +255,36 @@ def fw3(q, k, v, i, f, num_heads: int, c_initial=None, n_initial=None, chunk_siz
     cuda_build.check_kernel_inputs(*tensors)
     L, Lb, NC, NB = geometry(S, chunk_size, sub_chunk)
     NS = NC * NB
-    if NS > 65535:
-        raise ValueError(f"{NS} sub-chunks: the kernel takes at most 65535")
     if qk_scale is None:
         qk_scale = DH ** -0.5
     lib = cuda_build.load("chunkwise_fw3", _declare)
     dev = q.device
     empty = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)  # noqa: E731
-    c_scr, n_scr = empty(B, NS, NH, DH, DH), empty(B, NS, NH, DH)  # state before each sub-chunk
+    gates = empty((3 * walked_rows(Lb) + 1) * B * NH * NS)  # b, logsig(i), e^a; e^g
+    # the state before each sub-chunk: C in the compute type, n float32
+    c_scr = torch.empty(B, NS, NH, DH, DH, dtype=compute_dtype, device=dev)
+    n_scr = empty(B, NS, NH, DH)
     c_last, n_last = empty(B, NH, DH, DH), empty(B, NH, DH)
     h = torch.empty_like(q)
     n_out = cstates = None
     if save_states:
         n_out = empty(B, NC, NH, L)
-        cstates = c_scr if NB == 1 else empty(B, NC, NH, DH, DH)
-    dims = (B, S, NH, DH, L, Lb, _DTYPE_CODES[q.dtype], _DTYPE_CODES[compute_dtype])
-    with torch.cuda.device(dev):
-        cuda_build.launch(
-            lib.fw3_states, "fw3_states",
-            *cuda_build.pointers(k, v, i, f, c_initial, n_initial, c_scr, n_scr,
-                                 cstates if NB > 1 else None, c_last, n_last), *dims)
-        _count(save_states)
-        cuda_build.launch(
-            lib.fw3_out, "fw3_out",
-            *cuda_build.pointers(q, k, v, i, f, c_scr, n_scr, h, n_out), *dims,
-            float(qk_scale), float(eps))
-        _count(save_states)
+        alias = NB == 1 and compute_dtype == torch.float32  # c_scr is then cstates
+        cstates = c_scr if alias else empty(B, NC, NH, DH, DH)
+    dims = (B, S, NH, DH, L, Lb)
+    types = (_DTYPE_CODES[q.dtype], _DTYPE_CODES[compute_dtype])
+    d = dev.index if dev.index is not None else torch.cuda.current_device()
+    cuda_build.launch_on(lib.fw3_gates, "fw3_gates", d, *cuda_build.pointers(i, f, gates),
+                         B, S, NH, L, Lb)
+    _count(save_states)
+    cuda_build.launch_on(
+        lib.fw3_states, "fw3_states", d,
+        *cuda_build.pointers(k, v, c_initial, n_initial, gates, c_scr, n_scr,
+                             None if cstates is None or cstates is c_scr else cstates,
+                             c_last, n_last), *dims, *types)
+    _count(save_states)
+    cuda_build.launch_on(lib.fw3_out, "fw3_out", d,
+                         *cuda_build.pointers(q, k, v, gates, c_scr, n_scr, h, n_out),
+                         *dims, *types, float(qk_scale), float(eps))
+    _count(save_states)
     return h, n_out, cstates, c_last, n_last

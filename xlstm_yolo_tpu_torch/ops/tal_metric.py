@@ -8,7 +8,9 @@ kernel ``tal_metric`` in ``csrc/tal_metric.cu``:
 
 1. the strict in-box mask of each anchor centre in each gt, with ``mask_gt``;
 2. CIoU(gt, pred), clamped at 0 and masked, with each box's ``atan(w / h)``
-   computed here by one torch op that both paths share;
+   (a torch op in the plain version, as the JAX wrapper computes it; the
+   same quotient and ``atanf``, the function that op calls on the card, in
+   the kernel);
 3. the gt's class score, ``align = sqrt(s) * ((ov2 * ov2) * ov2)`` with
    ``ov2 = ov * ov`` (alpha 0.5, beta 6 fixed), and the top-k anchors of
    each gt as ``topk`` rounds of row max with the lowest index among ties,
@@ -17,9 +19,11 @@ kernel ``tal_metric`` in ``csrc/tal_metric.cu``:
 :func:`tal_metric_plain` follows the Pallas kernel's expression operation
 for operation, so the kernel, whose arithmetic is rounded operation by
 operation too, gives the same bits.  :func:`tal_metric` launches the kernel
-for CUDA tensors (or raises) and runs the plain version for CPU tensors.
-Forward only, as in JAX: the assigner runs without gradient.  ``LAUNCHES``
-counts kernel launches.
+for CUDA tensors (or raises) and runs the plain version for CPU tensors;
+its host side casts only operands not already in the kernel's types.  The
+kernel takes a row of the (B, M) gts as a thread-block cluster of
+:func:`cluster_size` CTAs.  Forward only, as in JAX: the assigner runs
+without gradient.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from xlstm_yolo_tpu_torch.ops import cuda_build
 from xlstm_yolo_tpu_torch.ops.cuda_build import F, I, P
 
-__all__ = ["LAUNCHES", "tal_metric", "tal_metric_plain"]
+__all__ = ["LAUNCHES", "cluster_size", "tal_metric", "tal_metric_plain"]
 
 LAUNCHES = 0  # launches of the metric-stage kernel
 
@@ -41,15 +45,27 @@ f32 = torch.float32
 
 
 def _declare(lib):
-    lib.tal_metric.argtypes = [P] * 12 + [I] * 5 + [F] * 4 + [P]
+    lib.tal_metric.argtypes = [P] * 10 + [I] * 7 + [F] * 4 + [P]
     lib.tal_metric.restype = I
 
 
-def _prepare(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk, topk_arr,
-             num_classes):
-    """float32 operands, the atan terms of both box sets (one shared torch
-    op each, as the JAX wrapper computes them), the clipped class index and
-    the per-sample k."""
+def cluster_size(rows: int) -> int:
+    """CTAs a row's cluster, each a slice of the anchors: the fewest of 1,
+    2, 4 and 8 that make at least ``CLUSTER_FILL`` CTAs in all, so that few
+    rows (B 8, M 8: 64) still spread over the card's 132 SMs.  Each CTA
+    more a row adds a level to the merge of the row's top-k; on an H100 at
+    640 px, B 8, topk 10, 4 CTAs a row took the least time at M 8 and 1 at
+    M 128 (PERF.md §6, the TAL metric's row)."""
+    n = 1
+    while n < 8 and rows * n < CLUSTER_FILL:
+        n *= 2
+    return n
+
+
+CLUSTER_FILL = 256  # CTAs a launch aims at: about two an SM
+
+
+def _check_shapes(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt):
     B, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
     if pd_bboxes.shape != (B, A, 4) or anc_points.shape != (A, 2):
@@ -57,6 +73,22 @@ def _prepare(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, to
                          f"{tuple(pd_bboxes.shape)} and {tuple(anc_points.shape)}")
     if gt_bboxes.shape != (B, M, 4) or gt_labels.shape != (B, M) or mask_gt.shape != (B, M):
         raise ValueError("gt_bboxes must be (B, M, 4), gt_labels and mask_gt (B, M)")
+    return B, M, A, nc
+
+
+def _as(t, dtype):
+    """t in dtype, contiguous: t itself where it already is (no torch op)."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _prepare(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk, topk_arr,
+             num_classes):
+    """The plain version's operands: float32, the atan terms of both box
+    sets (one torch op each, as the JAX wrapper computes them), the clipped
+    class index and the per-sample k."""
+    B, M, A, nc = _check_shapes(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt)
     pb = pd_bboxes.to(f32).contiguous()
     gb = gt_bboxes.to(f32).contiguous()
     atan_p = torch.atan((pb[..., 2] - pb[..., 0]) / (pb[..., 3] - pb[..., 1] + EPS_IOU))
@@ -152,21 +184,24 @@ def tal_metric(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt,
                                 topk=topk, num_classes=num_classes, eps=eps, topk_arr=topk_arr)
     if pd_scores.device.type != "cuda":
         raise ValueError(f"unsupported device {pd_scores.device}")
-    ops = _prepare(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt, topk,
-                   topk_arr, num_classes)
+    B, M, A, nc = _check_shapes(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt)
+    karr = None
+    if topk_arr is not None:
+        karr = _as(torch.as_tensor(topk_arr, device=pd_scores.device), torch.int32).reshape(B)
+    ops = (_as(pd_scores, f32), _as(pd_bboxes, f32), _as(anc_points, f32),
+           _as(gt_labels, torch.int32), _as(gt_bboxes, f32), _as(mask_gt, torch.bool), karr)
     cuda_build.check_kernel_inputs(*ops)
-    scores = ops[0]
-    B, A, nc = scores.shape
-    M = ops[4].shape[1]
-    align = torch.empty(B, M, A, dtype=f32, device=scores.device)
+    dev = pd_scores.device
+    align = torch.empty(B, M, A, dtype=f32, device=dev)
     overlaps = torch.empty_like(align)
-    mask_pos = torch.empty(B, M, A, dtype=torch.bool, device=scores.device)
+    mask_pos = torch.empty(B, M, A, dtype=torch.bool, device=dev)
     if B * M * A == 0:
         return align, overlaps, mask_pos.fill_(False)
     lib = cuda_build.load("tal_metric", _declare)
-    with torch.cuda.device(scores.device):
-        cuda_build.launch(lib.tal_metric, "tal_metric",
-                          *cuda_build.pointers(*ops, align, overlaps, mask_pos),
-                          B, M, A, nc, int(topk), float(eps), EPS_IOU, _4_PI2, 1.0 + EPS_IOU)
+    cuda_build.launch_on(lib.tal_metric, "tal_metric",
+                         dev.index if dev.index is not None else torch.cuda.current_device(),
+                         *cuda_build.pointers(*ops, align, overlaps, mask_pos),
+                         B, M, A, nc, int(num_classes), int(topk), cluster_size(B * M),
+                         float(eps), EPS_IOU, _4_PI2, 1.0 + EPS_IOU)
     LAUNCHES += 1
     return align, overlaps, mask_pos
