@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                tensor-core (HMMA) instructions of each kernel in the machine
                code (cuobjdump -sass; each of these libraries must show
                some, the v1 and exp forwards in both passes, their
-               backwards in the dC increments and dq/dk/dv); phases 28-34 run next, then 2-27;
+               backwards in the dC increments and dq/dk/dv); phases 28-34 run next, then
+               2-4, 35 and 5-27;
 2. kernel    - the chunkwise mLSTM inference kernel against its plain PyTorch
                version on the card at the flagship shapes (B 8, NH 12, DH 32,
                S 6400/1600/400/100 and a ragged 1000), float32 and bfloat16,
@@ -239,7 +240,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                combine) at (6656, 512) at every detector's widths, bf16, from torch.profiler traces, and each
                pass of the v2 forward and backward alone in CUDA-event
                windows (phase_passes_times; the times phases print them
-               beside each call's time).
+               beside each call's time);
+35. val      - the validation path: 48 PNG files of eight shapes (the val
+               pre-resize's ceil both ways, 2x and 3x downscales) written
+               with the port's writer; the letterboxed batch of 16 made on
+               the card and on the CPU byte-equal; YOLO("vil-det-192.yaml")
+               (bf16, perturbed ifgates, short random boxes: val_head) .val()
+               with save_json, its detections written back as the labels
+               (self_label), and .val() again: mAP50 >= 0.99 and mAP50-95
+               >= 0.95 (the 101-point AP of a perfect class is 0.995), 20
+               inference-kernel launches a batch in each pass; images per
+               second and the validator's split (decode + load, forward, host
+               matching + AP) (phase_val).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -801,6 +813,230 @@ def phase_predict(cw, yolo, n_images: int = 10):
     if launches != expected:
         raise AssertionError(f"predict made {launches} kernel launches, expected {expected}")
     return launches
+
+
+VAL_N = 48          # images of the val phase's synthetic set
+VAL_BATCH = 16      # the validator's default batch
+VAL_SHAPES = [(480, 640), (375, 500), (333, 500), (1080, 1920), (150, 200), (640, 640),
+              (97, 211), (960, 1280)]  # ceil pre-resize both ways, 2x and 3x downscales
+VAL_CONF = 0.25     # self-labels: usable detections scoring at least this (self_label),
+VAL_LABELS = 100    # at most this many an image (under max_targets, 128)
+VAL_CLS = (0.1, -2.0)  # the one-to-one class logits' kernel scale and bias (val_head)
+
+
+def write_val_set(root, n: int, seed: int):
+    """``n`` PNG images cycling through VAL_SHAPES (gradients plus noise) under
+    root/images/val, no labels; the dataset YAML (COCO's 80 names)."""
+    from pathlib import Path
+
+    import numpy as np
+    import yaml
+
+    from xlstm_yolo_tpu_torch.data.imread import imwrite_png
+    from xlstm_yolo_tpu_torch.engine.model import COCO_NAMES
+
+    root = Path(root)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    shapes = {}
+    for j in range(n):
+        h, w = VAL_SHAPES[j % len(VAL_SHAPES)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx * 3 + yy * 5) % 256], -1)
+        im = (base + rng.integers(-40, 40, (h, w, 3))).clip(0, 255).astype(np.uint8)
+        imwrite_png(root / "images" / "val" / f"val{j:03d}.png", im, level=1)
+        shapes[f"val{j:03d}"] = (h, w)
+    data = root / "val-set.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "val": "images/val",
+                                    "names": [COCO_NAMES[i] for i in range(80)]}))
+    return data, shapes
+
+
+def val_head(model, cls_scale: float, cls_bias: float):
+    """Make the random detector's one-to-one detections distinct boxes with
+    spread scores.
+
+    At random weights each side's DFL distance is ~7.5 bins, so most boxes
+    span the whole image once clipped; two of one class then give the same
+    label row, which the label dedup merges, and the second detection is a
+    false positive.  The box towers' last conv gets its kernel x 0.1 and a
+    bias ramp of -0.5 a bin (distances of ~1.5 bins).  The class logits
+    saturate the sigmoid: the class towers' last conv gets its kernel x
+    ``cls_scale`` and the bias ``cls_bias``."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.nn.head import Detect
+
+    head = next(m for m in model.modules() if isinstance(m, Detect))
+    with torch.no_grad():
+        for box, cls in zip(head.one2one_cv2, head.one2one_cv3):
+            box[-1].weight.mul_(0.1)
+            box[-1].bias.copy_(-0.5 * torch.arange(head.reg_max, dtype=torch.float32).repeat(4))
+            cls[-1].weight.mul_(cls_scale)
+            cls[-1].bias.fill_(cls_bias)
+
+
+def self_label(jdict, shapes: dict, labels_dir, imgsz: int) -> dict:
+    """Write each image's labels from its pass-1 detections (COCO rows,
+    best first), so that pass 2 must score every class present 0.995 (the
+    101-point AP of a perfect class).
+
+    A detection is usable as a label when it is at least 1 px wide and high
+    (the dataset drops a zero-width row, and the json's 3-decimal rounding
+    moves a thinner one by a large share of its size), its row does not
+    repeat an earlier row of its image (the dedup merges those), and its box
+    survives the trip through the label file at IoU >= 0.96: the validator
+    maps boxes back with h's ratio for both axes (JAX's ``scale_boxes``),
+    and ceil makes w's ratio differ (ratio_x below), so a label's x
+    coordinates come back scaled by ratio_x while its detection's do not.
+    AP is per class, so the cut is too: class c's labels are its usable
+    detections scoring at least VAL_CONF and above ``bar[c]``, the highest
+    score of an unusable detection of class c, raised where an image would
+    get more than VAL_LABELS (under max_targets).  Every detection of c above
+    its cut is then a label that it matches at every IoU threshold."""
+    from pathlib import Path
+
+    from xlstm_yolo_tpu_torch.data.augment import val_resized_shape
+
+    by_image = {stem: [] for stem in shapes}
+    for r in jdict:
+        by_image[r["image_id"]].append(r)
+    bar = {}
+    rows = {}
+    for stem, rs in by_image.items():
+        h, w = shapes[stem]
+        hr, wr = val_resized_shape((h, w), imgsz)
+        ratio_x = (wr / w) / (hr / h)
+        seen = set()
+        for r in rs:
+            x, y, bw, bh = r["bbox"]
+            text = (f"{r['category_id']} {(x + bw / 2) / w:.7f} {(y + bh / 2) / h:.7f} "
+                    f"{bw / w:.7f} {bh / h:.7f}\n")
+            gx1, gx2 = min(x * ratio_x, w), min((x + bw) * ratio_x, w)
+            iou = (max(0.0, min(x + bw, gx2) - max(x, gx1))
+                   / max(1e-9, max(x + bw, gx2) - min(x, gx1)))
+            if min(bw, bh) < 1.0 or text in seen or iou < 0.96:
+                bar[r["category_id"]] = max(bar.get(r["category_id"], 0.0), r["score"])
+            seen.add(text)
+            rows[id(r)] = text
+
+    def labels_of(rs):
+        return [r for r in rs
+                if r["score"] >= VAL_CONF and r["score"] > bar.get(r["category_id"], 0.0)]
+
+    for rs in by_image.values():  # at most VAL_LABELS an image
+        for r in labels_of(rs)[VAL_LABELS:]:
+            bar[r["category_id"]] = max(bar.get(r["category_id"], 0.0), r["score"])
+    counts = []
+    for stem, rs in by_image.items():
+        keep = labels_of(rs)
+        counts.append(len(keep))
+        Path(labels_dir, f"{stem}.txt").write_text("".join(rows[id(r)] for r in keep))
+    return {"classes_cut": len(bar), "per_image": counts,
+            "cut_median": sorted(bar.values())[len(bar) // 2] if bar else None}
+
+
+def phase_val(cw, card: str) -> int:
+    """YOLO("vil-det-192.yaml").val() on VAL_N PNG files written here.
+
+    1. The letterboxed uint8 batch of the first VAL_BATCH images, made on the
+       card and on the CPU from the same collated batch, byte-equal; the
+       validator's loader gives the same batch (labels, ratio_pad) as the
+       dataset's samples collated.
+    2. Pass 1 (bf16, random weights from seed 0, ifgates perturbed,
+       val_head) with save_json; each image's usable detections above its
+       class's cut (at least VAL_CONF) become its labels (self_label), all
+       of which the dataset keeps; pass 2 validates the same set against
+       them: mAP50 >= 0.99 and mAP50-95 >= 0.95.
+    3. Each pass launches the inference kernel 20 times a batch, the tail
+       batch padded (exact).
+    Returns the launches of both passes."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from xlstm_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
+    from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_val_")
+    try:
+        t = time.perf_counter()
+        data, shapes = write_val_set(root, VAL_N, seed=11)
+        write_s = time.perf_counter() - t
+
+        info = check_det_dataset(str(data))
+        yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
+        ds = build_yolo_dataset({"imgsz": yolo.imgsz}, info["val"])
+        batch = ds.collate([ds.get_sample(i) for i in range(min(VAL_BATCH, len(ds)))])
+        loader_batch = next(iter(build_dataloader(ds, VAL_BATCH, workers=0)))
+        on_card = ds.images(batch, "cuda").cpu()
+        on_cpu = ds.images(batch, "cpu")
+        pixels_equal = bool(torch.equal(on_card, on_cpu))
+        host_equal = (all((loader_batch[k] == batch[k]).all() for k in ("cls", "bboxes", "mask"))
+                      and loader_batch["ratio_pad"] == batch["ratio_pad"])
+        if not pixels_equal:
+            diff = (on_card.int() - on_cpu.int()).abs()
+            raise AssertionError(f"val pixels differ between the card and the CPU: "
+                                 f"{int((diff > 0).sum())} bytes, at most {int(diff.max())}")
+        if not host_equal:
+            raise AssertionError("the validator's loader batch differs from the samples")
+
+        perturb_ifgates(yolo.model, seed=8)
+        val_head(yolo.model, *VAL_CLS)
+        expected = math.ceil(VAL_N / VAL_BATCH) * cells_of(yolo.model)
+        passes = []
+        for k, kw in enumerate(({"save_json": True}, {})):
+            cw.LAUNCHES = 0
+            t = time.perf_counter()
+            res = yolo.val(data=str(data), batch=VAL_BATCH, workers=0, plots=True,
+                           save_dir=f"{root}/pass{k + 1}", **kw)
+            wall = time.perf_counter() - t
+            v = yolo.validator
+            passes.append({"results": res, "launches": cw.LAUNCHES, "seen": v.seen,
+                           "wall_s": wall, "images_per_s": v.seen / wall,
+                           "ms_per_image": v.speed,
+                           "decode_load_ms": v.speed["preprocess"],
+                           "forward_ms": v.speed["inference"],
+                           "post_metrics_ms": v.speed["postprocess"] + v.speed["metrics"],
+                           "detections": len(v.jdict)})
+            if k == 0:
+                labels = self_label(v.jdict, shapes, f"{root}/labels/val", yolo.imgsz)
+        label_rows = sum(labels["per_image"])
+        kept = int(sum(lab["cls"].size for lab in build_yolo_dataset(
+            {"imgsz": yolo.imgsz}, info["val"]).labels))
+        m = passes[1]["results"]
+        emit({"phase": "val", "cfg": "vil-det-192", "dtype": "bfloat16", "card": card,
+              "images": VAL_N, "batch": VAL_BATCH, "shapes": VAL_SHAPES,
+              "write_png_s": write_s, "pixels_equal": pixels_equal, "pixel_images": VAL_BATCH,
+              "cls_scale_bias": list(VAL_CLS), "label_cut_median": labels["cut_median"],
+              "classes_cut": labels["classes_cut"], "labels_written": label_rows,
+              "labels_kept": kept, "labels_per_image": [min(labels["per_image"]),
+                                                       max(labels["per_image"])],
+              "expected_launches": expected,
+              "pass1": passes[0], "pass2": passes[1],
+              "images_per_s": passes[1]["images_per_s"],
+              "note": "images_per_s: images over the wall time of one val call (dataset scan, "
+                      "PNG decode, device letterbox, forward, host matching and AP); "
+                      "ms_per_image: the validator's split"})
+        for p in passes:
+            if p["launches"] != expected:
+                raise AssertionError(f"a val pass made {p['launches']} inference-kernel "
+                                     f"launches, expected {expected}")
+            if p["seen"] != VAL_N:
+                raise AssertionError(f"a val pass saw {p['seen']} of {VAL_N} images")
+        if not (m["metrics/mAP50(B)"] >= 0.99 and m["metrics/mAP50-95(B)"] >= 0.95):
+            raise AssertionError(f"self-labelled val: mAP50 {m['metrics/mAP50(B)']}, mAP50-95 "
+                                 f"{m['metrics/mAP50-95(B)']} (need 0.99 and 0.95)")
+        if label_rows < VAL_N or kept != label_rows:
+            raise AssertionError(f"{label_rows} self-labels written on {VAL_N} images, "
+                                 f"{kept} kept by the dataset")
+        return sum(p["launches"] for p in passes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def compare_outputs(what: str, got, ref, rel: float, ref64=None) -> tuple[float, float]:
@@ -3935,6 +4171,7 @@ def main() -> int:
     yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
     perturb_ifgates(yolo.model, seed=8)
     launches = timed("predict", phase_predict, cw, yolo)
+    val_launches = timed("val", phase_val, cw, card)
     worst_train = timed("train_kernels", phase_train_kernels, cw, epi, ffn)
     timed("replay", phase_replay, cw, epi, ffn, steps)
     timed("e2e_grads", phase_e2e_grads, steps)
@@ -4075,7 +4312,8 @@ def main() -> int:
 
     pallas = "xlstm_yolo_tpu/ops/pallas"
     sources = {
-        "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245", launches, worst["bfloat16"]),
+        "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245", launches + val_launches,
+                         worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
         "epilogue_bw": ("epilogue_bw.cu", "epilogue.py:70"),
@@ -4099,9 +4337,10 @@ def main() -> int:
     launches_all["chunkwise_v1_fw"] += v1_predict_launches
     launches_all["chunkwise_exp_fw"] += exp_predict_launches
     notes = {
-        "chunkwise_fw": "predict path; times per forward at batch 8, bf16: the 20 calls (4 at "
-                        "S=6400, 6 at 1600, 6 at 400, 4 at 100) summed; launches in the predict "
-                        "of 10 images",
+        "chunkwise_fw": "predict and val paths; times per forward at batch 8, bf16: the 20 "
+                        "calls (4 at S=6400, 6 at 1600, 6 at 400, 4 at 100) summed; launches in "
+                        f"the predict of 10 images ({launches}) and the two val passes over "
+                        f"{VAL_N} images at batch {VAL_BATCH} ({val_launches})",
         "train": f"train path; launches over {TRAIN_STEPS} steps at batch 8, bf16 ({calls}); "
                  f"times per step: the calls at each S ({per_step_s['chunkwise_fw_train']} for "
                  "the forward) summed",
@@ -4136,6 +4375,8 @@ def main() -> int:
                "replaces": f"{pallas}/{replaces}",
                "launches": given[0] if given else launches_all[name], "max_abs_err": err,
                **sums(flag_t, name), "library_ms": None}
+        if name == "chunkwise_fw":
+            row["launches_val"] = val_launches
         if not given:
             row["max_rel_err"] = worst_all[name]["bfloat16"][1]
             row["max_rel_err_float32"] = worst_all[name]["float32"][1]

@@ -11,7 +11,10 @@ side stream), at head dims 16 and 32 (the flagship, vil-det-tiny), 64
 (vil-det-256) and 128 (vil-det-384), and the row kernels at all their
 widths; the fused TAL metric stage, the sLSTM scan (head dims 8 to 256,
 ragged batch groups, S 0 and 2048, and its launch plan), and the sub-chunked
-forward fw3 (both variants, and its states fed to the v2 backward).  This
+forward fw3 (both variants, and its states fed to the v2 backward); and the
+validation path: device and CPU letterboxed val pixels byte-equal,
+``vil-det-tiny``'s self-labelled val on the card, and a ``.pt`` checkpoint
+of ``vil-det-192`` loaded back.  This
 file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
@@ -1370,3 +1373,97 @@ def test_fw3_kernels_match_plain_on_gpu(dtype, compute):
         assert_rel_close([n_out], [den], 1e-4 if dt == torch.float32 else 2e-2)
         got = chunkwise_v2.mlstm_siging_chunkwise_bw(*args[:6], cstates, n_out, dh, dcl, eps=EPS)
         assert_grads_close(got, ref, dt)
+
+
+# -- the validation path ------------------------------------------------------
+
+VAL_SHAPES = [(480, 640), (375, 500), (333, 500), (1080, 1920), (150, 200), (640, 640),
+              (97, 211), (960, 1280)]
+
+
+def write_png_set(root, shapes, seed):
+    """PNG images (gradients plus noise) of ``shapes``, no labels; the
+    dataset YAML (80 classes)."""
+    import yaml
+
+    from xlstm_yolo_tpu_torch.data.imread import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for j, (h, w) in enumerate(shapes):
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) % 256], -1)
+        im = (base + rng.integers(-40, 40, (h, w, 3))).clip(0, 255).astype(np.uint8)
+        imwrite_png(root / "images" / "val" / f"im{j:02d}.png", im, level=1)
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "val": "images/val",
+                                    "names": [f"c{i}" for i in range(80)]}))
+    return data
+
+
+@pytest.mark.cuda
+def test_val_pixels_on_gpu_equal_cpu(tmp_path):
+    """The val pre-resize and letterbox on the card give the CPU's bytes
+    (which equal OpenCV's: tests/test_torch_val.py), 2x area-path
+    downscales and ceil upscales included."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+
+    data = write_png_set(tmp_path, VAL_SHAPES, seed=1)
+    ds = YOLODataset(check_det_dataset(str(data))["val"], imgsz=640)
+    batch = ds.collate([ds.get_sample(i) for i in range(len(ds))])
+    on_gpu = ds.images(batch, "cuda")
+    assert on_gpu.is_cuda and on_gpu.shape == (len(VAL_SHAPES), 640, 640, 3)
+    assert torch.equal(on_gpu.cpu(), ds.images(batch, "cpu"))
+
+
+@pytest.mark.cuda
+def test_tiny_self_labelled_val_on_gpu(tmp_path):
+    """vil-det-tiny (bf16, the port's random weights with short boxes) on the
+    card: its top 20 detections an image written back as labels, then
+    validated at max_det 20: mAP50-95 >= 0.95, 14 launches a batch."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+    from xlstm_yolo_tpu_torch.nn.head import Detect
+
+    shapes = [(120, 160), (97, 211), (160, 160), (200, 150), (75, 100), (333, 500), (64, 48),
+              (150, 200)]
+    data = write_png_set(tmp_path / "set", shapes, seed=2)
+    yolo = YOLO("vil-det-tiny.yaml")
+    head = next(m for m in yolo.model.modules() if isinstance(m, Detect))
+    with torch.no_grad():  # distances of ~1.5 DFL bins: distinct boxes once clipped
+        for box in head.one2one_cv2:
+            box[-1].weight.mul_(0.1)
+            box[-1].bias.copy_(-0.5 * torch.arange(16.0).repeat(4))
+    chunkwise_v2.LAUNCHES = 0
+    yolo.val(data=str(data), batch=4, workers=0, save_json=True, save_dir=tmp_path / "pass1")
+    assert chunkwise_v2.LAUNCHES == 2 * 14
+    for j, (h, w) in enumerate(shapes):
+        rows = [r for r in yolo.validator.jdict if r["image_id"] == f"im{j:02d}"][:20]
+        (tmp_path / "set" / "labels" / "val" / f"im{j:02d}.txt").write_text("".join(
+            f"{r['category_id']} {(r['bbox'][0] + r['bbox'][2] / 2) / w:.7f} "
+            f"{(r['bbox'][1] + r['bbox'][3] / 2) / h:.7f} {r['bbox'][2] / w:.7f} "
+            f"{r['bbox'][3] / h:.7f}\n" for r in rows))
+    res = yolo.val(data=str(data), batch=4, workers=0, max_det=20)
+    assert yolo.validator.seen == len(shapes)
+    assert res["metrics/mAP50-95(B)"] >= 0.95, res
+
+
+@pytest.mark.cuda
+def test_pt_checkpoint_round_trip_on_gpu(tmp_path):
+    """A saved vil-det-192 state dict loads back through YOLO(".pt") on the
+    card, tensor for tensor (no forward)."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    yolo = YOLO("vil-det-192.yaml")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sd = {k: (v + torch.rand(v.shape, generator=g, device=v.device) if v.is_floating_point()
+              else v).cpu() for k, v in yolo.model.state_dict().items()}
+    torch.save({"ema": sd, "model": None}, tmp_path / "w.pt")
+    back = YOLO(str(tmp_path / "w.pt"))
+    got = back.model.state_dict()
+    assert back.device.type == "cuda" and got.keys() == sd.keys()
+    for k, v in got.items():
+        assert v.is_cuda and torch.equal(v.cpu(), sd[k]), k

@@ -7,9 +7,10 @@ its layout and never imports it or JAX:
 - ``ops``    — the chunkwise mLSTM: plain PyTorch versions and the
                hand-written CUDA kernel (``csrc/chunkwise_fw.cu``);
 - ``nn``     — ViL layers, YAML blocks, the v10 head, the graph compiler;
-- ``engine`` — the ``YOLO`` facade, predictor and results;
-- ``data``   — device letterbox;
-- ``utils``  — anchors, box scaling, weight conversion from the JAX tree.
+- ``engine`` — the ``YOLO`` facade, predictor, validator and results;
+- ``data``   — PNG reading, the val dataset and loader, device letterbox;
+- ``utils``  — anchors, box scaling, metrics, weight conversion from the
+               JAX tree.
 """
 
 __version__ = "0.1.0"

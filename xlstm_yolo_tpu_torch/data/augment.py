@@ -1,7 +1,10 @@
 """Letterbox on the device (counterpart of ``LetterBox`` in
-``xlstm_yolo_tpu/data/augment.py``).
+``xlstm_yolo_tpu/data/augment.py``) and the val pre-resize.
 
-The geometry (new size, ratio, padding) is the JAX package's.  The resize
+The geometry (new size, ratio, padding) is the JAX package's, and so is
+the way boxes move through it (``scale_labels``, ``offset_labels``:
+JAX's ``_scale_labels`` / ``_offset_labels``, detect boxes only), on the
+host: label geometry needs no pixels.  The resize
 is OpenCV's ``cv2.resize(..., INTER_LINEAR)`` for 3-channel uint8 images,
 computed in integer arithmetic with torch on the tensor's own device, so
 the pixels equal OpenCV's exactly:
@@ -19,6 +22,7 @@ the pixels equal OpenCV's exactly:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -57,6 +61,29 @@ def resize_linear_u8(img: torch.Tensor, width: int, height: int) -> torch.Tensor
     return ((out + 2) >> 2).clamp_(0, 255).to(torch.uint8)
 
 
+def val_resized_shape(shape: tuple[int, int], imgsz: int) -> tuple[int, int]:
+    """(h, w) an image of ``shape`` is resized to before the val letterbox:
+    the long side to ``imgsz``, up or down, each side ``ceil(side * r)``
+    capped at ``imgsz`` (JAX ``YOLODataset.get_sample``, the reference's
+    ``load_image``); the shape itself when the long side is ``imgsz``."""
+    h0, w0 = shape
+    r = imgsz / max(h0, w0)
+    if r == 1:
+        return h0, w0
+    return min(math.ceil(h0 * r), imgsz), min(math.ceil(w0 * r), imgsz)
+
+
+def scale_labels(labels: dict, r: float) -> dict:
+    return {**labels, "bboxes": labels["bboxes"] * r}
+
+
+def offset_labels(labels: dict, dx: int, dy: int) -> dict:
+    b = labels["bboxes"].copy()
+    b[:, [0, 2]] += dx
+    b[:, [1, 3]] += dy
+    return {**labels, "bboxes": b}
+
+
 @dataclass
 class LetterBox:
     """Aspect-preserving resize + constant padding to ``new_shape``."""
@@ -90,6 +117,15 @@ class LetterBox:
         top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
         left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
         return new_unpad, ratio, (left, top, right, bottom)
+
+    def place_labels(self, labels: dict, shape: tuple[int, int]):
+        """Move xyxy pixel ``labels`` of an image of ``shape`` (h, w) into the
+        letterboxed frame: (labels, (ratio, (left, top)))."""
+        _, ratio, (left, top, _, _) = self.geometry(shape)
+        r = min(self.new_shape[0] / shape[0], self.new_shape[1] / shape[1])
+        if not self.scaleup:
+            r = min(r, 1.0)
+        return offset_labels(scale_labels(labels, r), left, top), (ratio, (left, top))
 
     def __call__(self, img: torch.Tensor):
         """uint8 (H, W, 3) tensor -> (letterboxed uint8 tensor, ratio, (left, top))."""

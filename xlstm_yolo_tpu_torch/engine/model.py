@@ -1,13 +1,18 @@
-"""Public facade: ``YOLO('vil-det-192.yaml').predict(images)``.
+"""Public facade: ``YOLO('vil-det-192.yaml').predict(images)``,
+``YOLO('weights.pt').val(data='set.yaml')``.
 
-Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` in
+Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` / ``val`` in
 ``xlstm_yolo_tpu/engine/model.py``.  The model runs on the GPU unless the
 caller passes ``device="cpu"``, its mLSTM cells on ``chunkwise_kernel``
-(``"auto"``: the v2 kernels; ``nn.tasks.resolve_chunkwise_kernel``).  It is
-built from the YAML with random weights from seed 0, as the JAX facade's
-``PRNGKey(0)`` (checkpoint loading is not ported yet: load a state dict
-into ``YOLO.model`` for trained weights, or call
-``build_detection_model(generator=...)``).
+(``"auto"``: the v2 kernels; ``nn.tasks.resolve_chunkwise_kernel``).  A
+model YAML is built with random weights from seed 0, as the JAX facade's
+``PRNGKey(0)``.  A ``.pt`` checkpoint builds ``vil-det-192.yaml``, as the
+JAX facade does, and loads the checkpoint's ``ema`` (else ``model``, else
+the file itself) as a state dict in the reference's names:
+``torch.load(weights_only=True)``, so a checkpoint that pickles module
+objects is refused; the keys JAX's converter ignores (``.dfl.``,
+``num_batches_tracked``) are dropped, and any other missing or extra key
+raises (``load_state_dict(strict=True)``).
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from typing import Any
 
 import torch
 
+from xlstm_yolo_tpu_torch.cfg import VAL_DEFAULTS
 from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
 from xlstm_yolo_tpu_torch.nn.tasks import CFG_MODELS, build_detection_model
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
@@ -41,8 +48,19 @@ COCO_NAMES = {
 }
 
 
+def load_checkpoint_state(path: str | Path, model: torch.nn.Module) -> dict:
+    """The state dict of a ``.pt`` checkpoint, without the keys the JAX
+    converter ignores that ``model`` does not hold."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    tm = ckpt.get("ema") or ckpt.get("model") or ckpt
+    sd = tm.state_dict() if hasattr(tm, "state_dict") else tm
+    held = model.state_dict()
+    return {k: v for k, v in sd.items()
+            if k in held or not (".dfl." in k or k.endswith("num_batches_tracked"))}
+
+
 class YOLO:
-    """User-facing facade (detect task, predict mode)."""
+    """User-facing facade (detect task: predict and val)."""
 
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
@@ -53,22 +71,30 @@ class YOLO:
         self.device = select_device(device)
         self.overrides: dict[str, Any] = {}
         self.names = dict(COCO_NAMES)
-        self.model_cfg = self._resolve(model)
+        self.model_cfg, self.ckpt_path = self._resolve(model)
         self.model, d = build_detection_model(
             self.model_cfg, compute_dtype=compute_dtype, device=self.device,
             generator=torch.Generator().manual_seed(0), chunkwise_kernel=chunkwise_kernel)
+        if self.ckpt_path:
+            self.model.load_state_dict(load_checkpoint_state(self.ckpt_path, self.model),
+                                       strict=True)
         self.imgsz = int(d.get("imgsz", 640))
 
     @staticmethod
-    def _resolve(model) -> str:
+    def _resolve(model) -> tuple[str, str | None]:
+        """(model YAML, checkpoint path or None)."""
         p = Path(model)
+        if p.suffix == ".pt":
+            if not p.is_file():
+                raise FileNotFoundError(f"checkpoint not found: {model}")
+            return str(CFG_MODELS / "vil-det-192.yaml"), str(p)
         if p.suffix not in {".yaml", ".yml"}:
-            raise NotImplementedError(f"only model YAMLs load so far, got {model!r}")
+            raise NotImplementedError(f"only model YAMLs and .pt checkpoints load, got {model!r}")
         if not p.exists() and (CFG_MODELS / p.name).exists():
             p = CFG_MODELS / p.name
         if not p.exists():
             raise FileNotFoundError(f"model yaml not found: {model}")
-        return str(p)
+        return str(p), None
 
     def predict(self, source=None, stream: bool = False, **kwargs):
         args = {"imgsz": self.imgsz, **self.overrides, **kwargs}
@@ -76,3 +102,13 @@ class YOLO:
 
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
+
+    def val(self, data=None, **kwargs) -> dict:
+        """Validate on ``data`` (a dataset YAML or dict) with keys of
+        ``VAL_DEFAULTS``; ``imgsz`` defaults to the model YAML's, as in
+        ``predict``.  Returns ``results_dict``; ``self.validator`` keeps
+        ``speed``, ``seen``, ``confusion_matrix`` and ``jdict``."""
+        args = {**VAL_DEFAULTS, "imgsz": self.imgsz, **self.overrides, **kwargs,
+                **({"data": data} if data else {})}
+        self.validator = DetectionValidator(args)
+        return self.validator(self.model)
