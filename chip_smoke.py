@@ -251,7 +251,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                >= 0.95 (the 101-point AP of a perfect class is 0.995), 20
                inference-kernel launches a batch in each pass; images per
                second and the validator's split (decode + load, forward, host
-               matching + AP) (phase_val).
+               matching + AP) (phase_val);
+36. train_loop - the trainer: YOLO("vil-det-192.yaml").train() on 64 train
+               PNG files with random labels and 16 val ones written here,
+               from pretrained random weights (val's ifgates and val_head)
+               whose val detections label the val split (self_label), 640 px,
+               batch 16, nbs 32 (accumulate 2), 3 epochs (the mosaic off in
+               the third), optimizer auto (AdamW), 4 spawned loader
+               workers, bf16: a mosaic and a plain batch composed on the card
+               byte-equal to the CPU; exact launches a step (accumulate x the
+               train phase's) and a val batch (20); finite losses;
+               results.csv, last, best and their stripped files; the
+               checkpoint round trip bit-equal; a resume from the epoch-2
+               checkpoint reading the same files with its first loss within
+               1e-3; mAP50 > 0 in every validation; best_stripped.pt equal to
+               best.pt's EMA tensors, and its .val() equal to the trainer's
+               final metrics to 1e-6; images per second, the loader-wait share, the
+               workers' ms per image, the composition ms per batch
+               (phase_train_loop; runs after train).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -274,6 +291,7 @@ import contextlib
 import copy
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -824,9 +842,11 @@ VAL_LABELS = 100    # at most this many an image (under max_targets, 128)
 VAL_CLS = (0.1, -2.0)  # the one-to-one class logits' kernel scale and bias (val_head)
 
 
-def write_val_set(root, n: int, seed: int):
-    """``n`` PNG images cycling through VAL_SHAPES (gradients plus noise) under
-    root/images/val, no labels; the dataset YAML (COCO's 80 names)."""
+def write_val_set(root, n: int, seed: int, split: str = "val", boxes: int = 0,
+                  shapes=VAL_SHAPES):
+    """``n`` PNG images cycling through ``shapes`` (gradients plus noise)
+    under root/images/<split>, with up to ``boxes`` random labels each (none
+    by default); the dataset YAML (COCO's 80 names, the split as val)."""
     from pathlib import Path
 
     import numpy as np
@@ -836,21 +856,27 @@ def write_val_set(root, n: int, seed: int):
     from xlstm_yolo_tpu_torch.engine.model import COCO_NAMES
 
     root = Path(root)
-    (root / "images" / "val").mkdir(parents=True)
-    (root / "labels" / "val").mkdir(parents=True)
+    (root / "images" / split).mkdir(parents=True)
+    (root / "labels" / split).mkdir(parents=True)
     rng = np.random.default_rng(seed)
-    shapes = {}
+    written = {}
     for j in range(n):
-        h, w = VAL_SHAPES[j % len(VAL_SHAPES)]
+        h, w = shapes[j % len(shapes)]
         yy, xx = np.mgrid[0:h, 0:w]
         base = np.stack([xx * 255 // w, yy * 255 // h, (xx * 3 + yy * 5) % 256], -1)
         im = (base + rng.integers(-40, 40, (h, w, 3))).clip(0, 255).astype(np.uint8)
-        imwrite_png(root / "images" / "val" / f"val{j:03d}.png", im, level=1)
-        shapes[f"val{j:03d}"] = (h, w)
-    data = root / "val-set.yaml"
-    data.write_text(yaml.safe_dump({"path": str(root), "val": "images/val",
+        imwrite_png(root / "images" / split / f"{split}{j:03d}.png", im, level=1)
+        written[f"{split}{j:03d}"] = (h, w)
+        if boxes:
+            rows = [f"{int(rng.integers(0, 80))} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}\n"
+                    for cx, cy, bw, bh in zip(*rng.uniform((0.2, 0.2, 0.05, 0.05),
+                                                           (0.8, 0.8, 0.4, 0.4),
+                                                           (int(rng.integers(1, boxes + 1)), 4)).T)]
+            (root / "labels" / split / f"{split}{j:03d}.txt").write_text("".join(rows))
+    data = root / f"{split}-set.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "val": f"images/{split}",
                                     "names": [COCO_NAMES[i] for i in range(80)]}))
-    return data, shapes
+    return data, written
 
 
 def val_head(model, cls_scale: float, cls_bias: float):
@@ -1035,6 +1061,316 @@ def phase_val(cw, card: str) -> int:
             raise AssertionError(f"{label_rows} self-labels written on {VAL_N} images, "
                                  f"{kept} kept by the dataset")
         return sum(p["launches"] for p in passes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+LOOP_TRAIN, LOOP_VAL = 64, 16  # train_loop's synthetic PNG set
+# wider, taller, square, smaller and larger than 640 px; the val set's
+# 1080p and 960p images cost the phase ~10 s of PNG writing and decoding
+LOOP_SHAPES = [(480, 640), (375, 500), (640, 640), (150, 200), (97, 211), (720, 540)]
+LOOP_CLS = (0.3, -1.0)  # val_head's class scale and bias for train_loop's start: the
+# trained detector's scores still spread past VAL_CONF (its BatchNorm statistics
+# shrink the features that phase_val's VAL_CLS reads)
+LOOP_ARGS = dict(imgsz=640, batch=16, nbs=32, epochs=3, close_mosaic=1, optimizer="auto",
+                 workers=4, amp=True, seed=0, exist_ok=True)
+
+
+def loop_state(state) -> list:
+    """Every tensor and number of a train state, in order (copies)."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.utils.checkpoint import _leaves
+
+    return ([p.detach().clone() for p in state.params.values()]
+            + [b.clone() for b in state.batch_stats.values()]
+            + [e.clone() for e in state.ema.params]
+            + [x.clone() if torch.is_tensor(x) else x for x in _leaves(state.opt_state)]
+            + [state.step, state.ema.updates])
+
+
+def loop_pixels(trainset) -> dict:
+    """One mosaic batch and one batch with the mosaic off, composed on the
+    card and on the CPU from the same recipes: byte-equal.  Times each
+    composition (the card's with a synchronise, best of 5; the CPU's once)."""
+    import random
+
+    import torch
+
+    from xlstm_yolo_tpu_torch.data.pixels import compose_batch
+
+    out = {}
+    tf = trainset.transforms
+    for kind, enabled in (("mosaic", True), ("no_mosaic", False)):
+        tf.mosaic_enabled = enabled
+        rng = random.Random(17)
+        b = trainset.collate([trainset.get_sample(i, rng) for i in range(LOOP_ARGS["batch"])])
+        on_card = compose_batch(b["recipe"], b["tiles"], "cuda")
+        t = time.perf_counter()
+        on_cpu = compose_batch(b["recipe"], b["tiles"], "cpu")
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        diff = int((on_card.cpu() != on_cpu).sum())
+        card_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            compose_batch(b["recipe"], b["tiles"], "cuda")
+            torch.cuda.synchronize()
+            card_ms.append((time.perf_counter() - t) * 1e3)
+        out[kind] = {"bytes_differing": diff, "images": len(b["recipe"]),
+                     "card_ms_per_batch": min(card_ms), "cpu_ms_per_batch": cpu_ms,
+                     "mosaics": sum(len(r["canvas"]["tiles"]) > 1 for r in b["recipe"])}
+        if diff:
+            raise AssertionError(f"train pixels ({kind}) differ between the card and the CPU "
+                                 f"in {diff} bytes")
+    tf.mosaic_enabled = True
+    return out
+
+
+def phase_train_loop(cw, epi, ffn, card: str) -> dict:
+    """YOLO("vil-det-192.yaml").train() on a synthetic PNG set written here
+    (LOOP_TRAIN train images with random labels and LOOP_VAL val images,
+    COCO's 80 names): imgsz 640, batch 16, nbs 32 (accumulate 2), 3 epochs
+    with close_mosaic 1, optimizer auto (AdamW at this length), 4 spawned
+    loader workers, bf16, seed 0, from ``pretrained`` weights: random ones
+    with phase_val's ifgates and val_head (LOOP_CLS), so that the trained detector's
+    val detections are usable labels (self_label).  Random labels score 0
+    whatever the weights; labels made before training score ~0 too, as
+    the BatchNorm statistics' moves in 12 microbatches reorder the random
+    detector's detections (mAP50 < 0.001 on the card).
+
+    1. A mosaic batch and a batch with the mosaic off: the pixels composed on
+       the card equal those composed on the CPU, byte for byte.
+    2. Each optimizer step launches each training kernel exactly
+       accumulate times its per-step count (expected_step_launches), and no
+       inference kernel; each val batch 20 inference launches (the tail
+       batch padded).
+    3. Every loss is finite.
+    4. results.csv has 3 rows; last, best and their stripped files exist.
+    5. load_checkpoint(save_checkpoint(state)) restores every tensor bit for
+       bit, and the step, epoch and best fitness.
+    6. A second trainer resumes from the checkpoint of epoch 2 (a snapshot
+       taken by a callback): it starts at epoch 3, reads the same im_file
+       lists a step, and its first step's loss is within 1e-3 relative of
+       the uninterrupted run's.
+    7. YOLO(best_stripped.pt) loads strictly; its tensors equal best.pt's
+       EMA parameters and BatchNorm statistics; its val returns the
+       trainer's final metrics to 1e-6.  Its detections then label the val
+       split (self_label), and its val (mAP50 >= 0.9) equals, to 1e-6, the
+       trainer's final validation repeated on those labels: its validator
+       settings on its eval twin, which holds best.pt's EMA.
+    Prints images per second, the share of the loop spent waiting on the
+    loader, the workers' decode and recipe ms per image, the card's
+    composition ms per batch."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import yaml
+
+    from xlstm_yolo_tpu_torch.cfg import get_cfg
+    from xlstm_yolo_tpu_torch.data.build import build_yolo_dataset
+    from xlstm_yolo_tpu_torch.engine.model import COCO_NAMES, YOLO
+    from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
+    from xlstm_yolo_tpu_torch.utils import checkpoint
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        t = time.perf_counter()
+        write_val_set(root, LOOP_TRAIN, seed=21, split="train", boxes=6, shapes=LOOP_SHAPES)
+        _, shapes = write_val_set(root, LOOP_VAL, seed=22, split="val", boxes=6,
+                                  shapes=LOOP_SHAPES)
+        data = root / "data.yaml"
+        data.write_text(yaml.safe_dump({"path": str(root), "train": "images/train",
+                                        "val": "images/val",
+                                        "names": [COCO_NAMES[i] for i in range(80)]}))
+        write_s = time.perf_counter() - t
+
+        init = YOLO("vil-det-192.yaml")
+        perturb_ifgates(init.model, seed=8)
+        val_head(init.model, *LOOP_CLS)
+        torch.save(init.model.state_dict(), root / "init.pt")
+        del init
+
+        args = {**LOOP_ARGS, "pretrained": str(root / "init.pt")}
+        trainset = build_yolo_dataset(get_cfg(overrides={"imgsz": args["imgsz"]}),
+                                      str(root / "images" / "train"), mode="train")
+        pixels = loop_pixels(trainset)
+
+        def run(name, snap_after=None, **kw):
+            """YOLO(...).train() with callbacks that count each step's and
+            each val's launches and keep each step's loss and files."""
+            log = {"steps": [], "loss": [], "files": [], "val": [], "mark": None}
+
+            def on_start(tr):
+                log["mark"] = counts(cw, epi, ffn)
+
+            def on_step(tr):
+                now = counts(cw, epi, ffn)
+                log["steps"].append({k: now[k] - log["mark"][k] for k in now})
+                log["mark"] = now
+                log["loss"].append({k: float(v) for k, v in tr.losses[-1].items()})
+                log["files"].append(tr.step_files[-1])
+
+            def on_epoch_end(tr):
+                now = counts(cw, epi, ffn)
+                log["val"].append(now["chunkwise_fw"] - log["mark"]["chunkwise_fw"])
+                log["mark"] = now
+                if tr.epoch == snap_after:
+                    shutil.copytree(tr.wdir, root / "snap" / "weights")
+                    shutil.copy(tr.csv_path, root / "snap" / "results.csv")
+
+            y = YOLO("vil-det-192.yaml")
+            y.add_callback("on_train_epoch_start", on_start)
+            y.add_callback("on_train_batch_end", on_step)
+            y.add_callback("on_fit_epoch_end", on_epoch_end)
+            zero_counts(cw, epi, ffn)
+            t0 = time.perf_counter()
+            metrics = y.train(data=str(data), project=str(root), name=name, **args, **kw)
+            torch.cuda.synchronize()
+            log["wall_s"] = time.perf_counter() - t0
+            log["final_val_launches"] = cw.LAUNCHES - sum(log["val"])
+            log["totals"] = counts(cw, epi, ffn)
+            return y.trainer, metrics, log
+
+        tr, metrics, log = run("full", snap_after=1)
+        expected = expected_step_launches(tr.model)
+        cells = cells_of(tr.eval_model)
+        acc = tr.accumulate
+        val_batches = math.ceil(LOOP_VAL / LOOP_ARGS["batch"])
+        want = {k: v * acc for k, v in expected.items()}
+        bad_steps = [s for s in log["steps"]
+                     if s["chunkwise_fw"] != 0 or any(s[k] != want[k] for k in KERNELS)]
+        losses_finite = all(math.isfinite(v) for m in log["loss"] for v in m.values())
+        rows = tr.csv_path.read_text().splitlines()
+        files = {f: (tr.wdir / f).is_file() for f in ("last.pt", "best.pt", "last_stripped.pt",
+                                                       "best_stripped.pt")}
+
+        # checkpoint round trip into the live state: save, disturb, load
+        st = tr.state
+        before = loop_state(st)
+        path = checkpoint.save_checkpoint(root / "rt.pt", st, 7, 0.125, {"epochs": 3},
+                                          tr.generator)
+        with torch.no_grad():
+            for p in list(st.params.values()) + list(st.batch_stats.values()) + st.ema.params:
+                p.add_(1.0)
+        st.step += 5
+        st, start, best = checkpoint.load_checkpoint(path, st, tr.generator)
+        after = loop_state(st)
+        round_trip = (len(before) == len(after) and (start, best) == (8, 0.125) and all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b for a, b in zip(before, after)))
+
+        timing = tr.timing
+        images = sum(e["images"] for e in timing)
+        epoch_s = sum(e["epoch_s"] for e in timing)
+        figures = {
+            "images_per_s": images / epoch_s,
+            "loader_wait_share": sum(e["wait_s"] for e in timing) / epoch_s,
+            "worker_ms_per_image": 1e3 * sum(e["load_s"] for e in timing) / images,
+            "compose_host_ms_per_batch": 1e3 * sum(e["compose_s"] for e in timing)
+            / (images / LOOP_ARGS["batch"]),
+            "compose_card_ms_per_batch": pixels["mosaic"]["card_ms_per_batch"],
+            "compose_cpu_ms_per_batch": pixels["mosaic"]["cpu_ms_per_batch"],
+            "step_s_per_optimizer_step": sum(e["step_s"] for e in timing) / len(log["steps"]),
+        }
+        full_log = log
+
+        # resume from the snapshot of epoch 2
+        tr2, metrics2, log2 = run("snap", resume=True)
+        resumed_at = tr2.start_epoch
+        n_last = len(log2["files"])
+        same_files = log2["files"] == full_log["files"][-n_last:] and n_last > 0
+        first_rel = abs(log2["loss"][0]["loss"] - full_log["loss"][-n_last]["loss"]) / abs(
+            full_log["loss"][-n_last]["loss"])
+        del tr2
+
+        wdir = root / "full" / "weights"
+        stripped = YOLO(str(wdir / "best_stripped.pt"))
+        best_ck = checkpoint.read_checkpoint(wdir / "best.pt")
+        want_sd = {**best_ck["ema_params"], **best_ck["batch_stats"]}
+        got_sd = stripped.model.state_dict()
+        stripped_equal = got_sd.keys() == want_sd.keys() and all(
+            torch.equal(got_sd[k], want_sd[k].to(got_sd[k].device)) for k in want_sd)
+        t = time.perf_counter()
+        vkw = dict(data=str(data), batch=args["batch"], imgsz=args["imgsz"], workers=0)
+        zero_counts(cw, epi, ffn)
+        res = stripped.val(**vkw, save_json=True, save_dir=str(root / "val1"))
+        metric_gap = max(abs(float(res[k]) - float(metrics[k])) for k in metrics)
+        labels = self_label(stripped.validator.jdict, shapes, root / "labels" / "val",
+                            args["imgsz"])
+        res2 = stripped.val(**vkw, save_dir=str(root / "val2"))
+        stripped_launches = cw.LAUNCHES
+        zero_counts(cw, epi, ffn)
+        res3 = DetectionValidator({**tr._val_args(args["batch"]), "workers": 0,
+                                   "save_dir": str(root / "val3")})(tr.eval_model)
+        twin_launches = cw.LAUNCHES
+        stripped_s = time.perf_counter() - t
+        relabel_gap = max(abs(float(res2[k]) - float(res3[k])) for k in res2)
+        del stripped, tr
+        torch.cuda.empty_cache()
+
+        emit({"phase": "train_loop", "cfg": "vil-det-192", "card": card, **args,
+              "train_images": LOOP_TRAIN, "val_images": LOOP_VAL, "accumulate": acc,
+              "write_png_s": write_s, "pixels": pixels, "figures": figures,
+              "launches_per_step_expected": want, "steps": len(full_log["steps"]),
+              "bad_steps": bad_steps, "val_launches_per_epoch": full_log["val"],
+              "final_val_launches": full_log["final_val_launches"],
+              "losses": [m["loss"] for m in full_log["loss"]], "losses_finite": losses_finite,
+              "results_rows": len(rows) - 1, "files": files, "checkpoint_round_trip": round_trip,
+              "resumed_at_epoch": resumed_at, "resume_same_files": same_files,
+              "resume_first_loss_rel": first_rel, "stripped_val_launches": stripped_launches,
+              "stripped_equals_best_ema": stripped_equal, "stripped_metric_gap": metric_gap,
+              "relabelled": {"labels_per_image": [min(labels["per_image"]),
+                                                  max(labels["per_image"])],
+                             "stripped": {k: float(v) for k, v in res2.items()},
+                             "gap_to_twin": relabel_gap, "twin_launches": twin_launches}, "final_metrics": {k: float(v) for k, v in
+                                                                  metrics.items()},
+              "wall_s": full_log["wall_s"], "resume_wall_s": log2["wall_s"],
+              "stripped_checks_s": stripped_s,
+              "host": {"torch_threads": torch.get_num_threads(), "cpu_count": os.cpu_count(),
+                       "usable_cpus": len(os.sched_getaffinity(0))},
+              "timing": timing,
+              "note": "figures from the uninterrupted run's three epochs on the card: "
+                      "images_per_s = images trained / the epochs' loop seconds (no val); "
+                      "loader_wait_share = seconds blocked on the loader / loop seconds; "
+                      "worker_ms_per_image = the workers' decode, draws and labels; "
+                      "compose_card_ms_per_batch = compose_batch of a 16-image mosaic batch on "
+                      "the card, synchronised, best of 5 (cpu: the same on this host's CPU, "
+                      "once); timing: per epoch, the first with the workers' start and the "
+                      "first steps"})
+        per_val = val_batches * cells
+        if bad_steps or len(full_log["steps"]) != 3 * (len(trainset) // LOOP_ARGS["batch"]
+                                                       // acc):
+            raise AssertionError(f"train_loop step launches {bad_steps}, expected {want}")
+        if any(v != per_val for v in full_log["val"] + log2["val"]) \
+                or full_log["final_val_launches"] != per_val \
+                or stripped_launches != 2 * per_val or twin_launches != per_val:
+            raise AssertionError(f"train_loop val launches {full_log['val']} / "
+                                 f"{full_log['final_val_launches']}, expected {per_val}")
+        if not losses_finite or not all(math.isfinite(m["loss"]) for m in log2["loss"]):
+            raise AssertionError("train_loop: a non-finite loss")
+        if len(rows) != 4 or not all(files.values()):
+            raise AssertionError(f"train_loop files: {len(rows) - 1} csv rows, {files}")
+        if not round_trip:
+            raise AssertionError("train_loop: the checkpoint round trip is not bit-equal")
+        if resumed_at != 2 or not same_files or not first_rel <= 1e-3:
+            raise AssertionError(f"train_loop resume: epoch {resumed_at}, same files "
+                                 f"{same_files}, first loss rel {first_rel}")
+        if not stripped_equal:
+            raise AssertionError("train_loop: best_stripped.pt differs from best.pt's EMA "
+                                 "parameters and BatchNorm statistics")
+        if not metric_gap <= 1e-6:
+            raise AssertionError(f"train_loop: the stripped best validates {metric_gap} from "
+                                 "the trainer's final metrics")
+        if not (float(res2["metrics/mAP50(B)"]) >= 0.9 and relabel_gap <= 1e-6):
+            raise AssertionError(f"train_loop: on its own detections the stripped best "
+                                 f"scores mAP50 {res2['metrics/mAP50(B)']} (need 0.9), "
+                                 f"{relabel_gap} from the trainer's eval twin")
+        return {k: full_log["totals"][k] + log2["totals"][k] for k in full_log["totals"]} | {
+            "chunkwise_fw": full_log["totals"]["chunkwise_fw"] + log2["totals"]["chunkwise_fw"]
+            + stripped_launches + twin_launches, "figures": figures}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4176,6 +4512,7 @@ def main() -> int:
     timed("replay", phase_replay, cw, epi, ffn, steps)
     timed("e2e_grads", phase_e2e_grads, steps)
     model, state, step, batch, train_launches = timed("train", phase_train, cw, epi, ffn, steps)
+    loop = timed("train_loop", phase_train_loop, cw, epi, ffn, card)
     yolo_v1 = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16,
                    chunkwise_kernel=V1)
     perturb_ifgates(yolo_v1.model, seed=8)
@@ -4312,8 +4649,8 @@ def main() -> int:
 
     pallas = "xlstm_yolo_tpu/ops/pallas"
     sources = {
-        "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245", launches + val_launches,
-                         worst["bfloat16"]),
+        "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
+                         launches + val_launches + loop["chunkwise_fw"], worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
         "epilogue_bw": ("epilogue_bw.cu", "epilogue.py:70"),
@@ -4334,6 +4671,8 @@ def main() -> int:
                  "chunkwise_fw_ln": worst_ln}
     launches_all = {**train_launches, **v1_launches, **exp_launches, **par_launches,
                     "mlstm_step": decode["launches"], "chunkwise_fw_ln": ln_launches}
+    for name in KERNELS:
+        launches_all[name] += loop[name]
     launches_all["chunkwise_v1_fw"] += v1_predict_launches
     launches_all["chunkwise_exp_fw"] += exp_predict_launches
     notes = {
@@ -4377,6 +4716,8 @@ def main() -> int:
                **sums(flag_t, name), "library_ms": None}
         if name == "chunkwise_fw":
             row["launches_val"] = val_launches
+        if name == "chunkwise_fw" or name in KERNELS:
+            row["launches_train_loop"] = loop[name]
         if not given:
             row["max_rel_err"] = worst_all[name]["bfloat16"][1]
             row["max_rel_err_float32"] = worst_all[name]["float32"][1]

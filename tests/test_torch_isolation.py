@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-model YAMLs are the JAX package's byte for byte, and its entry points run
-on the GPU unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX (nor flax, optax, orbax)
+nor OpenCV nor the JAX package, reads no environment variable, its model
+YAMLs and ``default.yaml`` are the JAX package's byte for byte, and its
+entry points run on the GPU unless the caller asks for the CPU."""
 
 import subprocess
 import sys
@@ -13,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "flax", "optax", "orbax"):
+for blocked in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2"):
     sys.modules[blocked] = None  # any import of these raises ImportError
 import xlstm_yolo_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -38,6 +39,19 @@ def test_model_yamls_are_copies(name):
     port = ROOT / "xlstm_yolo_tpu_torch" / "cfg" / "models" / name
     ref = ROOT / "xlstm_yolo_tpu" / "cfg" / "models" / name
     assert port.read_bytes() == ref.read_bytes()
+
+
+def test_default_cfg_is_a_copy():
+    port = ROOT / "xlstm_yolo_tpu_torch" / "cfg" / "default.yaml"
+    assert port.read_bytes() == (ROOT / "xlstm_yolo_tpu" / "cfg" / "default.yaml").read_bytes()
+
+
+def test_port_reads_no_environment_variable():
+    sources = sorted((ROOT / "xlstm_yolo_tpu_torch").rglob("*.py"))
+    assert len(sources) >= 40
+    for src in sources:
+        text = src.read_text()
+        assert "os.environ" not in text and "getenv(" not in text, src
 
 
 def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):

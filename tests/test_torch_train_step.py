@@ -354,9 +354,9 @@ def test_droppath_masks_repeat_under_checkpoint():
 def test_train_step_refuses_what_is_not_ported():
     model = torch.nn.Linear(2, 2)
     tx = opt.chain()
-    for kw in (dict(accumulate=2), dict(end2end=False), dict(task="segment"),
+    for kw in (dict(end2end=False), dict(task="segment"), dict(imgsz_out=704),
                dict(device_aug={"fliplr": 0.5})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.make_train_step(model, tx, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        opt.build_optimizer([("kernel", 2)], name="SGD")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        opt.build_optimizer([("kernel", 2)], name="Lion")

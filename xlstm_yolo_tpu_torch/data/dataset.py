@@ -1,6 +1,6 @@
-"""YOLO-format detection dataset, val mode (counterpart of
-``check_det_dataset``, ``img2label_path`` and ``YOLODataset`` in
-``xlstm_yolo_tpu/data/dataset.py``).
+"""YOLO-format detection dataset (counterpart of ``check_det_dataset``,
+``img2label_path`` and ``YOLODataset`` in ``xlstm_yolo_tpu/data/dataset.py``),
+val and train mode.
 
 The on-disk format is the JAX package's: an images directory (or a .txt
 list of image paths), ``labels/*.txt`` beside it with one normalised
@@ -17,25 +17,40 @@ The val protocol is the JAX package's, exactly:
   box is taken;
 - the labels are padded to ``max_targets`` and truncated there.
 
+In train mode (``augment=True`` with ``hyp``, the train config) a sample
+goes through ``augment.TrainTransforms`` with the ``random.Random`` the
+loader gives its batch: mosaic tiles are loaded with their long side
+resized to ``imgsz`` by ``round`` (``load_for_mosaic``, not val's ceil),
+and the labels move on the host.  ``fraction`` keeps the first
+``max(1, int(n * fraction))`` files; ``cache`` is False, True or ``"ram"``
+(decoded images kept in memory, in each worker process) or ``"disk"``
+(``.npy`` beside each image, memory-mapped).
+
 The work is split by where it runs: a sample (:meth:`YOLODataset.get_sample`,
-in the loader's worker processes) is the decoded BGR image and its labels
-in the letterboxed frame, which need no pixels; :meth:`YOLODataset.images`
-resizes, pads and flips a collated batch to RGB on the validator's device,
-OpenCV-exact (``augment.resize_linear_u8``).  There is no label cache: the
-labels are parsed anew each time (the JAX package's ``.xyt_labels_*.cache.npz``
-files beside the images are never read).  Only the detect task's val mode is
-ported; training augmentation and the other tasks are not.
+in the loader's worker processes) is the decoded BGR image(s) and the
+labels, which need no pixels; :meth:`YOLODataset.images` makes a collated
+batch's pixels on the device: val's resize, letterbox and BGR -> RGB
+(OpenCV-exact, ``augment.resize_linear_u8``), or train's recipes
+(``pixels.compose_batch``).  There is no label cache: the labels are
+parsed anew each time (the JAX package's ``.xyt_labels_*.cache.npz``
+files beside the images are never read).  Only the detect task is ported.
 """
 
 from __future__ import annotations
 
+import random
 from pathlib import Path
 
 import numpy as np
 import torch
 import yaml
 
-from xlstm_yolo_tpu_torch.data.augment import LetterBox, resize_linear_u8, val_resized_shape
+from xlstm_yolo_tpu_torch.data.augment import (
+    LetterBox,
+    TrainTransforms,
+    resize_linear_u8,
+    val_resized_shape,
+)
 from xlstm_yolo_tpu_torch.data.imread import imread
 
 IMG_EXTS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp", ".mpo"}
@@ -77,19 +92,31 @@ def img2label_path(img_path: str) -> str:
 
 
 class YOLODataset(torch.utils.data.Dataset):
-    """Detection dataset in val mode: scan, parse labels, serve samples."""
+    """Detection dataset: scan, parse labels, serve samples."""
 
-    def __init__(self, img_path: str, imgsz: int = 640, max_targets: int = 128,
-                 single_cls: bool = False):
+    def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, hyp=None,
+                 max_targets: int = 128, single_cls: bool = False, cache=False,
+                 fraction: float = 1.0):
         self.imgsz = imgsz
         self.max_targets = max_targets
         self.single_cls = single_cls
-        self.im_files = self._scan_images(img_path)
+        self.im_files = self._scan_images(img_path, fraction)
         self.labels = self._load_labels()
+        self.cache_mode = {True: "ram", False: None}.get(cache, cache) or None
+        self._ims = [None] * len(self.im_files) if self.cache_mode == "ram" else None
+        self.transforms = None
+        if augment and hyp is not None:
+            self.transforms = TrainTransforms(
+                dataset=self, imgsz=imgsz,
+                **{k: getattr(hyp, k, v) for k, v in (
+                    ("mosaic", 1.0), ("mixup", 0.0), ("degrees", 0.0), ("translate", 0.1),
+                    ("scale", 0.5), ("shear", 0.0), ("perspective", 0.0), ("hsv_h", 0.015),
+                    ("hsv_s", 0.7), ("hsv_v", 0.4), ("fliplr", 0.5), ("flipud", 0.0),
+                    ("copy_paste", 0.0))})
         self.letterbox = LetterBox((imgsz, imgsz), auto=False, scaleup=True)
 
     @staticmethod
-    def _scan_images(img_path: str) -> list[str]:
+    def _scan_images(img_path: str, fraction: float = 1.0) -> list[str]:
         p = Path(img_path)
         if p.is_dir():
             files = sorted(str(f) for f in p.rglob("*.*") if f.suffix.lower() in IMG_EXTS)
@@ -97,6 +124,8 @@ class YOLODataset(torch.utils.data.Dataset):
             files = [ln.strip() for ln in p.read_text().splitlines() if ln.strip()]
         else:
             raise FileNotFoundError(f"dataset path not found: {img_path}")
+        if fraction < 1.0:
+            files = files[: max(1, int(len(files) * fraction))]
         if not files:
             raise FileNotFoundError(f"no images under {img_path}")
         return files
@@ -137,7 +166,27 @@ class YOLODataset(torch.utils.data.Dataset):
         return self.get_sample(i)
 
     def load_image(self, i: int) -> np.ndarray:
-        return imread(self.im_files[i])
+        """Image i decoded (BGR), through the cache."""
+        if self._ims is not None and self._ims[i] is not None:
+            return self._ims[i]
+        npy = Path(self.im_files[i]).with_suffix(".npy")
+        if self.cache_mode == "disk" and npy.exists():
+            return np.load(npy, mmap_mode="r")
+        im = imread(self.im_files[i])
+        if self.cache_mode == "disk":
+            np.save(npy, im)
+        elif self._ims is not None:
+            self._ims[i] = im
+        return im
+
+    def load_for_mosaic(self, i: int, size: int):
+        """(image i decoded, (w, h) its long side resized to ``size`` by
+        ``round``, its labels in that frame); the resize is the recipe's."""
+        im = self.load_image(i)
+        h0, w0 = im.shape[:2]
+        r = size / max(h0, w0)
+        w, h = (round(w0 * r), round(h0 * r)) if r != 1 else (w0, h0)
+        return im, (w, h), self._px_labels(i, w, h)
 
     def _px_labels(self, i: int, w: int, h: int) -> dict:
         """Image i's labels as xyxy pixels of the image scaled to (w, h)."""
@@ -150,16 +199,7 @@ class YOLODataset(torch.utils.data.Dataset):
             boxes = np.zeros((0, 4), np.float32)
         return {"cls": self.labels[i]["cls"].copy(), "bboxes": boxes}
 
-    def get_sample(self, i: int) -> dict:
-        """-> dict(im0 uint8 BGR HWC as decoded, resized_shape (hr, wr), cls,
-        bboxes xyxy px in the letterboxed frame, mask (padded to
-        max_targets), im_file, orig_shape, ratio_pad)."""
-        im = self.load_image(i)
-        h0, w0 = im.shape[:2]
-        hr, wr = val_resized_shape((h0, w0), self.imgsz)
-        labels0 = self._px_labels(i, wr, hr)
-        labels, (_, pad) = self.letterbox.place_labels(labels0, (hr, wr))
-        cls, bboxes = labels0["cls"], labels["bboxes"]
+    def _padded(self, cls: np.ndarray, bboxes: np.ndarray):
         M = self.max_targets
         n = min(len(cls), M)
         cls_p = np.zeros((M,), np.int32)
@@ -169,15 +209,36 @@ class YOLODataset(torch.utils.data.Dataset):
             cls_p[:n] = cls[:n]
             box_p[:n] = bboxes[:n]
             mask[:n] = True
+        return cls_p, box_p, mask
+
+    def get_sample(self, i: int, rng: random.Random | None = None) -> dict:
+        """Val: dict(im0 uint8 BGR HWC as decoded, resized_shape (hr, wr),
+        cls, bboxes xyxy px in the letterboxed frame, mask (padded to
+        max_targets), im_file, orig_shape, ratio_pad).  Train (with
+        transforms; ``rng`` draws the augmentation): dict(recipe, tiles,
+        cls, bboxes, mask, im_file, orig_shape (imgsz, imgsz), ratio_pad
+        None)."""
+        if self.transforms is not None:
+            recipe, tiles, labels = self.transforms(i, rng)
+            cls_p, box_p, mask = self._padded(labels["cls"], labels["bboxes"])
+            return {"recipe": recipe, "tiles": tiles, "cls": cls_p, "bboxes": box_p,
+                    "mask": mask, "im_file": self.im_files[i],
+                    "orig_shape": (self.imgsz, self.imgsz), "ratio_pad": None}
+        im = self.load_image(i)
+        h0, w0 = im.shape[:2]
+        hr, wr = val_resized_shape((h0, w0), self.imgsz)
+        labels0 = self._px_labels(i, wr, hr)
+        labels, (_, pad) = self.letterbox.place_labels(labels0, (hr, wr))
+        cls_p, box_p, mask = self._padded(labels0["cls"], labels["bboxes"])
         return {"im0": im, "resized_shape": (hr, wr), "cls": cls_p, "bboxes": box_p,
                 "mask": mask, "im_file": self.im_files[i], "orig_shape": (h0, w0),
                 "ratio_pad": ((hr / h0, wr / w0), pad)}
 
     @staticmethod
     def collate(samples: list[dict]) -> dict:
+        per = ("recipe", "tiles") if "recipe" in samples[0] else ("im0", "resized_shape")
         return {
-            "im0": [s["im0"] for s in samples],
-            "resized_shape": [s["resized_shape"] for s in samples],
+            **{k: [s[k] for s in samples] for k in per},
             "cls": np.stack([s["cls"] for s in samples]),
             "bboxes": np.stack([s["bboxes"] for s in samples]),
             "mask": np.stack([s["mask"] for s in samples]),
@@ -187,8 +248,13 @@ class YOLODataset(torch.utils.data.Dataset):
         }
 
     def images(self, batch: dict, device: str | torch.device) -> torch.Tensor:
-        """A collated batch's images resized, letterboxed and flipped to RGB
-        on ``device``: uint8 (B, imgsz, imgsz, 3)."""
+        """A collated batch's images on ``device``, uint8 RGB (B, imgsz,
+        imgsz, 3): val's resized, letterboxed and flipped to RGB; train's
+        composed from their recipes."""
+        if "recipe" in batch:
+            from xlstm_yolo_tpu_torch.data.pixels import compose_batch
+
+            return compose_batch(batch["recipe"], batch["tiles"], device)
         out = []
         for im0, (hr, wr) in zip(batch["im0"], batch["resized_shape"]):
             im = torch.from_numpy(np.ascontiguousarray(im0)).to(device)

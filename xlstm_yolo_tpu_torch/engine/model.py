@@ -1,7 +1,9 @@
 """Public facade: ``YOLO('vil-det-192.yaml').predict(images)``,
-``YOLO('weights.pt').val(data='set.yaml')``.
+``YOLO('weights.pt').val(data='set.yaml')``,
+``YOLO('vil-det-192.yaml').train(data='set.yaml', epochs=...)``.
 
-Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` / ``val`` in
+Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` / ``val`` /
+``train`` in
 ``xlstm_yolo_tpu/engine/model.py``.  The model runs on the GPU unless the
 caller passes ``device="cpu"``, its mLSTM cells on ``chunkwise_kernel``
 (``"auto"``: the v2 kernels; ``nn.tasks.resolve_chunkwise_kernel``).  A
@@ -60,7 +62,7 @@ def load_checkpoint_state(path: str | Path, model: torch.nn.Module) -> dict:
 
 
 class YOLO:
-    """User-facing facade (detect task: predict and val)."""
+    """User-facing facade (detect task: predict, val and train)."""
 
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
@@ -79,6 +81,7 @@ class YOLO:
             self.model.load_state_dict(load_checkpoint_state(self.ckpt_path, self.model),
                                        strict=True)
         self.imgsz = int(d.get("imgsz", 640))
+        self.callbacks: dict[str, list] = {}
 
     @staticmethod
     def _resolve(model) -> tuple[str, str | None]:
@@ -112,3 +115,29 @@ class YOLO:
                 **({"data": data} if data else {})}
         self.validator = DetectionValidator(args)
         return self.validator(self.model)
+
+    def add_callback(self, event: str, fn):
+        """Register ``fn(trainer)`` for a trainer event (``utils.callbacks.EVENTS``)."""
+        self.callbacks.setdefault(event, []).append(fn)
+
+    def train(self, data=None, **kwargs) -> dict:
+        """Train a detector of this YAML (or, from a ``.pt``, vil-det-192
+        starting from its weights) on ``data`` with keys of the train
+        config (``cfg/default.yaml``), on this facade's device, through
+        ``engine.trainer.DetectionTrainer``.  Returns the final metrics;
+        ``self.trainer`` keeps the trainer."""
+        from xlstm_yolo_tpu_torch.engine.trainer import DetectionTrainer
+
+        overrides = {**self.overrides, **kwargs, "mode": "train"}
+        if data:
+            overrides["data"] = data
+        if self.ckpt_path and "pretrained" not in overrides:
+            overrides["pretrained"] = self.ckpt_path
+        trainer = DetectionTrainer(overrides=overrides, model_cfg=self.model_cfg,
+                                   device=self.device)
+        for event, fns in self.callbacks.items():
+            for fn in fns:
+                trainer.callbacks.add(event, fn)
+        metrics = trainer.train()
+        self.trainer = trainer
+        return metrics

@@ -1,11 +1,16 @@
 """The training step of the detector.
 
 Counterpart of ``TrainState`` (the tree form) and ``make_train_step`` in
-``xlstm_yolo_tpu/engine/steps.py``, for ``task="detect"``,
-``end2end=True`` and ``accumulate=1``: forward of the train-mode model,
-the E2E loss, backward, gradient clipping, AdEMAMix and the EMA.  The
+``xlstm_yolo_tpu/engine/steps.py``, for ``task="detect"`` and
+``end2end=True``: forward of the train-mode model, the E2E loss, backward,
+gradient clipping, the optimizer and the EMA.  With ``accumulate`` k > 1 the
+batch has a leading microbatch dimension of k: the step runs each
+microbatch's forward and backward in turn, sums their losses and
+gradients (JAX's scan), threads the BatchNorm statistics through them (the
+train-mode forward updates the model's buffers), and reports the loss
+items of the last; then one clip, one update and one EMA update.  The
 state holds the model's own parameters and BatchNorm buffers, and the step
-updates them, the optimizer moments and the EMA in place; it returns the
+updates them, the optimizer state and the EMA in place; it returns the
 state with its step count advanced and the metrics.
 """
 
@@ -71,25 +76,37 @@ def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
 
     ``batch``: img (B, H, W, 3) uint8 (normalised on the device) or float
     in [0, 1]; cls (B, M) ints; bboxes (B, M, 4) xyxy in image units; mask
-    (B, M) bool.  ``generator`` draws the stochastic-depth masks.  metrics
-    holds the loss and its box, cls and dfl items as 0-d tensors.
+    (B, M) bool; each with a leading dimension of ``accumulate`` when it is
+    above 1.  ``generator`` draws the stochastic-depth masks, microbatch
+    after microbatch.  metrics holds the loss (summed over the
+    microbatches) and the box, cls and dfl items (of the last) as 0-d
+    tensors.
     """
-    if not end2end or accumulate != 1 or task != "detect" or kpt_shape is not None \
+    if not end2end or task != "detect" or kpt_shape is not None \
             or imgsz_out is not None or device_aug:
         raise NotImplementedError(
-            f"train step with end2end={end2end}, accumulate={accumulate}, task={task!r}, "
-            f"kpt_shape={kpt_shape}, imgsz_out={imgsz_out}, device_aug={device_aug}: {_ROADMAP}")
+            f"train step with end2end={end2end}, task={task!r}, kpt_shape={kpt_shape}, "
+            f"imgsz_out={imgsz_out}, device_aug={device_aug}: {_ROADMAP}")
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
-        loss, items = detect_loss(model_train, batch, nc, generator)
         params = list(state.params.values())
-        grads = torch.autograd.grad(loss, params)
+        micro = [batch] if accumulate == 1 else [{k: v[j] for k, v in batch.items()}
+                                                 for j in range(accumulate)]
+        loss, grads = None, None
+        for mb in micro:
+            mb_loss, items = detect_loss(model_train, mb, nc, generator)
+            mb_grads = torch.autograd.grad(mb_loss, params)
+            if grads is None:
+                loss, grads = mb_loss.detach(), list(mb_grads)
+            else:
+                loss = loss + mb_loss.detach()
+                torch._foreach_add_(grads, mb_grads)
         updates, state.opt_state = tx.update(list(grads), state.opt_state, params)
         with torch.no_grad():
             torch._foreach_add_(params, updates)
             state.ema = opt_lib.ema_update(state.ema, params, decay=ema_decay)
         state.step += 1
-        metrics = {"loss": loss.detach(), "box_loss": items.box.detach(),
+        metrics = {"loss": loss, "box_loss": items.box.detach(),
                    "cls_loss": items.cls.detach(), "dfl_loss": items.dfl.detach()}
         return state, metrics
 
@@ -103,12 +120,14 @@ def detect_trainer(cfg="vil-det-192.yaml", device: str | torch.device = "cuda",
     """The training entry point: the detector of ``cfg`` in train mode on
     ``device`` (the GPU unless the caller passes ``device="cpu"``), its
     mLSTM cells on ``chunkwise_kernel`` (``"auto"``: the v2 kernels), float32
-    parameters with ``compute_dtype`` activations, its AdEMAMix transform
-    (``optimizer_kw`` go to :func:`opt_lib.build_optimizer`), the state and
+    parameters with ``compute_dtype`` activations, its optimizer
+    (``optimizer_kw`` go to :func:`opt_lib.build_optimizer`; the name
+    defaults to AdEMAMix), the state and
     the step.  Returns ``(model, state, train_step)``."""
     model, d = build_detection_model(cfg, compute_dtype=compute_dtype, device=device,
                                      generator=generator, training=True,
                                      chunkwise_kernel=chunkwise_kernel)
-    tx, _, _ = opt_lib.build_optimizer(optimizer_leaves(model), **optimizer_kw)
+    tx, _, _ = opt_lib.build_optimizer(optimizer_leaves(model),
+                                       **{"name": "AdEMAMix", **optimizer_kw})
     state = TrainState.create(model, tx)
     return model, state, make_train_step(model, tx, nc=int(d.get("nc", 80)))

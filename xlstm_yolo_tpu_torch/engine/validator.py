@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from xlstm_yolo_tpu_torch.cfg import VAL_DEFAULTS
-from xlstm_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
+from xlstm_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset, stop_workers
 from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
 from xlstm_yolo_tpu_torch.utils import ops
 from xlstm_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_matrix
@@ -68,9 +68,11 @@ class DetectionValidator:
     """Validates a detector (``torch.nn.Module``, eval mode) on the val split
     of a YOLO-format dataset.  ``cfg`` holds keys of ``VAL_DEFAULTS``
     (``data``: a dataset YAML or dict); ``workers`` 0 loads in the calling
-    process."""
+    process.  With ``keep_loader`` (the trainer's, which validates every
+    epoch) the dataset and its worker processes are kept from one call to
+    the next until :meth:`close`."""
 
-    def __init__(self, cfg: dict):
+    def __init__(self, cfg: dict, keep_loader: bool = False):
         unknown = set(cfg) - set(VAL_DEFAULTS)
         if unknown:
             raise KeyError(f"not val keys: {sorted(unknown)}")
@@ -84,6 +86,25 @@ class DetectionValidator:
         self.jdict: list[dict] = []
         self.seen = 0
         self.speed = {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0, "metrics": 0.0}
+        self.keep_loader = keep_loader
+        self._kept = None
+
+    def close(self):
+        """Stop the kept loader's worker processes."""
+        if self._kept is not None:
+            stop_workers(self._kept[1])
+        self._kept = None
+
+    def _loader(self, bs: int, workers: int):
+        if self._kept is not None:
+            return self._kept
+        args = self.args
+        split = self.data.get(args["split"] or "val") or self.data.get("val")
+        dataset = build_yolo_dataset(args, split)
+        loaded = (dataset, build_dataloader(dataset, bs, workers, persistent=self.keep_loader))
+        if self.keep_loader:
+            self._kept = loaded
+        return loaded
 
     @torch.inference_mode()
     def forward(self, model: torch.nn.Module, img_u8: torch.Tensor) -> torch.Tensor:
@@ -97,10 +118,8 @@ class DetectionValidator:
         args = self.args
         bs = int(args["batch"] or 16)
         imgsz = int(args["imgsz"])
-        split = self.data.get(args["split"] or "val") or self.data.get("val")
-        dataset = build_yolo_dataset(args, split)
         workers = 8 if args["workers"] is None else int(args["workers"])
-        loader = build_dataloader(dataset, bs, workers)
+        dataset, loader = self._loader(bs, workers)
 
         conf_thres = args["conf"] if args["conf"] is not None else 0.001
         stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
