@@ -269,6 +269,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                final metrics to 1e-6; images per second, the loader-wait share, the
                workers' ms per image, the composition ms per batch
                (phase_train_loop; runs after train).
+37. multiscale - vil-det-192 at other input sizes, bf16: the v2 inference
+               forward, train forward and backward against their plain
+               versions at S 9216, 2304, 576, 144 (a ragged 16-row chunk)
+               and 4096, B 2, and the epilogue and FFN backwards at M =
+               2 * 9216, at the kernel phases' tolerances; then, counts at
+               0: predict of 8 images at 512 and 768 px (20 launches a
+               batch, ms a batch); the folded-BatchNorm model (fused=True,
+               utils/fuse.py) against the unfused one at 512 px, anchor by
+               anchor (float64: boxes within 1e-2 px, the same classes;
+               float32 on the kernels: phase_model's rule); three steps at
+               each bucket 512/640/768 from 640 px batches (imgsz_out),
+               exact launches, ms a step; YOLO.train(multi_scale=True), one
+               epoch: the printed buckets and JAX's draws; the stripped
+               best's .val(imgsz=512) on its own detections: mAP50 >= 0.9
+               (phase_multiscale; runs after train_loop).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -280,7 +295,9 @@ rows of the v2 forward (inference and train), the v2 backward, the
 epilogue backward and the FFN backward also "per_call_s6400" with each of
 their kernels' device ms; the quadratic kernels' "per_call_s6656" and the
 v1 and exp forwards', dC scans' and dq/dk/dv's "per_call_s6656_l512" at
-every detector's heads, with each pass's device ms or exp_floor_ms), and
+every detector's heads, with each pass's device ms or exp_floor_ms; the
+v2 forward's and the four training kernels' rows a "multiscale" object:
+their launches in phase multiscale and their errors at its lengths), and
 last {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -291,6 +308,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1373,6 +1391,361 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
             + stripped_launches + twin_launches, "figures": figures}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+MS_WS = Widths("vil-det-192.yaml", 2, 12, 32, 192, 512)  # the kernel checks' batch and widths
+# (S, the YAML's chunk_size at that stage): the four stages at 768 px, vil-det-192's last
+# stage at 768 (ragged: 144 = 2 * 64 + 16 rows at the kernels' L = 64) and its first at
+# 512 px; the v2 kernels chunk at L = 64 whatever the YAML's chunk_size says
+MS_KERNEL_SHAPES = ((9216, 512), (2304, 512), (576, 256), (144, 64), (4096, 512))
+MS_PREDICT = (512, 768)
+MS_BUCKETS = (512, 640, 768)
+MS_STEPS = 3  # optimizer steps a bucket: the first warms the bucket up, two are checked and timed
+# seed 1: its four steps draw [640, 768, 512, 640], every bucket (seed 0 never draws 768)
+MS_TRAIN = dict(imgsz=640, batch=16, nbs=16, epochs=1, close_mosaic=0, optimizer="auto",
+                workers=4, amp=True, seed=1, exist_ok=True, multi_scale=True)
+MS_VAL_IMGSZ = 512
+MS_FUSE_TOL = 1e-2  # px: the fused model's float64 boxes against the unfused model's
+
+
+def ms_kernel_checks(cw, epi, ffn) -> dict:
+    """The v2 inference forward, train forward and backward against their
+    plain versions at MS_KERNEL_SHAPES' lengths (B 2, NH 12, DH 32), in
+    bfloat16 (each length) and float32 (the longest and the ragged one), at
+    the kernel phases' tolerances: float32 every output within F32_TOL (the
+    backward GRAD_REL); bfloat16 h within BF16_TOL of the two plain passes
+    (fw_split), which round where the kernels do, C within BF16_STATE_REL,
+    n and den within F32_TOL, the backward within GRAD_REL; then the FFN and
+    epilogue backwards at M = 2 * 9216 rows."""
+    import torch
+
+    ws, NH_ = MS_WS, MS_WS.NH
+    worst = {}
+
+    def note(name, errs):
+        worst[name] = [max(a, b) for a, b in zip(worst.get(name, [0.0, 0.0]), errs)]
+
+    def most(*errs):  # the largest absolute and relative error of several outputs
+        return tuple(max(e[j] for e in errs) for j in range(2))
+
+    rows = []
+    for S, chunk in MS_KERNEL_SHAPES:
+        for dtype in ((torch.bfloat16, torch.float32) if S in (9216, 144) else (torch.bfloat16,)):
+            key = str(dtype).split(".")[-1]
+            rel = GRAD_REL[key]
+            args = kernel_inputs(S, dtype, "open", True, seed=S + 7, ws=ws)
+            h, (c, n) = cw.mlstm_siging_chunkwise_fw(*args, eps=EPS, return_last_states=True)
+            got = cw.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+            torch.cuda.synchronize()
+            outs = [got[0], *got[1], *got[2]]
+            if dtype == torch.float32:
+                hp, (cp, np_) = cw.mlstm_siging_chunkwise_fw_plain(*args, eps=EPS,
+                                                                   return_last_states=True)
+                e_fw = compare_outputs(f"ms fw S={S}", [h, c, n], [hp, cp, np_], F32_TOL)
+                ref = cw.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
+                e_tr = compare_outputs(f"ms fw_train S={S}", outs, [ref[0], *ref[1], *ref[2]],
+                                       F32_TOL)
+            else:
+                sh, sden, scs, sns, scl, snl = fw_split(cw, args)
+                e_fw = most(compare_outputs(f"ms fw h S={S}", [h], [sh], BF16_TOL),
+                           compare_outputs(f"ms fw C S={S}", [c], [scl], BF16_STATE_REL),
+                           compare_outputs(f"ms fw n S={S}", [n], [snl], F32_TOL))
+                h_, cl_, nl_, cs_, ns_, den_ = outs
+                e_tr = most(compare_outputs(f"ms fw_train h S={S}", [h_], [sh], BF16_TOL),
+                           compare_outputs(f"ms fw_train C S={S}", [cl_, cs_], [scl, scs],
+                                           BF16_STATE_REL),
+                           compare_outputs(f"ms fw_train n, den S={S}", [nl_, ns_, den_],
+                                           [snl, sns, sden], F32_TOL))
+                del sh, sden, scs, sns, scl, snl
+            g = torch.Generator().manual_seed(S + 8)
+            dh = torch.randn(ws.B, S, ws.H, generator=g).to("cuda", dtype)
+            dcl = torch.randn(ws.B, NH_, ws.DH, ws.DH, generator=g).cuda()
+            bw_args = (*args[:6], got[2][0], got[2][2], dh, dcl)
+            gb = cw.mlstm_siging_chunkwise_bw(*bw_args, eps=EPS)
+            torch.cuda.synchronize()
+            e_bw = compare_outputs(f"ms bw S={S}", gb,
+                                   cw.mlstm_siging_chunkwise_bw_plain(*bw_args, eps=EPS), rel)
+            note(f"chunkwise_fw_{key}", e_fw)
+            note(f"chunkwise_fw_train_{key}", e_tr)
+            note(f"chunkwise_bw_{key}", e_bw)
+            rows.append({"S": S, "yaml_chunk": chunk, "chunks_of_64": -(-S // L),
+                         "tail_rows": S % L or L, "dtype": key, "fw_max_rel_err": e_fw[1],
+                         "fw_train_max_rel_err": e_tr[1], "bw_max_rel_err": e_bw[1]})
+            del args, h, c, n, got, outs, gb, bw_args, dh
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        e_args, f_args = row_inputs(9216, dtype, 0.0, seed=9216, ws=ws)
+        ge, gf = epi.epilogue_bwd(*e_args), ffn.ffn_bwd(*f_args)
+        torch.cuda.synchronize()
+        note(f"epilogue_bw_{key}", compare_outputs(
+            f"ms epilogue {key}", ge, epi.epilogue_bwd_rounded_plain(*e_args), GRAD_REL[key]))
+        note(f"ffn_bw_{key}", compare_outputs(f"ms ffn {key}", gf, ffn.ffn_bwd_plain(*f_args),
+                                              GRAD_REL[key]))
+        del e_args, f_args, ge, gf
+    emit({"phase": "multiscale", "what": "kernels", "B": ws.B, "NH": NH_, "DH": ws.DH,
+          "L": L, "cases": rows, "rows_M": ws.B * 9216, "worst_abs_rel": worst,
+          "tols": {"float32": F32_TOL, "bf16_h": BF16_TOL, "bf16_state": BF16_STATE_REL,
+                   "grad": GRAD_REL}})
+    torch.cuda.empty_cache()
+    return worst
+
+
+def bucket_step_launches(model, imgsz: int) -> dict:
+    """expected_step_launches at input size ``imgsz``: a pair is
+    rematerialised where its sequence at that size is at least 80 * 80."""
+    from xlstm_yolo_tpu_torch.nn.layers import ViLBlockPair, ViLLayer
+
+    r2 = (imgsz / 640) ** 2
+    layers = sum(isinstance(m, ViLLayer) for m in model.modules())
+    remat = sum(2 for m in model.modules() if isinstance(m, ViLBlockPair)
+                and math.prod(m.rowwise_from_top_left.layer.conv.seqlens) * r2 >= m.ckpt_thresh)
+    return {"chunkwise_fw_train": layers + remat, "chunkwise_bw": layers,
+            "epilogue_bw": layers, "ffn_bw": layers}
+
+
+def phase_multiscale(cw, epi, ffn, steps, card: str) -> dict:
+    """vil-det-192 at other input sizes, bfloat16 (phase_multiscale):
+
+    1. The v2 kernels at the new lengths against their plain versions
+       (ms_kernel_checks; these comparisons' launches are not counted).
+    Then, with every count set to 0:
+    2. predict of a batch of 8 at 512 and 768 px (the pos embed and the
+       PatchMerger queries resized): 20 inference launches a batch, finite
+       results inside the original images; the forward's ms on a device
+       batch (normalise + forward + top-k; 512, 640 and 768 px in turns,
+       3 windows of 3 each way); and at 512 px
+       the model built with fused=True from fuse_state_dict of the same
+       weights (BatchNorm statistics drawn off 0/1, default gates),
+       decode-only, anchor by anchor: in float64 on the plain cells its
+       boxes within MS_FUSE_TOL px of the unfused model's and its classes
+       the same; in float32 on the kernels (20 launches each) at most
+       E2E_FACTOR times as far from that float64 output as the unfused
+       model is (phase_model's rule: a float32 forward of this random
+       network amplifies rounding, and folding changes the rounding);
+    3. MS_STEPS optimizer steps at each bucket of MS_BUCKETS from 640 px
+       batches (make_train_step(imgsz_out=...)): finite losses, the
+       parameters move, exact launches a step (bucket_step_launches); the
+       host ms of each step (synchronised), the first a warm-up;
+    4. YOLO("vil-det-192.yaml").train(multi_scale=True, epochs=1) on
+       phase_train_loop's PNG set (written again from its seeds), from the
+       same pretrained weights: the printed buckets are
+       [512, 640, 768], and the bucket of each step is
+       random.Random(seed * 1000 + 0).choice over them; then best.pt's
+       stripped weights .val(imgsz=512) with save_json, those detections
+       as the val labels (self_label at 512), and .val(imgsz=512) again:
+       mAP50 >= 0.9, 20 inference launches a val batch.
+    Returns the launches of 2-4 by kernel."""
+    import contextlib
+    import io
+    import random
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
+    from xlstm_yolo_tpu_torch.engine.model import COCO_NAMES, YOLO
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+    from xlstm_yolo_tpu_torch.utils.fuse import fuse_state_dict
+
+    t_phase = time.perf_counter()
+    worst = ms_kernel_checks(cw, epi, ffn)
+    kernels_s = time.perf_counter() - t_phase
+    zero_counts(cw, epi, ffn)
+
+    # 2. predict at other sizes
+    yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
+    perturb_ifgates(yolo.model, seed=8)
+    cells = cells_of(yolo.model)
+    images = synthetic_images(B, seed=5)
+    predict = {}
+    for size in MS_PREDICT:
+        before = cw.LAUNCHES
+        results = yolo.predict(images, imgsz=size, batch=B, conf=0.0)
+        launches = cw.LAUNCHES - before
+        for im, r in zip(images, results):
+            h, w = im.shape[:2]
+            d = r.boxes.data
+            if not (np.isfinite(d).all() and (d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all()
+                    and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= h).all()):
+                raise AssertionError(f"multiscale predict at {size}: boxes non-finite or outside "
+                                     f"the {w}x{h} image")
+        predict[size] = {"launches": launches, "forward_ms_runs": []}
+        if launches != cells:
+            raise AssertionError(f"multiscale predict at {size} made {launches} inference "
+                                 f"launches, expected {cells}")
+    # the forward's time at each size and at 640 in turns (512, 640, 768, 768, 640, 512)
+    fwd = {}
+    for size in MS_PREDICT[:1] + (640,) + MS_PREDICT[1:]:
+        predictor = DetectionPredictor({"imgsz": size, "batch": B}, yolo.model, yolo.names)
+        batch = predictor.preprocess(images)
+        fwd[size] = functools.partial(predictor.forward, batch)
+    for size in list(fwd) + list(fwd)[::-1]:
+        runs = time_cuda(fwd[size], iters=3, reps=3, warm_s=0.5)
+        predict.setdefault(size, {"forward_ms_runs": []})["forward_ms_runs"] += runs
+    for p in predict.values():
+        p["forward_ms"] = statistics.median(p["forward_ms_runs"])
+    del yolo, fwd
+    # the folded BatchNorms at 512 px, decode-only (no ranking), at the default gate init:
+    # float64 on the plain cells, and float32 on the kernels against that float64
+    plain, _ = build_detection_model("vil-det-192.yaml", device="cuda", decode_only=True)
+    fused, _ = build_detection_model("vil-det-192.yaml", device="cuda", decode_only=True,
+                                     fused=True)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, t in plain.state_dict().items():
+            if name.endswith("running_mean"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.05)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.7 + 0.7)
+    fused.load_state_dict(fuse_state_dict(plain.state_dict()), strict=True)
+    pre = DetectionPredictor({"imgsz": 512, "batch": B}, plain, {})
+    with torch.inference_mode():
+        x = pre.preprocess(images).float() / 255.0
+        before = cw.LAUNCHES
+        y32, f32 = plain(x)[0], fused(x)[0]
+        fused_launches = cw.LAUNCHES - before
+        outs64 = []
+        for m in (plain, fused):
+            m64 = copy.deepcopy(m).double()
+            set_cell_kernel(m64, cw.mlstm_siging_chunkwise_fw_plain)
+            outs64.append(m64(x.double())[0])
+        y64, f64 = outs64
+        fuse = {"decode_shape": list(y64.shape),
+                "float64_max_box_err_px": (f64[..., :4] - y64[..., :4]).abs().max().item(),
+                "float64_max_score_err": (f64[..., 4:] - y64[..., 4:]).abs().max().item(),
+                "float64_same_classes": bool(torch.equal(f64[..., 4:].argmax(-1),
+                                                         y64[..., 4:].argmax(-1))),
+                "bn_folded": sum(k.endswith("running_mean") for k in plain.state_dict()),
+                "kernel_launches": fused_launches}
+        for part, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
+            ref = y64[..., sl]
+            fuse[f"float32_{part}"] = {
+                "fused_vs_f64": (f32[..., sl].double() - ref).abs().max().item(),
+                "unfused_vs_f64": (y32[..., sl].double() - ref).abs().max().item(),
+                "fused_vs_unfused": (f32[..., sl] - y32[..., sl]).abs().max().item()}
+    del plain, fused, pre, x, y32, f32, y64, f64, outs64, m64
+    ok32 = all(fuse[f"float32_{p}"]["fused_vs_f64"]
+               <= E2E_FACTOR * fuse[f"float32_{p}"]["unfused_vs_f64"] + E2E_ATOL[p]
+               for p in ("boxes", "scores"))
+    if not (fuse["float64_max_box_err_px"] <= MS_FUSE_TOL and fuse["float64_same_classes"]
+            and ok32 and fused_launches == 2 * cells):
+        raise AssertionError(f"multiscale: the fused model's detections differ: {fuse}")
+
+    # 3. bucket steps from 640 px batches
+    model, _ = build_detection_model("vil-det-192.yaml", compute_dtype=torch.bfloat16,
+                                     device="cuda", generator=torch.Generator().manual_seed(0),
+                                     training=True)
+    perturb_ifgates(model, seed=7)
+    tx, _, _ = opt_lib.build_optimizer(steps.optimizer_leaves(model), **TRAIN_OPT)
+    state = steps.TrainState.create(model, tx)
+    gen = torch.Generator().manual_seed(8)
+    bucket_steps = {}
+    for b in MS_BUCKETS:
+        step = steps.make_train_step(model, tx, nc=80, imgsz_out=b)
+        expected = bucket_step_launches(model, b)
+        p0 = [p.detach().clone() for p in state.params.values()]
+        per_step, losses, ms = [], [], []
+        for j in range(MS_STEPS):
+            batch = train_batch(B, 640, seed=40 + j)
+            torch.cuda.synchronize()
+            before, t = counts(cw, epi, ffn), time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            after = counts(cw, epi, ffn)
+            per_step.append({k: after[k] - before[k] for k in after})
+            losses.append({k: v.item() for k, v in metrics.items()})
+        moved = max((p.detach() - a).abs().max().item()
+                    for p, a in zip(state.params.values(), p0))
+        bucket_steps[b] = {"launches_per_step": per_step, "expected": expected,
+                           "losses": losses, "param_max_change": moved, "step_ms": ms}
+        if not all(math.isfinite(v) for m in losses for v in m.values()) or not moved > 0:
+            raise AssertionError(f"bucket {b}: losses {losses}, parameters moved {moved}")
+        for s_ in per_step:
+            if s_["chunkwise_fw"] != 0 or any(s_[k] != expected[k] for k in KERNELS):
+                raise AssertionError(f"bucket {b}: step launches {s_}, expected {expected}")
+    del model, state, tx
+    torch.cuda.empty_cache()
+
+    # 4. a multi-scale training run, and validation at 512 px
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ms_"))
+    try:
+        write_val_set(root, LOOP_TRAIN, seed=21, split="train", boxes=6, shapes=LOOP_SHAPES)
+        _, shapes = write_val_set(root, LOOP_VAL, seed=22, split="val", boxes=6,
+                                  shapes=LOOP_SHAPES)
+        data = root / "data.yaml"
+        data.write_text(yaml.safe_dump({"path": str(root), "train": "images/train",
+                                        "val": "images/val",
+                                        "names": [COCO_NAMES[i] for i in range(80)]}))
+        init = YOLO("vil-det-192.yaml")
+        perturb_ifgates(init.model, seed=8)
+        val_head(init.model, *LOOP_CLS)
+        torch.save(init.model.state_dict(), root / "init.pt")
+        del init
+        y = YOLO("vil-det-192.yaml")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            y.train(data=str(data), project=str(root), name="ms",
+                    pretrained=str(root / "init.pt"), **MS_TRAIN)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        print(out.getvalue(), end="", flush=True)
+        tr = y.trainer
+        line = [ln for ln in out.getvalue().splitlines() if ln.startswith("multi-scale buckets:")]
+        printed = json.loads(line[0].split(":", 1)[1]) if line else None
+        rng = random.Random(int(MS_TRAIN["seed"]) * 1000 + 0)
+        want = [rng.choice(printed or []) for _ in tr.buckets] if printed else None
+        train_losses = [float(m["loss"]) for m in tr.losses]
+        del tr
+        stripped = YOLO(str(root / "ms" / "weights" / "best_stripped.pt"))
+        vkw = dict(data=str(data), batch=MS_TRAIN["batch"], imgsz=MS_VAL_IMGSZ, workers=0)
+        before = cw.LAUNCHES
+        stripped.val(**vkw, save_json=True, save_dir=str(root / "val1"))
+        labels = self_label(stripped.validator.jdict, shapes, root / "labels" / "val",
+                            MS_VAL_IMGSZ)
+        res = stripped.val(**vkw, save_dir=str(root / "val2"))
+        val_launches = cw.LAUNCHES - before
+        buckets_drawn = y.trainer.buckets
+        del stripped, y
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    totals = counts(cw, epi, ffn)
+    per_val = math.ceil(LOOP_VAL / MS_TRAIN["batch"]) * cells
+    mAP50 = float(res["metrics/mAP50(B)"])
+    emit({"phase": "multiscale", "cfg": "vil-det-192", "card": card, "dtype": "bfloat16",
+          "kernel_checks_s": kernels_s, "predict_batch": B,
+          "predict": {s_: {k: v for k, v in p.items() if k != "forward_ms_runs"}
+                      for s_, p in predict.items()},
+          "predict_forward_ms_runs": {s_: p["forward_ms_runs"] for s_, p in predict.items()},
+          "fuse_float32_512": fuse, "bucket_steps": bucket_steps,
+          "train": {**MS_TRAIN, "printed_buckets": printed, "buckets_drawn": buckets_drawn,
+                    "jax_rule": want, "losses": train_losses, "wall_s": train_s},
+          "val_imgsz": MS_VAL_IMGSZ, "val_labels_per_image": [min(labels["per_image"]),
+                                                               max(labels["per_image"])],
+          "val": {k: float(v) for k, v in res.items()}, "val_launches": val_launches,
+          "launches": totals, "seconds": time.perf_counter() - t_phase,
+          "note": "predict forward_ms: normalise + forward + top-k of a letterboxed uint8 batch "
+                  "of 8 on the card, median of 6 CUDA-event windows of 3 forwards, the sizes in "
+                  "turns 512, 640, 768, 768, 640, 512; step_ms: host clock around each "
+                  "synchronised optimizer step at batch 8 (the first warms the bucket up)"})
+    if printed != list(MS_BUCKETS) or buckets_drawn != want or not buckets_drawn:
+        raise AssertionError(f"multi-scale buckets printed {printed}, drawn {buckets_drawn}, "
+                             f"JAX's draw {want}")
+    if not all(math.isfinite(v) for v in train_losses):
+        raise AssertionError(f"multi-scale train: a non-finite loss {train_losses}")
+    if val_launches != 2 * per_val:
+        raise AssertionError(f"val at {MS_VAL_IMGSZ}: {val_launches} inference launches, "
+                             f"expected {2 * per_val}")
+    if not mAP50 >= 0.9:
+        raise AssertionError(f"self-labelled val at {MS_VAL_IMGSZ}: mAP50 {mAP50} (need 0.9)")
+    return {**totals, "worst": worst, "predict": predict,
+            "bucket_ms": {b: statistics.median(v["step_ms"][1:]) for b, v in bucket_steps.items()}}
 
 
 def compare_outputs(what: str, got, ref, rel: float, ref64=None) -> tuple[float, float]:
@@ -4513,6 +4886,16 @@ def main() -> int:
     timed("e2e_grads", phase_e2e_grads, steps)
     model, state, step, batch, train_launches = timed("train", phase_train, cw, epi, ffn, steps)
     loop = timed("train_loop", phase_train_loop, cw, epi, ffn, card)
+    ms = timed("multiscale", phase_multiscale, cw, epi, ffn, steps, card)
+    emit({"phase": "times", "what": "multiscale", "card": card, "cfg": "vil-det-192",
+          "batch": B, "dtype": "bfloat16",
+          "predict_forward_ms": {s: p["forward_ms"] for s, p in ms["predict"].items()},
+          "bucket_step_ms": ms["bucket_ms"],
+          "note": "predict_forward_ms: normalise + forward + top-k of a letterboxed uint8 "
+                  "batch of 8 on the card at each imgsz (CUDA events, the sizes in turns); "
+                  "bucket_step_ms: the median of two optimizer steps at batch 8 from 640 px "
+                  "batches resized to the bucket on the card, after one warm-up step (host "
+                  "clock, synchronised)"})
     yolo_v1 = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16,
                    chunkwise_kernel=V1)
     perturb_ifgates(yolo_v1.model, seed=8)
@@ -4650,7 +5033,8 @@ def main() -> int:
     pallas = "xlstm_yolo_tpu/ops/pallas"
     sources = {
         "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
-                         launches + val_launches + loop["chunkwise_fw"], worst["bfloat16"]),
+                         launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"],
+                         worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
         "epilogue_bw": ("epilogue_bw.cu", "epilogue.py:70"),
@@ -4672,7 +5056,7 @@ def main() -> int:
     launches_all = {**train_launches, **v1_launches, **exp_launches, **par_launches,
                     "mlstm_step": decode["launches"], "chunkwise_fw_ln": ln_launches}
     for name in KERNELS:
-        launches_all[name] += loop[name]
+        launches_all[name] += loop[name] + ms[name]
     launches_all["chunkwise_v1_fw"] += v1_predict_launches
     launches_all["chunkwise_exp_fw"] += exp_predict_launches
     notes = {
@@ -4718,6 +5102,14 @@ def main() -> int:
             row["launches_val"] = val_launches
         if name == "chunkwise_fw" or name in KERNELS:
             row["launches_train_loop"] = loop[name]
+            row["multiscale"] = {
+                "launches": ms[name], "max_abs_err": ms["worst"][f"{name}_bfloat16"][0],
+                "max_rel_err": ms["worst"][f"{name}_bfloat16"][1],
+                "max_rel_err_float32": ms["worst"][f"{name}_float32"][1],
+                "note": "phase multiscale: launches on vil-det-192's paths at 512/640/768 px "
+                        "(predict, the fused model, bucket steps, a multi-scale train run, val "
+                        "at 512); errors against the plain version at S 9216/2304/576/144/4096 "
+                        "(B 2; the row kernels at M = 2 * 9216)"}
         if not given:
             row["max_rel_err"] = worst_all[name]["bfloat16"][1]
             row["max_rel_err_float32"] = worst_all[name]["float32"][1]

@@ -14,7 +14,9 @@ ragged batch groups, S 0 and 2048, and its launch plan), and the sub-chunked
 forward fw3 (both variants, and its states fed to the v2 backward); and the
 validation path: device and CPU letterboxed val pixels byte-equal,
 ``vil-det-tiny``'s self-labelled val on the card, and a ``.pt`` checkpoint
-of ``vil-det-192`` loaded back.  This
+of ``vil-det-192`` loaded back; the v2 kernels at the lengths of other
+input sizes (S 9216, and 144 with a ragged chunk) and ``utils/resize.py``
+on the card against its CPU result.  This
 file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
@@ -1467,3 +1469,69 @@ def test_pt_checkpoint_round_trip_on_gpu(tmp_path):
     assert back.device.type == "cuda" and got.keys() == sd.keys()
     for k, v in got.items():
         assert v.is_cuda and torch.equal(v.cpu(), sd[k]), k
+
+
+# ---------------------------------------------------------------------------
+# other input sizes: the v2 kernels at vil-det-192's lengths at 768 px (S 9216
+# at its first stage) and its ragged last stage (S 144: two chunks of 64 and 16
+# rows), and the resize of utils/resize.py on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [9216, 144])
+def test_v2_kernels_at_multiscale_lengths_on_gpu(S, dtype):
+    """The inference forward, the train forward and the backward at B 2,
+    NH 12, DH 32 against their plain versions, at this file's tolerances
+    (bfloat16 h and C against the two plain passes)."""
+    needs_cuda()
+    dt = getattr(torch, dtype)
+    NH, DH = 12, 32
+    q, k, v, i, f, c0, n0 = make_inputs(S + 5, 2, S, NH, DH, "open", True)
+    args = (cu(q, dt), cu(k, dt), cu(v, dt), cu(i), cu(f), NH, cu(c0), cu(n0))
+    h, (c, n) = chunkwise_v2.mlstm_siging_chunkwise_fw(*args, eps=EPS, return_last_states=True)
+    ht, (ct, nt), (cs, ns, den) = chunkwise_v2.mlstm_siging_chunkwise_fw_train(*args, eps=EPS)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        hp, (cp, np_) = chunkwise_v2.mlstm_siging_chunkwise_fw_plain(*args, eps=EPS,
+                                                                     return_last_states=True)
+        assert_rel_close([h, c, n], [hp, cp, np_], 1e-4)
+        ref = chunkwise_v2.mlstm_siging_chunkwise_fw_train_plain(*args, eps=EPS)
+        assert_rel_close([ht, ct, nt, cs, ns, den], [ref[0], *ref[1], *ref[2]], 1e-4)
+    else:
+        sh, sden, scs, sns, sc, sn = fw_split_plain(args)
+        assert_rel_close([h, ht], [sh, sh], 2e-2)
+        assert_rel_close([c, ct, cs], [sc, sc, scs], BF16_STATE_REL)
+        assert_rel_close([n, nt, ns, den], [sn, sn, sns, sden], 1e-4)
+    rng = np.random.default_rng(S)
+    dh = cu(rng.normal(size=q.shape), dt)
+    dc_last = cu(rng.normal(size=(2, NH, DH, DH)))
+    bw = (*args[:6], cs, den, dh, dc_last)
+    got = chunkwise_v2.mlstm_siging_chunkwise_bw(*bw, eps=EPS)
+    ref = chunkwise_v2.mlstm_siging_chunkwise_bw_plain(*bw, eps=EPS)
+    assert_grads_close(got[:3], ref[:3], dt)
+    assert_grads_close(got[3:], ref[3:], torch.float32 if dt == torch.float32 else dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_in,shape_out,method", [
+    ((10, 10, 192), (8, 8, 192), "bicubic"),            # a PatchMerger's query grid
+    ((1, 80, 80, 192), (1, 96, 96, 192), "bicubic"),     # vil-det-192's pos embed at 768
+    ((4, 640, 640, 3), (4, 512, 512, 3), "bilinear"),    # a bucket's batch
+])
+def test_resize_on_gpu_matches_cpu(shape_in, shape_out, method):
+    """utils/resize.py on CUDA tensors against its CPU result, value and
+    gradient, within 1e-5 of the largest |value|."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.utils.resize import resize
+
+    rng = np.random.default_rng(len(shape_in) + shape_out[-2])
+    x = rng.normal(size=shape_in).astype(np.float32)
+    w = rng.normal(size=shape_out).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        y = resize(xt, shape_out, method)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(w).to(dev)).sum(), xt)
+        out[dev] = (y.detach().cpu(), g.cpu())
+    assert_rel_close(list(out["cuda"]), list(out["cpu"]), 1e-5)

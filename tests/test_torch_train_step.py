@@ -354,7 +354,7 @@ def test_droppath_masks_repeat_under_checkpoint():
 def test_train_step_refuses_what_is_not_ported():
     model = torch.nn.Linear(2, 2)
     tx = opt.chain()
-    for kw in (dict(end2end=False), dict(task="segment"), dict(imgsz_out=704),
+    for kw in (dict(end2end=False), dict(task="segment"), dict(kpt_shape=(17, 3)),
                dict(device_aug={"fliplr": 0.5})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.make_train_step(model, tx, **kw)

@@ -27,8 +27,7 @@ from xlstm_yolo_tpu_torch.nn.layers import set_droppath_generator
 from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
 from xlstm_yolo_tpu_torch.utils.convert import jax_leaf_names
 from xlstm_yolo_tpu_torch.utils.loss import e2e_detect_loss
-
-_ROADMAP = "not ported (ROADMAP Queue 1 item 7)"
+from xlstm_yolo_tpu_torch.utils.resize import resize
 
 
 @dataclass
@@ -55,17 +54,32 @@ def optimizer_leaves(model: nn.Module) -> list[tuple[str, int]]:
     return [(names[n], p.ndim) for n, p in model.named_parameters()]
 
 
-def detect_loss(model_train: nn.Module, batch: dict, nc: int = 80,
-                generator: torch.Generator | None = None):
-    """Forward of the train-mode model on ``batch`` and its E2E loss:
-    (loss, LossItems).  uint8 images are normalised on their device."""
-    img = batch["img"]
+def rescale_batch(img: torch.Tensor, bboxes: torch.Tensor, imgsz_out: int | None):
+    """A multi-scale bucket's batch: the (B, H, W, 3) images resized
+    bilinearly to ``imgsz_out`` square on their device (the JAX resize,
+    :mod:`xlstm_yolo_tpu_torch.utils.resize`) and the boxes scaled by
+    ``imgsz_out / H``; unchanged without a bucket or at H.  uint8 images
+    are normalised to float32 / 255 first."""
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
+    ih = img.shape[1]
+    if imgsz_out and imgsz_out != ih:
+        img = resize(img, (img.shape[0], imgsz_out, imgsz_out, img.shape[-1]), "bilinear")
+        bboxes = bboxes * (imgsz_out / ih)
+    return img, bboxes
+
+
+def detect_loss(model_train: nn.Module, batch: dict, nc: int = 80,
+                generator: torch.Generator | None = None, imgsz_out: int | None = None):
+    """Forward of the train-mode model on ``batch`` and its E2E loss:
+    (loss, LossItems).  uint8 images are normalised on their device; with
+    ``imgsz_out`` the batch is first rescaled (:func:`rescale_batch`), and
+    the loss's strides follow from the resized images."""
+    img, bboxes = rescale_batch(batch["img"], batch["bboxes"], imgsz_out)
     set_droppath_generator(model_train, generator)
     out = model_train(img)
     strides = [img.shape[1] / f.shape[1] for f in out["one2many"]]
-    return e2e_detect_loss(out, batch["cls"], batch["bboxes"], batch["mask"], strides, nc=nc)
+    return e2e_detect_loss(out, batch["cls"], bboxes, batch["mask"], strides, nc=nc)
 
 
 def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
@@ -78,15 +92,21 @@ def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
     in [0, 1]; cls (B, M) ints; bboxes (B, M, 4) xyxy in image units; mask
     (B, M) bool; each with a leading dimension of ``accumulate`` when it is
     above 1.  ``generator`` draws the stochastic-depth masks, microbatch
-    after microbatch.  metrics holds the loss (summed over the
-    microbatches) and the box, cls and dfl items (of the last) as 0-d
-    tensors.
+    after microbatch.  ``imgsz_out`` (a multi-scale bucket) resizes each
+    microbatch's images bilinearly on their device and scales its boxes
+    (:func:`rescale_batch`), as JAX's step does.  metrics holds the loss
+    (summed over the microbatches) and the box, cls and dfl items (of the
+    last) as 0-d tensors.
     """
-    if not end2end or task != "detect" or kpt_shape is not None \
-            or imgsz_out is not None or device_aug:
-        raise NotImplementedError(
-            f"train step with end2end={end2end}, task={task!r}, kpt_shape={kpt_shape}, "
-            f"imgsz_out={imgsz_out}, device_aug={device_aug}: {_ROADMAP}")
+    if not end2end:
+        raise NotImplementedError("train step with end2end=False is not ported "
+                                  "(ROADMAP Queue 1 item 7)")
+    if task != "detect" or kpt_shape is not None:
+        raise NotImplementedError(f"train step of task {task!r} (kpt_shape={kpt_shape}) is not "
+                                  "ported (ROADMAP Queue 1 item 10)")
+    if device_aug:
+        raise NotImplementedError("train step with device_aug is not ported "
+                                  "(ROADMAP Queue 1 item 12)")
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
         params = list(state.params.values())
@@ -94,7 +114,7 @@ def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
                                                  for j in range(accumulate)]
         loss, grads = None, None
         for mb in micro:
-            mb_loss, items = detect_loss(model_train, mb, nc, generator)
+            mb_loss, items = detect_loss(model_train, mb, nc, generator, imgsz_out)
             mb_grads = torch.autograd.grad(mb_loss, params)
             if grads is None:
                 loss, grads = mb_loss.detach(), list(mb_grads)

@@ -31,9 +31,17 @@ round(100 / accumulate)))``; the mosaic off from epoch ``epochs -
 close_mosaic`` (at that epoch only, so never when ``epochs <
 close_mosaic``, nor after a resume past it, as in JAX).
 
+The model is trained at ``imgsz``, the YAML's or any other size at which
+its grids rescale (``nn.tasks.token_grids``); its parameters do not depend
+on the size.  ``multi_scale=True`` adds JAX's buckets: the sizes
+``sorted({max(32, round(imgsz * s / 32) * 32) for s in (0.8, 1.0, 1.2)})``,
+each a step that resizes the loader's ``imgsz`` batch on the device
+(``steps.make_train_step(imgsz_out=...)``), one drawn a step with
+``random.Random(seed * 1000 + epoch).choice`` as JAX draws it
+(``self.buckets`` keeps the sequence); validation stays at ``imgsz``.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``multi_scale`` and ``device_aug`` (item 7), any task but detect (item
-10), an ``imgsz`` other than the model YAML's (item 3), an orbax
+``device_aug`` (item 12), any task but detect (item 10), an orbax
 ``pretrained`` checkpoint (item 7).  The trainer reads no environment
 variable.  A ``pretrained`` path or a ``cache`` mode given as an override
 is kept (JAX's ``get_cfg``, which the port's mirrors, coerces the string
@@ -48,6 +56,7 @@ from __future__ import annotations
 import copy
 import csv
 import queue
+import random
 import threading
 import time
 from pathlib import Path
@@ -174,10 +183,8 @@ class DetectionTrainer:
         task = str(getattr(args, "task", "detect") or "detect")
         if task != "detect":
             _refuse(f"task {task!r}", "10")
-        if getattr(args, "multi_scale", False):
-            _refuse("multi_scale", "7")
         if getattr(args, "device_aug", False):
-            _refuse("device_aug", "7")
+            _refuse("device_aug", "12")
         if isinstance(args.pretrained, str) and Path(args.pretrained).suffix != ".pt":
             _refuse(f"pretrained {args.pretrained!r} (only .pt state dicts load; orbax "
                     "checkpoints)", "7")
@@ -190,11 +197,9 @@ class DetectionTrainer:
         dev = self.device
         compute_dtype = torch.bfloat16 if args.amp else None
         ck = str(getattr(args, "chunkwise_kernel", "auto") or "auto")
-        model_t, mcfg = build_detection_model(
+        model_t, _ = build_detection_model(
             self.model_cfg, nc=nc, training=True, compute_dtype=compute_dtype, device=dev,
             generator=torch.Generator().manual_seed(int(args.seed)), chunkwise_kernel=ck)
-        if imgsz != int(mcfg.get("imgsz", 640)):
-            _refuse(f"imgsz {imgsz} on a {mcfg.get('imgsz', 640)} px model YAML", "3")
         model_e = copy.deepcopy(model_t).eval()  # its weights come from the EMA
         if args.pretrained and isinstance(args.pretrained, str):
             self._load_pretrained(model_t, args.pretrained)
@@ -229,6 +234,15 @@ class DetectionTrainer:
                 self.wdir / "last.pt", state, self.generator)
         train_step = make_train_step(model_t, tx, nc=nc, accumulate=accumulate)
         self.accumulate = accumulate
+        # multi-scale: one step per bucket of {0.8, 1.0, 1.2} x imgsz (stride-32
+        # aligned), each resizing the batch and its boxes on the device
+        ms_steps = {}
+        if getattr(args, "multi_scale", False):
+            buckets = sorted({max(32, round(imgsz * s / 32) * 32) for s in (0.8, 1.0, 1.2)})
+            ms_steps = {b: train_step if b == imgsz else make_train_step(
+                model_t, tx, nc=nc, accumulate=accumulate, imgsz_out=b) for b in buckets}
+            print(f"multi-scale buckets: {buckets}")
+        self.buckets: list[int] = []
 
         validator = DetectionValidator(self._val_args(batch), keep_loader=True)
         stopper = EarlyStopping(int(args.patience))
@@ -262,13 +276,20 @@ class DetectionTrainer:
                 tm = {"epoch": epoch, "wait_s": 0.0, "compose_s": 0.0, "step_s": 0.0,
                       "load_s": 0.0, "images": 0}
                 self.step_files = []
+                ms_rng = random.Random(int(args.seed) * 1000 + epoch)
+                ms_keys = list(ms_steps)
                 t_wait = time.perf_counter()
                 for micro in _prefetch(epoch_batches(epoch)):
                     t0 = time.perf_counter()
                     tm["wait_s"] += t0 - t_wait
                     dev_batch = self._device_batch(trainset, micro)
                     t1 = time.perf_counter()
-                    state, metrics = train_step(state, dev_batch, self.generator)
+                    step_fn = train_step
+                    if ms_keys:
+                        bucket = ms_rng.choice(ms_keys)
+                        self.buckets.append(bucket)
+                        step_fn = ms_steps[bucket]
+                    state, metrics = step_fn(state, dev_batch, self.generator)
                     losses.append(metrics)
                     self.step_files.append([f for b in micro for f in b["im_file"]])
                     self.callbacks.run("on_train_batch_end", self)

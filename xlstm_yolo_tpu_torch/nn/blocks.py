@@ -5,10 +5,16 @@ Counterpart of the flagship subset of ``xlstm_yolo_tpu/nn/blocks.py``:
 ``VitPatchEmbedBlock``, ``VitPosEmbedBlock``, ``ViLBlockPairBlock``,
 ``SequenceToImage``, ``PatchMerger``, ``LSBlock``, ``RGBlock`` and
 ``ViLFusionBlock``.  Image tensors are NHWC at every boundary.
+
+``fused=True`` (``ConvBNAct``, ``LSBlock``, ``ViLFusionBlock``'s
+``in_proj``) builds the eval-only form whose convs carry the BatchNorm
+folded into a bias (:mod:`xlstm_yolo_tpu_torch.utils.fuse`): the
+BatchNorm is gone, and training such a module raises, as JAX asserts.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -23,10 +29,11 @@ from xlstm_yolo_tpu_torch.nn.layers import (
     ViLBlockPair,
     VitPatchEmbed,
     VitPosEmbed2d,
-    grid_of,
     normal_init,
+    resolve_seqlens,
 )
 from xlstm_yolo_tpu_torch.ops.backend import V2_KERNEL
+from xlstm_yolo_tpu_torch.utils.resize import resize
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 
@@ -38,21 +45,34 @@ def gelu(x):
 _ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu, None: lambda x: x}
 
 
-class ConvBNAct(nn.Module):
-    """Conv (no bias) + BatchNorm (eps 1e-3) + activation: the YOLO ``Conv``."""
+class _EvalOnly(nn.Module):
+    """A module built with ``fused=True`` (its ``fused`` attribute) runs in
+    eval mode only."""
+
+    def train(self, mode: bool = True):
+        if mode and self.fused:
+            raise ValueError(f"{type(self).__name__}(fused=True) is eval-only")
+        return super().train(mode)
+
+
+class ConvBNAct(_EvalOnly):
+    """Conv (no bias) + BatchNorm (eps 1e-3) + activation: the YOLO ``Conv``.
+    ``fused``: the conv has a bias and there is no BatchNorm."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
                  g: int = 1, d: int = 1, act: str | None = "silu",
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, fused: bool = False):
         super().__init__()
         if act not in _ACTS:
             raise ValueError(f"unknown activation {act!r}")
-        self.conv = Conv(c1, c2, k, s, p, g, d, bias=False, compute_dtype=compute_dtype)
-        self.bn = BatchNorm(c2, eps=1e-3)
+        self.fused = fused
+        self.conv = Conv(c1, c2, k, s, p, g, d, bias=fused, compute_dtype=compute_dtype)
+        self.bn = None if fused else BatchNorm(c2, eps=1e-3)
         self.act = _ACTS[act]
 
     def forward(self, x):
-        return self.act(self.bn(self.conv(x)))
+        y = self.conv(x)
+        return self.act(y if self.bn is None else self.bn(y))
 
 
 def upsample_nearest(x, scale: int = 2):
@@ -132,47 +152,77 @@ class SequenceToImage(nn.Module):
 
     def forward(self, x):
         B, S, D = x.shape
-        h, w = grid_of(S, self.seqlens)
+        h, w = resolve_seqlens(S, self.seqlens)
         return x.reshape(B, h, w, D)
+
+
+def merged_tokens(n_in: int, num_tokens_out: int, base_tokens_in: int | None) -> int:
+    """The PatchMerger's output count for ``n_in`` input tokens: M at the
+    base count (or without one), else ``round(M * n_in / base)``, which with
+    M must be a square (JAX's assertion, raised as a ValueError)."""
+    if not base_tokens_in or n_in == base_tokens_in:
+        return num_tokens_out
+    m_new = int(round(num_tokens_out * n_in / base_tokens_in))
+    g0, g1 = int(round(math.sqrt(num_tokens_out))), int(round(math.sqrt(m_new)))
+    if g0 * g0 != num_tokens_out or g1 * g1 != m_new:
+        raise ValueError(f"PatchMerger multi-scale needs square query grids: "
+                         f"M={num_tokens_out}, scaled M'={m_new}")
+    return m_new
 
 
 class PatchMerger(nn.Module):
     """Learned-query token pooling: LayerNorm -> softmax(queries x^T /
     sqrt(dim)) over tokens -> attn @ x.  Products take the input dtype's
-    operands and accumulate in float32."""
+    operands and accumulate in float32.  With ``base_tokens_in`` (the YAML
+    input's token count) another input count N takes the float32 queries as
+    their square grid resized bicubically to ``merged_tokens`` queries, so
+    the pooling ratio, and every grid after it, scales with the input."""
 
-    def __init__(self, dim: int, num_tokens_out: int):
+    def __init__(self, dim: int, num_tokens_out: int, base_tokens_in: int | None = None):
         super().__init__()
-        self.dim = dim
+        self.dim, self.base_tokens_in = dim, base_tokens_in
         self.norm = LayerNorm(dim, eps=1e-6)
         self.queries = nn.Parameter(torch.empty(num_tokens_out, dim))
 
     def init_own_parameters(self, g):
         normal_init(1.0)(self.queries, g)
 
-    def forward(self, x):  # (B, N, D) -> (B, M, D)
+    def forward(self, x):  # (B, N, D) -> (B, M', D)
         xn = self.norm(x).to(x.dtype)
         acc = acc_dtype(x.dtype)
-        q = self.queries.to(x.dtype).to(acc)
+        queries = self.queries
+        m, dim = queries.shape
+        m_new = merged_tokens(x.shape[1], m, self.base_tokens_in)
+        if m_new != m:
+            g0, g1 = math.isqrt(m), math.isqrt(m_new)
+            queries = resize(queries.reshape(g0, g0, dim), (g1, g1, dim),
+                             "bicubic").reshape(m_new, dim)
+        q = queries.to(x.dtype).to(acc)
         xf = xn.to(acc)
         sim = torch.einsum("md,bnd->bmn", q, xf) * (self.dim ** -0.5)
         attn = torch.softmax(sim, dim=-1)
         return torch.einsum("bmn,bnd->bmd", attn.to(x.dtype).to(acc), xf).to(x.dtype)
 
 
-class LSBlock(nn.Module):
-    """Local spatial block: dw3x3 + BN -> 1x1 + GELU -> 1x1, residual."""
+class LSBlock(_EvalOnly):
+    """Local spatial block: dw3x3 + BN -> 1x1 + GELU -> 1x1, residual.
+    ``fused``: fc1's bias carries the BatchNorm, which is gone."""
 
-    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None):
+    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None,
+                 fused: bool = False):
         super().__init__()
         cd = compute_dtype
+        self.fused = fused
         self.fc1 = Conv(dim, dim, 3, g=dim, compute_dtype=cd)
-        self.norm = BatchNorm(dim, eps=1e-3)
+        self.norm = None if fused else BatchNorm(dim, eps=1e-3)
         self.fc2 = Conv(dim, dim, 1, compute_dtype=cd)
         self.fc3 = Conv(dim, dim, 1, compute_dtype=cd)
 
     def forward(self, x):
-        return x + self.fc3(gelu(self.fc2(self.norm(self.fc1(x)))))
+        y = self.fc1(x)
+        if self.norm is not None:
+            y = self.norm(y)
+        return x + self.fc3(gelu(self.fc2(y)))
 
 
 class RGBlock(nn.Module):
@@ -191,20 +241,24 @@ class RGBlock(nn.Module):
         return self.fc2(gelu(self.dwconv(a) + a) * v)
 
 
-class ViLFusionBlock(nn.Module):
-    """FPN fusion block: 1x1 in_proj + LSBlock + RMSNorm + ViLBlockPair + RGBlock."""
+class ViLFusionBlock(_EvalOnly):
+    """FPN fusion block: 1x1 in_proj + LSBlock + RMSNorm + ViLBlockPair + RGBlock.
+    ``fused``: in_proj's conv and the LSBlock's fc1 carry their BatchNorms."""
 
     def __init__(self, c1: int, dim: int, seqlens: Sequence[int], chunk_size: int = 256,
                  qkv_block_size: int = 16, mlp_ratio: float = 4.0, n: int = 1,
                  drop_path: float = 0.0, conv_kind: str = "2d",
-                 chunkwise_kernel: str = V2_KERNEL, compute_dtype: torch.dtype | None = None):
+                 chunkwise_kernel: str = V2_KERNEL, compute_dtype: torch.dtype | None = None,
+                 fused: bool = False):
         super().__init__()
         cd = compute_dtype
+        self.fused = fused
         self.in_proj = None
         if c1 != dim:
-            self.in_proj = nn.Sequential(Conv(c1, dim, 1, bias=False, compute_dtype=cd),
-                                         BatchNorm(dim, eps=1e-3))
-        self.lsblock = LSBlock(dim, cd)
+            conv = Conv(c1, dim, 1, bias=fused, compute_dtype=cd)
+            self.in_proj = nn.Sequential(conv) if fused else nn.Sequential(
+                conv, BatchNorm(dim, eps=1e-3))
+        self.lsblock = LSBlock(dim, cd, fused)
         self.norm = RMSNorm(dim, eps=1e-3)
         self.vil = nn.ModuleList(
             ViLBlockPairBlock(dim, seqlens, chunk_size, qkv_block_size, conv_kind,

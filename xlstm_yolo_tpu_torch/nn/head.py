@@ -54,13 +54,14 @@ class Detect(nn.Module):
 
     ``strides`` are the nominal level strides, used for the cls bias init;
     the decode takes its strides from the input size.  ``end2end`` adds the
-    one2one towers (the v10 head).
+    one2one towers (the v10 head).  ``fused``: the towers' ConvBNActs carry
+    their folded BatchNorms (eval only).
     """
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (), strides: Sequence[float] = (),
                  reg_max: int = 16, end2end: bool = False, max_det: int = 300,
                  img_size: int = 640, decode_only: bool = False,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, fused: bool = False):
         super().__init__()
         self.nc, self.reg_max, self.end2end = nc, reg_max, end2end
         self.max_det, self.decode_only = max_det, decode_only
@@ -70,18 +71,18 @@ class Detect(nn.Module):
         cd = compute_dtype
 
         def box_tower(cin):
-            return nn.Sequential(ConvBNAct(cin, c2, 3, compute_dtype=cd),
-                                 ConvBNAct(c2, c2, 3, compute_dtype=cd),
+            return nn.Sequential(ConvBNAct(cin, c2, 3, compute_dtype=cd, fused=fused),
+                                 ConvBNAct(c2, c2, 3, compute_dtype=cd, fused=fused),
                                  Conv(c2, 4 * reg_max, 1, bias_init=const_init(1.0),
                                       compute_dtype=cd))
 
         def cls_tower(cin, s):
             bias = math.log(5 / nc / (img_size / s) ** 2)
             return nn.Sequential(
-                nn.Sequential(ConvBNAct(cin, cin, 3, g=cin, compute_dtype=cd),
-                              ConvBNAct(cin, c3, 1, compute_dtype=cd)),
-                nn.Sequential(ConvBNAct(c3, c3, 3, g=c3, compute_dtype=cd),
-                              ConvBNAct(c3, c3, 1, compute_dtype=cd)),
+                nn.Sequential(ConvBNAct(cin, cin, 3, g=cin, compute_dtype=cd, fused=fused),
+                              ConvBNAct(cin, c3, 1, compute_dtype=cd, fused=fused)),
+                nn.Sequential(ConvBNAct(c3, c3, 3, g=c3, compute_dtype=cd, fused=fused),
+                              ConvBNAct(c3, c3, 1, compute_dtype=cd, fused=fused)),
                 Conv(c3, nc, 1, bias_init=const_init(bias), compute_dtype=cd))
 
         self.cv2 = nn.ModuleList(box_tower(c) for c in ch)

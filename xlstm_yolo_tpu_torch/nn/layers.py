@@ -48,6 +48,7 @@ from xlstm_yolo_tpu_torch.ops.chunkwise_v2 import (
 )
 from xlstm_yolo_tpu_torch.ops.epilogue import epilogue
 from xlstm_yolo_tpu_torch.ops.ffn import ffn
+from xlstm_yolo_tpu_torch.utils.resize import resize
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 FORWARD = "rowwise_from_top_left"
@@ -336,18 +337,31 @@ def set_droppath_generator(model: nn.Module, generator: torch.Generator | None) 
 # ---------------------------------------------------------------------------
 
 
+def resolve_seqlens(S: int, seqlens: Sequence[int]) -> tuple[int, int]:
+    """Actual (h, w) token grid of a length-S sequence, given the block's
+    base grid from the YAML (JAX ``resolve_seqlens``): at another input
+    size the grid rescales by one factor on both sides, and must do so
+    integrally."""
+    h0, w0 = int(seqlens[0]), int(seqlens[1])
+    if h0 * w0 == S:
+        return h0, w0
+    r = math.sqrt(S / (h0 * w0))
+    h, w = int(round(h0 * r)), int(round(w0 * r))
+    if h * w != S:
+        raise ValueError(f"sequence length {S} incompatible with base grid {h0}x{w0} "
+                         "(multi-scale buckets must rescale the grid integrally)")
+    return h, w
+
+
 def grid_of(S: int, seqlens: Sequence[int] | None) -> tuple[int, int]:
-    """(h, w) token grid of a length-S sequence (base resolution only)."""
+    """(h, w) token grid of a length-S sequence: square without
+    ``seqlens``, else :func:`resolve_seqlens`."""
     if seqlens is None:
         h = int(round(math.sqrt(S)))
         if h * h != S:
             raise ValueError(f"S={S} is not square; pass seqlens")
         return h, h
-    h, w = int(seqlens[0]), int(seqlens[1])
-    if h * w != S:
-        raise ValueError(f"sequence length {S} does not match grid {h}x{w} "
-                         "(multi-scale inputs are not ported yet)")
-    return h, w
+    return resolve_seqlens(S, seqlens)
 
 
 class SequenceConv2d(nn.Module):
@@ -418,7 +432,8 @@ class VitPatchEmbed(nn.Module):
 
 
 class VitPosEmbed2d(nn.Module):
-    """Learnable 2d positional embedding (1, h, w, dim), trunc-normal 0.02."""
+    """Learnable 2d positional embedding (1, h, w, dim), trunc-normal 0.02;
+    resized bicubically (float32, :func:`resize`) to another input grid."""
 
     def __init__(self, seqlens: Sequence[int], dim: int):
         super().__init__()
@@ -428,10 +443,10 @@ class VitPosEmbed2d(nn.Module):
         trunc_normal_init(0.02)(self.embed, g)
 
     def forward(self, x):  # (B, h, w, D)
-        if x.shape[1:3] != self.embed.shape[1:3]:
-            raise ValueError(f"grid {tuple(x.shape[1:3])} != {tuple(self.embed.shape[1:3])} "
-                             "(pos-embed resize is not ported yet)")
-        return x + self.embed.to(x.dtype)
+        embed = self.embed
+        if x.shape[1:3] != embed.shape[1:3]:  # another input size: bicubic, as JAX
+            embed = resize(embed, (1, x.shape[1], x.shape[2], embed.shape[-1]), "bicubic")
+        return x + embed.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -619,9 +634,10 @@ class ViLLayer(nn.Module):
 
     norm -> proj_up -> (qk: depthwise conv + SiLU -> qk_proj -> q, k;
     v: v_proj) -> mLSTM cell -> + learnable_skip * conv_act -> proj_down
-    -> + residual; ffn_norm -> FeedForward -> + residual.  The BACKWARD
-    direction flips the sequence before the branch and flips the branch
-    output back.  ``chunk_size`` and ``chunkwise_kernel`` go to the cell
+    -> + residual; ffn_norm -> FeedForward -> + residual.  A ``conv_kind``
+    other than ``"2d"`` skips the conv (SiLU of proj_up's qk half), as JAX
+    does.  The BACKWARD direction flips the sequence before the branch and
+    flips the branch output back.  ``chunk_size`` and ``chunkwise_kernel`` go to the cell
     (see :class:`MatrixLSTMCell`).
     """
 
@@ -633,8 +649,6 @@ class ViLLayer(nn.Module):
                  ffn_round_up_to: int = 64, drop_path: float = 0.0, chunk_size: int = 64,
                  chunkwise_kernel: str = V2_KERNEL, compute_dtype: torch.dtype | None = None):
         super().__init__()
-        if conv_kind != "2d":
-            raise NotImplementedError(f"conv_kind={conv_kind!r} is not ported yet")
         if direction not in (FORWARD, BACKWARD):
             raise ValueError(f"unknown direction {direction!r}")
         self.direction = direction
@@ -644,7 +658,9 @@ class ViLLayer(nn.Module):
         cd = compute_dtype
         self.norm = RMSNorm(dim, eps=1e-6, use_weight=norm_bias)
         self.proj_up = Dense(dim, 2 * inner, proj_bias, small_init(dim), compute_dtype=cd)
-        self.conv = SequenceConv2d(inner, conv_kernel_size, seqlens, conv_bias, cd)
+        # any other conv_kind skips the conv, as JAX's does (no parameters)
+        self.conv = (SequenceConv2d(inner, conv_kernel_size, seqlens, conv_bias, cd)
+                     if conv_kind == "2d" else None)
         self.qk_proj = Dense(inner, 2 * inner, proj_bias, small_init(dim), compute_dtype=cd)
         self.v_proj = Dense(inner, inner, proj_bias, small_init(dim), compute_dtype=cd)
         self.mlstm_cell = MatrixLSTMCell(inner, nh, gate_soft_cap, norm_bias, compute_dtype=cd,
@@ -667,7 +683,7 @@ class ViLLayer(nn.Module):
         if self.direction == BACKWARD:
             xn = xn.flip(1)
         x_qk, x_v = self.proj_up(xn).split(self.inner, dim=-1)
-        x_qk_act = F.silu(self.conv(x_qk))
+        x_qk_act = F.silu(self.conv(x_qk) if self.conv is not None else x_qk)
         q, k = self.qk_proj(x_qk_act).split(self.inner, dim=-1)
         v = self.v_proj(x_v)
         if self.training:

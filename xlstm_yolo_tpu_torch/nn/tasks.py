@@ -21,7 +21,7 @@ from torch import nn
 
 from xlstm_yolo_tpu_torch.nn import blocks as B
 from xlstm_yolo_tpu_torch.nn import head as H
-from xlstm_yolo_tpu_torch.nn.layers import reset_parameters
+from xlstm_yolo_tpu_torch.nn.layers import reset_parameters, resolve_seqlens
 from xlstm_yolo_tpu_torch.ops.backend import V2_KERNEL, get_mlstm_kernel
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
@@ -106,6 +106,7 @@ def parse_model_specs(d: dict, ch: int = 3):
                 tok = sl[0] * sl[1] if sl else tin
         elif name == "PatchMerger":
             c2 = ch_list[f]
+            kwargs["base_tokens_in"] = tin  # rescales its query grid at other sizes
             tok = args[1]
         elif name == "SequenceToImage":
             c2 = ch_list[f]
@@ -142,8 +143,10 @@ def _vil_config(cfg: dict) -> dict:
 
 
 def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
-                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL) -> nn.Module:
-    """Instantiate the module of one layer spec."""
+                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL,
+                 fused: bool = False) -> nn.Module:
+    """Instantiate the module of one layer spec (``fused``: the eval-only
+    modules with folded BatchNorms, :mod:`xlstm_yolo_tpu_torch.utils.fuse`)."""
     name, args, kw = spec["module"], spec["args"], spec["kwargs"]
     cd = compute_dtype
     if name == "VitPatchEmbedBlock":
@@ -161,10 +164,11 @@ def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
         cfg = dict(cfg)
         mlp_ratio = float(cfg.pop("mlp_ratio", 4.0))
         return B.ViLFusionBlock(c1, c2, mlp_ratio=mlp_ratio, **_vil_config(cfg),
-                                chunkwise_kernel=chunkwise_kernel, compute_dtype=cd)
+                                chunkwise_kernel=chunkwise_kernel, compute_dtype=cd,
+                                fused=fused)
     if name == "PatchMerger":
         dim, m_out = args
-        return B.PatchMerger(dim, m_out)
+        return B.PatchMerger(dim, m_out, kw.get("base_tokens_in"))
     if name == "SequenceToImage":
         (seqlens,) = args
         return B.SequenceToImage(tuple(seqlens))
@@ -182,19 +186,69 @@ def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
         d = args[5] if len(args) > 5 else 1
         act = "silu" if (len(args) < 7 or args[6] is True) else (
             args[6] if isinstance(args[6], str) else None)
-        return B.ConvBNAct(spec["c1"], c2, k, s, p, g, d, act, compute_dtype=cd)
+        return B.ConvBNAct(spec["c1"], c2, k, s, p, g, d, act, compute_dtype=cd, fused=fused)
     if name in _HEADS:
         cls = H.v10Detect if name == "v10Detect" else H.Detect
         strides = tuple(img_size / math.sqrt(t) for t in kw["tokens"])
         return cls(nc=args[0] if args else nc, ch=kw["ch"], strides=strides,
-                   img_size=img_size, decode_only=decode_only, compute_dtype=cd)
+                   img_size=img_size, decode_only=decode_only, compute_dtype=cd, fused=fused)
     raise NotImplementedError(f"no builder for module {name!r}")
+
+
+def token_grids(specs: Sequence[dict], img_hw: tuple[int, int]) -> list[tuple]:
+    """Each layer's output at input size ``img_hw``: ``("img", h, w)`` or
+    ``("seq", S)``, or the ValueError a layer would raise at that size (a
+    patch size that does not divide it, a grid that does not rescale
+    integrally, a PatchMerger query grid that is not square), found before
+    the model runs."""
+    out: list[tuple] = []
+    for spec in specs:
+        f, name, args = spec["f"], spec["module"], spec["args"]
+        prev = ("img", *img_hw) if not out else out[-1]
+        src = prev if f == -1 else out[f] if isinstance(f, int) else None
+        if name == "VitPatchEmbedBlock":
+            (ph, pw), (_, h, w) = args[3], src
+            if h % ph or w % pw:
+                raise ValueError(f"input {h}x{w} not divisible by patch {(ph, pw)}")
+            grid = ("img", h // ph, w // pw)
+        elif name == "VitPosEmbedBlock":
+            grid = ("seq", src[1] * src[2])
+        elif name == "ViLBlockPairBlock":
+            S = src[1] * src[2] if src[0] == "img" else src[1]
+            resolve_seqlens(S, args[-1]["seqlens"])
+            grid = ("seq", S)
+        elif name == "PatchMerger":
+            grid = ("seq", B.merged_tokens(src[1], args[1], spec["kwargs"]["base_tokens_in"]))
+        elif name == "SequenceToImage":
+            grid = ("img", *resolve_seqlens(src[1], args[0]))
+        elif name == "ViLFusionBlock":
+            resolve_seqlens(src[1] * src[2], args[-1]["seqlens"])
+            grid = src
+        elif name == "Upsample":
+            scale = int(args[1]) if len(args) > 1 else 2
+            grid = ("img", src[1] * scale, src[2] * scale)
+        elif name == "Concat":
+            grids = {out[-1] if j == -1 else out[j] for j in f}
+            if len(grids) != 1:
+                raise ValueError(f"layer {spec['i']} concatenates grids {sorted(grids)}")
+            grid = grids.pop()
+        elif name == "Conv":
+            k = args[1] if len(args) > 1 else 1
+            s = args[2] if len(args) > 2 else 1
+            p = args[3] if len(args) > 3 and args[3] is not None else k // 2
+            grid = ("img", *((n + 2 * p - k) // s + 1 for n in src[1:]))
+        else:  # the head
+            grid = ()
+        out.append(grid)
+    return out
 
 
 class DetectionModel(nn.Module):
     """Graph executor over compiled layer specs (savelist routing).
 
-    Input: NHWC float images in [0, 1].  Output at inference:
+    Input: NHWC float images in [0, 1], at the YAML's size or any size at
+    which every layer's grid rescales (:func:`token_grids`, checked once per
+    size before the first layer runs).  Output at inference:
     (decoded (B, max_det, 6) or, with ``decode_only``, (B, A, 4+nc);
     dict of the head's level maps).  In training (``train()``): the head's
     raw level maps, ``{"one2many": [...], "one2one": [...]}``.
@@ -202,16 +256,21 @@ class DetectionModel(nn.Module):
 
     def __init__(self, specs: Sequence[dict], save: Sequence[int], nc: int = 80,
                  compute_dtype: torch.dtype | None = None, img_size: int = 640,
-                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL):
+                 decode_only: bool = False, chunkwise_kernel: str = V2_KERNEL,
+                 fused: bool = False):
         super().__init__()
         self.specs, self.save, self.nc = list(specs), set(save), nc
         self.compute_dtype, self.img_size = compute_dtype, img_size
         self.model = nn.ModuleList(
-            build_module(s, nc, compute_dtype, img_size, decode_only, chunkwise_kernel)
+            build_module(s, nc, compute_dtype, img_size, decode_only, chunkwise_kernel, fused)
             for s in self.specs)
+        self._sizes_checked: set[tuple[int, int]] = set()
 
     def forward(self, x):
         img_hw = (x.shape[1], x.shape[2])
+        if img_hw not in self._sizes_checked:
+            token_grids(self.specs, img_hw)
+            self._sizes_checked.add(img_hw)
         saved: dict[int, Any] = {}
         out = x
         for spec, layer in zip(self.specs, self.model):
@@ -228,12 +287,16 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
                           compute_dtype: torch.dtype | None = None,
                           decode_only: bool = False, device: str | torch.device = "cuda",
                           generator: torch.Generator | None = None, training: bool = False,
-                          chunkwise_kernel: str = DEFAULT_CHUNKWISE_KERNEL):
+                          chunkwise_kernel: str = DEFAULT_CHUNKWISE_KERNEL,
+                          fused: bool = False):
     """Compile a model YAML into a DetectionModel on ``device``, in eval
     mode, or in train mode with ``training``, initialised from
     ``generator`` (default: seed 0), its mLSTM cells on ``chunkwise_kernel``
     (:func:`resolve_chunkwise_kernel`).  The parameters do not depend on the
-    kernel.  Returns (model, resolved cfg dict)."""
+    kernel.  ``fused`` builds the eval-only model whose convs carry their
+    folded BatchNorms, for the state dict of
+    :func:`xlstm_yolo_tpu_torch.utils.fuse.fuse_state_dict` (training it
+    raises).  Returns (model, resolved cfg dict)."""
     dev = select_device(device)
     p = Path(cfg) if not isinstance(cfg, dict) else None
     if p is not None and not p.exists() and (CFG_MODELS / p.name).exists():
@@ -244,7 +307,8 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
     specs, save, _ = parse_model_specs(d, ch=ch)
     model = DetectionModel(specs, save, nc=d.get("nc", 80), compute_dtype=compute_dtype,
                            img_size=int(d.get("imgsz", 640)), decode_only=decode_only,
-                           chunkwise_kernel=resolve_chunkwise_kernel(chunkwise_kernel))
+                           chunkwise_kernel=resolve_chunkwise_kernel(chunkwise_kernel),
+                           fused=fused)
     reset_parameters(model, generator if generator is not None
                      else torch.Generator().manual_seed(0))
     return model.to(dev).train(training), d
