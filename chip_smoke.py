@@ -284,6 +284,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                epoch: the printed buckets and JAX's draws; the stripped
                best's .val(imgsz=512) on its own detections: mAP50 >= 0.9
                (phase_multiscale; runs after train_loop).
+38. serve    - predict from image files and serving, vil-det-192, bf16: the
+               host JPEG decoder (csrc/jpeg_decode.cpp, built with g++) on
+               the committed fixtures of tests/fixtures/jpeg, to their
+               manifest's hashes (cv2.imread's bytes), and its ms a 640x480
+               q90 image beside the PNG decoder's; then, counts at 0:
+               YOLO.predict over a directory of 64 JPEG files (20 launches a
+               batch; detections equal predict on the decoded arrays; img/s
+               of both); AutoBackend on a .pt with its .meta.json sidecar
+               (names and imgsz restored; the folded model by phase
+               multiscale's rule); ThroughputEngine(scan=8) over 64 host
+               batches on CUDA graphs, bit-equal to the eager loop, 160
+               launches captured in each group graph, img/s and busy share
+               of both, and in each one's traced window the v2 inference
+               kernels the trace holds, 20 of each a forward
+               (phase_serve; runs after multiscale).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -297,7 +312,10 @@ their kernels' device ms; the quadratic kernels' "per_call_s6656" and the
 v1 and exp forwards', dC scans' and dq/dk/dv's "per_call_s6656_l512" at
 every detector's heads, with each pass's device ms or exp_floor_ms; the
 v2 forward's and the four training kernels' rows a "multiscale" object:
-their launches in phase multiscale and their errors at its lengths), and
+their launches in phase multiscale and their errors at its lengths; the
+v2 forward's row a "serve" object: its launches in phase serve, the
+launches captured a group graph, and the replays and kernel executions of
+the engine's traced window), and
 last {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -482,12 +500,13 @@ class ClockSampler:
         return False
 
 
-def device_busy(prof, window_ms: float) -> dict:
+def device_busy(prof, window_ms: float, count: tuple = ()) -> dict:
     """Device time of the profiled window from its trace: the kernel,
     memcpy and memset events only (not the GPU annotation rows named after
     aten ops, which repeat the time of the kernels they cover).  The busy
     share is the union of those intervals over ``window_ms``, the window's
-    own span between two CUDA events."""
+    own span between two CUDA events.  ``executions``: for each name in
+    ``count``, the kernel events whose name holds it."""
     import tempfile
     from pathlib import Path
 
@@ -499,7 +518,8 @@ def device_busy(prof, window_ms: float) -> dict:
              for e in events if e.get("ph") == "X"
              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not spans:
-        return {"kernel_ms_total": "not measured", "busy_share": "not measured"}
+        return {"kernel_ms_total": "not measured", "busy_share": "not measured",
+                "executions": {k: 0 for k in count}}
     busy, end = 0.0, float("-inf")
     for t0, t1, _ in sorted(spans):
         busy += max(0.0, t1 - max(t0, end))
@@ -514,7 +534,9 @@ def device_busy(prof, window_ms: float) -> dict:
     return {"kernel_ms_total": total_us / 1e3, "busy_ms": busy / 1e3, "window_ms": window_ms,
             "busy_share": busy / 1e3 / window_ms, "device_events": len(spans),
             "top": [{"kernel": name[:90], "device_ms": us / 1e3, "calls": c,
-                     "share": us / total_us} for name, (us, c) in top[:15]]}
+                     "share": us / total_us} for name, (us, c) in top[:15]],
+            "executions": {k: sum(c for name, (_, c) in by_name.items() if k in name)
+                           for k in count}}
 
 
 def kernel_inputs(S, dtype, gates="open", states=False, seed=0, ws=FLAGSHIP):
@@ -1503,6 +1525,48 @@ def bucket_step_launches(model, imgsz: int) -> dict:
             "epilogue_bw": layers, "ffn_bw": layers}
 
 
+def fused_agreement(cw, plain, fused, x) -> dict:
+    """The folded-BatchNorm model ``fused`` against ``plain`` (both
+    decode-only, the same weights) on the float images ``x``: in float64 on
+    the plain cells, boxes within MS_FUSE_TOL px and the same classes; in
+    float32 on the kernels, at most E2E_FACTOR times as far from that
+    float64 output as the unfused model is, plus E2E_ATOL (phase_model's
+    rule: a float32 forward of this random network amplifies rounding, and
+    folding changes the rounding).  Returns the numbers and "ok"."""
+    import torch
+
+    with torch.inference_mode():
+        before = cw.LAUNCHES
+        y32, f32 = plain(x)[0], fused(x)[0]
+        fused_launches = cw.LAUNCHES - before
+        outs64 = []
+        for m in (plain, fused):
+            m64 = copy.deepcopy(m).double()
+            set_cell_kernel(m64, cw.mlstm_siging_chunkwise_fw_plain)
+            outs64.append(m64(x.double())[0])
+            del m64
+        y64, f64 = outs64
+        fuse = {"decode_shape": list(y64.shape),
+                "float64_max_box_err_px": (f64[..., :4] - y64[..., :4]).abs().max().item(),
+                "float64_max_score_err": (f64[..., 4:] - y64[..., 4:]).abs().max().item(),
+                "float64_same_classes": bool(torch.equal(f64[..., 4:].argmax(-1),
+                                                         y64[..., 4:].argmax(-1))),
+                "bn_folded": sum(k.endswith("running_mean") for k in plain.state_dict()),
+                "kernel_launches": fused_launches}
+        for part, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
+            ref = y64[..., sl]
+            fuse[f"float32_{part}"] = {
+                "fused_vs_f64": (f32[..., sl].double() - ref).abs().max().item(),
+                "unfused_vs_f64": (y32[..., sl].double() - ref).abs().max().item(),
+                "fused_vs_unfused": (f32[..., sl] - y32[..., sl]).abs().max().item()}
+    ok32 = all(fuse[f"float32_{p}"]["fused_vs_f64"]
+               <= E2E_FACTOR * fuse[f"float32_{p}"]["unfused_vs_f64"] + E2E_ATOL[p]
+               for p in ("boxes", "scores"))
+    fuse["ok"] = (fuse["float64_max_box_err_px"] <= MS_FUSE_TOL
+                  and fuse["float64_same_classes"] and ok32)
+    return fuse
+
+
 def phase_multiscale(cw, epi, ffn, steps, card: str) -> dict:
     """vil-det-192 at other input sizes, bfloat16 (phase_multiscale):
 
@@ -1606,34 +1670,9 @@ def phase_multiscale(cw, epi, ffn, steps, card: str) -> dict:
     pre = DetectionPredictor({"imgsz": 512, "batch": B}, plain, {})
     with torch.inference_mode():
         x = pre.preprocess(images).float() / 255.0
-        before = cw.LAUNCHES
-        y32, f32 = plain(x)[0], fused(x)[0]
-        fused_launches = cw.LAUNCHES - before
-        outs64 = []
-        for m in (plain, fused):
-            m64 = copy.deepcopy(m).double()
-            set_cell_kernel(m64, cw.mlstm_siging_chunkwise_fw_plain)
-            outs64.append(m64(x.double())[0])
-        y64, f64 = outs64
-        fuse = {"decode_shape": list(y64.shape),
-                "float64_max_box_err_px": (f64[..., :4] - y64[..., :4]).abs().max().item(),
-                "float64_max_score_err": (f64[..., 4:] - y64[..., 4:]).abs().max().item(),
-                "float64_same_classes": bool(torch.equal(f64[..., 4:].argmax(-1),
-                                                         y64[..., 4:].argmax(-1))),
-                "bn_folded": sum(k.endswith("running_mean") for k in plain.state_dict()),
-                "kernel_launches": fused_launches}
-        for part, sl in (("boxes", slice(0, 4)), ("scores", slice(4, None))):
-            ref = y64[..., sl]
-            fuse[f"float32_{part}"] = {
-                "fused_vs_f64": (f32[..., sl].double() - ref).abs().max().item(),
-                "unfused_vs_f64": (y32[..., sl].double() - ref).abs().max().item(),
-                "fused_vs_unfused": (f32[..., sl] - y32[..., sl]).abs().max().item()}
-    del plain, fused, pre, x, y32, f32, y64, f64, outs64, m64
-    ok32 = all(fuse[f"float32_{p}"]["fused_vs_f64"]
-               <= E2E_FACTOR * fuse[f"float32_{p}"]["unfused_vs_f64"] + E2E_ATOL[p]
-               for p in ("boxes", "scores"))
-    if not (fuse["float64_max_box_err_px"] <= MS_FUSE_TOL and fuse["float64_same_classes"]
-            and ok32 and fused_launches == 2 * cells):
+    fuse = fused_agreement(cw, plain, fused, x)
+    del plain, fused, pre, x
+    if not (fuse["ok"] and fuse["kernel_launches"] == 2 * cells):
         raise AssertionError(f"multiscale: the fused model's detections differ: {fuse}")
 
     # 3. bucket steps from 640 px batches
@@ -1746,6 +1785,275 @@ def phase_multiscale(cw, epi, ffn, steps, card: str) -> dict:
         raise AssertionError(f"self-labelled val at {MS_VAL_IMGSZ}: mAP50 {mAP50} (need 0.9)")
     return {**totals, "worst": worst, "predict": predict,
             "bucket_ms": {b: statistics.median(v["step_ms"][1:]) for b, v in bucket_steps.items()}}
+
+
+SERVE_FILES = 64  # JPEG files predicted from a directory (batches of B)
+SERVE_SCAN = 8  # batches a ThroughputEngine group graph holds
+SERVE_BATCHES = 64  # host batches through the engine and through the eager loop
+SERVE_TRACED = 16  # batches of each in the profiled window
+V2_INFER_KERNELS = ("fw_state_kernel", "fw_out_kernel")  # one of each a chunkwise_fw launch
+JPEG_FIXTURES = "tests/fixtures/jpeg"
+
+
+def jpeg_variants(data: bytes, n: int) -> list:
+    """``n`` distinct JPEG files from one baseline file with 8-bit tables: an
+    APP1 EXIF segment after SOI with orientation 1-8, times the AC entries of
+    the first quantization table scaled by 1 + k/16; each decodes to its own
+    pixels, and no encoder is needed."""
+    import struct
+
+    i = data.index(b"\xff\xdb")
+    if data[i + 4] >> 4:
+        raise ValueError("the first quantization table is not 8-bit")
+    table = data[i + 5:i + 69]
+    out = []
+    for k in range(n):
+        scale = 1 + (k // 8) / 16
+        t = bytes([table[0]] + [min(255, max(1, round(v * scale))) for v in table[1:]])
+        body = data[:i + 5] + t + data[i + 69:]
+        tiff = (b"MM\x00\x2a\x00\x00\x00\x08\x00\x01"
+                + struct.pack(">HHIHH", 0x0112, 3, 1, k % 8 + 1, 0) + b"\x00" * 4)
+        app1 = b"\xff\xe1" + struct.pack(">H", 8 + len(tiff)) + b"Exif\x00\x00" + tiff
+        out.append(body[:2] + app1 + body[2:])
+    return out
+
+
+def phase_serve(cw, epi, ffn, card: str) -> dict:
+    """Predict from image files, AutoBackend and the serving engine
+    (phase_serve), vil-det-192, bfloat16, batch 8, 640 px:
+
+    1. the host JPEG decoder (csrc/jpeg_decode.cpp, g++) decodes the
+       committed fixtures to their manifest's hashes (cv2.imread's bytes);
+       its ms to decode the 640x480 4:2:0 q90 fixture, beside the PNG
+       decoder's on the same pixels;
+    then, with the counts set to 0:
+    2. YOLO(...).predict(directory) over SERVE_FILES JPEG files
+       (jpeg_variants of that fixture): exactly 20 inference launches a
+       batch; its detections equal predict() on the decoded numpy images;
+       img/s of both (files: decode included), in turns (files, arrays,
+       arrays, files; the first two are the compared runs);
+    3. AutoBackend on a .pt and its .meta.json sidecar written here (model,
+       imgsz, the names of a dataset YAML): names and imgsz restored, and
+       its folded model against the unfolded one by fused_agreement
+       (phase multiscale's rule), decode-only, at 640 px on 2 images;
+    4. ThroughputEngine(scan=SERVE_SCAN) over SERVE_BATCHES host batches:
+       a first group captures both group graphs, 20 * SERVE_SCAN inference
+       launches each (counted by predict itself, per call made while a
+       capture is under way); then in turns eager, engine, engine, eager,
+       the first two compared (outputs bit-equal); img/s of each run, and
+       each one's busy share from a profiler trace of SERVE_TRACED
+       batches, whose fw_state_kernel and fw_out_kernel executions must be
+       20 each a forward (the engine's: replays x scan).
+    Returns its numbers; "launches": the inference launches of 2-4, each
+    capture counted once."""
+    import hashlib
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlstm_yolo_tpu_torch.data import imread as imr
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+    from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from xlstm_yolo_tpu_torch.engine.serving import ThroughputEngine
+    from xlstm_yolo_tpu_torch.nn.autobackend import AutoBackend
+    from xlstm_yolo_tpu_torch.nn.head import Detect
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+
+    out, stage_s = {}, {}
+    t_stage = time.perf_counter()
+    # 1. the host decoder against the manifest
+    root = Path(__file__).resolve().parent / JPEG_FIXTURES
+    manifest = json.loads((root / "manifest.json").read_text())
+    for name, want in manifest.items():
+        try:
+            got = imr.imread(root / name)
+        except ValueError as exc:
+            if "raises" in want and want["raises"] in str(exc):
+                continue
+            raise
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if "raises" in want or list(got.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"serve: {name} decodes to {got.shape} {digest}, the manifest "
+                                 f"says {want}")
+    base = (root / "q90_420_640x480.jpg").read_bytes()
+    png = imr.encode_png(imr.decode_jpeg(base))
+    decode_ms = {}
+    for what, fn, data in (("jpeg", imr.decode_jpeg, base), ("png", imr.decode_png, png)):
+        runs = []
+        for _ in range(20):
+            t = time.perf_counter()
+            fn(data)
+            runs.append((time.perf_counter() - t) * 1e3)
+        decode_ms[what] = statistics.median(runs[2:])
+    out["fixtures"] = len(manifest)
+    out["decode_ms_640x480"] = decode_ms
+
+    zero_counts(cw, epi, ffn)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "images").mkdir()
+        for j, data in enumerate(jpeg_variants(base, SERVE_FILES)):
+            (tmp / "images" / f"im{j:03d}.jpg").write_bytes(data)
+        # 2. predict from the directory, and from the decoded images
+        yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
+        perturb_ifgates(yolo.model, seed=8)
+        cells = cells_of(yolo.model)
+        files = sorted(str(p) for p in (tmp / "images").iterdir())
+        arrays = [imr.imread(f) for f in files]
+        if len({a.tobytes() for a in arrays}) != SERVE_FILES:
+            raise AssertionError("serve: the JPEG variants do not decode to distinct images")
+        stage_s["fixtures_and_model"] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+        yolo.predict(arrays[:B], batch=B, conf=0.0)  # warm-up: one batch
+        img_s, runs = {"files": [], "arrays": []}, {}
+        for what in ("files", "arrays", "arrays", "files"):  # in turns; the first two checked
+            src = arrays if what == "arrays" else str(tmp / "images")
+            before, t = cw.LAUNCHES, time.perf_counter()
+            res = yolo.predict(src, batch=B, conf=0.0)
+            img_s[what].append(SERVE_FILES / (time.perf_counter() - t))
+            runs.setdefault(what, (res, cw.LAUNCHES - before))
+        (from_files, launches), (from_arrays, _) = runs["files"], runs["arrays"]
+        if launches != cells * SERVE_FILES // B:
+            raise AssertionError(f"serve: predict from files made {launches} inference "
+                                 f"launches, expected {cells * SERVE_FILES // B}")
+        if [r.path for r in from_files] != files or not all(
+                np.array_equal(a.boxes.data, b.boxes.data) and len(a) == 300
+                for a, b in zip(from_files, from_arrays, strict=True)):
+            raise AssertionError("serve: predict from files differs from predict on the "
+                                 "decoded images")
+        out["predict"] = {"img_s": img_s, "launches_first_run": launches,
+                          "speed_ms": {k: statistics.mean(r.speed[k] for r in from_files)
+                                       for k in ("preprocess", "inference", "postprocess")}}
+        stage_s["predict"] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+
+        # 3. AutoBackend on a .pt and its sidecar
+        plain, _ = build_detection_model("vil-det-192.yaml", device="cuda")
+        g = torch.Generator().manual_seed(12)
+        with torch.no_grad():  # BatchNorm statistics off 0/1, the default gate init
+            for name, t in plain.state_dict().items():
+                if name.endswith("running_mean"):
+                    t.copy_(torch.randn(t.shape, generator=g) * 0.05)
+                elif name.endswith("running_var"):
+                    t.copy_(torch.rand(t.shape, generator=g) * 0.7 + 0.7)
+        names = [f"class_{i}" for i in range(80)]
+        (tmp / "data.yaml").write_text(yaml.safe_dump({"names": names}))
+        torch.save({"ema": {k: v.cpu() for k, v in plain.state_dict().items()}},
+                   tmp / "best.pt")
+        (tmp / "best.pt.meta.json").write_text(json.dumps({"epoch": 0, "args": {
+            "model": "vil-det-192.yaml", "imgsz": 640, "data": str(tmp / "data.yaml")}}))
+        ab = AutoBackend(tmp / "best.pt", compute_dtype=torch.float32)
+        if ab.names != dict(enumerate(names)) or ab.imgsz != 640 or ab.format != "torch":
+            raise AssertionError(f"serve: AutoBackend restored {ab.format} {ab.imgsz} "
+                                 f"{list(ab.names.items())[:2]}")
+        x = DetectionPredictor({"imgsz": 640, "batch": 2}, plain, {}).preprocess(arrays[:2])
+        ab_out = ab(x)
+        for m in (plain, ab.model):
+            next(h for h in m.modules() if isinstance(h, Detect)).decode_only = True
+        fuse = fused_agreement(cw, plain, ab.model, x.float() / 255.0)
+        if not (fuse["ok"] and tuple(ab_out.shape) == (2, 300, 6)
+                and bool(torch.isfinite(ab_out).all())):
+            raise AssertionError(f"serve: AutoBackend's fused model differs: {fuse}")
+        out["autobackend"] = fuse
+        del plain, ab, x, ab_out
+        stage_s["autobackend"] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+
+    # 4. the engine against the eager loop, on letterboxed host batches
+    pre = DetectionPredictor({"imgsz": 640, "batch": B}, yolo.model, yolo.names)
+    distinct = [pre.preprocess(arrays[j:j + B]).cpu().numpy() for j in range(0, SERVE_FILES, B)]
+    batches = [distinct[j % len(distinct)] for j in range(SERVE_BATCHES)]
+
+    calls = []  # per predict call: a graph capture under way, its inference launches
+
+    def predict(x):
+        before = cw.LAUNCHES
+        y = yolo.model(x.float() / 255.0)[0]
+        calls.append((torch.cuda.is_current_stream_capturing(), cw.LAUNCHES - before))
+        return y
+
+    def eager(bs):
+        with torch.no_grad():
+            return [predict(torch.from_numpy(b).cuda()).float().cpu().numpy() for b in bs]
+
+    engine = ThroughputEngine(predict, scan=SERVE_SCAN)
+    warm = list(engine(batches[:SERVE_SCAN]))  # captures the two group graphs
+    captured = [n for capturing, n in calls if capturing]
+    if captured != [cells] * (2 * SERVE_SCAN):
+        raise AssertionError(f"serve: the captures made {captured} inference launches a "
+                             f"predict call, expected two group graphs of {SERVE_SCAN} calls "
+                             f"of {cells}")
+    img_s, outs = {"engine": [], "eager": []}, {}
+    for what in ("eager", "engine", "engine", "eager"):  # in turns; the first two checked
+        t = time.perf_counter()
+        res = list(engine(batches)) if what == "engine" else eager(batches)
+        img_s[what].append(SERVE_BATCHES * B / (time.perf_counter() - t))
+        outs.setdefault(what, res)
+    if not all(np.array_equal(a, b) for a, b in zip(warm + outs["engine"],
+                                                    outs["eager"][:SERVE_SCAN] + outs["eager"],
+                                                    strict=True)):
+        raise AssertionError("serve: the engine's outputs differ from the eager loop's")
+    busy, traced = {}, {}
+    for what in ("engine", "eager"):
+        # a trace can miss a kernel event at its start (kernels_device_ms): a small
+        # operation opens it, and a window whose counts are off is traced again, up to
+        # three times; a replay that skipped or repeated kernels is off every time
+        for attempt in range(1, 4):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            replays = dict(engine.replays)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only
+                torch.ones(1, device="cuda").add_(1)
+                start.record()
+                _ = list(engine(batches[:SERVE_TRACED])) if what == "engine" else \
+                    eager(batches[:SERVE_TRACED])
+                end.record()
+                torch.cuda.synchronize()
+            b = device_busy(prof, start.elapsed_time(end), count=V2_INFER_KERNELS)
+            replays = {k: engine.replays[k] - v for k, v in replays.items()}
+            runs = (replays["group"] * SERVE_SCAN + replays["single"] if what == "engine"
+                    else SERVE_TRACED)  # forwards in the window
+            traced[what] = {"replays": replays, "forwards": runs,
+                            "executions": b["executions"], "traces": attempt}
+            if b["executions"] == {k: cells * runs for k in V2_INFER_KERNELS}:
+                break
+        else:
+            raise AssertionError(f"serve: the {what} window's traces hold {b['executions']} "
+                                 f"v2 inference kernels for {runs} forwards of {cells} cells "
+                                 f"({replays} replays), three times")
+        busy[what] = {k: v for k, v in b.items() if k not in ("top", "executions")}
+        busy[what]["top"] = b.get("top", [])[:4]
+    out["engine"] = {"img_s": img_s, "busy": busy, "traced": traced,
+                     "captured_launches_a_group_graph": SERVE_SCAN * cells,
+                     "scan": SERVE_SCAN, "batches": SERVE_BATCHES}
+    out["launches"] = cw.LAUNCHES
+    stage_s["engine"] = time.perf_counter() - t_stage
+    out["stage_s"] = stage_s
+    emit({"phase": "times", "what": "serve", "card": card, "cfg": "vil-det-192", "batch": B,
+          "dtype": "bfloat16", "decode_ms_640x480": decode_ms,
+          "predict_img_s": img_s_pair(out["predict"]["img_s"]),
+          "predict_speed_ms": out["predict"]["speed_ms"],
+          "engine_img_s": img_s_pair(img_s),
+          "busy_share": {k: v.get("busy_share") for k, v in busy.items()},
+          "traced_windows": traced, "stage_s": stage_s,
+          "note": "decode_ms: median host ms of 18 decodes of the 640x480 4:2:0 q90 fixture "
+                  "(png: the same pixels as PNG, zlib level 6); predict_img_s: "
+                  f"YOLO.predict over {SERVE_FILES} JPEG files (decode included) and over the "
+                  "decoded arrays, host clock, in turns; engine_img_s: "
+                  f"{SERVE_BATCHES} letterboxed host batches of {B} through "
+                  f"ThroughputEngine(scan={SERVE_SCAN}) (CUDA graph replays) and through the "
+                  "eager loop (a forward and a D2H copy a batch), host clock, in turns; "
+                  f"busy_share: device-busy union over a {SERVE_TRACED}-batch window "
+                  "(profiler trace, CUDA-event window)"})
+    return out
+
+
+def img_s_pair(runs: dict) -> dict:
+    return {k: {"runs": v, "median": statistics.median(v)} for k, v in runs.items()}
 
 
 def compare_outputs(what: str, got, ref, rel: float, ref64=None) -> tuple[float, float]:
@@ -4887,6 +5195,7 @@ def main() -> int:
     model, state, step, batch, train_launches = timed("train", phase_train, cw, epi, ffn, steps)
     loop = timed("train_loop", phase_train_loop, cw, epi, ffn, card)
     ms = timed("multiscale", phase_multiscale, cw, epi, ffn, steps, card)
+    serve = timed("serve", phase_serve, cw, epi, ffn, card)
     emit({"phase": "times", "what": "multiscale", "card": card, "cfg": "vil-det-192",
           "batch": B, "dtype": "bfloat16",
           "predict_forward_ms": {s: p["forward_ms"] for s, p in ms["predict"].items()},
@@ -5033,7 +5342,8 @@ def main() -> int:
     pallas = "xlstm_yolo_tpu/ops/pallas"
     sources = {
         "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
-                         launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"],
+                         launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"]
+                         + serve["launches"],
                          worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
@@ -5100,6 +5410,19 @@ def main() -> int:
                **sums(flag_t, name), "library_ms": None}
         if name == "chunkwise_fw":
             row["launches_val"] = val_launches
+            eng = serve["engine"]
+            row["serve"] = {
+                "launches": serve["launches"],
+                "captured_a_group_graph": eng["captured_launches_a_group_graph"],
+                "engine_window": eng["traced"]["engine"],
+                "note": "phase serve: launches of predict from 64 JPEG files and from their "
+                        "arrays, AutoBackend's fused and unfused forwards, the engine's "
+                        "warm-up and two captures (each capture counted once: a group graph "
+                        "holds 20 x scan launches, which every replay executes without a "
+                        "wrapper call) and the eager loop; engine_window: the group and "
+                        "single replays in the engine's traced window and the "
+                        "fw_state_kernel / fw_out_kernel executions its profiler trace "
+                        "holds (checked: 20 each a forward)"}
         if name == "chunkwise_fw" or name in KERNELS:
             row["launches_train_loop"] = loop[name]
             row["multiscale"] = {

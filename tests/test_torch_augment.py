@@ -32,6 +32,8 @@ from xlstm_yolo_tpu.data.dataset import YOLODataset as JaxYOLODataset
 from xlstm_yolo_tpu_torch.data import augment, pixels
 from xlstm_yolo_tpu_torch.data.dataset import YOLODataset
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 IMGSZ = 160
 GEOMETRY = {
     "scale": dict(scale=0.5, translate=0.0),

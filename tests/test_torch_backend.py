@@ -50,6 +50,8 @@ from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import (
     mlstm_step_stabilized,
 )
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu" / "cfg" / "models"
 EPS = 5e-5
 

@@ -23,6 +23,8 @@ from xlstm_yolo_tpu.ops.pallas import chunkwise_v2 as jax_v2
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EPS = 5e-5  # the model's cell eps
 CASES = [  # (S, NH, DH, gates, initial states)
     (25, 4, 16, "open", False),      # one ragged chunk (vil-det-tiny's S)

@@ -21,6 +21,8 @@ from xlstm_yolo_tpu_torch.ops import chunkwise_v2
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_recurrent_sequence
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 EPS = 5e-5  # the model's cell eps
 

@@ -38,6 +38,8 @@ from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import (
     mlstm_step_stabilized,
 )
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EPS = 5e-5  # the model's cell eps
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 GATES = ("open", "large_i", "closed")

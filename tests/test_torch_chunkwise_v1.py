@@ -27,6 +27,8 @@ from xlstm_yolo_tpu_torch.ops import chunkwise as v1
 from xlstm_yolo_tpu_torch.ops.mlstm_chunkwise import mlstm_siging_chunkwise
 from xlstm_yolo_tpu_torch.ops.mlstm_parallel import mlstm_siging_parallel
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EPS = 5e-5  # the model's cell eps
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 CASES = [  # (L, chunks, DH, compute dtype, initial states and dC_last)

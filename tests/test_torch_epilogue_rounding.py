@@ -32,6 +32,8 @@ import torch
 from xlstm_yolo_tpu.ops.pallas.epilogue import _epilogue_bwd_pallas
 from xlstm_yolo_tpu_torch.ops import epilogue
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 BF16_MAX, BF16_MEAN = 2.0 ** -7, 1e-5
 NAMES = ("dh", "dx", "dln_w", "dln_b", "dskip", "dwd", "dbd")
 

@@ -24,6 +24,8 @@ from xlstm_yolo_tpu.ops.pallas.chunkwise_fw3 import _pack_gates_sub
 from xlstm_yolo_tpu.ops.pallas.chunkwise_fw3 import fw3 as jax_fw3
 from xlstm_yolo_tpu_torch.ops import chunkwise_fw3, chunkwise_v2
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 B, NH = 2, 2
 EPS = 5e-5  # the model's cell eps
 OUTPUTS = ("h", "n_out", "cstates", "c_last", "n_last")

@@ -31,6 +31,8 @@ import torch
 from xlstm_yolo_tpu.ops.pallas import chunkwise_v2 as jax_v2
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 B, NH = 2, 2
 EPS = 5e-5  # the model's cell eps
 BF16_MAX, BF16_MEAN = 2.0 ** -7, 1e-5

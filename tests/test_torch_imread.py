@@ -142,7 +142,10 @@ def test_unsupported_inputs_raise_naming_the_file(tmp_path):
     interlaced.write_bytes(encode(im.astype(np.int64), 8, 2, (0,), interlace=1))
     with pytest.raises(ValueError, match="adam7.png.*Adam7"):
         imread(interlaced)
-    for ext, fmt in ((".jpg", "JPEG"), (".webp", "WebP"), (".tif", "TIFF"), (".bmp", "BMP")):
+    jpeg = tmp_path / "image.jpg"  # JPEG is decoded since the port's JPEG decoder
+    assert cv2.imwrite(str(jpeg), im)
+    np.testing.assert_array_equal(imread(jpeg), cv2.imread(str(jpeg)))
+    for ext, fmt in ((".webp", "WebP"), (".tif", "TIFF"), (".bmp", "BMP")):
         path = tmp_path / f"image{ext}"
         assert cv2.imwrite(str(path), im)
         with pytest.raises(ValueError, match=f"image{ext}.*{fmt}"):

@@ -1535,3 +1535,95 @@ def test_resize_on_gpu_matches_cpu(shape_in, shape_out, method):
         (g,) = torch.autograd.grad((y * torch.from_numpy(w).to(dev)).sum(), xt)
         out[dev] = (y.detach().cpu(), g.cpu())
     assert_rel_close(list(out["cuda"]), list(out["cpu"]), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# serving: ThroughputEngine's CUDA graphs against the eager forward
+
+
+def _tiny_engine_model():
+    """vil-det-tiny (bf16) and a predict that records, per call, whether a
+    graph capture was under way and the inference launches it made."""
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+
+    model, _ = build_detection_model("vil-det-tiny.yaml", compute_dtype=torch.bfloat16)
+    calls = []
+
+    def predict(x):
+        before = chunkwise_v2.LAUNCHES
+        y = model(x.float() / 255.0)[0]
+        calls.append((torch.cuda.is_current_stream_capturing(), chunkwise_v2.LAUNCHES - before))
+        return y
+
+    return predict, calls
+
+
+def _captured(calls) -> list:
+    return [n for capturing, n in calls if capturing]
+
+
+@pytest.mark.cuda
+def test_engine_graph_replay_equals_eager_on_gpu():
+    """ThroughputEngine(scan=3) over 7 batches of vil-det-tiny (bf16, 160
+    px): two group replays and one single-batch replay for the tail, each
+    output bit-equal to the eager forward of its batch; the captures run
+    predict 3 times for each group graph and once for the single-batch
+    graph, 14 inference launches each (3 x 14 a group graph)."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.engine.serving import ThroughputEngine
+
+    predict, calls = _tiny_engine_model()
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (2, 160, 160, 3), dtype=np.uint8) for _ in range(7)]
+    engine = ThroughputEngine(predict, scan=3)
+    got = list(engine(iter(batches)))
+    assert _captured(calls) == [14] * (2 * 3 + 1)
+    assert engine.replays == {"group": 2, "single": 1}
+    with torch.no_grad():
+        for g, b in zip(got, batches, strict=True):
+            ref = predict(torch.from_numpy(b).cuda()).float().cpu().numpy()
+            np.testing.assert_array_equal(g, ref)
+    # the engine again, on the graphs it holds: the same outputs, no capture
+    again = list(engine(batches[:6]))
+    assert engine.replays == {"group": 4, "single": 1} and len(_captured(calls)) == 7
+    for g, a in zip(again, got):
+        np.testing.assert_array_equal(g, a)
+
+
+@pytest.mark.cuda
+def test_engine_serves_two_shapes_on_gpu():
+    """One engine serves batches of vil-det-tiny at 160 px, then at 128 px,
+    then at 160 px again: each shape captures its own graphs once, and
+    every output is bit-equal to the eager forward of its batch."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.engine.serving import ThroughputEngine
+
+    predict, calls = _tiny_engine_model()
+    rng = np.random.default_rng(1)
+    engine = ThroughputEngine(predict, scan=2)
+    for size, n, captures in ((160, 5, 5), (128, 4, 4), (160, 4, 0)):
+        batches = [rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8) for _ in range(n)]
+        before = len(_captured(calls))
+        got = list(engine(batches))
+        assert len(_captured(calls)) - before == captures, size
+        with torch.no_grad():
+            for g, b in zip(got, batches, strict=True):
+                ref = predict(torch.from_numpy(b).cuda()).float().cpu().numpy()
+                np.testing.assert_array_equal(g, ref)
+    with pytest.raises(ValueError, match="first batch"):
+        list(engine([np.zeros((2, 160, 160, 3), np.uint8), np.zeros((2, 128, 128, 3), np.uint8)]))
+
+
+@pytest.mark.cuda
+def test_engine_capture_failure_raises_on_gpu():
+    """A predict that reads a device value on the host cannot be captured:
+    the engine raises and does not fall back to eager calls."""
+    needs_cuda()
+    from xlstm_yolo_tpu_torch.engine.serving import ThroughputEngine
+
+    def host_read(x):
+        return x.float().mean() * (1.0 if x.float().sum().item() > 0 else 2.0)
+
+    batches = [np.ones((1, 8, 8, 3), np.uint8) for _ in range(2)]
+    with pytest.raises(RuntimeError):
+        list(ThroughputEngine(host_read, scan=2)(batches))

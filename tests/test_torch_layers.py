@@ -25,6 +25,8 @@ from xlstm_yolo_tpu_torch.nn import blocks as tb
 from xlstm_yolo_tpu_torch.nn import layers as tl
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 TOL = dict(atol=2e-4, rtol=2e-4)
 
 

@@ -10,6 +10,8 @@ import torch
 from xlstm_yolo_tpu.data.augment import LetterBox as JaxLetterBox
 from xlstm_yolo_tpu_torch.data.augment import LetterBox
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 SHAPES = [
     (720, 1280), (1000, 1500), (300, 200), (640, 641),  # the shapes of the bug report
     (120, 160), (50, 70), (213, 320),                    # upscales

@@ -19,6 +19,8 @@ from xlstm_yolo_tpu.utils import metrics as jax_metrics
 from xlstm_yolo_tpu.utils import tal as jax_tal
 from xlstm_yolo_tpu_torch.utils import loss, metrics, tal
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 NC, REG = 80, 16
 IMG = 64
 STRIDES = (8.0, 16.0, 32.0)

@@ -52,6 +52,8 @@ from xlstm_yolo_tpu_torch.ops import backend
 from xlstm_yolo_tpu_torch.ops import chunkwise_exp as exp
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EXP = "chunkwise--pallas_xl_chunk"
 EXP_GRAD_REL = 0.1    # JAX's float32 model gradient against the port's float64 one
 PORT_GRAD_REL = 1e-3  # the port's float32 model gradient against its float64 one

@@ -49,6 +49,8 @@ from xlstm_yolo_tpu_torch.ops import chunkwise_v2, step
 from xlstm_yolo_tpu_torch.ops import parallel as par
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 PORT_CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu_torch" / "cfg" / "models"
 WIDE = {  # YAML -> (dim, cell width H, NH, DH, FFN width U)
     "vil-det-256.yaml": (256, 512, 8, 64, 704),

@@ -59,6 +59,8 @@ from xlstm_yolo_tpu_torch.utils.convert import jax_path_to_name, jax_variables_t
 from xlstm_yolo_tpu_torch.utils.fuse import fuse_state_dict
 from xlstm_yolo_tpu_torch.utils.resize import resize
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu" / "cfg" / "models"
 RESIZE_TOL = 1e-5
 

@@ -21,6 +21,8 @@ from xlstm_yolo_tpu.engine import optimizers as jax_opt
 from test_torch_train_loader import one_thread  # noqa: F401
 from xlstm_yolo_tpu_torch.engine import optimizers as opt
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 SHAPES = {"dense": {"kernel": (6, 5), "bias": (5,)}, "norm": {"scale": (5,), "bias": (5,)},
           "cell": {"learnable_skip": (4,), "weight": (4,)}, "conv": {"kernel": (3, 3, 2, 4)}}
 NAMES = ["AdEMAMix", "Adam", "AdamW", "Adamax", "NAdam", "RAdam", "RMSProp", "SGD"]

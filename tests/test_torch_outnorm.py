@@ -29,6 +29,8 @@ from xlstm_yolo_tpu_torch.nn import layers as tl
 from xlstm_yolo_tpu_torch.ops import chunkwise_v2
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EPS = 5e-5  # the model's cell eps
 V2 = "chunkwise--pallas_xl_chunk_siging_v2"
 REL = {"float32": 1e-4, "bfloat16": 2e-2}

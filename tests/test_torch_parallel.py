@@ -54,6 +54,8 @@ from xlstm_yolo_tpu_torch.ops import backend, wrappers
 from xlstm_yolo_tpu_torch.ops import parallel as par
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 PAR = "parallel--pallas_limit_headdim"
 EPS = 5e-5  # the model's cell eps
 REL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -23,6 +23,8 @@ import torch
 from xlstm_yolo_tpu.ops.pallas.slstm import slstm_sequence_pallas
 from xlstm_yolo_tpu_torch.ops import slstm as sl
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 NH = 2
 REL = 1e-5
 

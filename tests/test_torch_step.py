@@ -35,6 +35,8 @@ from xlstm_yolo_tpu_torch.ops import step as step_mod
 from xlstm_yolo_tpu_torch.ops.mlstm_recurrent import mlstm_siging_step
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 EPS = 5e-5  # the model's cell eps
 V1, V2 = backend.V1_KERNEL, backend.V2_KERNEL
 DIM, NH = 64, 4

@@ -27,6 +27,8 @@ from xlstm_yolo_tpu.utils import tal as jtal
 from xlstm_yolo_tpu_torch.ops import tal_metric as tm
 from xlstm_yolo_tpu_torch.utils import tal
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 K_ARR = np.asarray([10, 1, 10, 1], np.int32)  # the E2E loss's top-10 and top-1 halves
 
 

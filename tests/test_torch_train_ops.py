@@ -26,6 +26,8 @@ from xlstm_yolo_tpu.ops.pallas.epilogue import epilogue_fused
 from xlstm_yolo_tpu.ops.pallas.ffn import ffn_fused
 from xlstm_yolo_tpu_torch.ops import epilogue, ffn
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 B, S, NH = 2, 64, 4
 H, D, U = 64, 32, 96

@@ -61,6 +61,8 @@ from xlstm_yolo_tpu_torch.utils.convert import (
     jax_variables_to_state_dict,
 )
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 CFG = Path(__file__).resolve().parents[1] / "xlstm_yolo_tpu" / "cfg" / "models"
 CFG = CFG / "vil-det-tiny.yaml"
 OPT_KW = dict(name="AdEMAMix", lr=0.01, warmup_steps=3, iterations=10, clip_norm=10.0)

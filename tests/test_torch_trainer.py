@@ -43,6 +43,8 @@ from xlstm_yolo_tpu_torch.engine.trainer import DetectionTrainer
 from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
 from xlstm_yolo_tpu_torch.utils import checkpoint
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 B, M, IMG = 2, 4, 160
 
 

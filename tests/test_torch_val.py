@@ -51,6 +51,8 @@ from xlstm_yolo_tpu_torch.engine import validator
 from xlstm_yolo_tpu_torch.engine.model import YOLO
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 ROOT = Path(__file__).resolve().parents[1]
 # (960, 1280) and (1080, 1920) downscale 2x and 3x, (333, 500) and (97, 211)
 # upscale with a ceil that rounding would miss

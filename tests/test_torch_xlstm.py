@@ -27,6 +27,8 @@ from xlstm_yolo_tpu_torch.nn import xlstm as tx
 from xlstm_yolo_tpu_torch.ops import slstm as sl
 from xlstm_yolo_tpu_torch.utils.convert import jax_variables_to_state_dict
 
+torch.set_num_threads(1)  # parallel test workers share the cores: more threads spin
+
 B, S, D, NH = 2, 24, 32, 4
 
 

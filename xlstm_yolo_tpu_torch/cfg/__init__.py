@@ -84,6 +84,8 @@ PREDICT_DEFAULTS = {
     "imgsz": 640,
     "batch": 16,
     "classes": None,
+    "augment": False,  # test-time augmentation (nn.tasks.predict_augment)
+    "vid_stride": 1,  # read by the loaders; video sources are not ported
 }
 
 VAL_DEFAULTS = {

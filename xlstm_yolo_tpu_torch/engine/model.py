@@ -100,6 +100,10 @@ class YOLO:
         return str(p), None
 
     def predict(self, source=None, stream: bool = False, **kwargs):
+        """Results for ``source``: an image file, a directory or glob of them,
+        a list of paths, a BGR numpy image or a list of them, a PIL-like
+        image, or a BHWC/BCHW tensor (``data.loaders.load_inference_source``),
+        with keys of ``PREDICT_DEFAULTS``."""
         args = {"imgsz": self.imgsz, **self.overrides, **kwargs}
         return DetectionPredictor(args, self.model, self.names)(source, stream=stream)
 

@@ -1,11 +1,15 @@
-"""Predictor: device letterbox -> model forward -> Results.
+"""Predictor: source loader -> device letterbox -> model forward -> Results.
 
 Counterpart of ``BasePredictor`` / ``DetectionPredictor`` in
-``xlstm_yolo_tpu/engine/predictor.py``.  The source is one uint8 HWC BGR
-numpy image or a list of them (file and video decoding are not ported
-yet).  Frames are letterboxed to the square model input on the model's
-device, and the last incomplete batch is padded to the first batch's
-size, as the JAX predictor does.
+``xlstm_yolo_tpu/engine/predictor.py``.  The source goes through
+``data.loaders.load_inference_source`` (image files, directories, globs,
+numpy arrays, PIL-like images, tensors; JAX's dispatch and batches).
+Frames are letterboxed to the square model input on the model's device,
+and the last incomplete batch is padded to the first batch's size, as the
+JAX predictor does.  ``augment=True`` runs ``nn.tasks.predict_augment``
+(the plain forward for the end2end heads of the shipped detectors; other
+heads' merged anchors go through ``utils.ops.non_max_suppression``).
+``speed["preprocess"]`` counts the file decoding and the letterbox.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 
 from xlstm_yolo_tpu_torch.cfg import PREDICT_DEFAULTS
 from xlstm_yolo_tpu_torch.data.augment import LetterBox
+from xlstm_yolo_tpu_torch.data.loaders import load_inference_source
 from xlstm_yolo_tpu_torch.engine.results import Results
+from xlstm_yolo_tpu_torch.nn.tasks import predict_augment
 from xlstm_yolo_tpu_torch.utils import ops
 
 
@@ -38,7 +44,16 @@ class BasePredictor:
     def forward(self, img_u8: torch.Tensor) -> torch.Tensor:
         """(B, imgsz, imgsz, 3) uint8 RGB on the model's device ->
         (B, max_det, 6) [xyxy at model scale, conf, cls]."""
-        y, _aux = self.model(img_u8.float() / 255.0)
+        x = img_u8.float() / 255.0
+        if not self.args["augment"]:
+            return self.model(x)[0]
+        y, _aux = predict_augment(self.model, x)
+        if y.shape[-1] != 6:  # anchor-level (B, A, 4+nc): NMS
+            out, ok = ops.non_max_suppression(
+                y, conf_thres=self.args["conf"] if self.args["conf"] is not None else 0.25,
+                iou_thres=self.args["iou"] or 0.7, max_det=int(self.args["max_det"] or 300),
+                nc=y.shape[-1] - 4)
+            y = torch.where(ok[..., None], out, torch.zeros_like(out))
         return y
 
     def preprocess(self, im_list: list[np.ndarray]) -> torch.Tensor:
@@ -59,17 +74,17 @@ class BasePredictor:
             if classes:
                 det = det[np.isin(det[:, 5].astype(int), list(classes))]
             boxes = ops.scale_boxes((self.imgsz, self.imgsz), det[:, :4], im0.shape[:2])
-            results.append(Results(im0, paths[i], self.names).update(
+            results.append(Results(im0, str(paths[i]), self.names).update(
                 np.concatenate([boxes, det[:, 4:6]], axis=1)))
         return results
 
     def stream_inference(self, source) -> Iterator[Results]:
-        ims = [source] if isinstance(source, np.ndarray) else list(source)
-        bs = int(self.args["batch"])
+        self.dataset = dataset = load_inference_source(
+            source, batch=int(self.args["batch"] or 1), vid_stride=int(self.args["vid_stride"] or 1))
         first_bs = None
-        for start in range(0, len(ims), bs):
-            im0s = ims[start:start + bs]
-            paths = [f"image{start + j}" for j in range(len(im0s))]
+        decoded = getattr(dataset, "decode_s", 0.0)
+        for paths, im0s, _infos in dataset:
+            decode_s = getattr(dataset, "decode_s", 0.0) - decoded
             t0 = time.perf_counter()
             batch = self.preprocess(im0s)
             n = batch.shape[0]
@@ -82,11 +97,12 @@ class BasePredictor:
             results = self.postprocess(preds, im0s, paths)
             t3 = time.perf_counter()
             for r in results:
-                r.speed = {"preprocess": (t1 - t0) / n * 1e3,
+                r.speed = {"preprocess": (t1 - t0 + decode_s) / n * 1e3,
                            "inference": (t2 - t1) / n * 1e3,
                            "postprocess": (t3 - t2) / n * 1e3}
                 self.seen += 1
                 yield r
+            decoded = getattr(dataset, "decode_s", 0.0)
 
     def __call__(self, source=None, stream: bool = False):
         if stream:

@@ -2,8 +2,10 @@
 
 Counterpart of ``xlstm_yolo_tpu/nn/tasks.py`` (``yaml_model_load``,
 ``parse_model_specs``, ``build_module``, ``DetectionModel``,
-``build_detection_model``) for the module set of the shipped ViL
-detectors (``vil-det-192.yaml``, ``vil-det-tiny.yaml``).  The same
+``build_detection_model``, and the test-time augmentation helpers
+``scale_img``, ``descale_pred``, ``clip_augmented`` and ``predict_augment``)
+for the module set of the shipped ViL detectors (``vil-det-192.yaml``,
+``vil-det-tiny.yaml``).  The same
 ``[from, n, module, args]`` YAML DSL compiles to layer specs; the model
 runs them with savelist routing.
 """
@@ -23,6 +25,7 @@ from xlstm_yolo_tpu_torch.nn import blocks as B
 from xlstm_yolo_tpu_torch.nn import head as H
 from xlstm_yolo_tpu_torch.nn.layers import reset_parameters, resolve_seqlens
 from xlstm_yolo_tpu_torch.ops.backend import V2_KERNEL, get_mlstm_kernel
+from xlstm_yolo_tpu_torch.utils.resize import resize
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
 CFG_MODELS = Path(__file__).resolve().parents[1] / "cfg" / "models"
@@ -312,3 +315,56 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
     reset_parameters(model, generator if generator is not None
                      else torch.Generator().manual_seed(0))
     return model.to(dev).train(training), d
+
+
+_END2END_HEADS = {"v10Detect", "RTDETRDecoder"}
+
+
+def scale_img(x: torch.Tensor, ratio: float, gs: int = 32, pad_value: float = 0.447):
+    """An NHWC batch resized by ``ratio`` (``jax.image.resize`` bilinear,
+    antialiased: ``utils.resize``) and padded with ``pad_value`` to a ``gs``
+    multiple, as JAX's ``scale_img``."""
+    if ratio == 1.0:
+        return x
+    b, h, w, c = x.shape
+    sh, sw = int(h * ratio), int(w * ratio)
+    y = resize(x, (b, sh, sw, c), "bilinear")
+    ph, pw = math.ceil(h * ratio / gs) * gs, math.ceil(w * ratio / gs) * gs
+    return nn.functional.pad(y, (0, 0, 0, pw - sw, 0, ph - sh), value=pad_value)
+
+
+def descale_pred(p: torch.Tensor, flip: int | None, scale: float, img_hw: tuple[int, int]):
+    """Undo a TTA pass's scale and flip (2: up-down, 3: left-right) on decoded
+    (B, A, 4+nc) xywh predictions."""
+    xy, wh, rest = p[..., :2] / scale, p[..., 2:4] / scale, p[..., 4:]
+    if flip == 2:
+        xy = torch.stack([xy[..., 0], img_hw[0] - xy[..., 1]], -1)
+    elif flip == 3:
+        xy = torch.stack([img_hw[1] - xy[..., 0], xy[..., 1]], -1)
+    return torch.cat([xy, wh, rest], -1)
+
+
+def clip_augmented(ys: list) -> list:
+    """Drop the largest pass's P5 anchors and the smallest pass's P3 anchors
+    (anchors run P3 -> P5; 3 levels, g = 1 + 4 + 16)."""
+    g = 21
+    y0, y2 = ys[0], ys[-1]
+    ys[0] = y0[:, : y0.shape[1] - y0.shape[1] // g]
+    ys[-1] = y2[:, (y2.shape[1] // g) * (g - 5):]
+    return ys
+
+
+def predict_augment(model: DetectionModel, x: torch.Tensor):
+    """Test-time augmentation: scales (1, 0.83, 0.67), the middle pass
+    flipped left-right, merged along the anchor axis -> (y, None).  A model
+    with an end2end head (every shipped detector: ``v10Detect``) returns its
+    plain forward, as JAX's ``predict_augment`` does."""
+    if any(s["module"] in _END2END_HEADS for s in model.specs):
+        return model(x)
+    img_hw = (x.shape[1], x.shape[2])
+    ys = []
+    for scale, flip in ((1.0, None), (0.83, 3), (0.67, None)):
+        xi = scale_img(torch.flip(x, dims=(2,)) if flip == 3 else x, scale)
+        yi, _ = model(xi)
+        ys.append(descale_pred(yi, flip, scale, img_hw))
+    return torch.cat(clip_augmented(ys), dim=1), None
