@@ -172,7 +172,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                the v1 and v2 backward designs on the same work (L = 64); the
                exp route's predict forward and the share of its recurrent
                tails; the v2-, v1-, exp- and quadratic-route train steps in
-               turns (v2, v1, exp, parallel, parallel, exp, v1, v2), each
+               turns (v2, v1, exp, parallel, v2), each
                with the device's busy share from a trace of one step; every
                kernel's per-call times at the widths of vil-det-256 and
                vil-det-384 (wide_times); vil-det-384's predict rate and train
@@ -299,6 +299,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                of both, and in each one's traced window the v2 inference
                kernels the trace holds, 20 of each a forward
                (phase_serve; runs after multiscale).
+39. facade   - the facade's other verbs and the CLI, counts at 0:
+               vil-det-192 (bf16) exported as "torch" and "torch_int8" and
+               reloaded by AutoBackend (the torch reload's detections
+               bit-equal to the facade's; int8: each weight within half its
+               channel's scale, outputs finite, classes and confidences
+               valid); YOLO.benchmark with val on phase val's 48 PNG files,
+               each format's row "ok" with 20 inference launches a forward;
+               run_kernel_benchmark(with_backward=True) at JAX's default
+               grid (v1 kernels launched); autobatch over (4, 8, 16) on the
+               train step (each peak printed); YOLO.info and get_flops at
+               640 px, the card's count equal to the CPU's; a 2-generation
+               tune of vil-det-tiny on 16 PNG files with no error in
+               tune_results.csv; `python -m xlstm_yolo_tpu_torch.cfg checks`
+               and `... predict` as subprocesses, rc 0 (phase_facade; runs
+               after serve).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -315,7 +330,8 @@ v2 forward's and the four training kernels' rows a "multiscale" object:
 their launches in phase multiscale and their errors at its lengths; the
 v2 forward's row a "serve" object: its launches in phase serve, the
 launches captured a group graph, and the replays and kernel executions of
-the engine's traced window), and
+the engine's traced window; every row of a kernel that phase facade
+launches also "launches_facade"), and
 last {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -324,6 +340,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import functools
 import json
 import math
@@ -450,13 +467,14 @@ def in_turns(kern, plain, iters: int, plain_iters: int, plain_reps: int = 3, ker
              ws=FLAGSHIP) -> tuple[list, list]:
     """Per-call ms windows of ``kern`` and ``plain`` (time_cuda), timed in
     turns plain, kernel, kernel, plain, so that a drift of the card shows
-    as a spread; after 0.5 s of warm-up at the flagship's widths, 0.1 s at
-    the wider ones (whose calls are longer; three calls come first)."""
+    as a spread; each function's first turn after 0.5 s of warm-up at the
+    flagship's widths, 0.1 s at the wider ones (whose calls are longer),
+    its second after three calls (the card is busy from the turn before)."""
     warm = 0.5 if ws == FLAGSHIP else 0.1
     t_plain = time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=warm)
-    t_kern = [t for _ in range(2) for t in time_cuda(kern, iters=iters, reps=kern_reps,
-                                                       warm_s=warm)]
-    t_plain += time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=warm)
+    t_kern = [t for w in (warm, 0.0) for t in time_cuda(kern, iters=iters, reps=kern_reps,
+                                                         warm_s=w)]
+    t_plain += time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=0.0)
     return t_kern, t_plain
 
 
@@ -2056,6 +2074,233 @@ def img_s_pair(runs: dict) -> dict:
     return {k: {"runs": v, "median": statistics.median(v)} for k, v in runs.items()}
 
 
+FACADE_TUNE_FILES = 16  # the tune's PNG set (train and val)
+FACADE_SWEEP_S = (1024, 6656)  # KernelBenchConfig's S; the sweep runs its default grid
+
+
+def phase_facade(cw, epi, ffn, v1, card: str) -> dict:
+    """The facade's other verbs and the CLI (phase_facade), with the counts
+    set to 0 first:
+
+    1. YOLO("vil-det-192.yaml") (bf16, perturbed ifgates) exported as
+       "torch" and "torch_int8" (engine/exporter.py) and reloaded by
+       AutoBackend(fuse=False): the torch reload's detections on a batch of
+       8 at 640 px bit-equal to the facade's forward; the int8 reload's
+       format "torch_int8", each dequantized weight within half its
+       channel's scale of the original (scale = amax / 127), its outputs
+       finite with valid classes and confidences;
+    2. YOLO.benchmark(imgsz=640, batch=8, data=) on the VAL_N PNG files of
+       phase val, one call per format ("eager", "torch", "torch_int8"):
+       every row "ok", and each call's inference launches exactly 20 a
+       forward (the warm-up and timed forwards and the val batches);
+    3. run_kernel_benchmark(KernelBenchConfig(with_backward=True)), JAX's
+       default grid: every row timed, the v1 kernels launched;
+    4. autobatch over (4, 8, 16) on the v2 train step of vil-det-192 at
+       640 px (bf16), each candidate's peak bytes;
+    5. profile_ops of a vil-det-192 forward (batch 8, 640 px); YOLO.info
+       and get_flops of vil-det-192 at 640 px on the card, equal to
+       get_flops of the same model on the CPU;
+    6. YOLO("vil-det-tiny.yaml").tune: 2 generations of 1 epoch on
+       FACADE_TUNE_FILES PNG files at 160 px: no generation's error in
+       tune_results.csv;
+    7. `python -m xlstm_yolo_tpu_torch.cfg checks` and `... predict
+       model=vil-det-tiny.yaml source=<dir> imgsz=160` as subprocesses,
+       each with rc 0.
+    Returns its numbers and, under "launches", each kernel's launches in
+    the phase (the subprocesses' not counted)."""
+    import importlib.util
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import yaml
+
+    from xlstm_yolo_tpu_torch.engine import steps
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+    from xlstm_yolo_tpu_torch.nn.autobackend import AutoBackend
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+    from xlstm_yolo_tpu_torch.utils.autobatch import autobatch
+    from xlstm_yolo_tpu_torch.utils.benchmarks import KernelBenchConfig, run_kernel_benchmark
+    from xlstm_yolo_tpu_torch.utils.model_utils import get_flops, profile_ops
+
+    out, stage_s = {}, {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_facade_"))
+    zero_counts(cw, epi, ffn)
+    v1.LAUNCHES_FW = v1.LAUNCHES_BW_DC = v1.LAUNCHES_BW_DQKV = 0
+    try:
+        # 1. export and reload
+        t = time.perf_counter()
+        yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
+        perturb_ifgates(yolo.model, seed=8)
+        cells = cells_of(yolo.model)
+        x = train_batch(B, 640, seed=21)["img"]
+        with torch.inference_mode():
+            want = yolo.model(x.float() / 255.0)[0]
+        path_t = yolo.export("torch", out_dir=root / "export")
+        path_q = yolo.export("torch_int8", out_dir=root / "export")
+        ab = AutoBackend(path_t, fuse=False)
+        got = ab(x)
+        if ab.format != "torch" or not torch.equal(got, want):
+            raise AssertionError(f"facade: the torch export's reload ({ab.format}) differs from "
+                                 f"the facade: {(got.float() - want.float()).abs().max()}")
+        abq = AutoBackend(path_q, fuse=False)
+        stored = torch.load(path_q, weights_only=True)
+        ref = yolo.model.state_dict()
+        deq = abq.model.state_dict()
+        worst = 0.0
+        for name, v in stored.items():
+            if isinstance(v, dict):
+                s = v["s"].to(ref[name].device)
+                worst = max(worst, float(((deq[name] - ref[name]).abs() / s).max()))
+        yq = abq(x).float()
+        # q rounds fl(w / s), itself within 2^-17 of w / s (q <= 127), and q * s is
+        # rounded once more: at most half a scale and two such steps off
+        int8_ok = (abq.format == "torch_int8" and worst <= 0.5 + 2 * 2.0 ** -17
+                   and bool(torch.isfinite(yq).all())
+                   and bool(((yq[..., 5] >= 0) & (yq[..., 5] < 80)).all())
+                   and bool(((yq[..., 4] >= 0) & (yq[..., 4] <= 1)).all()))
+        out["export"] = {"torch_bit_equal": True, "int8_format": abq.format,
+                         "int8_err_over_scale": worst,
+                         "quantized_leaves": sum(isinstance(v, dict) for v in stored.values()),
+                         "bytes": {"torch": os.path.getsize(path_t),
+                                   "torch_int8": os.path.getsize(path_q)}}
+        if not int8_ok:
+            raise AssertionError(f"facade: the int8 export's reload fails its checks: "
+                                 f"{out['export']}")
+        del ab, abq, stored, deq, got, want, yq
+        stage_s["export"] = time.perf_counter() - t
+
+        # 2. the benchmark table, with val on the PNG set of phase val
+        t = time.perf_counter()
+        data, _ = write_val_set(root / "val", VAL_N, seed=11)
+        forwards = 2 + 16 + math.ceil(VAL_N / B)  # warm-up, timed, val batches
+        rows = []
+        for fmt in ("eager", "torch", "torch_int8"):
+            before = cw.LAUNCHES
+            row, = yolo.benchmark(imgsz=640, batch=B, formats=(fmt,), data=str(data),
+                                  verbose=False, out_dir=root / "bench")
+            row["launches"] = cw.LAUNCHES - before
+            rows.append(row)
+            if row["status"] != "ok" or row["launches"] != cells * forwards:
+                raise AssertionError(f"facade: benchmark row {row}, expected status ok and "
+                                     f"{cells * forwards} launches ({forwards} forwards)")
+        out["benchmark"] = rows
+        stage_s["benchmark"] = time.perf_counter() - t
+        del yolo
+
+        # 3. the kernel sweep at JAX's default grid, with the backward
+        t = time.perf_counter()
+        before = v1_counts(v1)
+        sweep = run_kernel_benchmark(KernelBenchConfig(with_backward=True))
+        if len(sweep) != 8 or not all(r["ms"] > 0 and r["ms_fwd_bwd"] > 0 for r in sweep) \
+                or any(v1_counts(v1)[k] == before[k] for k in before):
+            raise AssertionError(f"facade: kernel sweep {sweep}, v1 launches {v1_counts(v1)}")
+        out["sweep"] = sweep
+        stage_s["sweep"] = time.perf_counter() - t
+
+        # 4. autobatch on the train step
+        t = time.perf_counter()
+        model, state, step = steps.detect_trainer("vil-det-192.yaml", device="cuda")
+        peaks = {}
+        best = autobatch(lambda bs: step(state, train_batch(bs, 640, seed=bs)), imgsz=640,
+                         candidates=(4, 8, 16), peaks=peaks)
+        out["autobatch"] = {"best": best, "peak_bytes": peaks,
+                            "device_bytes": torch.cuda.mem_get_info()[1]}
+        if sorted(peaks) != [4, 8, 16] or any(p <= 0 for p in peaks.values()):
+            raise AssertionError(f"facade: autobatch peaks {peaks}")
+        del model, state, step
+        torch.cuda.empty_cache()
+        stage_s["autobatch"] = time.perf_counter() - t
+
+        # 5. info and FLOPs, on the card and on the CPU
+        t = time.perf_counter()
+        yolo = YOLO("vil-det-192.yaml", device="cuda", compute_dtype=torch.bfloat16)
+        x = train_batch(B, 640, seed=21)["img"]
+        prof = profile_ops([("forward_b8_640", lambda im: yolo.model(im.float() / 255.0)[0],
+                             (x,))], n=5, warmup=1)
+        flops_card = get_flops(yolo.model, 640)
+        cpu_model, _ = build_detection_model("vil-det-192.yaml", device="cpu")
+        flops_cpu = get_flops(cpu_model, 640)
+        out["info"] = {**yolo.info, "gflops_640_card": flops_card, "gflops_640_cpu": flops_cpu,
+                       "profile_ops": prof}
+        if flops_card != flops_cpu or yolo.info["params"] != sum(
+                p.numel() for p in cpu_model.parameters()):
+            raise AssertionError(f"facade: info {out['info']}")
+        del yolo, cpu_model
+        stage_s["info"] = time.perf_counter() - t
+
+        # 6. tune the tiny detector
+        t = time.perf_counter()
+        tdata, _ = write_val_set(root / "tune_set", FACADE_TUNE_FILES, seed=23, split="train",
+                                 boxes=4, shapes=LOOP_SHAPES)
+        tdata.write_text(yaml.safe_dump({"path": str(root / "tune_set"),
+                                         "train": "images/train", "val": "images/train",
+                                         "names": [f"c{i}" for i in range(80)]}))
+        tiny = YOLO("vil-det-tiny.yaml", device="cuda")
+        best_hyp, best_fit = tiny.tune(data=str(tdata), iterations=2, epochs_per_iter=1,
+                                       save_dir=str(root / "tune"), imgsz=160, batch=8, nbs=8,
+                                       workers=0, lr0=0.01)
+        with open(root / "tune" / "tune_results.csv", newline="") as fh:
+            tune_rows = list(csv.DictReader(fh))
+        out["tune"] = {"best_fitness": best_fit, "rows": tune_rows,
+                       "integrations_importable": {
+                           m: importlib.util.find_spec(m) is not None
+                           for m in ("tensorboard", "wandb", "mlflow", "clearml", "comet_ml",
+                                     "dvclive", "neptune")}}
+        if len(tune_rows) != 2 or any(r.get("error") for r in tune_rows):
+            raise AssertionError(f"facade: tune rows {tune_rows}")
+        stage_s["tune"] = time.perf_counter() - t
+
+        # 7. the CLI in two subprocesses, side by side
+        t = time.perf_counter()
+        src = root / "tune_set" / "images" / "train"
+        procs = {words[0]: subprocess.Popen(
+            [sys.executable, "-m", "xlstm_yolo_tpu_torch.cfg", *words],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for words in (["checks"], ["predict", "model=vil-det-tiny.yaml", f"source={src}",
+                                       "imgsz=160"])}
+        cli, errs = {}, {}
+        try:
+            for word, proc in procs.items():
+                stdout, errs[word] = proc.communicate(timeout=300)
+                cli[word] = {"rc": proc.returncode, "tail": stdout[-300:]}
+        finally:
+            for proc in procs.values():  # none outlives the phase
+                proc.kill()
+                proc.wait()
+        for word, r in cli.items():
+            if r["rc"] != 0:
+                raise AssertionError(f"facade: the CLI's {word} gave rc {r['rc']}: "
+                                     f"{errs[word][-2000:]}")
+        out["cli"] = cli
+        stage_s["cli"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {**counts(cw, epi, ffn), **v1_counts(v1)}
+    out["stage_s"] = stage_s
+    emit({"phase": "times", "what": "facade", "card": card, "stage_s": stage_s,
+          "benchmark": out["benchmark"], "kernel_sweep": out["sweep"],
+          "autobatch": out["autobatch"], "info": out["info"], "export": out["export"],
+          "tune_best_fitness": out["tune"]["best_fitness"],
+          "integrations_importable": out["tune"]["integrations_importable"],
+          "cli": out["cli"], "launches": out["launches"],
+          "note": "benchmark: YOLO.benchmark of vil-det-192 (bf16, batch 8, 640 px), ms/img "
+                  "and img/s from CUDA events around 16 forwards on distinct device-resident "
+                  "uint8 batches after 2 warm-ups, mAP50-95 of a val over the 48 PNG files "
+                  "(random weights: near 0); kernel_sweep: run_kernel_benchmark at JAX's "
+                  "default grid (B 2, NH 12, DH 32, bf16 streams), ms a forward and a forward "
+                  "with backward (CUDA events around 10 calls after 2); autobatch: peak bytes "
+                  "allocated by one v2 train step of vil-det-192 at each batch; info: params "
+                  "and GFLOPs of one 640 px image (FlopCounterMode, the mLSTM cells by "
+                  "formula) on the card and on the CPU, and profile_ops of a batch-8 forward "
+                  "(CUDA events around 5 calls after 1; its gflops miss the cells' kernels, "
+                  "which FlopCounterMode cannot see)"})
+    return out
+
+
 def compare_outputs(what: str, got, ref, rel: float, ref64=None) -> tuple[float, float]:
     """Each output within atol = rel * its largest |ref|, rtol = rel.
 
@@ -3629,7 +3874,7 @@ def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
 
 def time_step(step, state, batch, windows: int):
     """Median ms of a train step over ``windows`` windows of 2 steps after
-    a warm-up of >= 3 s (host clock ending in a synchronise), the windows,
+    a warm-up of >= 1.5 s (host clock ending in a synchronise), the windows,
     the peak memory, the clocks, and a torch.profiler trace of one step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3640,7 +3885,7 @@ def time_step(step, state, batch, windows: int):
         box[0], _ = step(box[0], batch, torch.Generator().manual_seed(9))
 
     t0, n = time.perf_counter(), 0
-    while n < 3 or time.perf_counter() - t0 < 3.0:
+    while n < 3 or time.perf_counter() - t0 < 1.5:
         one_step()
         torch.cuda.synchronize()
         n += 1
@@ -3908,11 +4153,10 @@ def traced_step(step, state, batch) -> dict:
 
 
 def phase_step_times(card: str, routes):
-    """The train step of each route in turns (v2, v1, exp, parallel,
-    parallel, exp, v1, v2), each with the device's busy share from a trace
-    of one step."""
+    """The train step of each route in turns (v2, v1, exp, parallel, v2),
+    each with the device's busy share from a trace of one step."""
     steps_ms = {}
-    for route in ("v2", "v1", "exp", "parallel", "parallel", "exp", "v1", "v2"):
+    for route in ("v2", "v1", "exp", "parallel", "v2"):
         _, state, step, batch = routes[route]
         r = time_step(step, state, batch, windows=2)
         steps_ms.setdefault(route, []).append(r)
@@ -3920,8 +4164,8 @@ def phase_step_times(card: str, routes):
               "cfg": "vil-det-192", "imgsz": 640, "batch": B, "compute_dtype": "bfloat16",
               **{k: v for k, v in r.items() if k != "top"}, "top": r.get("top", [])[:8],
               "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
-                      ">= 3 s warm-up; busy share from a torch.profiler trace of one step; "
-                      "routes timed in turns v2, v1, exp, parallel, parallel, exp, v1, v2"})
+                      ">= 1.5 s warm-up; busy share from a torch.profiler trace of one step; "
+                      "routes timed in turns v2, v1, exp, parallel, v2"})
     return steps_ms
 
 
@@ -5196,6 +5440,7 @@ def main() -> int:
     loop = timed("train_loop", phase_train_loop, cw, epi, ffn, card)
     ms = timed("multiscale", phase_multiscale, cw, epi, ffn, steps, card)
     serve = timed("serve", phase_serve, cw, epi, ffn, card)
+    facade = timed("facade", phase_facade, cw, epi, ffn, v1, card)
     emit({"phase": "times", "what": "multiscale", "card": card, "cfg": "vil-det-192",
           "batch": B, "dtype": "bfloat16",
           "predict_forward_ms": {s: p["forward_ms"] for s, p in ms["predict"].items()},
@@ -5290,7 +5535,7 @@ def main() -> int:
           "cfg": "vil-det-384", "imgsz": 640, "batch": B, "compute_dtype": "bfloat16",
           **{k: v for k, v in ts384.items() if k != "top"}, "top": ts384.get("top", [])[:8],
           "note": "host clock around 2 steps ending in a synchronise, 2 windows after a "
-                  ">= 3 s warm-up; busy share from a torch.profiler trace of one step"})
+                  ">= 1.5 s warm-up; busy share from a torch.profiler trace of one step"})
 
     # each kernel's calls on the main paths, to sum its per-call times over a
     # forward or a step (vil-det-384 has vil-det-192's layers, so the same)
@@ -5343,7 +5588,7 @@ def main() -> int:
     sources = {
         "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
                          launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"]
-                         + serve["launches"],
+                         + serve["launches"] + facade["launches"]["chunkwise_fw"],
                          worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
@@ -5367,6 +5612,9 @@ def main() -> int:
                     "mlstm_step": decode["launches"], "chunkwise_fw_ln": ln_launches}
     for name in KERNELS:
         launches_all[name] += loop[name] + ms[name]
+    for name, n in facade["launches"].items():
+        if name != "chunkwise_fw":
+            launches_all[name] += n
     launches_all["chunkwise_v1_fw"] += v1_predict_launches
     launches_all["chunkwise_exp_fw"] += exp_predict_launches
     notes = {
@@ -5423,6 +5671,8 @@ def main() -> int:
                         "single replays in the engine's traced window and the "
                         "fw_state_kernel / fw_out_kernel executions its profiler trace "
                         "holds (checked: 20 each a forward)"}
+        if name in facade["launches"]:
+            row["launches_facade"] = facade["launches"][name]
         if name == "chunkwise_fw" or name in KERNELS:
             row["launches_train_loop"] = loop[name]
             row["multiscale"] = {

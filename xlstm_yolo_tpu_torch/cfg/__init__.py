@@ -1,8 +1,17 @@
-"""Configuration of the port: ``default.yaml`` (a byte-for-byte copy of the
-JAX package's) with ``load_default_cfg``, ``_coerce`` and ``get_cfg``
-(counterparts of JAX ``cfg/__init__.py``), the trainer's configuration;
-and the keys of it that the predictor and the validator read.  The model
-YAMLs are in ``cfg/models``."""
+"""Configuration of the port and its command line.
+
+``default.yaml`` (a byte-for-byte copy of the JAX package's) with
+``load_default_cfg``, ``_coerce`` and ``get_cfg`` (counterparts of JAX
+``cfg/__init__.py``), the trainer's configuration; the keys of it that the
+predictor and the validator read; and the CLI, ``entrypoint`` (the
+``yolo-tpu-torch`` script, ``python -m xlstm_yolo_tpu_torch.cfg``):
+``yolo-tpu-torch [task] mode key=value ...`` builds ``YOLO(model, device=)``
+(``model`` defaults to ``vil-det-192.yaml``, ``device`` to the GPU;
+``device=cpu`` runs on the CPU) and calls the mode with the other keys;
+the special words ``version``, ``cfg``, ``checks`` and ``settings`` behave
+as JAX's (``checks`` reports torch, CUDA and the device).  ``model``,
+``source`` and ``device`` stay strings (JAX's ``_coerce`` would turn
+``source=0`` into a float).  The model YAMLs are in ``cfg/models``."""
 
 from __future__ import annotations
 
@@ -29,6 +38,12 @@ _BOOL_KEYS = {"save", "cache", "exist_ok", "pretrained", "verbose", "determinist
               "augment", "agnostic_nms", "retina_masks", "multi_scale",
               "stream_buffer", "keras", "optimize", "int8", "dynamic", "simplify",
               "nms"}
+
+TASKS = {"detect", "segment", "pose", "obb", "classify"}
+MODES = {"train", "val", "predict", "track", "export", "benchmark", "tune"}
+#: special first words of the CLI (``hub`` is not ported, as in JAX)
+SPECIAL = {"settings", "version", "checks", "cfg", "solutions"}
+_STRING_KEYS = {"model", "source", "device"}  # kept as the CLI gives them
 
 
 def load_default_cfg() -> dict:
@@ -103,3 +118,89 @@ VAL_DEFAULTS = {
     "single_cls": False,
     "save_dir": None,  # None -> runs/val (predictions.json with save_json)
 }
+
+
+def _handle_special(cmd: str, rest: list[str]) -> Any:
+    if cmd == "version":
+        from importlib.metadata import PackageNotFoundError, version as _v
+
+        try:
+            v = _v("xlstm-yolo-tpu")
+        except PackageNotFoundError:
+            v = "0.1.0 (source checkout)"
+        print(v)
+        return v
+    if cmd == "cfg":
+        cfg = load_default_cfg()
+        print("\n".join(f"{k}={cfg[k]}" for k in sorted(cfg)))
+        return cfg
+    if cmd == "checks":
+        import torch
+
+        from xlstm_yolo_tpu_torch.utils.checks import check_cuda_backend
+
+        backend = check_cuda_backend()
+        info = {
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "backend": backend,
+            "devices": ([torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+                        if backend == "cuda" else ["cpu"]),
+        }
+        for k, v in info.items():
+            print(f"{k}: {v}")
+        return info
+    if cmd == "settings":
+        from xlstm_yolo_tpu_torch import utils
+
+        settings = utils.SETTINGS
+        if rest and rest[0] == "reset":
+            settings.reset()
+            print("settings reset")
+        else:
+            for a in rest:
+                if "=" in a:
+                    k, v = a.split("=", 1)
+                    # settings keys are not cfg keys: generic YAML coercion
+                    settings.update(**{k: yaml.safe_load(v)})
+            settings.save()
+        for k, v in sorted(settings.items()):
+            print(f"{k}={v}")
+        return dict(settings)
+    raise NotImplementedError("the solutions are not ported (ROADMAP Queue 1 item 12)")
+
+
+def entrypoint(argv: list[str] | None = None) -> Any:
+    """CLI: ``yolo-tpu-torch [task] mode key=value ...`` or a special word."""
+    import sys
+
+    args = argv if argv is not None else sys.argv[1:]
+    if not args or args[0] in {"-h", "--help", "help"}:
+        print("usage: yolo-tpu-torch [task] mode key=value ...\n"
+              f"  tasks: {sorted(TASKS)}\n  modes: {sorted(MODES)}\n"
+              f"  special: {sorted(SPECIAL)}")
+        return None
+    if args[0] in SPECIAL:
+        return _handle_special(args[0], list(args[1:]))
+
+    task, mode = "detect", None
+    overrides: dict[str, Any] = {}
+    for a in args:
+        if "=" in a:
+            k, v = a.split("=", 1)
+            overrides[k] = v if k in _STRING_KEYS else _coerce(k, v)
+        elif a in TASKS:
+            task = a
+        elif a in MODES:
+            mode = a
+        else:
+            raise ValueError(f"unrecognized argument '{a}'")
+    if mode is None:
+        raise ValueError(f"a mode is required: {sorted(MODES)}")
+
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    model_path = overrides.pop("model", None) or "vil-det-192.yaml"
+    device = overrides.pop("device", None) or "cuda"
+    model = YOLO(model_path, task=task, device=str(device))
+    return getattr(model, mode)(**overrides)

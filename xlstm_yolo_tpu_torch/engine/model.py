@@ -1,13 +1,17 @@
 """Public facade: ``YOLO('vil-det-192.yaml').predict(images)``,
 ``YOLO('weights.pt').val(data='set.yaml')``,
-``YOLO('vil-det-192.yaml').train(data='set.yaml', epochs=...)``.
+``YOLO('vil-det-192.yaml').train(data='set.yaml', epochs=...)``,
+``.export(format='torch' | 'torch_int8')``, ``.benchmark(data=...)``,
+``.tune(data=..., iterations=...)`` and ``.info``.
 
-Counterpart of ``YOLO.__init__`` / ``_resolve`` / ``predict`` / ``val`` /
-``train`` in
-``xlstm_yolo_tpu/engine/model.py``.  The model runs on the GPU unless the
-caller passes ``device="cpu"``, its mLSTM cells on ``chunkwise_kernel``
-(``"auto"``: the v2 kernels; ``nn.tasks.resolve_chunkwise_kernel``).  A
-model YAML is built with random weights from seed 0, as the JAX facade's
+Counterpart of ``YOLO`` in ``xlstm_yolo_tpu/engine/model.py``: its
+``predict``, ``val``, ``train``, ``export`` (the port's own formats,
+``engine/exporter.py``), ``benchmark`` (``utils/benchmarks.py``), ``tune``
+(``engine/tuner.py``) and ``info``; ``track`` raises (ROADMAP Queue 1 item
+12), and so does any task but detect (item 10).  The model runs on the GPU
+unless the caller passes ``device="cpu"``, its mLSTM cells on
+``chunkwise_kernel`` (``"auto"``: the v2 kernels;
+``nn.tasks.resolve_chunkwise_kernel``).  A model YAML is built with random weights from seed 0, as the JAX facade's
 ``PRNGKey(0)``.  A ``.pt`` checkpoint builds ``vil-det-192.yaml``, as the
 JAX facade does, and loads the checkpoint's ``ema`` (else ``model``, else
 the file itself) as a state dict in the reference's names:
@@ -24,7 +28,7 @@ from typing import Any
 
 import torch
 
-from xlstm_yolo_tpu_torch.cfg import VAL_DEFAULTS
+from xlstm_yolo_tpu_torch.cfg import TASKS, VAL_DEFAULTS, get_cfg
 from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
 from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
 from xlstm_yolo_tpu_torch.nn.tasks import CFG_MODELS, build_detection_model
@@ -67,8 +71,10 @@ class YOLO:
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype = torch.bfloat16, chunkwise_kernel: str = "auto"):
-        if task != "detect":
+        if task not in TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
+        if task != "detect":
+            raise NotImplementedError(f"task {task!r} is not ported (ROADMAP Queue 1 item 10)")
         self.task = task
         self.device = select_device(device)
         self.overrides: dict[str, Any] = {}
@@ -121,8 +127,17 @@ class YOLO:
         return self.validator(self.model)
 
     def add_callback(self, event: str, fn):
-        """Register ``fn(trainer)`` for a trainer event (``utils.callbacks.EVENTS``)."""
+        """Register ``fn`` for a trainer or exporter event (``utils.callbacks.EVENTS``)."""
         self.callbacks.setdefault(event, []).append(fn)
+
+    def _callbacks(self):
+        from xlstm_yolo_tpu_torch.utils.callbacks import Callbacks
+
+        cb = Callbacks()
+        for event, fns in self.callbacks.items():
+            for fn in fns:
+                cb.add(event, fn)
+        return cb
 
     def train(self, data=None, **kwargs) -> dict:
         """Train a detector of this YAML (or, from a ``.pt``, vil-det-192
@@ -145,3 +160,49 @@ class YOLO:
         metrics = trainer.train()
         self.trainer = trainer
         return metrics
+
+    def track(self, source=None, **kwargs):
+        raise NotImplementedError("tracking is not ported (ROADMAP Queue 1 item 12)")
+
+    def export(self, format: str = "torch", out_dir: str | Path = "runs/export", **kwargs) -> str:
+        """Write the model in the port's ``format`` (``engine.exporter.FORMATS``:
+        ``"torch"`` or ``"torch_int8"``) under ``out_dir`` with its sidecar;
+        returns the file's path.  ``imgsz`` defaults to the model YAML's."""
+        from xlstm_yolo_tpu_torch.engine.exporter import Exporter
+
+        args = get_cfg(overrides={"imgsz": self.imgsz, **self.overrides, **kwargs,
+                                  "mode": "export", "format": format,
+                                  "model": self.model_cfg, "task": self.task})
+        return Exporter(args, self._callbacks())(self.model, out_dir=out_dir)
+
+    def benchmark(self, **kwargs) -> list[dict]:
+        """Rows of speed (and mAP with ``data=``) per format
+        (``utils.benchmarks.benchmark``)."""
+        from xlstm_yolo_tpu_torch.utils.benchmarks import benchmark
+
+        return benchmark(self, **kwargs)
+
+    def tune(self, data=None, use_ray: bool = False, iterations: int = 10,
+             epochs_per_iter: int = 5, save_dir: str = "runs/tune", **kwargs):
+        """Hyperparameter search: mutation evolution (``engine.tuner.Tuner``,
+        each generation trained on this facade's device), or Ray Tune with
+        ``use_ray=True`` (which raises where Ray is not installed).  Returns
+        (best hyperparameters, best fitness)."""
+        if use_ray:
+            from xlstm_yolo_tpu_torch.engine.tuner import run_ray_tune
+
+            return run_ray_tune(self, max_samples=iterations,
+                                **({"data": data} if data else {}), **kwargs)
+        from xlstm_yolo_tpu_torch.engine.tuner import Tuner
+
+        args = {**self.overrides, **kwargs, "task": self.task}
+        data = data or args.pop("data", None)
+        tuner = Tuner(args, save_dir=save_dir, device=self.device)
+        return tuner(self.model_cfg, data, iterations=iterations,
+                     epochs_per_iter=epochs_per_iter)
+
+    @property
+    def info(self) -> dict:
+        from xlstm_yolo_tpu_torch.utils.model_utils import n_params
+
+        return {"params": n_params(self.model), "cfg": self.model_cfg}

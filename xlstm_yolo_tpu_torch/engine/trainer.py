@@ -47,8 +47,15 @@ variable.  A ``pretrained`` path or a ``cache`` mode given as an override
 is kept (JAX's ``get_cfg``, which the port's mirrors, coerces the string
 of a boolean key to False, so JAX's trainer never loads an override's
 ``pretrained`` file).  JAX's flat and hybrid optimizer states (``XY_FLAT_OPT``,
-``XY_TP``) are not ported.  The plots, TensorBoard and the other
-integrations are not ported either (item 9); the trainer says so once.
+``XY_TP``) are not ported.  As in JAX, with ``plots`` each epoch's metrics
+go to TensorBoard under ``save_dir/tb`` (``utils.callbacks.add_tensorboard``,
+where the ``tensorboard`` package is installed), and the logger
+integrations whose packages import register themselves
+(``utils.callbacks.integrations``), but only when the user's settings
+allow it (``SETTINGS["sync"]``, False by default: ``yolo-tpu-torch settings
+sync=True``); JAX registers them whenever their package imports, and a
+service's ``init`` may reach the network.  The plots are not ported
+(ROADMAP Queue 1 item 6); the trainer says so once.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from xlstm_yolo_tpu_torch import utils
 from xlstm_yolo_tpu_torch.cfg import VAL_DEFAULTS, get_cfg
 from xlstm_yolo_tpu_torch.data.build import TrainLoader, build_yolo_dataset
 from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
@@ -72,7 +80,8 @@ from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
 from xlstm_yolo_tpu_torch.engine.steps import TrainState, make_train_step, optimizer_leaves
 from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
 from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
-from xlstm_yolo_tpu_torch.utils.callbacks import Callbacks
+from xlstm_yolo_tpu_torch.utils.callbacks import Callbacks, add_tensorboard
+from xlstm_yolo_tpu_torch.utils.callbacks.integrations import add_available_integrations
 from xlstm_yolo_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     read_checkpoint,
@@ -149,8 +158,10 @@ class DetectionTrainer:
         self.callbacks = Callbacks()
         self.save_dir = self._get_save_dir()
         if getattr(self.args, "plots", True):
-            print("train: plots, TensorBoard and the integrations are not ported "
-                  "(ROADMAP Queue 1 item 9)")
+            add_tensorboard(self.callbacks, str(self.save_dir / "tb"))
+            print("train: the plots are not ported (ROADMAP Queue 1 item 6)")
+        if utils.SETTINGS.get("sync"):  # the remote loggers, only when the user allows them
+            add_available_integrations(self.callbacks)
         self.wdir = self.save_dir / "weights"
         self.csv_path = self.save_dir / "results.csv"
         self.best_fitness = 0.0

@@ -1,11 +1,14 @@
 """One inference interface over the weight formats the port reads.
 
-Counterpart of ``xlstm_yolo_tpu/nn/autobackend.py:27-172`` for two of its
+Counterpart of ``xlstm_yolo_tpu/nn/autobackend.py:27-172`` for the port's
 formats: a model YAML (random weights from seed 0, as ``YOLO``) and a
 ``.pt`` file of the port's own (a state dict, a ``{"ema"|"model": ...}``
 dict of one, or a training checkpoint of ``utils.checkpoint``, whose EMA
 parameters and BatchNorm statistics are taken), read with
-``weights_only=True`` and loaded strictly.
+``weights_only=True`` and loaded strictly.  A ``torch_int8`` export
+(``engine.exporter``: int8 ``{"q", "s"}`` pairs) is dequantized to float32
+first, as JAX's backend reads ``orbax_int8``; ``self.format`` is then
+``"torch_int8"``.
 
 Like JAX's, the backend configures itself from the ``{name}.meta.json``
 sidecar that the port's checkpoints carry (``utils/checkpoint.py``): the
@@ -29,6 +32,7 @@ import yaml
 from xlstm_yolo_tpu_torch.engine.model import load_checkpoint_state
 from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
 from xlstm_yolo_tpu_torch.utils.fuse import fuse_state_dict
+from xlstm_yolo_tpu_torch.utils.quantize import dequantize_state_dict, is_quantized_state_dict
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
 _OTHER_FORMATS = {".stablehlo": "StableHLO", ".tflite": "TFLite"}
@@ -91,7 +95,11 @@ class AutoBackend:
         build = dict(nc=nc, compute_dtype=compute_dtype, device=self.device)
         model, d = build_detection_model(model_cfg, **build)
         if self.format == "torch":
-            model.load_state_dict(checkpoint_state_dict(p, model), strict=True)
+            sd = checkpoint_state_dict(p, model)
+            if is_quantized_state_dict(sd):  # an int8 weight-only export
+                self.format = "torch_int8"
+                sd = dequantize_state_dict(sd)
+            model.load_state_dict(sd, strict=True)
         self.imgsz = int(imgsz or d.get("imgsz", 640))
         if self.names is None:
             self.names = {i: f"class{i}" for i in range(int(d.get("nc", 80)))}

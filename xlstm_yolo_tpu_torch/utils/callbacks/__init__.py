@@ -1,6 +1,8 @@
-"""Event callback bus (counterpart of ``Callbacks`` in
-``xlstm_yolo_tpu/utils/callbacks/__init__.py``): the same event names.
-The TensorBoard writer and the other integrations are not ported."""
+"""Event callback bus (counterparts of ``Callbacks`` and ``add_tensorboard``
+in ``xlstm_yolo_tpu/utils/callbacks/__init__.py``): the same event names;
+the TensorBoard writer is ``torch.utils.tensorboard``'s, and registers
+nothing where the ``tensorboard`` package is absent.  The other
+integrations are in ``integrations.py``."""
 
 from __future__ import annotations
 
@@ -35,3 +37,26 @@ class Callbacks:
 
     def get(self, event: str):
         return list(self._hooks.get(event, []))
+
+
+def add_tensorboard(callbacks: Callbacks, log_dir: str) -> bool:
+    """Write each epoch's metrics as TensorBoard scalars under ``log_dir``;
+    False (and nothing registered) without the ``tensorboard`` package."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return False
+
+    writer = SummaryWriter(log_dir)
+
+    def on_fit_epoch_end(trainer):
+        for k, v in (trainer.metrics or {}).items():
+            try:
+                writer.add_scalar(k, float(v), trainer.epoch)
+            except (TypeError, ValueError):
+                pass
+        writer.flush()
+
+    callbacks.add("on_fit_epoch_end", on_fit_epoch_end)
+    callbacks.add("on_train_end", lambda trainer: writer.close())
+    return True
