@@ -174,8 +174,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                tails; the v2-, v1-, exp- and quadratic-route train steps in
                turns (v2, v1, exp, parallel, v2), each
                with the device's busy share from a trace of one step; every
-               kernel's per-call times at the widths of vil-det-256 and
-               vil-det-384 (wide_times); vil-det-384's predict rate and train
+               kernel's per-call times at vil-det-384's widths, the v1, exp
+               and quadratic kernels' at vil-det-256's at the routes'
+               largest call (wide_times); vil-det-384's predict rate and train
                step with busy share, clocks and peak memory.
 
 28. tal_kernel - the fused TAL metric kernel against its plain version at
@@ -314,6 +315,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                tune_results.csv; `python -m xlstm_yolo_tpu_torch.cfg checks`
                and `... predict` as subprocesses, rc 0 (phase_facade; runs
                after serve).
+40. tasks    - the segment, pose, OBB and classify heads on vil-det-192's
+               width and depth (its YAML with row 31 a Segment [nc, 32, 256],
+               Pose [nc, [17, 3]] or OBB [nc, 1] head; the classifier rows
+               0-8, SequenceToImage and Classify), 640 px, batch 8, bf16,
+               random weights from seed 0, perturbed ifgates, through
+               YOLO(yaml, task=...): predict on 16 synthetic PNG files (20
+               inference launches a forward, classify 8, exact; ms a batch,
+               host postprocess ms an image, Masks.xy ms an image, the
+               rotated NMS ms a batch); the segment validator's masks
+               assembled on the card equal the CPU's from the same fetched
+               tensors; the predictions written back as labels (task_labels:
+               polygons from Masks.xy, keypoints, OBB corners, a folder per
+               top-1 class) and validated by the task's validator:
+               mAP50(B) >= 0.99 and mAP50-95(B) >= 0.95 (segment, pose,
+               OBB by probiou), mAP50(P) >= 0.99, top-1 = 1.0; mAP50(M)
+               printed (phase_tasks; runs after facade).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -463,18 +480,16 @@ def iters_for(ws, n: int) -> int:
     return n if ws == FLAGSHIP else max(2, n // 4)
 
 
-def in_turns(kern, plain, iters: int, plain_iters: int, plain_reps: int = 3, kern_reps: int = 3,
-             ws=FLAGSHIP) -> tuple[list, list]:
+def in_turns(kern, plain, iters: int, plain_iters: int, plain_reps: int = 3,
+             kern_reps: int = 3) -> tuple[list, list]:
     """Per-call ms windows of ``kern`` and ``plain`` (time_cuda), timed in
-    turns plain, kernel, kernel, plain, so that a drift of the card shows
-    as a spread; each function's first turn after 0.5 s of warm-up at the
-    flagship's widths, 0.1 s at the wider ones (whose calls are longer),
-    its second after three calls (the card is busy from the turn before)."""
-    warm = 0.5 if ws == FLAGSHIP else 0.1
-    t_plain = time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=warm)
-    t_kern = [t for w in (warm, 0.0) for t in time_cuda(kern, iters=iters, reps=kern_reps,
-                                                         warm_s=w)]
-    t_plain += time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=0.0)
+    turns plain, kernel, kernel, so that a drift of the card shows as a
+    spread of the kernel's windows; each function's first turn after 0.1 s
+    of warm-up and at least three calls (the card is busy from the phases
+    before), the kernel's second after three calls."""
+    t_plain = time_cuda(plain, iters=plain_iters, reps=plain_reps, warm_s=0.1)
+    t_kern = [t for w in (0.1, 0.0) for t in time_cuda(kern, iters=iters, reps=kern_reps,
+                                                        warm_s=w)]
     return t_kern, t_plain
 
 
@@ -2301,6 +2316,359 @@ def phase_facade(cw, epi, ffn, v1, card: str) -> dict:
     return out
 
 
+TASK_N = 16                 # synthetic PNG files a task
+TASK_SHAPES = {"square": [(640, 640)],  # segment (JAX's masks span the padded frame) and classify
+               "mixed": [(480, 640), (640, 640), (640, 480), (360, 640)]}  # pose, obb
+TASK_ROWS = {"segment": [[21, 24, 27, 30], 1, "Segment", ["nc", 32, 256]],
+             "pose": [[21, 24, 27, 30], 1, "Pose", ["nc", [17, 3]]],
+             "obb": [[21, 24, 27, 30], 1, "OBB", ["nc", 1]]}
+TASK_CLS = (0.1, -2.0)      # class towers' last conv: kernel scale and bias (the scored levels)
+TASK_LEVEL = {"segment": 3}  # the first scored level (P5 for segment: fewer, larger masks), else P4
+TASK_BIN = 5.0              # box towers' last conv: DFL bins peak here (P4/P5 boxes ~200-400 px)
+TASK_MASK_EPS = 1e-3        # mask check: pixels whose logit is nearer 0 are not compared
+TASK_LAUNCHES = {"segment": 20, "pose": 20, "obb": 20, "classify": 8}  # a forward
+
+
+def task_yaml(task: str, root) -> str:
+    """vil-det-192's width and depth with ``task``'s head (classify: rows
+    0-8, then SequenceToImage and Classify), written as a model YAML."""
+    from pathlib import Path
+
+    import yaml
+
+    from xlstm_yolo_tpu_torch.nn.tasks import CFG_MODELS
+
+    d = yaml.safe_load((CFG_MODELS / "vil-det-192.yaml").read_text())
+    if task == "classify":
+        d["backbone"] = d["backbone"][:9]
+        d["head"] = [[8, 1, "SequenceToImage", [[10, 10]]], [-1, 1, "Classify", ["nc"]]]
+    else:
+        d["head"][-1] = TASK_ROWS[task]
+    path = Path(root) / f"vil-det-192-{task}.yaml"
+    path.write_text(yaml.safe_dump(d, sort_keys=False))
+    return str(path)
+
+
+def task_head(model, task: str, fill_masks: bool = False):
+    """Self-labelling needs distinct boxes with spread scores (as val_head):
+    the box towers' last conv gets its kernel x 0.1 and a bias peaking at
+    bin TASK_BIN (distances of ~5 bins); only the levels from TASK_LEVEL on
+    (P4 and P5; segment P5, whose boxes are large against the prototypes'
+    2 px grid and whose ~100 anchors keep the host's mask work short) get
+    the class bias of TASK_CLS, the others -20.  ``fill_masks``: every mask
+    fills its box (the prototypes' last BatchNorm bias + 4, the coefficient
+    conv's kernel 0 and bias 1), so that a mask's contour gives back its
+    detection's box (the segment labels are polygons, whose bounds are the
+    ground-truth boxes)."""
+    import torch
+
+    head = model.model[-1]
+    with torch.no_grad():
+        if task == "classify":
+            return
+        if fill_masks:
+            head.proto.cv3.bn.bias.add_(4.0)
+            for t in head.cv4:
+                t[-1].weight.zero_()
+                t[-1].bias.fill_(1.0)
+            return
+        ramp = -0.5 * (torch.arange(head.reg_max, dtype=torch.float32) - TASK_BIN).abs()
+        for level, (box, cls) in enumerate(zip(head.cv2, head.cv3)):
+            box[-1].weight.mul_(0.1)
+            box[-1].bias.copy_(ramp.repeat(4))
+            cls[-1].weight.mul_(TASK_CLS[0])
+            cls[-1].bias.fill_(TASK_CLS[1] if level >= TASK_LEVEL.get(task, 2) else -20.0)
+
+
+def task_labels(task: str, results, labels_dir, names: dict) -> dict:
+    """Pass 1's predictions (conf VAL_CONF, IoU 0.7: the validator's NMS)
+    written as each image's labels, so that pass 2 must score 0.995 a class.
+    A detection is usable when its box is at least 1 px wide and high, its
+    row repeats no earlier row of its image, and for segment its mask's
+    largest contour bounds its box at IoU >= 0.96; as in self_label, a
+    class's labels are its detections above its highest unusable one.
+    Rows: segment the contour's points, pose the box and the keypoints
+    (visibility 2), obb the 4 corners; classify: a folder per class id
+    (c00 ... c79, so that a folder's index is its class), the image's top-1."""
+    import shutil
+    from pathlib import Path
+
+    labels_dir = Path(labels_dir)
+    if task == "classify":
+        for c in names:
+            (labels_dir / f"c{c:02d}").mkdir(parents=True, exist_ok=True)
+        for r in results:
+            shutil.copy(r.path, labels_dir / f"c{r.probs.top1:02d}" / Path(r.path).name)
+        return {"classes": len({r.probs.top1 for r in results})}
+    import numpy as np
+
+    def key(text):  # the dataset's dedup key: the class and the row's box
+        vals = np.array(text.split(), np.float32)
+        if len(vals) == 5 or task == "pose":
+            return tuple(vals[:5].tolist())
+        poly = vals[1:].reshape(-1, 2)
+        return (vals[0], *poly.min(0).tolist(), *poly.max(0).tolist())
+
+    rows, bar = {}, {}
+    for r in results:
+        h, w = r.orig_img.shape[:2]
+        seen = set()
+        items = []
+        if task == "obb":
+            corners = r.obb.xyxyxyxy
+            for k, (row, c4) in enumerate(zip(r.obb.data, corners)):
+                c = int(row[6])
+                text = f"{c} " + " ".join(f"{x / w:.7f} {y / h:.7f}" for x, y in c4) + "\n"
+                ok = min(row[2], row[3]) >= 1.0 and key(text) not in seen
+                items.append((c, float(row[5]), text, ok))
+                seen.add(key(text))
+        else:
+            polys = r.masks.xy if task == "segment" and r.masks is not None else None
+            for k, row in enumerate(r.boxes.data):
+                x1, y1, x2, y2, conf, c = row[:6]
+                c = int(c)
+                text = (f"{c} {(x1 + x2) / 2 / w:.7f} {(y1 + y2) / 2 / h:.7f} "
+                        f"{(x2 - x1) / w:.7f} {(y2 - y1) / h:.7f}")
+                ok = min(x2 - x1, y2 - y1) >= 1.0
+                if task == "pose":
+                    text += "".join(f" {x / w:.7f} {y / h:.7f} 2" for x, y in r.keypoints.data[k, :, :2])
+                elif task == "segment":
+                    p = polys[k]
+                    if len(p) >= 3:
+                        px1, py1 = p.min(0)
+                        px2, py2 = p.max(0)
+                        inter = (max(0.0, min(x2, px2) - max(x1, px1))
+                                 * max(0.0, min(y2, py2) - max(y1, py1)))
+                        union = (x2 - x1) * (y2 - y1) + (px2 - px1) * (py2 - py1) - inter
+                        ok &= inter / max(union, 1e-9) >= 0.96
+                        text = f"{c} " + " ".join(f"{x / w:.7f} {y / h:.7f}" for x, y in p)
+                    else:
+                        ok = False
+                ok &= key(text) not in seen
+                seen.add(key(text))
+                items.append((c, float(conf), text + "\n", ok))
+        rows[r.path] = items
+        for c, conf, _, ok in items:
+            if not ok:
+                bar[c] = max(bar.get(c, 0.0), conf)
+
+    def kept(items):
+        return [t for t in items if t[1] >= VAL_CONF and t[1] > bar.get(t[0], 0.0)]
+
+    for items in rows.values():
+        for c, conf, _, _ in kept(items)[VAL_LABELS:]:
+            bar[c] = max(bar.get(c, 0.0), conf)
+    counts = []
+    for path, items in rows.items():
+        keep = kept(items)
+        counts.append(len(keep))
+        (labels_dir / f"{Path(path).stem}.txt").write_text("".join(t[2] for t in keep))
+    return {"classes_cut": len(bar), "per_image": counts}
+
+
+def mask_check(model, validator, images) -> dict:
+    """The segment validator's masks assembled on the card (its forward on
+    the card, then ops.process_mask there) against the same function on the
+    CPU from the same fetched (detections, coefficients, prototypes), pixel
+    for pixel except where the logit (recomputed in float64) is within
+    TASK_MASK_EPS of 0."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.utils import ops
+
+    dets, ok, coeffs, proto = validator.forward(model, images)
+    img_hw = images.shape[1:3]
+    n = compared = differ = 0
+    for i in range(len(dets)):
+        keep = ok[i]
+        card = ops.process_mask(proto[i], coeffs[i][keep], dets[i][keep][:, :4], img_hw).cpu()
+        args = [t.cpu() for t in (proto[i], coeffs[i][keep], dets[i][keep][:, :4])]
+        cpu = ops.process_mask(*args, img_hw)
+        logit = (args[1].to(args[0].dtype).double()
+                 @ args[0].double().reshape(-1, args[0].shape[-1]).T).reshape(card.shape)
+        far = logit.abs() > TASK_MASK_EPS
+        n += len(card)
+        compared += int(far.sum())
+        differ += int((card != cpu)[far].sum())
+    return {"masks": n, "pixels_compared": compared, "pixels_differing": differ,
+            "proto_dtype": str(proto.dtype)}
+
+
+def phase_tasks(cw, card: str) -> dict:
+    """The segment, pose, OBB and classify heads at vil-det-192's width and
+    depth (task_yaml), 640 px, batch 8, bf16, random weights from seed 0,
+    ifgates perturbed, through the facade (YOLO(yaml, task=...)):
+
+    1. predict on TASK_N synthetic PNG files (conf VAL_CONF, IoU 0.7): 20
+       inference launches a forward (classify: 8), exact; ms a batch, the
+       host's postprocess ms an image (segment: mask assembly, and Masks.xy
+       ms an image; obb: the rotated NMS ms a batch on the card);
+    2. segment: the validator's masks on the card against the CPU's
+       (mask_check), no pixel differing;
+    3. pass 1's predictions become the labels (task_labels); pass 2, the
+       task's validator (segment, pose: SegmentationValidator and
+       PoseValidator; obb, classify: the facade's val): mAP50(B) >= 0.99
+       and mAP50-95(B) >= 0.95 (segment, pose, obb; OBB's by probiou, on
+       the minAreaRect of the label polygons), mAP50(P) >= 0.99 (pose),
+       top-1 = 1.0 (classify); mAP50(M) printed, not gated; img/s.
+    Returns the launches and numbers."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from xlstm_yolo_tpu_torch.data.dataset import YOLODataset
+    from xlstm_yolo_tpu_torch.data.imread import imwrite_png
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+    from xlstm_yolo_tpu_torch.models.yolo.pose.val import PoseValidator
+    from xlstm_yolo_tpu_torch.models.yolo.segment.val import SegmentationValidator
+    from xlstm_yolo_tpu_torch.utils import ops
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tasks_"))
+    out = {"launches": 0}
+    try:
+        for kind, shapes in TASK_SHAPES.items():
+            rng = np.random.default_rng(21)
+            d = root / kind
+            d.mkdir()
+            for j in range(TASK_N):
+                h, w = shapes[j % len(shapes)]
+                imwrite_png(d / f"t{j:03d}.png", rng.integers(0, 256, (h, w, 3), np.uint8),
+                            level=1)
+        for task in ("segment", "pose", "obb", "classify"):
+            t_task = time.perf_counter()
+            src = root / ("square" if task in ("segment", "classify") else "mixed")
+            yolo = YOLO(task_yaml(task, root), task=task, device="cuda",
+                        compute_dtype=torch.bfloat16)
+            imgsz = yolo.imgsz
+            perturb_ifgates(yolo.model, seed=8)
+            task_head(yolo.model, task)
+            per_fwd = cells_of(yolo.model)
+            if per_fwd != TASK_LAUNCHES[task]:
+                raise AssertionError(f"{task}: {per_fwd} cells, not {TASK_LAUNCHES[task]}")
+            rep = {"phase": "tasks", "task": task, "card": card,
+                   "cfg": Path(yolo.model_cfg).stem, "imgsz": imgsz, "batch": B,
+                   "dtype": "bfloat16", "images": TASK_N}
+            set_dir = root / f"set_{task}"
+            if task == "segment":  # on the random prototypes, before they fill the boxes
+                data = {"names": yolo.names, "nc": 80, "path": str(set_dir), "val": "images/val"}
+                imgs = YOLODataset(str(src), imgsz=imgsz)
+                batch = imgs.collate([imgs.get_sample(i) for i in range(B)])
+                cw.LAUNCHES = 0
+                v = SegmentationValidator({"data": data, "imgsz": imgsz, "batch": B})
+                rep["mask_check"] = mask_check(yolo.model, v, imgs.images(batch, "cuda"))
+                rep["mask_check"]["launches"] = cw.LAUNCHES
+                out["launches"] += cw.LAUNCHES
+                if cw.LAUNCHES != per_fwd or rep["mask_check"]["pixels_differing"]:
+                    raise AssertionError(f"segment mask check: {rep['mask_check']}")
+                task_head(yolo.model, task, fill_masks=True)
+            cw.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results = yolo.predict(str(src), batch=B, conf=VAL_CONF, iou=0.7)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = cw.LAUNCHES
+            out["launches"] += launches
+            expected = -(-TASK_N // B) * per_fwd
+            rep.update({"predict_launches": launches, "expected": expected,
+                        "predict_wall_s": wall,
+                        "predict_ms_per_batch": statistics.median(
+                            r.speed["inference"] for r in results) * B,
+                        "postprocess_ms_per_image": statistics.median(
+                            r.speed["postprocess"] for r in results)})
+            if launches != expected or len(results) != TASK_N:
+                raise AssertionError(f"{task} predict: {launches} launches (expected "
+                                     f"{expected}), {len(results)} results")
+            if task != "classify":
+                n_det = [len(r) for r in results]
+                rep["detections_per_image"] = [min(n_det), max(n_det)]
+            if task == "segment":
+                t = time.perf_counter()
+                polys = [r.masks.xy for r in results if r.masks is not None]
+                rep["contours_ms_per_image"] = (time.perf_counter() - t) * 1e3 / TASK_N
+                if not all(np.isfinite(p).all() for ps in polys for p in ps):
+                    raise AssertionError("non-finite mask contours")
+            if task == "obb":
+                x = torch.zeros((B, imgsz, imgsz, 3), device="cuda")
+                cw.LAUNCHES = 0
+                with torch.inference_mode():
+                    y, _ = yolo.model(x)
+                    torch.cuda.synchronize()
+                    nms_fwd = cw.LAUNCHES
+                    t = time.perf_counter()
+                    for _ in range(3):
+                        ops.non_max_suppression_rotated(y, conf_thres=VAL_CONF, iou_thres=0.7)
+                    torch.cuda.synchronize()
+                rep["rotated_nms_ms_per_batch"] = (time.perf_counter() - t) * 1e3 / 3
+                rep["nms_forward_launches"] = nms_fwd
+                out["launches"] += nms_fwd
+                if nms_fwd != per_fwd:
+                    raise AssertionError(f"obb: the NMS batch's forward made {nms_fwd} "
+                                         f"launches, not {per_fwd}")
+            if task == "classify":
+                probs = np.stack([r.probs.data for r in results])
+                if not (np.isfinite(probs).all() and np.allclose(probs.sum(1), 1, atol=1e-3)):
+                    raise AssertionError("classify probabilities are not a distribution")
+            # pass 2 on pass 1's labels
+            if task == "classify":
+                labels = task_labels(task, results, set_dir / "val", yolo.names)
+                data = str(set_dir)
+            else:
+                (set_dir / "images").mkdir(parents=True)
+                shutil.copytree(src, set_dir / "images" / "val")
+                (set_dir / "labels" / "val").mkdir(parents=True)
+                labels = task_labels(task, results, set_dir / "labels" / "val", yolo.names)
+                meta = {"path": str(set_dir), "val": "images/val",
+                        "names": [yolo.names[i] for i in range(80)]}
+                if task == "pose":
+                    meta["kpt_shape"] = [17, 3]
+                data = set_dir / "data.yaml"
+                data.write_text(yaml.safe_dump(meta))
+                data = str(data)
+            cw.LAUNCHES = 0
+            t = time.perf_counter()
+            kw = {"imgsz": imgsz, "batch": B, "workers": 0}
+            if task == "segment":
+                v = SegmentationValidator({"data": data, **kw})
+                m = v(yolo.model)
+            elif task == "pose":
+                v = PoseValidator({"data": data, **kw})
+                m = v(yolo.model)
+            else:
+                m = yolo.val(data=data, **kw)
+                v = yolo.validator
+            val_s = time.perf_counter() - t
+            out["launches"] += cw.LAUNCHES
+            rep.update({"labels": labels, "val": {k: float(x) for k, x in m.items()},
+                        "val_launches": cw.LAUNCHES, "val_images_per_s": v.seen / val_s,
+                        "val_ms_per_image": v.speed, "seconds": time.perf_counter() - t_task})
+            if task == "segment":
+                rep["mask_map50_predicted"] = 0.98
+            emit(rep)
+            if cw.LAUNCHES != expected or v.seen != TASK_N:
+                raise AssertionError(f"{task} val: {cw.LAUNCHES} launches, {v.seen} images")
+            if task == "classify":
+                if m["metrics/accuracy_top1"] != 1.0:
+                    raise AssertionError(f"classify self-labelled top-1 {m}")
+            else:
+                if not (m["metrics/mAP50(B)"] >= 0.99 and m["metrics/mAP50-95(B)"] >= 0.95):
+                    raise AssertionError(f"{task} self-labelled box mAP: {m}")
+                if task == "pose" and not m["metrics/mAP50(P)"] >= 0.99:
+                    raise AssertionError(f"pose self-labelled keypoint mAP: {m}")
+                if sum(labels["per_image"]) < TASK_N:
+                    raise AssertionError(f"{task}: too few self-labels {labels}")
+            out[task] = rep
+            del yolo
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def compare_outputs(what: str, got, ref, rel: float, ref64=None) -> tuple[float, float]:
     """Each output within atol = rel * its largest |ref|, rtol = rel.
 
@@ -2831,7 +3199,7 @@ def phase_train_times(cw, epi, ffn, card: str, ws=FLAGSHIP, passes=None):
                       "a yardstick only, no part of the port"})
         for name, (kern, plain) in pairs.items():
             n = iters_for(ws, 10)
-            t_kern, t_plain = in_turns(kern, plain, n, 3, ws=ws)
+            t_kern, t_plain = in_turns(kern, plain, n, 3)
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                    **dict(zip(("bound_ms", "bound_by"), train_bound(name, S, ws=ws)))}
             row.update(passes.get(name, {}).get(S, {}))
@@ -3822,7 +4190,7 @@ def timed_row(name, kern, plain, n, ws, bound, S, L):
     dq/dk/dv also the exps' floor at the SM clock sampled while the kernel
     ran (chunk_exp_floor)."""
     with ClockSampler() as clocks:
-        t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2, ws=ws)
+        t_kern, t_plain = in_turns(kern, plain, n, 2, plain_reps=2)
     row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
            **dict(zip(("bound_ms", "bound_by"), bound))}
     if name.endswith(("dqkv", "_fw")):
@@ -3836,7 +4204,7 @@ def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
     products) at each padded S of the route beside their plain versions (in
     slices of batch * head, plain_in_slices, timed as a whole), bounds and
     the exps' floor at the median SM clock sampled while the kernels ran
-    (exp_floor), in turns plain, kernel, kernel, plain."""
+    (exp_floor), in turns plain, kernel, kernel."""
     import torch
 
     B, NH, DH, H, D, U = ws.dims
@@ -3856,7 +4224,6 @@ def phase_parallel_times(pk, card: str, plan, ws=FLAGSHIP):
             with ClockSampler() as clocks:
                 t_kern = time_cuda(kern, iters=3, reps=3, warm_s=0.2) + time_cuda(
                     kern, iters=3, reps=3, warm_s=0.0)
-            t_plain += time_cuda(plain, iters=1, reps=2, warm_s=0.0)
             sm = clocks.summary["clocks.sm"]["median"] if clocks.summary_n else None
             row = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                    **dict(zip(("bound_ms", "bound_by"), parallel_bound(name, S, ws=ws))),
@@ -4174,7 +4541,7 @@ def phase_step_times(card: str, routes):
 def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False, passes=None):
     """Per-call times of the inference forward (``fused_ln``: with the
     per-head LayerNorm fused in) at each S (bf16) beside its plain version
-    and bound, in turns plain, kernel, kernel, plain, with ``passes``'
+    and bound, in turns plain, kernel, kernel (in_turns), with ``passes``'
     readings of its two kernels (phase_passes_times) at the same S."""
     import torch
 
@@ -4190,7 +4557,7 @@ def fw_times(cw, card: str, ws=FLAGSHIP, fused_ln: bool = False, passes=None):
         else:
             plain = lambda: cw.mlstm_siging_chunkwise_fw_plain(*args, eps=EPS)
             kern = lambda: cw.mlstm_siging_chunkwise_fw(*args, eps=EPS)
-        t_kern, t_plain = in_turns(kern, plain, iters_for(ws, 20), 3, kern_reps=5, ws=ws)
+        t_kern, t_plain = in_turns(kern, plain, iters_for(ws, 20), 3, kern_reps=5)
         per_s[S] = {"ms": statistics.median(t_kern), "plain_ms": statistics.median(t_plain),
                     **dict(zip(("bound_ms", "bound_by"), bound(S, ws=ws, fused_ln=fused_ln))),
                     **(passes or {}).get(S, {})}
@@ -4466,23 +4833,29 @@ def phase_wide_grads():
 
 
 def phase_wide_times(cw, epi, ffn, v1, ex, pk, stp, card: str, plan, passes):
-    """Per-call times of every kernel at the widths of vil-det-256 and
-    vil-det-384 beside their plain versions and bounds (fw_times, with and
-    without the fused LayerNorm; phase_train_times; v1_times; exp_times;
-    phase_parallel_times; step_times; with ``passes``' kernel readings,
-    phase_passes_times), and of the fused forward at the flagship's."""
+    """Per-call times of every kernel at the widths of vil-det-384 beside
+    their plain versions and bounds (fw_times, with and without the fused
+    LayerNorm; phase_train_times; v1_times; exp_times; phase_parallel_times;
+    step_times; with ``passes``' kernel readings, phase_passes_times), of
+    the v1, exp and quadratic kernels at vil-det-256's at the routes'
+    largest call only (CHUNK_FW_SHAPE, the kernels line's per-call
+    readings), and of the fused forward at the flagship's."""
     out = {"fw_ln_flagship": fw_times(cw, card, fused_ln=True)}
-    for ws in WIDE:
-        out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws,
-                                                passes=passes[ws.cfg]["chunkwise_fw"]),
-                       "chunkwise_fw_ln": fw_times(cw, card, ws, fused_ln=True),
-                       **phase_train_times(cw, epi, ffn, card, ws, passes[ws.cfg]),
-                       **v1_times(v1, card, plan, ws), **exp_times(ex, card, plan, ws),
-                       **phase_parallel_times(pk, card, plan, ws),
-                       "mlstm_step": step_times(stp, ws)}
-        emit({"phase": "times", "what": "step_kernel", "widths": ws.cfg, "card": card,
-              **{k: {kk: vv for kk, vv in v.items() if not kk.endswith("runs")}
-                 for k, v in out[ws.cfg]["mlstm_step"].items()}})
+    ws = WIDE[0]
+    largest = {"train": {CHUNK_FW_SHAPE: plan["train"][CHUNK_FW_SHAPE]}, "infer": {},
+               "remat": {}}
+    out[ws.cfg] = {**v1_times(v1, card, largest, ws), **exp_times(ex, card, largest, ws),
+                   **phase_parallel_times(pk, card, largest, ws)}
+    ws = WIDE[-1]
+    out[ws.cfg] = {"chunkwise_fw": fw_times(cw, card, ws, passes=passes[ws.cfg]["chunkwise_fw"]),
+                   "chunkwise_fw_ln": fw_times(cw, card, ws, fused_ln=True),
+                   **phase_train_times(cw, epi, ffn, card, ws, passes[ws.cfg]),
+                   **v1_times(v1, card, plan, ws), **exp_times(ex, card, plan, ws),
+                   **phase_parallel_times(pk, card, plan, ws),
+                   "mlstm_step": step_times(stp, ws)}
+    emit({"phase": "times", "what": "step_kernel", "widths": ws.cfg, "card": card,
+          **{k: {kk: vv for kk, vv in v.items() if not kk.endswith("runs")}
+             for k, v in out[ws.cfg]["mlstm_step"].items()}})
     return out
 
 
@@ -5441,6 +5814,7 @@ def main() -> int:
     ms = timed("multiscale", phase_multiscale, cw, epi, ffn, steps, card)
     serve = timed("serve", phase_serve, cw, epi, ffn, card)
     facade = timed("facade", phase_facade, cw, epi, ffn, v1, card)
+    tasks = timed("tasks", phase_tasks, cw, card)
     emit({"phase": "times", "what": "multiscale", "card": card, "cfg": "vil-det-192",
           "batch": B, "dtype": "bfloat16",
           "predict_forward_ms": {s: p["forward_ms"] for s, p in ms["predict"].items()},
@@ -5588,7 +5962,8 @@ def main() -> int:
     sources = {
         "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
                          launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"]
-                         + serve["launches"] + facade["launches"]["chunkwise_fw"],
+                         + serve["launches"] + facade["launches"]["chunkwise_fw"]
+                         + tasks["launches"],
                          worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
@@ -5673,6 +6048,15 @@ def main() -> int:
                         "holds (checked: 20 each a forward)"}
         if name in facade["launches"]:
             row["launches_facade"] = facade["launches"][name]
+        if name == "chunkwise_fw":
+            row["tasks"] = {
+                "launches": tasks["launches"],
+                **{t: {"predict": tasks[t]["predict_launches"], "val": tasks[t]["val_launches"]}
+                   for t in ("segment", "pose", "obb", "classify")},
+                "note": "phase tasks: the segment, pose and OBB heads on vil-det-192's width "
+                        "(20 launches a forward) and its classifier (8), predict and val of "
+                        f"{TASK_N} images each at batch {B}, the segment mask check's "
+                        "forward and the OBB NMS timing's"}
         if name == "chunkwise_fw" or name in KERNELS:
             row["launches_train_loop"] = loop[name]
             row["multiscale"] = {

@@ -80,7 +80,7 @@ def test_refusals_name_their_items():
     with pytest.raises(NotImplementedError, match="item 12"):
         YOLO("vil-det-tiny.yaml", device="cpu").track("x")
     with pytest.raises(NotImplementedError, match="item 10"):
-        YOLO("vil-det-tiny.yaml", task="segment", device="cpu")
+        YOLO("vil-det-tiny-seg.yaml", task="segment", device="cpu").train(data="set.yaml")
     with pytest.raises(NotImplementedError, match="not ported"):
         YOLO("vil-det-tiny.yaml", task="caption", device="cpu")
     for argv in (["model=vil-det-tiny.yaml"], ["detect", "predicts"]):

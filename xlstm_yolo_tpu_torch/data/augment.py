@@ -3,9 +3,11 @@
 side of the train transforms.
 
 The geometry (new size, ratio, padding) is the JAX package's, and so is
-the way boxes move through it (``scale_labels``, ``offset_labels``:
-JAX's ``_scale_labels`` / ``_offset_labels``, detect boxes only), on the
-host: label geometry needs no pixels.  The resize
+the way labels move through it (``scale_labels``, ``offset_labels``:
+JAX's ``_scale_labels`` / ``_offset_labels``: boxes, and the segments and
+keypoints of the task datasets where a sample has them), on the host:
+label geometry needs no pixels.  ``resample_segments`` is JAX's: each
+closed polygon sampled at ``SEGMENT_RESAMPLE`` evenly spaced points.  The resize
 is OpenCV's ``cv2.resize(..., INTER_LINEAR)`` for 3-channel uint8 images,
 computed in integer arithmetic with torch on the tensor's own device, so
 the pixels equal OpenCV's exactly:
@@ -104,15 +106,49 @@ def val_resized_shape(shape: tuple[int, int], imgsz: int) -> tuple[int, int]:
     return min(math.ceil(h0 * r), imgsz), min(math.ceil(w0 * r), imgsz)
 
 
+SEGMENT_RESAMPLE = 400  # points of each instance's polygon
+
+
+def resample_segments(segments, n: int = SEGMENT_RESAMPLE) -> np.ndarray:
+    """A list of (P, 2) polygons -> (N, n, 2) float32: each closed polygon
+    sampled at ``n`` evenly spaced points by linear interpolation."""
+    out = np.zeros((len(segments), n, 2), np.float32)
+    for i, s in enumerate(segments):
+        s = np.concatenate([s, s[0:1]], axis=0)
+        x = np.linspace(0, len(s) - 1, n)
+        xp = np.arange(len(s))
+        out[i] = np.stack([np.interp(x, xp, s[:, 0]), np.interp(x, xp, s[:, 1])], axis=-1)
+    return out
+
+
 def scale_labels(labels: dict, r: float) -> dict:
-    return {**labels, "bboxes": labels["bboxes"] * r}
+    out = {**labels, "bboxes": labels["bboxes"] * r}
+    if "segments" in labels:
+        out["segments"] = labels["segments"] * r
+    if labels.get("keypoints") is not None:
+        k = labels["keypoints"].copy()
+        k[..., :2] *= r
+        out["keypoints"] = k
+    return out
 
 
 def offset_labels(labels: dict, dx: int, dy: int) -> dict:
     b = labels["bboxes"].copy()
     b[:, [0, 2]] += dx
     b[:, [1, 3]] += dy
-    return {**labels, "bboxes": b}
+    out = {**labels, "bboxes": b}
+    if "segments" in labels:
+        s = labels["segments"].copy()
+        if s.size:
+            s[..., 0] += dx
+            s[..., 1] += dy
+        out["segments"] = s
+    if labels.get("keypoints") is not None:
+        k = labels["keypoints"].copy()
+        k[..., 0] += dx
+        k[..., 1] += dy
+        out["keypoints"] = k
+    return out
 
 
 @dataclass

@@ -28,14 +28,17 @@ import torch
 from xlstm_yolo_tpu_torch.data.dataset import YOLODataset
 
 
-def build_yolo_dataset(cfg, img_path: str, mode: str = "val") -> YOLODataset:
+def build_yolo_dataset(cfg, img_path: str, mode: str = "val", task: str = "detect",
+                       kpt_shape=None) -> YOLODataset:
     """The dataset of ``img_path``.  ``cfg`` is a dict with the val keys
     ``imgsz``, ``max_targets`` and ``single_cls`` (val), or the train config
     (a namespace; train: its augmentation keys, ``cache`` and ``fraction``
-    too)."""
+    too); ``task`` and ``kpt_shape`` (the dataset YAML's) select its label
+    rows."""
     get = cfg.get if isinstance(cfg, dict) else lambda k, d=None: getattr(cfg, k, d)
     train = mode == "train"
-    return YOLODataset(img_path=img_path, imgsz=int(get("imgsz")), augment=train,
+    return YOLODataset(img_path=img_path, imgsz=int(get("imgsz")), augment=train, task=task,
+                       kpt_shape=kpt_shape,
                        hyp=cfg if train else None,
                        max_targets=int(get("max_targets") or 128),
                        single_cls=bool(get("single_cls", False)),

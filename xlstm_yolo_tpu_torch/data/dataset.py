@@ -33,11 +33,24 @@ batch's pixels on the device: val's resize, letterbox and BGR -> RGB
 (OpenCV-exact, ``augment.resize_linear_u8``), or train's recipes
 (``pixels.compose_batch``).  There is no label cache: the labels are
 parsed anew each time (the JAX package's ``.xyt_labels_*.cache.npz``
-files beside the images are never read).  Only the detect task is ported.
+files beside the images are never read).
+
+``task`` selects the label rows, as JAX's: ``"pose"`` reads keypoint rows
+(class, xywh, then K times x y [v], normalised; ``kpt_shape`` (K, nd) from
+the dataset YAML, (17, 3) by default), ``"segment"`` and ``"obb"`` keep
+each polygon row's points.  A val sample of these tasks also carries
+(padded to ``max_targets``) the segment masks at imgsz / 4
+(``masks``: each instance's polygon, resampled to ``SEGMENT_RESAMPLE``
+points and letterboxed, filled as OpenCV's ``fillPoly``: ``utils.cv``),
+the keypoints in letterboxed pixels (``kpts``) or the rotated boxes
+(``rboxes``, xywhr from OpenCV's ``minAreaRect`` of the polygon; a box
+row's polygon is its corners).  Only the detect task trains.
+:class:`ClassificationDataset` is JAX's folder dataset in val mode.
 """
 
 from __future__ import annotations
 
+import math
 import random
 from pathlib import Path
 
@@ -46,12 +59,15 @@ import torch
 import yaml
 
 from xlstm_yolo_tpu_torch.data.augment import (
+    SEGMENT_RESAMPLE,
     LetterBox,
     TrainTransforms,
+    resample_segments,
     resize_linear_u8,
     val_resized_shape,
 )
 from xlstm_yolo_tpu_torch.data.imread import imread
+from xlstm_yolo_tpu_torch.utils.cv import fill_poly, min_area_rect
 
 IMG_EXTS = {".bmp", ".jpeg", ".jpg", ".png", ".tif", ".tiff", ".webp", ".mpo"}
 
@@ -96,10 +112,17 @@ class YOLODataset(torch.utils.data.Dataset):
 
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, hyp=None,
                  max_targets: int = 128, single_cls: bool = False, cache=False,
-                 fraction: float = 1.0):
+                 fraction: float = 1.0, task: str = "detect", kpt_shape=None):
+        if augment and task != "detect":
+            raise NotImplementedError(f"the {task} task's train transforms are not ported "
+                                      "(ROADMAP Queue 1 item 10: training)")
         self.imgsz = imgsz
         self.max_targets = max_targets
         self.single_cls = single_cls
+        self.task = task
+        self.use_keypoints = task == "pose"
+        self.kpt_shape = (tuple(kpt_shape) if kpt_shape
+                          else (17, 3) if self.use_keypoints else None)
         self.im_files = self._scan_images(img_path, fraction)
         self.labels = self._load_labels()
         self.cache_mode = {True: "ram", False: None}.get(cache, cache) or None
@@ -131,32 +154,50 @@ class YOLODataset(torch.utils.data.Dataset):
         return files
 
     def _load_labels(self) -> list[dict]:
+        K, nd = self.kpt_shape if self.kpt_shape else (0, 0)
         labels = []
         for f in self.im_files:
             lp = Path(img2label_path(f))
-            cls, boxes = [], []
-            if lp.exists():
-                for line in lp.read_text().splitlines():
-                    vals = line.split()
-                    if len(vals) > 5 and len(vals) % 2 == 1:  # polygon: its bounding box
-                        poly = np.array(list(map(float, vals[1:])), np.float32).reshape(-1, 2)
-                        x1, y1 = poly.min(0)
-                        x2, y2 = poly.max(0)
-                        cls.append(0 if self.single_cls else int(float(vals[0])))
-                        boxes.append(np.array([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
-                                              np.float32))
-                    elif len(vals) >= 5:
-                        xywh = np.array(list(map(float, vals[1:5])), np.float32)
-                        if (xywh[2:] > 0).all() and (0 <= xywh).all() and (xywh <= 1.0001).all():
-                            cls.append(0 if self.single_cls else int(float(vals[0])))
-                            boxes.append(xywh)
+            cls, boxes, segments, kpts = [], [], [], []
+            for line in (lp.read_text().splitlines() if lp.exists() else ()):
+                vals = line.split()
+                c = 0 if self.single_cls else None
+                if self.use_keypoints and len(vals) == 5 + K * nd:
+                    pts = np.array(list(map(float, vals[5:])), np.float32).reshape(K, nd)
+                    if nd == 2:  # visible unless a coordinate is negative
+                        vis = np.where((pts[:, 0] < 0) | (pts[:, 1] < 0), 0.0, 1.0)
+                        pts = np.concatenate([pts, vis[:, None].astype(np.float32)], 1)
+                    box, seg, kpt = np.array(list(map(float, vals[1:5])), np.float32), None, pts
+                elif not self.use_keypoints and len(vals) > 5 and len(vals) % 2 == 1:
+                    seg = np.array(list(map(float, vals[1:])), np.float32).reshape(-1, 2)
+                    x1, y1 = seg.min(0)
+                    x2, y2 = seg.max(0)
+                    box, kpt = np.array([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                                        np.float32), None
+                elif len(vals) >= 5:
+                    box, seg, kpt = np.array(list(map(float, vals[1:5])), np.float32), None, None
+                    if not ((box[2:] > 0).all() and (0 <= box).all() and (box <= 1.0001).all()):
+                        continue
+                else:
+                    continue
+                cls.append(int(float(vals[0])) if c is None else c)
+                boxes.append(box)
+                segments.append(seg)
+                kpts.append(kpt)
             cls_a = np.asarray(cls, np.int64)
             box_a = np.asarray(boxes, np.float32).reshape(-1, 4)
             if len(cls_a):  # drop exact duplicate rows, first-seen order kept
                 rows = np.concatenate([cls_a[:, None].astype(np.float32), box_a], 1)
                 idx = np.sort(np.unique(rows, axis=0, return_index=True)[1])
                 cls_a, box_a = cls_a[idx], box_a[idx]
-            labels.append({"cls": cls_a, "bboxes_n": box_a})  # xywh normalised
+                segments = [segments[j] for j in idx]
+                kpts = [kpts[j] for j in idx]
+            lab = {"cls": cls_a, "bboxes_n": box_a, "segments": segments}  # xywh normalised
+            if self.use_keypoints:
+                lab["keypoints_n"] = (np.stack([k if k is not None else np.zeros((K, 3), np.float32)
+                                                for k in kpts])
+                                      if kpts else np.zeros((0, K, 3), np.float32))
+            labels.append(lab)
         return labels
 
     def __len__(self):
@@ -189,15 +230,34 @@ class YOLODataset(torch.utils.data.Dataset):
         return im, (w, h), self._px_labels(i, w, h)
 
     def _px_labels(self, i: int, w: int, h: int) -> dict:
-        """Image i's labels as xyxy pixels of the image scaled to (w, h)."""
-        b = self.labels[i]["bboxes_n"]
+        """Image i's labels as xyxy pixels of the image scaled to (w, h); for
+        segment and OBB its polygons (a box row's: its corners) resampled,
+        (n, SEGMENT_RESAMPLE, 2) pixels; for pose its keypoints (n, K, 3)."""
+        lab = self.labels[i]
+        b = lab["bboxes_n"]
         if len(b):
             xy = b[:, :2] * [w, h]
             wh = b[:, 2:] * [w, h]
             boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
         else:
             boxes = np.zeros((0, 4), np.float32)
-        return {"cls": self.labels[i]["cls"].copy(), "bboxes": boxes}
+        out = {"cls": lab["cls"].copy(), "bboxes": boxes}
+        if self.task in ("segment", "obb"):
+            polys = []
+            for j, seg in enumerate(lab["segments"]):
+                if seg is not None and len(seg) >= 3:
+                    polys.append(seg * [w, h])
+                else:
+                    x1, y1, x2, y2 = boxes[j]
+                    polys.append(np.array([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.float32))
+            out["segments"] = (resample_segments(polys) if polys
+                               else np.zeros((0, SEGMENT_RESAMPLE, 2), np.float32))
+        elif self.use_keypoints:
+            k = lab["keypoints_n"].copy()
+            k[..., 0] *= w
+            k[..., 1] *= h
+            out["keypoints"] = k
+        return out
 
     def _padded(self, cls: np.ndarray, bboxes: np.ndarray):
         M = self.max_targets
@@ -230,9 +290,27 @@ class YOLODataset(torch.utils.data.Dataset):
         labels0 = self._px_labels(i, wr, hr)
         labels, (_, pad) = self.letterbox.place_labels(labels0, (hr, wr))
         cls_p, box_p, mask = self._padded(labels0["cls"], labels["bboxes"])
-        return {"im0": im, "resized_shape": (hr, wr), "cls": cls_p, "bboxes": box_p,
-                "mask": mask, "im_file": self.im_files[i], "orig_shape": (h0, w0),
-                "ratio_pad": ((hr / h0, wr / w0), pad)}
+        sample = {"im0": im, "resized_shape": (hr, wr), "cls": cls_p, "bboxes": box_p,
+                  "mask": mask, "im_file": self.im_files[i], "orig_shape": (h0, w0),
+                  "ratio_pad": ((hr / h0, wr / w0), pad)}
+        M, n = self.max_targets, len(labels0["cls"])
+        if self.task == "segment":
+            ms = self.imgsz // 4  # the prototypes' grid of the tiny models
+            masks = np.zeros((M, ms, ms), np.uint8)
+            for j, seg in enumerate(labels["segments"][:min(n, M)]):
+                fill_poly(masks[j], (seg / 4.0).astype(np.int32), 1)
+            sample["masks"] = masks
+        elif self.task == "obb":
+            rb = np.zeros((M, 5), np.float32)
+            for j, seg in enumerate(labels["segments"][:min(n, M)]):
+                (cx, cy), (bw, bh), ang = min_area_rect(seg.astype(np.float32))
+                rb[j] = [cx, cy, bw, bh, ang * math.pi / 180.0]
+            sample["rboxes"] = rb
+        elif self.use_keypoints:
+            kp = np.zeros((M, self.kpt_shape[0], 3), np.float32)
+            kp[:min(n, M)] = labels["keypoints"][:M]
+            sample["kpts"] = kp
+        return sample
 
     @staticmethod
     def collate(samples: list[dict]) -> dict:
@@ -245,6 +323,8 @@ class YOLODataset(torch.utils.data.Dataset):
             "im_file": [s["im_file"] for s in samples],
             "orig_shape": [s["orig_shape"] for s in samples],
             "ratio_pad": [s["ratio_pad"] for s in samples],
+            **{k: np.stack([s[k] for s in samples]) for k in ("masks", "kpts", "rboxes")
+               if k in samples[0]},
         }
 
     def images(self, batch: dict, device: str | torch.device) -> torch.Tensor:
@@ -261,4 +341,69 @@ class YOLODataset(torch.utils.data.Dataset):
             if im.shape[:2] != (hr, wr):
                 im = resize_linear_u8(im, wr, hr)
             out.append(self.letterbox(im)[0].flip(-1))  # BGR -> RGB
+        return torch.stack(out)
+
+
+class ClassificationDataset(torch.utils.data.Dataset):
+    """Folder dataset ``root/<class name>/*.<image>``, classes in sorted order,
+    val mode: the short side resized to ``int(imgsz / crop_fraction)``
+    (each side at least that, ``round``) with OpenCV's uint8 INTER_LINEAR,
+    then the centre ``imgsz`` x ``imgsz`` crop.  A sample is the decoded
+    image and its geometry; :meth:`images` makes the batch's pixels on the
+    device, as :class:`YOLODataset` does."""
+
+    def __init__(self, root: str, imgsz: int = 224, augment: bool = False, hyp=None,
+                 fraction: float = 1.0):
+        if augment:
+            raise NotImplementedError("the classify train transforms are not ported "
+                                      "(ROADMAP Queue 1 item 10: training)")
+        self.root = Path(root)
+        self.imgsz = imgsz
+        get = hyp.get if isinstance(hyp, dict) else lambda k, d=None: getattr(hyp, k, d)
+        self.crop_fraction = float((get("crop_fraction", 1.0) if hyp is not None else 1.0) or 1.0)
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        if not classes:
+            raise FileNotFoundError(f"no class folders under {root}")
+        self.names = dict(enumerate(classes))
+        self.samples = [(str(f), i) for i, c in enumerate(classes)
+                        for f in sorted((self.root / c).rglob("*.*"))
+                        if f.suffix.lower() in IMG_EXTS]
+        if fraction < 1.0:  # per class, so that every class keeps a sample
+            by_cls: dict[int, list] = {}
+            for smp in self.samples:
+                by_cls.setdefault(smp[1], []).append(smp)
+            self.samples = [smp for lst in by_cls.values()
+                            for smp in lst[: max(1, int(len(lst) * fraction))]]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> dict:
+        return self.get_sample(i)
+
+    def get_sample(self, i: int, rng: random.Random | None = None) -> dict:
+        path, label = self.samples[i]
+        im = imread(path)
+        h, w = im.shape[:2]
+        size = int(self.imgsz / self.crop_fraction)
+        s = size / min(h, w)
+        wr, hr = max(size, round(w * s)), max(size, round(h * s))
+        return {"im0": im, "resized_shape": (hr, wr), "cls": label, "im_file": path,
+                "crop": ((hr - self.imgsz) // 2, (wr - self.imgsz) // 2)}
+
+    @staticmethod
+    def collate(samples: list[dict]) -> dict:
+        return {"im0": [s["im0"] for s in samples],
+                "resized_shape": [s["resized_shape"] for s in samples],
+                "crop": [s["crop"] for s in samples],
+                "cls": np.asarray([s["cls"] for s in samples], np.int32),
+                "im_file": [s["im_file"] for s in samples]}
+
+    def images(self, batch: dict, device: str | torch.device) -> torch.Tensor:
+        """The batch's uint8 RGB (B, imgsz, imgsz, 3) crops on ``device``."""
+        out = []
+        for im0, (hr, wr), (top, left) in zip(batch["im0"], batch["resized_shape"],
+                                               batch["crop"]):
+            im = resize_linear_u8(torch.from_numpy(np.ascontiguousarray(im0)).to(device), wr, hr)
+            out.append(im[top:top + self.imgsz, left:left + self.imgsz].flip(-1))
         return torch.stack(out)

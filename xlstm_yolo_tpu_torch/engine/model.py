@@ -8,7 +8,10 @@ Counterpart of ``YOLO`` in ``xlstm_yolo_tpu/engine/model.py``: its
 ``predict``, ``val``, ``train``, ``export`` (the port's own formats,
 ``engine/exporter.py``), ``benchmark`` (``utils/benchmarks.py``), ``tune``
 (``engine/tuner.py``) and ``info``; ``track`` raises (ROADMAP Queue 1 item
-12), and so does any task but detect (item 10).  The model runs on the GPU
+12).  ``task`` picks the predictor and validator of ``models.yolo.model.
+task_map`` (detect, segment, pose, obb, classify; the model YAML carries
+the head); ``train`` of a task but detect raises (item 10's training: its
+loss, assigner and train transforms).  The model runs on the GPU
 unless the caller passes ``device="cpu"``, its mLSTM cells on
 ``chunkwise_kernel`` (``"auto"``: the v2 kernels;
 ``nn.tasks.resolve_chunkwise_kernel``).  A model YAML is built with random weights from seed 0, as the JAX facade's
@@ -29,8 +32,6 @@ from typing import Any
 import torch
 
 from xlstm_yolo_tpu_torch.cfg import TASKS, VAL_DEFAULTS, get_cfg
-from xlstm_yolo_tpu_torch.engine.predictor import DetectionPredictor
-from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
 from xlstm_yolo_tpu_torch.nn.tasks import CFG_MODELS, build_detection_model
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
@@ -66,15 +67,13 @@ def load_checkpoint_state(path: str | Path, model: torch.nn.Module) -> dict:
 
 
 class YOLO:
-    """User-facing facade (detect task: predict, val and train)."""
+    """User-facing facade: predict and val of every task, train of detect."""
 
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype = torch.bfloat16, chunkwise_kernel: str = "auto"):
         if task not in TASKS:
             raise NotImplementedError(f"task {task!r} is not ported yet")
-        if task != "detect":
-            raise NotImplementedError(f"task {task!r} is not ported (ROADMAP Queue 1 item 10)")
         self.task = task
         self.device = select_device(device)
         self.overrides: dict[str, Any] = {}
@@ -110,8 +109,11 @@ class YOLO:
         a list of paths, a BGR numpy image or a list of them, a PIL-like
         image, or a BHWC/BCHW tensor (``data.loaders.load_inference_source``),
         with keys of ``PREDICT_DEFAULTS``."""
+        from xlstm_yolo_tpu_torch.models.yolo.model import task_map
+
         args = {"imgsz": self.imgsz, **self.overrides, **kwargs}
-        return DetectionPredictor(args, self.model, self.names)(source, stream=stream)
+        return task_map[self.task]["predictor"](args, self.model, self.names)(source,
+                                                                                stream=stream)
 
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
@@ -119,11 +121,14 @@ class YOLO:
     def val(self, data=None, **kwargs) -> dict:
         """Validate on ``data`` (a dataset YAML or dict) with keys of
         ``VAL_DEFAULTS``; ``imgsz`` defaults to the model YAML's, as in
-        ``predict``.  Returns ``results_dict``; ``self.validator`` keeps
-        ``speed``, ``seen``, ``confusion_matrix`` and ``jdict``."""
+        ``predict``; for classify ``data`` is the folder of the split
+        folders.  Returns ``results_dict``; ``self.validator`` keeps
+        ``speed``, ``seen`` (detect: ``confusion_matrix`` and ``jdict``)."""
         args = {**VAL_DEFAULTS, "imgsz": self.imgsz, **self.overrides, **kwargs,
                 **({"data": data} if data else {})}
-        self.validator = DetectionValidator(args)
+        from xlstm_yolo_tpu_torch.models.yolo.model import task_map
+
+        self.validator = task_map[self.task]["validator"](args)
         return self.validator(self.model)
 
     def add_callback(self, event: str, fn):
@@ -147,6 +152,10 @@ class YOLO:
         ``self.trainer`` keeps the trainer."""
         from xlstm_yolo_tpu_torch.engine.trainer import DetectionTrainer
 
+        if self.task != "detect":
+            raise NotImplementedError(f"training the {self.task} task is not ported: its loss, "
+                                      "assigner and train transforms are ROADMAP Queue 1 item "
+                                      "10 (training)")
         overrides = {**self.overrides, **kwargs, "mode": "train"}
         if data:
             overrides["data"] = data

@@ -9,7 +9,10 @@ and the last incomplete batch is padded to the first batch's size, as the
 JAX predictor does.  ``augment=True`` runs ``nn.tasks.predict_augment``
 (the plain forward for the end2end heads of the shipped detectors; other
 heads' merged anchors go through ``utils.ops.non_max_suppression``).
-``speed["preprocess"]`` counts the file decoding and the letterbox.
+``speed["preprocess"]`` counts the file decoding and the letterbox.  A task
+predictor's ``forward`` returns a tuple (detections and the head's extras,
+``models/yolo/*/predict.py``), which comes to the host whole, as JAX's
+predictor passes it (JAX ``engine/predictor.py:123-125``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from xlstm_yolo_tpu_torch.data.loaders import load_inference_source
 from xlstm_yolo_tpu_torch.engine.results import Results
 from xlstm_yolo_tpu_torch.nn.tasks import predict_augment
 from xlstm_yolo_tpu_torch.utils import ops
+from xlstm_yolo_tpu_torch.utils.torch_utils import to_host
 
 
 class BasePredictor:
@@ -92,7 +96,8 @@ class BasePredictor:
             if n < first_bs:  # pad the tail batch to the first batch's size
                 batch = torch.cat([batch, batch.new_zeros((first_bs - n, *batch.shape[1:]))])
             t1 = time.perf_counter()
-            preds = self.forward(batch)[:n].float().cpu().numpy()
+            out = self.forward(batch)
+            preds = to_host(out, n)
             t2 = time.perf_counter()
             results = self.postprocess(preds, im0s, paths)
             t3 = time.perf_counter()

@@ -1,11 +1,17 @@
-"""Prediction containers: Boxes and Results (detect task), host-side numpy.
+"""Prediction containers: Boxes, Masks, Keypoints, Probs, OBB and Results,
+host-side numpy.
 
-Counterpart of ``xlstm_yolo_tpu/engine/results.py:17-65, 207-365``: the
-box views, indexing, ``save_txt``, ``summary``, ``to_json`` and
-``verbose``, whose strings and files equal JAX's on the same detections.
-``plot`` and ``save`` draw with OpenCV in JAX (rectangles and Hershey
-text) and are not ported yet (ROADMAP item 6).  Masks, keypoints, probs
-and oriented boxes wait for ROADMAP item 10.
+Counterpart of ``xlstm_yolo_tpu/engine/results.py``: the views, indexing,
+``update``, ``save_txt``, ``summary``, ``to_json`` and ``verbose``, whose
+strings and files equal JAX's on the same predictions (like JAX's, the
+text forms carry the boxes: a classify result has none, so its summary is
+empty).  ``Masks.xy`` is each mask's largest external contour
+(``utils.cv``, OpenCV's ``findContours`` and ``contourArea`` in numpy).
+Where JAX's code raises for a result without boxes (``verbose`` and
+indexing of an OBB or classify result), the port answers: an OBB result's
+verbose counts its oriented boxes' classes.  ``plot`` and ``save`` draw
+with OpenCV in JAX (rectangles and Hershey text) and are not ported yet
+(ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -70,6 +76,130 @@ class Boxes:
         return self.xywh / np.array([w, h, w, h])
 
 
+class Masks:
+    """(N, H, W) instance masks of one image."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return Masks(self.data[idx], self.orig_shape)
+
+    @property
+    def xy(self) -> list[np.ndarray]:
+        """Each mask's largest external contour, (K, 2) float32 pixels
+        ((0, 2) for an empty mask)."""
+        from xlstm_yolo_tpu_torch.utils.cv import contour_area, find_contours_external
+
+        out = []
+        for m in self.data:
+            cs = find_contours_external((np.asarray(m) > 0.5).astype(np.uint8))
+            out.append(max(cs, key=contour_area).reshape(-1, 2).astype(np.float32)
+                       if cs else np.zeros((0, 2), np.float32))
+        return out
+
+    @property
+    def xyn(self) -> list[np.ndarray]:
+        h, w = self.orig_shape
+        return [c / np.array([w, h], np.float32) for c in self.xy]
+
+
+class Keypoints:
+    """(N, K, 2|3) keypoints of one image: x, y (and visibility)."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return Keypoints(self.data[idx], self.orig_shape)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.data[..., :2] / np.array([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
+class Probs:
+    """Class probabilities of one image."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list[int]:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
+class OBB:
+    """(N, 7) oriented boxes of one image: cx, cy, w, h, angle (radians),
+    conf, cls, in image pixels."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data, np.float32).reshape(-1, 7)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, idx):
+        return OBB(self.data[idx], self.orig_shape)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, 5]
+
+    @property
+    def cls(self):
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self):
+        """(N, 4, 2) corner points."""
+        from xlstm_yolo_tpu_torch.utils.tal import xywhr2xyxyxyxy
+
+        return xywhr2xyxyxyxy(self.data[:, :5])
+
+    @property
+    def xyxy(self):
+        """The axis-aligned envelope (N, 4)."""
+        c = self.xyxyxyxy
+        if not len(c):
+            return np.zeros((0, 4), np.float32)
+        return np.concatenate([c.min(1), c.max(1)], -1)
+
+
 @dataclass
 class Results:
     """One image's predictions."""
@@ -78,17 +208,33 @@ class Results:
     path: str
     names: dict
     boxes: Boxes | None = None
+    masks: Masks | None = None
+    keypoints: Keypoints | None = None
+    probs: Probs | None = None
+    obb: OBB | None = None
     speed: dict = field(default_factory=dict)
 
     def __len__(self):
-        return len(self.boxes) if self.boxes is not None else 0
+        if self.boxes is not None:
+            return len(self.boxes)
+        return len(self.obb) if self.obb is not None else 0
 
     def __getitem__(self, idx):
-        return Results(self.orig_img, self.path, self.names, self.boxes[idx], self.speed)
+        def pick(x):
+            return x[idx] if x is not None else None
 
-    def update(self, boxes: np.ndarray | None = None):
+        return Results(self.orig_img, self.path, self.names, pick(self.boxes), pick(self.masks),
+                       pick(self.keypoints), self.probs, pick(self.obb), self.speed)
+
+    def update(self, boxes: np.ndarray | None = None, masks: np.ndarray | None = None,
+               keypoints: np.ndarray | None = None):
+        shape = self.orig_img.shape[:2]
         if boxes is not None:
-            self.boxes = Boxes(boxes, self.orig_img.shape[:2])
+            self.boxes = Boxes(boxes, shape)
+        if masks is not None:
+            self.masks = Masks(masks, shape)
+        if keypoints is not None:
+            self.keypoints = Keypoints(keypoints, shape)
         return self
 
     def cpu(self):
@@ -148,7 +294,7 @@ class Results:
         if not len(self):
             return "(no detections), "
         counts = {}
-        for c in self.boxes.cls.astype(int):
+        for c in (self.boxes if self.boxes is not None else self.obb).cls.astype(int):
             counts[c] = counts.get(c, 0) + 1
         return ", ".join(f"{n} {self.names.get(c, c)}{'s' if n > 1 else ''}"
                          for c, n in counts.items()) + ", "

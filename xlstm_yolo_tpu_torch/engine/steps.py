@@ -103,7 +103,8 @@ def make_train_step(model_train: nn.Module, tx: opt_lib.Transform, nc: int = 80,
                                   "(ROADMAP Queue 1 item 7)")
     if task != "detect" or kpt_shape is not None:
         raise NotImplementedError(f"train step of task {task!r} (kpt_shape={kpt_shape}) is not "
-                                  "ported (ROADMAP Queue 1 item 10)")
+                                  "ported: its loss and rotated assigner are ROADMAP Queue 1 "
+                                  "item 10 (training)")
     if device_aug:
         raise NotImplementedError("train step with device_aug is not ported "
                                   "(ROADMAP Queue 1 item 12)")

@@ -41,7 +41,9 @@ each a step that resizes the loader's ``imgsz`` batch on the device
 (``self.buckets`` keeps the sequence); validation stays at ``imgsz``.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``device_aug`` (item 12), any task but detect (item 10), an orbax
+``device_aug`` (item 12), any task but detect (item 10's training: the
+task losses, the rotated assigner and the transforms of segments and
+keypoints), an orbax
 ``pretrained`` checkpoint (item 7).  The trainer reads no environment
 variable.  A ``pretrained`` path or a ``cache`` mode given as an override
 is kept (JAX's ``get_cfg``, which the port's mirrors, coerces the string
@@ -193,7 +195,7 @@ class DetectionTrainer:
         self.callbacks.run("on_pretrain_routine_start", self)
         task = str(getattr(args, "task", "detect") or "detect")
         if task != "detect":
-            _refuse(f"task {task!r}", "10")
+            _refuse(f"task {task!r} (its loss, assigner and train transforms)", "10 (training)")
         if getattr(args, "device_aug", False):
             _refuse("device_aug", "12")
         if isinstance(args.pretrained, str) and Path(args.pretrained).suffix != ".pt":

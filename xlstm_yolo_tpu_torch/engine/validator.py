@@ -13,6 +13,12 @@ original image with ``ratio_pad`` (as the ground truth is), and matched at
 the 10 IoU thresholds 0.5:0.95.  ``DetMetrics`` aggregates them into the
 JAX validator's ``results_dict``.
 
+A task head's anchor rows (segment, pose: the facade's ``val`` of those
+tasks runs this validator, as JAX's ``task_map`` has it) first go through
+NMS on their box and class columns (``decode``), so their box metrics are
+those of the kept boxes.  The task validators (``models/yolo/*/val.py``)
+share this class's loader and its batch loop (:meth:`batches`).
+
 With ``plots`` the confusion matrix is computed (``confusion_matrix``); the
 figures are not ported.  With ``save_json`` the detections go to
 ``save_dir / predictions.json`` in COCO form, evaluated by ``pycocotools``
@@ -33,6 +39,7 @@ from xlstm_yolo_tpu_torch.data.build import build_dataloader, build_yolo_dataset
 from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
 from xlstm_yolo_tpu_torch.utils import ops
 from xlstm_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_matrix
+from xlstm_yolo_tpu_torch.utils.torch_utils import to_host
 
 IOUV = np.linspace(0.5, 0.95, 10)
 
@@ -72,6 +79,8 @@ class DetectionValidator:
     epoch) the dataset and its worker processes are kept from one call to
     the next until :meth:`close`."""
 
+    task = "detect"  # the dataset's label rows
+
     def __init__(self, cfg: dict, keep_loader: bool = False):
         unknown = set(cfg) - set(VAL_DEFAULTS)
         if unknown:
@@ -100,7 +109,8 @@ class DetectionValidator:
             return self._kept
         args = self.args
         split = self.data.get(args["split"] or "val") or self.data.get("val")
-        dataset = build_yolo_dataset(args, split)
+        dataset = build_yolo_dataset(args, split, task=self.task,
+                                     kpt_shape=self.data.get("kpt_shape"))
         loaded = (dataset, build_dataloader(dataset, bs, workers, persistent=self.keep_loader))
         if self.keep_loader:
             self._kept = loaded
@@ -111,39 +121,73 @@ class DetectionValidator:
         """(B, imgsz, imgsz, 3) uint8 RGB -> (B, max_det, 6) [xyxy at model
         scale, conf, cls]."""
         y, _aux = model(img_u8.float() / 255.0)
-        return y
+        return self.decode(model, y)
 
-    def __call__(self, model: torch.nn.Module) -> dict:
+    def decode(self, model: torch.nn.Module, y: torch.Tensor) -> torch.Tensor:
+        """The head's output as (B, max_det, 6) rows: the end2end head's as
+        they are; a task head's (B, A, 4+nc+extra) anchor rows through NMS of
+        their box and ``nc`` class columns (empty slots zeroed)."""
+        layers = getattr(model, "model", None)
+        head = layers[-1] if isinstance(layers, torch.nn.ModuleList) else None
+        nc = getattr(head, "nc", None)
+        if y.shape[-1] == 6 or nc is None or getattr(head, "end2end", True):
+            return y
+        out, ok = ops.non_max_suppression(y[..., :4 + nc], nc=nc, **self.nms)
+        return torch.where(ok[..., None], out, torch.zeros_like(out))
+
+    @property
+    def conf_thres(self) -> float:
+        return self.args["conf"] if self.args["conf"] is not None else 0.001
+
+    @property
+    def nms(self) -> dict:
+        """The validators' NMS settings: conf 0.001 and IoU 0.7 where none
+        is set, 300 detections."""
+        return dict(conf_thres=self.conf_thres, iou_thres=self.args["iou"] or 0.7,
+                    max_det=int(self.args["max_det"] or 300))
+
+    def batches(self, model: torch.nn.Module, forward):
+        """Run ``forward(model, img_u8)`` on each batch of the val split (the
+        tail padded to the batch size) and yield (batch, n images, its
+        outputs on the host, floats as float32); ``speed`` and ``seen`` are
+        kept as :meth:`__call__` keeps them."""
         device = next(model.parameters()).device
-        args = self.args
-        bs = int(args["batch"] or 16)
-        imgsz = int(args["imgsz"])
-        workers = 8 if args["workers"] is None else int(args["workers"])
+        bs = int(self.args["batch"] or 16)
+        workers = 8 if self.args["workers"] is None else int(self.args["workers"])
         dataset, loader = self._loader(bs, workers)
-
-        conf_thres = args["conf"] if args["conf"] is not None else 0.001
-        stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
-        confusion = ConfusionMatrix(self.nc)
-        self.jdict = []
-        seen = 0
         t_pre = t_inf = t_post = 0.0
-
+        seen = 0
         t0 = time.perf_counter()
         for batch in loader:
             n = len(batch["im0"])
             img = dataset.images(batch, device)
-            if n < bs:  # pad the tail batch to the batch size
+            if n < bs:
                 img = torch.cat([img, img.new_zeros((bs - n, *img.shape[1:]))])
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t1 = time.perf_counter()
-            preds = self.forward(model, img)[:n].float().cpu().numpy()
+            out = forward(model, img)
+            host = to_host(out if isinstance(out, tuple) else (out,))
             t2 = time.perf_counter()
-            t_pre += t1 - t0
-            t_inf += t2 - t1
+            t_pre, t_inf = t_pre + t1 - t0, t_inf + t2 - t1
+            yield batch, n, host
+            seen += n
+            t0 = time.perf_counter()
+            t_post += t0 - t2
+        self.seen = seen
+        per = 1e3 / max(seen, 1)
+        self.speed = {"preprocess": t_pre * per, "inference": t_inf * per,
+                      "postprocess": t_post * per, "metrics": 0.0}
 
+    def __call__(self, model: torch.nn.Module) -> dict:
+        args = self.args
+        imgsz = int(args["imgsz"])
+        conf_thres = self.conf_thres
+        stats = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        confusion = ConfusionMatrix(self.nc)
+        self.jdict = []
+        for batch, n, (preds,) in self.batches(model, self.forward):
             for i in range(n):
-                seen += 1
                 det = preds[i]
                 det = det[det[:, 4] > conf_thres]
                 det = det[: int(args["max_det"] or 300)]  # the output is score-sorted
@@ -174,9 +218,8 @@ class DetectionValidator:
                     confusion.process_batch(det, gt_boxes, gt_cls)
                 if args["save_json"]:
                     self._save_one_json(det, batch["im_file"][i])
-            t0 = time.perf_counter()
-            t_post += t0 - t2
 
+        t0 = time.perf_counter()
         tp = np.concatenate(stats["tp"]) if stats["tp"] else np.zeros((0, 10), bool)
         conf = np.concatenate(stats["conf"]) if stats["conf"] else np.zeros((0,))
         pred_cls = np.concatenate(stats["pred_cls"]) if stats["pred_cls"] else np.zeros((0,))
@@ -184,15 +227,11 @@ class DetectionValidator:
                       else np.zeros((0,)))
         if tp.size and target_cls.size:
             self.metrics.process(tp, conf, pred_cls, target_cls)
-        t_metrics = time.perf_counter() - t0
+        self.speed["metrics"] = (time.perf_counter() - t0) * 1e3 / max(self.seen, 1)
         self.confusion_matrix = confusion
         if args["plots"]:
             print("val: plots are not ported; the confusion matrix is computed "
                   "(DetectionValidator.confusion_matrix)")
-        self.seen = seen
-        per = 1e3 / max(seen, 1)
-        self.speed = {"preprocess": t_pre * per, "inference": t_inf * per,
-                      "postprocess": t_post * per, "metrics": t_metrics * per}
 
         if args["save_json"] and self.jdict:
             self.save_dir.mkdir(parents=True, exist_ok=True)
@@ -200,7 +239,7 @@ class DetectionValidator:
             self._coco_eval()
 
         mp, mr, map50, map5095 = self.metrics.mean_results()
-        print(f"val: images={seen} P={mp:.3f} R={mr:.3f} mAP50={map50:.4f} "
+        print(f"val: images={self.seen} P={mp:.3f} R={mr:.3f} mAP50={map50:.4f} "
               f"mAP50-95={map5095:.4f} ({self.speed['inference']:.1f}ms/img inference)")
         return self.metrics.results_dict
 

@@ -16,9 +16,15 @@ model YAML (``args.model``), ``imgsz``, the task and the class names (from
 the dataset YAML of ``args.data`` when it exists); ``nc`` follows the names.
 With ``fuse`` (the default) every BatchNorm is folded into its conv
 (``utils.fuse.fuse_state_dict``, ``build_detection_model(fused=True)``);
-a fold that fails raises, where JAX's keeps the unfused model.  An orbax
+a fold that fails raises, where JAX's keeps the unfused model.  A model
+with a Segment or Classify head stays unfused (``self.fused`` False), as
+JAX's backend leaves it: JAX builds those heads without folded BatchNorms,
+so its fold of them always fails.  ``predictor(cfg)`` is the task's
+predictor (``models.yolo.model.task_map``, the sidecar's task) on the
+backend's model.  An orbax
 directory, ``.stablehlo`` or ``.tflite`` file raises, naming the format.
-``forward(img_u8)`` maps (B, imgsz, imgsz, 3) uint8 RGB to (B, max_det, 6).
+``forward(img_u8)`` maps (B, imgsz, imgsz, 3) uint8 RGB to (B, max_det, 6)
+(a task head: its decoded anchor rows).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 import yaml
 
 from xlstm_yolo_tpu_torch.engine.model import load_checkpoint_state
-from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+from xlstm_yolo_tpu_torch.nn.tasks import UNFUSABLE_HEADS, build_detection_model
 from xlstm_yolo_tpu_torch.utils.fuse import fuse_state_dict
 from xlstm_yolo_tpu_torch.utils.quantize import dequantize_state_dict, is_quantized_state_dict
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
@@ -103,12 +109,21 @@ class AutoBackend:
         self.imgsz = int(imgsz or d.get("imgsz", 640))
         if self.names is None:
             self.names = {i: f"class{i}" for i in range(int(d.get("nc", 80)))}
-        if fuse:
+        self.fused = fuse and not any(s["module"] in UNFUSABLE_HEADS for s in model.specs)
+        if self.fused:
             fused, _ = build_detection_model(model_cfg, fused=True, **build)
             fused.load_state_dict(fuse_state_dict(model.state_dict()), strict=True)
             model = fused
         self.model_cfg = str(model_cfg)
         self.model = model
+
+    def predictor(self, cfg: dict | None = None):
+        """The task's predictor over this model, at the backend's ``imgsz``
+        unless ``cfg`` sets one."""
+        from xlstm_yolo_tpu_torch.models.yolo.model import task_map
+
+        return task_map[self.task]["predictor"]({"imgsz": self.imgsz, **(cfg or {})},
+                                                self.model, self.names)
 
     @torch.inference_mode()
     def forward(self, img_u8) -> torch.Tensor:

@@ -187,6 +187,31 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(c2, (k, k), strides=(k, k))`` with no dtype, on
+    NHWC tensors: the operands are promoted to a common type (a bfloat16
+    input meets the float32 weight in float32).  The weight is torch's
+    (in, out, kh, kw); flax's HWIO kernel is not flipped by flax, so it maps
+    here flipped in both spatial axes (``utils.convert``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(c1, c2, k, k))
+        self.bias = nn.Parameter(torch.empty(c2))
+        self.stride = k
+        self.kernel_init = lecun_normal_init(c1 * k * k)
+
+    def init_own_parameters(self, g):
+        self.kernel_init(self.weight, g)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):  # (B, H, W, C)
+        cd = torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.conv_transpose2d(_cast(x, cd).permute(0, 3, 1, 2), _cast(self.weight, cd),
+                               _cast(self.bias, cd), self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis, float32 math: flax
     ``nn.BatchNorm(momentum=0.97)``.

@@ -4,8 +4,9 @@ Counterpart of ``xlstm_yolo_tpu/nn/tasks.py`` (``yaml_model_load``,
 ``parse_model_specs``, ``build_module``, ``DetectionModel``,
 ``build_detection_model``, and the test-time augmentation helpers
 ``scale_img``, ``descale_pred``, ``clip_augmented`` and ``predict_augment``)
-for the module set of the shipped ViL detectors (``vil-det-192.yaml``,
-``vil-det-tiny.yaml``).  The same
+for the module set of the shipped ViL models (the detectors, and the
+segment, pose, OBB and classify heads of ``vil-det-tiny-{seg,pose,obb}.yaml``
+and ``vil-cls-tiny.yaml``).  The same
 ``[from, n, module, args]`` YAML DSL compiles to layer specs; the model
 runs them with savelist routing.
 """
@@ -55,7 +56,10 @@ def yaml_model_load(path_or_dict) -> dict:
     return d
 
 
-_HEADS = {"Detect", "v10Detect"}
+_HEADS = {"Detect", "v10Detect", "Segment", "Pose", "OBB"}
+# heads that JAX builds without ``fused`` (its Proto and Classify): JAX's fused
+# model of them cannot take its own folded variables, so the port refuses it
+UNFUSABLE_HEADS = {"Segment", "Classify"}
 
 
 def parse_model_specs(d: dict, ch: int = 3):
@@ -124,6 +128,8 @@ def parse_model_specs(d: dict, ch: int = 3):
             kwargs["ch"] = tuple(ch_list[x] for x in f)
             kwargs["tokens"] = tuple(tok_list[x] for x in f)
             c2 = None
+        elif name == "Classify":
+            c2 = args[0]
         else:
             raise NotImplementedError(f"module {m!r} (layer {i}) is not ported yet")
         specs.append(dict(i=i, f=f, module=name, args=args, kwargs=kwargs, c1=c1, c2=c2))
@@ -190,11 +196,23 @@ def build_module(spec: dict, nc: int, compute_dtype, img_size: int,
         act = "silu" if (len(args) < 7 or args[6] is True) else (
             args[6] if isinstance(args[6], str) else None)
         return B.ConvBNAct(spec["c1"], c2, k, s, p, g, d, act, compute_dtype=cd, fused=fused)
+    if name == "Classify":
+        return H.Classify(spec["c1"], c2=args[0] if args else nc,
+                          k=args[1] if len(args) > 1 else 1, s=args[2] if len(args) > 2 else 1,
+                          compute_dtype=cd)
     if name in _HEADS:
-        cls = H.v10Detect if name == "v10Detect" else H.Detect
         strides = tuple(img_size / math.sqrt(t) for t in kw["tokens"])
-        return cls(nc=args[0] if args else nc, ch=kw["ch"], strides=strides,
-                   img_size=img_size, decode_only=decode_only, compute_dtype=cd, fused=fused)
+        common = dict(nc=args[0] if args else nc, ch=kw["ch"], strides=strides,
+                      img_size=img_size, compute_dtype=cd, fused=fused)
+        if name == "Segment":
+            return H.Segment(nm=args[1] if len(args) > 1 else 32,
+                             npr=args[2] if len(args) > 2 else 256, **common)
+        if name == "Pose":
+            return H.Pose(kpt_shape=tuple(args[1]) if len(args) > 1 else (17, 3), **common)
+        if name == "OBB":
+            return H.OBB(ne=args[1] if len(args) > 1 else 1, **common)
+        cls = H.v10Detect if name == "v10Detect" else H.Detect
+        return cls(decode_only=decode_only, **common)
     raise NotImplementedError(f"no builder for module {name!r}")
 
 
@@ -253,8 +271,9 @@ class DetectionModel(nn.Module):
     which every layer's grid rescales (:func:`token_grids`, checked once per
     size before the first layer runs).  Output at inference:
     (decoded (B, max_det, 6) or, with ``decode_only``, (B, A, 4+nc);
-    dict of the head's level maps).  In training (``train()``): the head's
-    raw level maps, ``{"one2many": [...], "one2one": [...]}``.
+    dict of the head's level maps); a task head's pair (``nn.head``).  In
+    training (``train()``): the head's raw level maps, ``{"one2many": [...],
+    "one2one": [...]}``, or a task head's training output.
     """
 
     def __init__(self, specs: Sequence[dict], save: Sequence[int], nc: int = 80,
@@ -291,7 +310,7 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
                           decode_only: bool = False, device: str | torch.device = "cuda",
                           generator: torch.Generator | None = None, training: bool = False,
                           chunkwise_kernel: str = DEFAULT_CHUNKWISE_KERNEL,
-                          fused: bool = False):
+                          fused: bool = False, kpt_shape: Sequence[int] | None = None):
     """Compile a model YAML into a DetectionModel on ``device``, in eval
     mode, or in train mode with ``training``, initialised from
     ``generator`` (default: seed 0), its mLSTM cells on ``chunkwise_kernel``
@@ -299,7 +318,9 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
     kernel.  ``fused`` builds the eval-only model whose convs carry their
     folded BatchNorms, for the state dict of
     :func:`xlstm_yolo_tpu_torch.utils.fuse.fuse_state_dict` (training it
-    raises).  Returns (model, resolved cfg dict)."""
+    raises; a Segment or Classify head raises a ValueError, see
+    ``UNFUSABLE_HEADS``).  ``kpt_shape`` rewrites the Pose row's keypoint shape
+    (from a dataset YAML, as JAX's).  Returns (model, resolved cfg dict)."""
     dev = select_device(device)
     p = Path(cfg) if not isinstance(cfg, dict) else None
     if p is not None and not p.exists() and (CFG_MODELS / p.name).exists():
@@ -307,7 +328,15 @@ def build_detection_model(cfg, ch: int = 3, nc: int | None = None,
     d = yaml_model_load(cfg if p is None else p)
     if nc is not None:
         d["nc"] = nc
+    if kpt_shape is not None and "head" in d:
+        d["head"] = [[*row[:3], [*row[3][:1], list(kpt_shape), *row[3][2:]]]
+                     if row[2] == "Pose" else row for row in d["head"]]
     specs, save, _ = parse_model_specs(d, ch=ch)
+    unfusable = sorted({s["module"] for s in specs} & UNFUSABLE_HEADS)
+    if fused and unfusable:
+        raise ValueError(f"fused=True: the {unfusable[0]} head is built without folded "
+                         "BatchNorms (as in JAX, whose fused model of it cannot load its "
+                         "own folded variables); use the unfused model")
     model = DetectionModel(specs, save, nc=d.get("nc", 80), compute_dtype=compute_dtype,
                            img_size=int(d.get("imgsz", 640)), decode_only=decode_only,
                            chunkwise_kernel=resolve_chunkwise_kernel(chunkwise_kernel),

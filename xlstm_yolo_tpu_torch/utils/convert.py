@@ -8,6 +8,10 @@ rules are those of ``xlstm_yolo_tpu/utils/torch_convert.py``:
 - dense kernels (in, out) are transposed to (out, in);
 - conv kernels HWIO become OIHW, and the xLSTM LM's 1-d causal conv
   kernels (K, 1, D) become torch's (D, 1, K);
+- the transposed conv of the mask prototypes (``proto/upsample``, flax's
+  ``nn.ConvTranspose``, which does not flip its kernel) becomes torch's
+  (in, out, kh, kw) flipped in both spatial axes: HWIO[::-1, ::-1]
+  transposed (2, 3, 0, 1);
 - BatchNorm/LayerNorm ``scale`` becomes ``weight``; batch statistics
   ``mean``/``var`` become ``running_mean``/``running_var``;
 - ``nn.Embed``'s ``embedding`` becomes the ``weight`` of ``nn.Embedding``;
@@ -47,8 +51,8 @@ def jax_path_to_name(path: tuple[str, ...]) -> tuple[str, str]:
         if m:
             segs.append(f"model.{m.group(1)}")
             continue
-        m = re.fullmatch(r"(cv[23])(_o2o)?_(\d+)_(.+)", p)
-        if m:  # detect-head towers: cv2_o2o_0_1 -> one2one_cv2.0.1
+        m = re.fullmatch(r"(cv[234])(_o2o)?_(\d+)_(.+)", p)
+        if m:  # head towers: cv2_o2o_0_1 -> one2one_cv2.0.1, cv4_2_0 -> cv4.2.0
             base = ("one2one_" if m.group(2) else "") + m.group(1)
             segs.append(f"{base}.{m.group(3)}.{m.group(4).replace('_', '.')}")
             continue
@@ -63,8 +67,11 @@ def jax_path_to_name(path: tuple[str, ...]) -> tuple[str, str]:
             segs.append("in_proj.1")
             continue
         segs.append(p)
-    # SequenceConv2d holds its weight directly, one level above JAX's nn.Conv
-    prefix = ".".join(segs).replace("conv.conv", "conv")
+    # SequenceConv2d holds its weight directly, one level above JAX's nn.Conv;
+    # Classify's ConvBNAct (model_N/conv/conv) is a ConvBNAct like any other
+    prefix = ".".join(segs)
+    if not re.fullmatch(r"model\.\d+\.conv\.conv", prefix):
+        prefix = prefix.replace("conv.conv", "conv")
 
     def join(name):
         return f"{prefix}.{name}" if prefix else name
@@ -74,7 +81,7 @@ def jax_path_to_name(path: tuple[str, ...]) -> tuple[str, str]:
             raise KeyError(f"untranslatable batch stat {leaf!r} at {path}")
         return join("running_" + leaf), "raw"
     if leaf == "kernel":
-        return join("weight"), "kernel"
+        return join("weight"), "transposed" if parts[-1:] == ["upsample"] else "kernel"
     if leaf == "scale":
         return join("weight"), "raw"
     if leaf == "embedding":
@@ -90,7 +97,9 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
     for path, leaf in _leaves(variables):
         name, kind = jax_path_to_name(path)
         t = np.asarray(leaf, dtype=np.float32)
-        if kind == "kernel":
+        if kind == "transposed":
+            t = t[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif kind == "kernel":
             if t.ndim == 2:
                 t = t.T
             elif t.ndim == 3:
@@ -99,7 +108,7 @@ def jax_variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch
                 t = t.transpose(3, 2, 0, 1)
         if name in out:
             raise KeyError(f"two JAX leaves map to {name}")
-        out[name] = torch.tensor(t)
+        out[name] = torch.tensor(np.ascontiguousarray(t))
     return out
 
 
@@ -111,8 +120,8 @@ def jax_leaf_names(model: torch.nn.Module) -> dict[str, str]:
     and per-head norms."""
     from xlstm_yolo_tpu_torch.nn import layers, xlstm
 
-    kernel_owners = (layers.Dense, layers.Conv, layers.SequenceConv2d, layers._PatchProj,
-                     xlstm.CausalConv1d)
+    kernel_owners = (layers.Dense, layers.Conv, layers.ConvTranspose, layers.SequenceConv2d,
+                     layers._PatchProj, xlstm.CausalConv1d)
     scale_owners = (layers.BatchNorm, layers.LayerNorm)
     modules = dict(model.named_modules())
     out = {}

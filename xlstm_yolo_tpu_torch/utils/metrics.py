@@ -1,10 +1,14 @@
 """IoU of boxes and the detection metrics (counterpart of ``bbox_iou``,
-``box_iou_matrix``, ``compute_ap``, ``smooth``, ``ap_per_class``,
-``DetMetrics`` and ``ConfusionMatrix`` in ``xlstm_yolo_tpu/utils/metrics.py``).
+``box_iou_matrix``, ``probiou``, ``rbox_iou_matrix``, ``mask_iou``,
+``kpt_iou``, ``OKS_SIGMA``, ``compute_ap``, ``smooth``, ``ap_per_class``,
+``DetMetrics``, ``SegmentMetrics``, ``PoseMetrics`` and ``ConfusionMatrix``
+in ``xlstm_yolo_tpu/utils/metrics.py``).
 
-``bbox_iou`` is torch (the loss); the rest is numpy on the host, as in the
-JAX package and the reference, and gives the JAX package's numbers bit for
-bit on the same inputs.
+``bbox_iou`` and ``probiou`` are torch (the loss, the rotated NMS on the
+device); the rest is numpy on the host, as in the JAX package and the
+reference, and gives the JAX package's numbers bit for bit on the same
+inputs (``rbox_iou_matrix`` is ``probiou`` on the CPU in float32, whose
+transcendentals are torch's, not XLA's).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2 has only trapz
 
@@ -68,6 +74,72 @@ def box_iou_matrix(box1: np.ndarray, box2: np.ndarray, eps: float = 1e-7) -> np.
     area1 = (box1[:, 2:] - box1[:, :2]).prod(1)
     area2 = (box2[:, 2:] - box2[:, :2]).prod(1)
     return inter / (area1[:, None] + area2[None] - inter + eps)
+
+
+def _rbox_covariance(boxes):
+    """xywhr (..., 5) -> the terms (a, b, c) of the box's Gaussian covariance
+    (variances w^2/12 and h^2/12 rotated by r)."""
+    a = boxes[..., 2] ** 2 / 12.0
+    b = boxes[..., 3] ** 2 / 12.0
+    c = boxes[..., 4]
+    cos, sin = torch.cos(c), torch.sin(c)
+    cos2, sin2 = cos ** 2, sin ** 2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1, obb2, eps: float = 1e-7):
+    """Probabilistic IoU (1 - Hellinger distance of the boxes' Gaussians) of
+    broadcastable xywhr (..., 5) tensors, in float32 (float64 stays)."""
+    acc = acc_dtype(obb1.dtype)
+    obb1, obb2 = obb1.to(acc), obb2.to(acc)
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _rbox_covariance(obb1)
+    a2, b2, c2 = _rbox_covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    det1 = (a1 * b1 - c1 ** 2).clamp(min=0.0)
+    det2 = (a2 * b2 - c2 ** 2).clamp(min=0.0)
+    t3 = torch.log((denom - eps) / (4.0 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    return 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+
+
+def rbox_iou_matrix(obb1: np.ndarray, obb2: np.ndarray) -> np.ndarray:
+    """probiou matrix (N, M) of xywhr (N, 5) and (M, 5) arrays, float32."""
+    if len(obb1) == 0 or len(obb2) == 0:
+        return np.zeros((len(obb1), len(obb2)), np.float32)
+    a = torch.from_numpy(np.asarray(obb1, np.float32))[:, None]
+    b = torch.from_numpy(np.asarray(obb2, np.float32))[None]
+    return probiou(a, b).numpy()
+
+
+# OKS sigmas of the 17 COCO keypoints
+OKS_SIGMA = np.asarray([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62,
+                        1.07, 1.07, 0.87, 0.87, 0.89, 0.89], np.float32) / 10.0
+
+
+def mask_iou(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """IoU matrix (N, M) of flattened binary masks (N, P) and (M, P)."""
+    m1 = mask1.astype(np.float32)
+    m2 = mask2.astype(np.float32)
+    inter = np.clip(m1 @ m2.T, 0, None)
+    union = m1.sum(1)[:, None] + m2.sum(1)[None] - inter
+    return inter / (union + eps)
+
+
+def kpt_iou(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma: np.ndarray,
+            eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity (N, M) of gt (N, K, 3) and predicted
+    (M, K, 2+) keypoints: COCO's OKS kernel with the gt boxes' ``area``,
+    averaged over the gt's visible keypoints."""
+    d = ((kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2
+         + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2)
+    sigma = np.asarray(sigma, np.float32)
+    kpt_mask = kpt1[..., 2] != 0
+    e = d / ((2 * sigma) ** 2 * (area[:, None, None] + eps) * 2)
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
 
 
 def compute_ap(recall: np.ndarray, precision: np.ndarray) -> tuple[float, np.ndarray, np.ndarray]:
@@ -200,6 +272,56 @@ class DetMetrics:
             "metrics/mAP50-95(B)": self.map,
             "fitness": self.fitness,
         }
+
+
+class SegmentMetrics:
+    """Box and mask AP: two DetMetrics over one (conf, pred_cls, target_cls)
+    stream with their own TP tables; fitness is their sum."""
+
+    suffix = "M"  # the second table's results_dict column
+
+    def __init__(self, names: dict | None = None):
+        self.names = names or {}
+        self.box = DetMetrics(names=self.names)
+        self.seg = DetMetrics(names=self.names)
+
+    @property
+    def _second(self) -> DetMetrics:
+        return self.seg
+
+    def process(self, tp, tp_second, conf, pred_cls, target_cls):
+        self.box.process(tp, conf, pred_cls, target_cls)
+        self._second.process(tp_second, conf, pred_cls, target_cls)
+
+    def mean_results(self):
+        return self.box.mean_results() + self._second.mean_results()
+
+    @property
+    def fitness(self):
+        return self.box.fitness + self._second.fitness
+
+    @property
+    def results_dict(self):
+        s, m = self.suffix, self._second
+        return {**{k: v for k, v in self.box.results_dict.items() if k != "fitness"},
+                f"metrics/precision({s})": m.mp, f"metrics/recall({s})": m.mr,
+                f"metrics/mAP50({s})": m.map50, f"metrics/mAP50-95({s})": m.map,
+                "fitness": self.fitness}
+
+
+class PoseMetrics(SegmentMetrics):
+    """Box and OKS keypoint AP."""
+
+    suffix = "P"
+
+    def __init__(self, names: dict | None = None):
+        self.names = names or {}
+        self.box = DetMetrics(names=self.names)
+        self.pose = DetMetrics(names=self.names)
+
+    @property
+    def _second(self) -> DetMetrics:
+        return self.pose
 
 
 class ConfusionMatrix:

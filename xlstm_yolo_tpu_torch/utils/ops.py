@@ -1,13 +1,17 @@
-"""Box ops, letterbox inverse, NMS and a timer.
+"""Box ops, letterbox inverse, masks, NMS (axis-aligned and rotated) and a
+timer.
 
-Counterpart of ``xlstm_yolo_tpu/utils/ops.py:26-345`` (the box and NMS
-parts; the mask and rotated functions wait for ROADMAP item 10).  The
-converters and the letterbox inverses take torch tensors or numpy arrays,
-as JAX's take jnp or numpy.  :func:`nms` is JAX's fixed-shape greedy
-``nms_jax`` (max_out steps of: keep the best live box, ties to the lowest
-index as ``argmax``; kill it and every box whose IoU with it exceeds the
-threshold), batched; :func:`non_max_suppression` wraps it with the
-end2end bypass, on torch tensors.
+Counterpart of ``xlstm_yolo_tpu/utils/ops.py:26-345``.  The converters,
+the letterbox inverses and the mask ops take torch tensors or numpy
+arrays, as JAX's take jnp or numpy.  :func:`nms` is JAX's fixed-shape
+greedy ``nms_jax`` (max_out steps of: keep the best live box, ties to the
+lowest index as ``argmax``; kill it and every box whose IoU with it
+exceeds the threshold), batched; :func:`non_max_suppression` wraps it with
+the end2end bypass, on torch tensors.  :func:`nms_rotated` is the same
+loop over probiou (``nms_rotated_jax``), and
+:func:`non_max_suppression_rotated` wraps it as JAX's does: the best class
+of each anchor, no class offset (boxes of different classes suppress each
+other, unlike the reference).
 """
 
 from __future__ import annotations
@@ -101,19 +105,47 @@ def scale_coords(img1_shape, coords, img0_shape, ratio_pad=None, padding: bool =
     return _cat([_stack([x, y], coords), coords[..., 2:]], coords)
 
 
-def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float = 0.45,
-        max_out: int = 300) -> tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS of (..., N, 4) xyxy boxes by (..., N) scores (-inf: not a
-    candidate) -> (keep_idx (..., max_out) int32, -1 where empty; keep_ok
-    (..., max_out) bool).  The loop stops early once no image has a live
-    box; the slots after stay -1 / False, as JAX's remaining steps leave them."""
-    lead = scores.shape[:-1]
-    boxes, live = boxes.reshape(-1, *boxes.shape[-2:]), scores.reshape(-1, scores.shape[-1]).clone()
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    areas = (x2 - x1) * (y2 - y1)
+def crop_mask(masks, boxes):
+    """Zero (n, Hm, Wm) masks outside their (n, 4) xyxy boxes in mask pixels
+    (pixel centres at integer coordinates, x1 <= x < x2)."""
+    if not _is_torch(masks):
+        return crop_mask(torch.from_numpy(masks), torch.from_numpy(np.asarray(boxes))).numpy()
+    Hm, Wm = masks.shape[-2:]
+    r = torch.arange(Wm, dtype=masks.dtype, device=masks.device)[None, None, :]
+    c = torch.arange(Hm, dtype=masks.dtype, device=masks.device)[None, :, None]
+    x1, y1, x2, y2 = (boxes[:, i, None, None] for i in range(4))
+    return masks * ((r >= x1) & (r < x2) & (c >= y1) & (c < y2))
+
+
+def process_mask(proto, coeffs, boxes, img_hw):
+    """Binary instance masks (n, Hm, Wm) at prototype resolution: the
+    (Hm, Wm, nm) prototypes times the (n, nm) coefficients (in the
+    prototypes' type), cropped to the (n, 4) xyxy boxes (model-input pixels,
+    scaled to the mask grid), logit > 0.  Torch tensors (on any device) or
+    numpy arrays."""
+    if not _is_torch(proto):
+        return process_mask(torch.from_numpy(proto), torch.from_numpy(np.asarray(coeffs)),
+                            torch.from_numpy(np.asarray(boxes)), img_hw).numpy()
+    Hm, Wm, nm = proto.shape
+    ih, iw = img_hw
+    logits = (coeffs.to(proto.dtype) @ proto.reshape(-1, nm).T).reshape(-1, Hm, Wm)
+    scale = torch.tensor([Wm / iw, Hm / ih, Wm / iw, Hm / ih], dtype=logits.dtype,
+                         device=logits.device)
+    return crop_mask(logits, boxes.to(logits.dtype) * scale) > 0.0
+
+
+def _greedy(scores: torch.Tensor, iou_of, iou_thres: float, max_out: int):
+    """JAX's fixed-shape greedy loop over (b, N) ``scores`` (-inf: not a
+    candidate): max_out steps of keeping each row's best live entry (ties to
+    the lowest index, as ``argmax``) and killing it and every entry whose
+    ``iou_of(j)`` (b, N) with it exceeds the threshold.  Stops once no row
+    has a live entry; the slots after stay -1 / False, as JAX's remaining
+    steps leave them."""
+    live = scores.clone()
     keep_idx = torch.full((live.shape[0], max_out), -1, dtype=torch.int32, device=live.device)
     keep_ok = torch.zeros((live.shape[0], max_out), dtype=torch.bool, device=live.device)
     ninf = torch.tensor(-torch.inf, dtype=live.dtype, device=live.device)
+    ar = torch.arange(live.shape[1], device=live.device)[None]
     for i in range(max_out):
         best, j = live.max(-1)  # first index of the maximum, as argmax
         ok = best > -torch.inf
@@ -121,16 +153,65 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float = 0.45,
             break
         keep_idx[:, i] = torch.where(ok, j.to(torch.int32), -1)
         keep_ok[:, i] = ok
+        sel = ar == j[:, None]
+        live = torch.where(((iou_of(j) > iou_thres) | sel) & ok[:, None], ninf, live)
+    return keep_idx, keep_ok
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float = 0.45,
+        max_out: int = 300) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS of (..., N, 4) xyxy boxes by (..., N) scores (-inf: not a
+    candidate) -> (keep_idx (..., max_out) int32, -1 where empty; keep_ok
+    (..., max_out) bool): :func:`_greedy` over IoU."""
+    lead = scores.shape[:-1]
+    boxes = boxes.reshape(-1, *boxes.shape[-2:])
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    areas = (x2 - x1) * (y2 - y1)
+
+    def iou_of(j):
         pick = j[:, None]
         xx1 = torch.maximum(x1.gather(1, pick), x1)
         yy1 = torch.maximum(y1.gather(1, pick), y1)
         xx2 = torch.minimum(x2.gather(1, pick), x2)
         yy2 = torch.minimum(y2.gather(1, pick), y2)
         inter = (xx2 - xx1).clamp(min=0) * (yy2 - yy1).clamp(min=0)
-        iou = inter / (areas.gather(1, pick) + areas - inter + 1e-7)
-        sel = torch.arange(live.shape[1], device=live.device)[None] == pick
-        live = torch.where(((iou > iou_thres) | sel) & ok[:, None], ninf, live)
+        return inter / (areas.gather(1, pick) + areas - inter + 1e-7)
+
+    keep_idx, keep_ok = _greedy(scores.reshape(-1, scores.shape[-1]), iou_of, iou_thres, max_out)
     return keep_idx.reshape(*lead, max_out), keep_ok.reshape(*lead, max_out)
+
+
+def nms_rotated(rboxes: torch.Tensor, scores: torch.Tensor, iou_thres: float = 0.45,
+                max_out: int = 300) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS of (..., N, 5) xywhr boxes by probiou, otherwise as
+    :func:`nms` (JAX's ``nms_rotated_jax``)."""
+    from xlstm_yolo_tpu_torch.utils.metrics import probiou
+
+    lead = scores.shape[:-1]
+    rboxes = rboxes.reshape(-1, *rboxes.shape[-2:])
+
+    def iou_of(j):
+        return probiou(rboxes.gather(1, j[:, None, None].expand(-1, 1, 5)), rboxes)
+
+    keep_idx, keep_ok = _greedy(scores.reshape(-1, scores.shape[-1]), iou_of, iou_thres, max_out)
+    return keep_idx.reshape(*lead, max_out), keep_ok.reshape(*lead, max_out)
+
+
+def non_max_suppression_rotated(preds: torch.Tensor, conf_thres: float = 0.25,
+                                iou_thres: float = 0.45, max_det: int = 300,
+                                nc: int | None = None):
+    """Batched rotated NMS of decoded (B, A, 4+nc+1) [xywh, class scores,
+    angle] rows -> ((B, max_det, 7) [xywhr, conf, cls], (B, max_det) valid);
+    an empty slot holds anchor 0's row."""
+    nc = nc if nc is not None else preds.shape[-1] - 5
+    conf, cls = preds[..., 4:4 + nc].max(-1)
+    cls = cls.to(preds.dtype)
+    rb = torch.cat([preds[..., :4], preds[..., 4 + nc:][..., :1]], dim=-1)
+    masked = torch.where(conf > conf_thres, conf, torch.full_like(conf, -torch.inf))
+    idx, ok = nms_rotated(rb, masked, iou_thres, max_det)
+    cat = torch.cat([rb, conf[..., None], cls[..., None]], dim=-1)
+    out = cat.gather(1, idx.clamp(min=0).long()[..., None].expand(-1, -1, cat.shape[-1]))
+    return out, ok
 
 
 def non_max_suppression(preds: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,

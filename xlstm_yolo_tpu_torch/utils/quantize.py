@@ -15,7 +15,8 @@ Counterpart of ``quantize_tree`` / ``dequantize_tree`` in
 
 JAX's channel axis is the flax leaf's last axis.  The port stores a
 ``kernel`` leaf transposed (dense (in, out) as (out, in), HWIO as OIHW,
-the LM's (K, 1, D) as (D, 1, K)), so there the axis is 0; every other
+the LM's (K, 1, D) as (D, 1, K)), so there the axis is 0, save the
+transposed conv's (flax HWIO as torch's (in, out, kh, kw): axis 1); every other
 leaf (the learned positions, the PatchMerger queries, the embedding, the
 sLSTM ``recurrent_kernel``) keeps its last axis.  The axis comes from
 ``utils.convert.jax_leaf_names``, never from a tensor's shape.  A scale
@@ -39,12 +40,20 @@ def _is_pair(x) -> bool:
 
 def channel_axes(model: torch.nn.Module) -> dict[str, int]:
     """The output-channel axis of each of ``model``'s parameters in the
-    port's layout: 0 for a flax ``kernel`` leaf, else the last axis."""
+    port's layout: 0 for a flax ``kernel`` leaf (1 for a transposed conv's),
+    else the last axis."""
+    from xlstm_yolo_tpu_torch.nn.layers import ConvTranspose
     from xlstm_yolo_tpu_torch.utils.convert import jax_leaf_names
 
     params = dict(model.named_parameters())
-    return {name: 0 if leaf == "kernel" else params[name].dim() - 1
-            for name, leaf in jax_leaf_names(model).items()}
+    modules = dict(model.named_modules())
+
+    def axis(name, leaf):
+        if leaf != "kernel":
+            return params[name].dim() - 1
+        return 1 if isinstance(modules[name.rpartition(".")[0]], ConvTranspose) else 0
+
+    return {name: axis(name, leaf) for name, leaf in jax_leaf_names(model).items()}
 
 
 def quantize_state_dict(state_dict: dict, axes: dict[str, int], bits: int = 8) -> dict:

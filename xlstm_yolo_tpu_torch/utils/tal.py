@@ -1,5 +1,6 @@
 """Anchor geometry and the task-aligned assigner (counterpart of
-``make_anchors``, ``dist2bbox``, ``bbox2dist``, ``topk_select_mask``,
+``make_anchors``, ``dist2bbox``, ``bbox2dist``, ``dist2rbox``,
+``xywhr2xyxyxyxy``, ``topk_select_mask``,
 ``task_aligned_assign``, ``task_aligned_assign_pallas_metric`` and
 ``_assign_from_metric`` in ``xlstm_yolo_tpu/utils/tal.py``): fixed shapes,
 padded gts, every step a masked dense computation over the (B, M, A) grid."""
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +41,31 @@ def dist2bbox(distance, anchor_points, xywh: bool = True, dim: int = -1):
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=dim)
     return torch.cat([x1y1, x2y2], dim=dim)
+
+
+def dist2rbox(pred_dist, pred_angle, anchor_points, dim: int = -1):
+    """ltrb distances + angle -> rotated boxes (x, y, w, h): the centre is
+    displaced along the rotated frame."""
+    lt, rb = pred_dist.chunk(2, dim=dim)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim=dim)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim=dim) + anchor_points, lt + rb], dim=dim)
+
+
+def xywhr2xyxyxyxy(rboxes):
+    """xywhr (..., 5) -> the 4 corner points (..., 4, 2); a numpy array in,
+    a numpy array out."""
+    if not isinstance(rboxes, torch.Tensor):
+        return xywhr2xyxyxyxy(torch.from_numpy(np.asarray(rboxes))).numpy()
+    ctr = rboxes[..., :2]
+    w, h, angle = rboxes[..., 2:3], rboxes[..., 3:4], rboxes[..., 4:5]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    vec1 = torch.cat([w / 2 * cos, w / 2 * sin], -1)
+    vec2 = torch.cat([-h / 2 * sin, h / 2 * cos], -1)
+    return torch.stack([ctr + vec1 + vec2, ctr + vec1 - vec2, ctr - vec1 - vec2,
+                        ctr - vec1 + vec2], dim=-2)
 
 
 def bbox2dist(anchor_points, bbox, reg_max: float):
