@@ -257,13 +257,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                PNG files with random labels and 16 val ones written here,
                from pretrained random weights (val's ifgates and val_head)
                whose val detections label the val split (self_label), 640 px,
-               batch 16, nbs 32 (accumulate 2), 3 epochs (the mosaic off in
-               the third), optimizer auto (AdamW), 4 spawned loader
+               batch 16, nbs 32 (accumulate 2), 2 epochs (the mosaic off in
+               the second), optimizer auto (AdamW), 4 spawned loader
                workers, bf16: a mosaic and a plain batch composed on the card
                byte-equal to the CPU; exact launches a step (accumulate x the
                train phase's) and a val batch (20); finite losses;
                results.csv, last, best and their stripped files; the
-               checkpoint round trip bit-equal; a resume from the epoch-2
+               checkpoint round trip bit-equal; a resume from the epoch-1
                checkpoint reading the same files with its first loss within
                1e-3; mAP50 > 0 in every validation; best_stripped.pt equal to
                best.pt's EMA tensors, and its .val() equal to the trainer's
@@ -331,6 +331,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                mAP50(B) >= 0.99 and mAP50-95(B) >= 0.95 (segment, pose,
                OBB by probiou), mAP50(P) >= 0.99, top-1 = 1.0; mAP50(M)
                printed (phase_tasks; runs after facade).
+41. task_train - training the four heads of phase tasks, counts at 0 per
+               task: YOLO(yaml, task=...).train() on phase tasks'
+               self-labelled sets (24 train images, 16 val), 640 px, batch
+               8, bf16, 2 spawned loader workers, 1 epoch of 3 optimizer
+               steps, from weights with perturbed ifgates; each step's
+               training-kernel launches equal expected_step_launches(model)
+               and each val pass ceil(16 / 8) x the forward's cells, exact;
+               the first batch composed on the card from the workers'
+               recipes byte-equal to the CPU's composition of the same batch
+               made in-process, its labels and masks, keypoints or rotated
+               boxes equal; a float32 step (2 images, default gates) on the
+               card within 1e-3 relative of the CPU's plain path in every
+               loss item and task term; the task's own terms finite and
+               non-zero at the first step; the task's validator saw 16
+               images; ms a step, the loader's share of the epoch and the
+               loss items printed (phase_task_train; runs after tasks).
 
 Each phase prints its seconds on a line of its own.  Output: JSON lines per
 phase, the nvidia-smi line, one {"kernels": [...]} line (twenty kernels:
@@ -348,7 +364,9 @@ their launches in phase multiscale and their errors at its lengths; the
 v2 forward's row a "serve" object: its launches in phase serve, the
 launches captured a group graph, and the replays and kernel executions of
 the engine's traced window; every row of a kernel that phase facade
-launches also "launches_facade"), and
+launches also "launches_facade"; the v2 forward's and the four training
+kernels' rows a "task_train" object: their launches in phase task_train),
+and
 last {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -1145,7 +1163,7 @@ LOOP_SHAPES = [(480, 640), (375, 500), (640, 640), (150, 200), (97, 211), (720, 
 LOOP_CLS = (0.3, -1.0)  # val_head's class scale and bias for train_loop's start: the
 # trained detector's scores still spread past VAL_CONF (its BatchNorm statistics
 # shrink the features that phase_val's VAL_CLS reads)
-LOOP_ARGS = dict(imgsz=640, batch=16, nbs=32, epochs=3, close_mosaic=1, optimizer="auto",
+LOOP_ARGS = dict(imgsz=640, batch=16, nbs=32, epochs=2, close_mosaic=1, optimizer="auto",
                  workers=4, amp=True, seed=0, exist_ok=True)
 
 
@@ -1203,7 +1221,7 @@ def loop_pixels(trainset) -> dict:
 def phase_train_loop(cw, epi, ffn, card: str) -> dict:
     """YOLO("vil-det-192.yaml").train() on a synthetic PNG set written here
     (LOOP_TRAIN train images with random labels and LOOP_VAL val images,
-    COCO's 80 names): imgsz 640, batch 16, nbs 32 (accumulate 2), 3 epochs
+    COCO's 80 names): imgsz 640, batch 16, nbs 32 (accumulate 2), 2 epochs
     with close_mosaic 1, optimizer auto (AdamW at this length), 4 spawned
     loader workers, bf16, seed 0, from ``pretrained`` weights: random ones
     with phase_val's ifgates and val_head (LOOP_CLS), so that the trained detector's
@@ -1219,11 +1237,11 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
        inference kernel; each val batch 20 inference launches (the tail
        batch padded).
     3. Every loss is finite.
-    4. results.csv has 3 rows; last, best and their stripped files exist.
+    4. results.csv has 2 rows; last, best and their stripped files exist.
     5. load_checkpoint(save_checkpoint(state)) restores every tensor bit for
        bit, and the step, epoch and best fitness.
-    6. A second trainer resumes from the checkpoint of epoch 2 (a snapshot
-       taken by a callback): it starts at epoch 3, reads the same im_file
+    6. A second trainer resumes from the checkpoint of epoch 1 (a snapshot
+       taken by a callback): it starts at epoch 2, reads the same im_file
        lists a step, and its first step's loss is within 1e-3 relative of
        the uninterrupted run's.
     7. YOLO(best_stripped.pt) loads strictly; its tensors equal best.pt's
@@ -1308,7 +1326,7 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
             log["totals"] = counts(cw, epi, ffn)
             return y.trainer, metrics, log
 
-        tr, metrics, log = run("full", snap_after=1)
+        tr, metrics, log = run("full", snap_after=0)
         expected = expected_step_launches(tr.model)
         cells = cells_of(tr.eval_model)
         acc = tr.accumulate
@@ -1350,7 +1368,7 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
         }
         full_log = log
 
-        # resume from the snapshot of epoch 2
+        # resume from the snapshot of epoch 1
         tr2, metrics2, log2 = run("snap", resume=True)
         resumed_at = tr2.start_epoch
         n_last = len(log2["files"])
@@ -1405,7 +1423,7 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
               "host": {"torch_threads": torch.get_num_threads(), "cpu_count": os.cpu_count(),
                        "usable_cpus": len(os.sched_getaffinity(0))},
               "timing": timing,
-              "note": "figures from the uninterrupted run's three epochs on the card: "
+              "note": "figures from the uninterrupted run's two epochs on the card: "
                       "images_per_s = images trained / the epochs' loop seconds (no val); "
                       "loader_wait_share = seconds blocked on the loader / loop seconds; "
                       "worker_ms_per_image = the workers' decode, draws and labels; "
@@ -1414,7 +1432,7 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
                       "once); timing: per epoch, the first with the workers' start and the "
                       "first steps"})
         per_val = val_batches * cells
-        if bad_steps or len(full_log["steps"]) != 3 * (len(trainset) // LOOP_ARGS["batch"]
+        if bad_steps or len(full_log["steps"]) != 2 * (len(trainset) // LOOP_ARGS["batch"]
                                                        // acc):
             raise AssertionError(f"train_loop step launches {bad_steps}, expected {want}")
         if any(v != per_val for v in full_log["val"] + log2["val"]) \
@@ -1424,11 +1442,11 @@ def phase_train_loop(cw, epi, ffn, card: str) -> dict:
                                  f"{full_log['final_val_launches']}, expected {per_val}")
         if not losses_finite or not all(math.isfinite(m["loss"]) for m in log2["loss"]):
             raise AssertionError("train_loop: a non-finite loss")
-        if len(rows) != 4 or not all(files.values()):
+        if len(rows) != 3 or not all(files.values()):
             raise AssertionError(f"train_loop files: {len(rows) - 1} csv rows, {files}")
         if not round_trip:
             raise AssertionError("train_loop: the checkpoint round trip is not bit-equal")
-        if resumed_at != 2 or not same_files or not first_rel <= 1e-3:
+        if resumed_at != 1 or not same_files or not first_rel <= 1e-3:
             raise AssertionError(f"train_loop resume: epoch {resumed_at}, same files "
                                  f"{same_files}, first loss rel {first_rel}")
         if not stripped_equal:
@@ -2327,6 +2345,7 @@ TASK_LEVEL = {"segment": 3}  # the first scored level (P5 for segment: fewer, la
 TASK_BIN = 5.0              # box towers' last conv: DFL bins peak here (P4/P5 boxes ~200-400 px)
 TASK_MASK_EPS = 1e-3        # mask check: pixels whose logit is nearer 0 are not compared
 TASK_LAUNCHES = {"segment": 20, "pose": 20, "obb": 20, "classify": 8}  # a forward
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]  # left <-> right
 
 
 def task_yaml(task: str, root) -> str:
@@ -2494,7 +2513,7 @@ def mask_check(model, validator, images) -> dict:
             "proto_dtype": str(proto.dtype)}
 
 
-def phase_tasks(cw, card: str) -> dict:
+def phase_tasks(cw, card: str, root=None) -> dict:
     """The segment, pose, OBB and classify heads at vil-det-192's width and
     depth (task_yaml), 640 px, batch 8, bf16, random weights from seed 0,
     ifgates perturbed, through the facade (YOLO(yaml, task=...)):
@@ -2511,7 +2530,9 @@ def phase_tasks(cw, card: str) -> dict:
        and mAP50-95(B) >= 0.95 (segment, pose, obb; OBB's by probiou, on
        the minAreaRect of the label polygons), mAP50(P) >= 0.99 (pose),
        top-1 = 1.0 (classify); mAP50(M) printed, not gated; img/s.
-    Returns the launches and numbers."""
+    Returns the launches and numbers.  With ``root`` the PNG files and the
+    labelled sets stay there (set_<task>: pose's YAML with COCO's flip_idx)
+    for phase task_train, which removes them."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2527,7 +2548,8 @@ def phase_tasks(cw, card: str) -> dict:
     from xlstm_yolo_tpu_torch.models.yolo.segment.val import SegmentationValidator
     from xlstm_yolo_tpu_torch.utils import ops
 
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tasks_"))
+    keep = root is not None
+    root = Path(root) if keep else Path(tempfile.mkdtemp(prefix="chip_smoke_tasks_"))
     out = {"launches": 0}
     try:
         for kind, shapes in TASK_SHAPES.items():
@@ -2625,7 +2647,7 @@ def phase_tasks(cw, card: str) -> dict:
                 meta = {"path": str(set_dir), "val": "images/val",
                         "names": [yolo.names[i] for i in range(80)]}
                 if task == "pose":
-                    meta["kpt_shape"] = [17, 3]
+                    meta["kpt_shape"], meta["flip_idx"] = [17, 3], COCO_FLIP_IDX
                 data = set_dir / "data.yaml"
                 data.write_text(yaml.safe_dump(meta))
                 data = str(data)
@@ -2663,6 +2685,249 @@ def phase_tasks(cw, card: str) -> dict:
                     raise AssertionError(f"{task}: too few self-labels {labels}")
             out[task] = rep
             del yolo
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+TT_ARGS = dict(imgsz=640, batch=8, nbs=8, epochs=1, close_mosaic=0, optimizer="auto",
+               workers=2, amp=True, seed=0, exist_ok=True, plots=False)
+TT_TRAIN = 24     # train images a task: phase tasks' 16 and its first 8 again (3 steps of 8)
+TT_F32_IMAGES = 2  # images of the float32 step held on the card against the CPU's plain path
+TT_F32_REL = 1e-3  # its loss items and task terms, relative
+TT_OWN = {"segment": ("seg",), "pose": ("pose", "kobj"), "obb": ("box",), "classify": ("cls",)}
+
+
+def task_train_data(task: str, root):
+    """phase tasks' labelled set of ``task`` as a train set: TT_TRAIN
+    images (a train.txt list of its 16 files and 8 of them again; classify:
+    the class folders copied to train/ twice over, their first 8 files
+    twice), validated on its 16.  Returns the data argument."""
+    import shutil
+    from pathlib import Path
+
+    import yaml
+
+    set_dir = Path(root) / f"set_{task}"
+    if task == "classify":
+        files = sorted(f for f in (set_dir / "val").rglob("*") if f.is_file())
+        for j, f in enumerate(files + files[:TT_TRAIN - len(files)]):
+            dst = set_dir / "train" / f.parent.name / f"{j:02d}_{f.name}"
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(f, dst)
+        for c in (set_dir / "val").iterdir():  # every class folder, empty ones too
+            (set_dir / "train" / c.name).mkdir(exist_ok=True)
+        return str(set_dir)
+    files = sorted(str(f) for f in (set_dir / "images" / "val").iterdir())
+    (set_dir / "train.txt").write_text("\n".join(files + files[:TT_TRAIN - len(files)]) + "\n")
+    meta = yaml.safe_load((set_dir / "data.yaml").read_text())
+    (set_dir / "data.yaml").write_text(yaml.safe_dump({**meta, "train": "train.txt"}))
+    return str(set_dir / "data.yaml")
+
+
+def host_batch_check(task: str, trainer, host, dev) -> dict:
+    """The trainer's first batch (made by its spawned workers, composed on
+    the card) against the same batch made in this process from the same
+    indices and rng and composed on the CPU: pixels byte-equal, labels and
+    task targets equal."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from xlstm_yolo_tpu_torch.data.build import TrainLoader
+
+    ds = trainer.trainset
+    idx = TrainLoader(ds, trainer.args.batch, shuffle=True, workers=0,
+                      seed=int(trainer.args.seed)).batches(0)[0]
+    rng = random.Random((int(trainer.args.seed) + 0) * 9973 + 0)
+    ref = ds.collate([ds.get_sample(i, rng) for i in idx])
+    cpu = ds.images(ref, "cpu")
+    keys = [k for k in ("cls", "bboxes", "mask", "masks", "kpts", "rboxes") if k in ref]
+    labels_equal = all(np.array_equal(host[k], ref[k]) and torch.equal(dev[k].cpu(),
+                       torch.from_numpy(np.asarray(ref[k]))) for k in keys)
+    differ = int((dev["img"].cpu() != cpu).sum())
+    return {"keys": keys, "labels_equal": labels_equal, "bytes_differing": differ,
+            "images": len(idx), "instances": int(ref["mask"].sum()) if "mask" in ref else None,
+            "mask_pixels": int(ref["masks"].sum()) if "masks" in ref else None}
+
+
+def f32_step_check(task: str, yaml_path: str, dev_batch: dict, steps) -> dict:
+    """One float32 train step of the task model (its YAML's widths, seed 0,
+    the default gate init) on the card through the kernels and on the CPU
+    through the plain path, on TT_F32_IMAGES images of the trainer's first
+    batch: the loss items and the task's own terms within TT_F32_REL."""
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
+    from xlstm_yolo_tpu_torch.nn.tasks import build_detection_model
+
+    batch = {k: v[:TT_F32_IMAGES] for k, v in dev_batch.items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, _ = build_detection_model(yaml_path, device=dev, training=True,
+                                         generator=torch.Generator().manual_seed(0),
+                                         kpt_shape=(17, 3) if task == "pose" else None)
+        tx, _, _ = opt_lib.build_optimizer(steps.optimizer_leaves(model), **TRAIN_OPT)
+        step = steps.make_train_step(model, tx, nc=int(model.nc), task=task,
+                                     kpt_shape=(17, 3) if task == "pose" else None)
+        t = time.perf_counter()
+        _, metrics = step(steps.TrainState.create(model, tx),
+                          {k: v.to(dev) for k, v in batch.items()},
+                          torch.Generator().manual_seed(5))
+        vals = {**{k: float(v) for k, v in metrics.items()},
+                **{f"term_{k}": float(v) for k, v in step.terms.items()}}
+        out[dev] = {"values": vals, "seconds": time.perf_counter() - t}
+        del model, step
+    rel = max(abs(out["cuda"]["values"][k] - v) / max(abs(v), 1e-12)
+              for k, v in out["cpu"]["values"].items())
+    return {**out, "max_rel": rel, "tol": TT_F32_REL, "images": TT_F32_IMAGES}
+
+
+def phase_task_train(cw, epi, ffn, steps, card: str, root) -> dict:
+    """YOLO(task_yaml(t), task=t).train() for t in segment, pose, obb and
+    classify: vil-det-192's width and depth with each head, 640 px, batch
+    8, bf16, seed 0, 2 spawned loader workers, from ``pretrained`` weights
+    with ifgates perturbed (seed 8), on phase tasks' self-labelled sets
+    under ``root`` (task_train_data: TT_TRAIN train images, 3 optimizer
+    steps, then the EMA's val of 16 images with the task's validator, and
+    the best weights' val).  Gates, each task:
+
+    1. every step launches each training kernel expected_step_launches(model)
+       times (segment, pose and OBB as the detect step of the backbone,
+       classify from its 8 cells) and no inference kernel; each val pass
+       ceil(16 / 8) x the forward's cells;
+    2. the first batch: its pixels composed on the card from the workers'
+       recipes byte-equal to the CPU's composition of the same batch made
+       in this process, its labels and masks, keypoints or rotated boxes
+       equal (host_batch_check);
+    3. a float32 step on the card equals the CPU's plain path on the same
+       images and weights within TT_F32_REL (f32_step_check);
+    4. the task's own loss terms (segment's mask term, pose's keypoint and
+       visibility terms, OBB's probiou box term, classify's cross-entropy)
+       finite and non-zero at the first step, every loss finite;
+    5. the validator is the task's, it saw 16 images, and returns fitness.
+    Prints ms a step, the loader's share of the epoch, the loss items.
+    Removes ``root``."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from xlstm_yolo_tpu_torch.engine.model import YOLO
+
+    want_val = {"segment": "SegmentationValidator", "pose": "PoseValidator",
+                "obb": "OBBValidator", "classify": "ClassificationValidator"}
+    out = {k: 0 for k in ("chunkwise_fw", *KERNELS)}
+    try:
+        for task in ("segment", "pose", "obb", "classify"):
+            t_task = time.perf_counter()
+            yaml_path = task_yaml(task, root)
+            data = task_train_data(task, root)
+            init = YOLO(yaml_path, task=task, device="cuda")
+            perturb_ifgates(init.model, seed=8)
+            torch.save(init.model.state_dict(), Path(root) / f"init_{task}.pt")
+            del init
+            log = {"steps": [], "loss": [], "terms": None, "val": [], "mark": None, "first": None}
+
+            def on_pretrain(tr):
+                device_batch = tr._device_batch
+
+                def recording(trainset, micro, task_):
+                    b = device_batch(trainset, micro, task_)
+                    if log["first"] is None:
+                        tr.trainset = trainset
+                        log["first"] = (micro[0], {k: v.clone() for k, v in b.items()})
+                    return b
+                tr._device_batch = recording
+
+            def on_start(tr):
+                log["mark"] = counts(cw, epi, ffn)
+
+            def on_step(tr):
+                now = counts(cw, epi, ffn)
+                log["steps"].append({k: now[k] - log["mark"][k] for k in now})
+                log["mark"] = now
+                log["loss"].append({k: float(v) for k, v in tr.losses[-1].items()})
+                if log["terms"] is None:
+                    log["terms"] = {k: float(v) for k, v in tr.train_step.terms.items()}
+
+            def on_epoch_end(tr):
+                now = counts(cw, epi, ffn)
+                log["val"].append(now["chunkwise_fw"] - log["mark"]["chunkwise_fw"])
+                log["mark"] = now
+
+            y = YOLO(yaml_path, task=task, device="cuda")
+            for event, fn in (("on_pretrain_routine_start", on_pretrain),
+                              ("on_train_epoch_start", on_start),
+                              ("on_train_batch_end", on_step), ("on_fit_epoch_end", on_epoch_end)):
+                y.add_callback(event, fn)
+            zero_counts(cw, epi, ffn)
+            t0 = time.perf_counter()
+            metrics = y.train(data=data, project=str(Path(root) / "runs"), name=task,
+                              pretrained=str(Path(root) / f"init_{task}.pt"), **TT_ARGS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tr = y.trainer
+            totals = counts(cw, epi, ffn)
+            final_val = totals["chunkwise_fw"] - sum(log["val"])
+            for k in out:
+                out[k] += totals[k]
+            expected = expected_step_launches(tr.model)
+            cells = cells_of(tr.eval_model)
+            per_val = -(-TASK_N // TT_ARGS["batch"]) * cells
+            bad_steps = [st for st in log["steps"] if st["chunkwise_fw"] != 0
+                         or any(st[k] != expected[k] for k in KERNELS)]
+            batch_check = host_batch_check(task, tr, *log["first"])
+            f32 = f32_step_check(task, yaml_path, log["first"][1], steps)
+            timing = tr.timing[0]
+            n_steps = len(log["steps"])
+            rep = {"phase": "task_train", "task": task, "card": card, "cfg": Path(yaml_path).stem,
+                   **TT_ARGS, "train_images": TT_TRAIN, "val_images": TASK_N,
+                   "steps": n_steps, "launches_per_step_expected": expected,
+                   "bad_steps": bad_steps, "val_launches": log["val"] + [final_val],
+                   "val_launches_expected": per_val, "cells": cells,
+                   "loss_items": log["loss"], "first_step_terms": log["terms"],
+                   "ms_per_step": 1e3 * timing["step_s"] / max(n_steps, 1),
+                   "loader_wait_share": timing["wait_s"] / timing["epoch_s"],
+                   "compose_ms_per_batch": 1e3 * timing["compose_s"] / max(n_steps, 1),
+                   "worker_ms_per_image": 1e3 * timing["load_s"] / max(timing["images"], 1),
+                   "epoch_s": timing["epoch_s"], "train_wall_s": wall,
+                   "validator": type(tr.validator).__name__, "val_seen": tr.validator.seen,
+                   "metrics": {k: float(v) for k, v in metrics.items()},
+                   "first_batch": batch_check, "f32_step": f32,
+                   "seconds": time.perf_counter() - t_task,
+                   "note": "ms_per_step: the loop's seconds from a composed batch to the "
+                           "step's return, a step (host clock; the first step's allocations "
+                           "included); loader_wait_share: seconds blocked on the loader / the "
+                           "epoch's loop seconds (the workers' start included); compose: the "
+                           "card's composition of a batch, host clock"}
+            emit(rep)
+            own = log["terms"] or {}
+            if bad_steps or n_steps != TT_TRAIN // TT_ARGS["batch"]:
+                raise AssertionError(f"task_train {task}: step launches {bad_steps}, "
+                                     f"{n_steps} steps, expected {expected}")
+            if any(v != per_val for v in rep["val_launches"]):
+                raise AssertionError(f"task_train {task}: val launches {rep['val_launches']}, "
+                                     f"expected {per_val}")
+            if batch_check["bytes_differing"] or not batch_check["labels_equal"]:
+                raise AssertionError(f"task_train {task}: the first batch differs from the "
+                                     f"CPU's: {batch_check}")
+            if not f32["max_rel"] <= TT_F32_REL:
+                raise AssertionError(f"task_train {task}: the float32 step on the card is "
+                                     f"{f32['max_rel']} from the CPU's plain path")
+            if set(own) != set(TT_OWN[task]) or not all(math.isfinite(v) and v != 0
+                                                       for v in own.values()):
+                raise AssertionError(f"task_train {task}: first-step task terms {own}")
+            if not all(math.isfinite(v) for m in log["loss"] for v in m.values()):
+                raise AssertionError(f"task_train {task}: a non-finite loss {log['loss']}")
+            if rep["validator"] != want_val[task] or rep["val_seen"] != TASK_N \
+                    or "fitness" not in metrics:
+                raise AssertionError(f"task_train {task}: validation {rep['validator']}, "
+                                     f"{rep['val_seen']} images, {metrics}")
+            del y, tr
             torch.cuda.empty_cache()
         return out
     finally:
@@ -5814,7 +6079,15 @@ def main() -> int:
     ms = timed("multiscale", phase_multiscale, cw, epi, ffn, steps, card)
     serve = timed("serve", phase_serve, cw, epi, ffn, card)
     facade = timed("facade", phase_facade, cw, epi, ffn, v1, card)
-    tasks = timed("tasks", phase_tasks, cw, card)
+    import shutil
+    import tempfile
+
+    task_root = tempfile.mkdtemp(prefix="chip_smoke_tasks_")
+    try:
+        tasks = timed("tasks", phase_tasks, cw, card, task_root)
+        task_train = timed("task_train", phase_task_train, cw, epi, ffn, steps, card, task_root)
+    finally:
+        shutil.rmtree(task_root, ignore_errors=True)
     emit({"phase": "times", "what": "multiscale", "card": card, "cfg": "vil-det-192",
           "batch": B, "dtype": "bfloat16",
           "predict_forward_ms": {s: p["forward_ms"] for s, p in ms["predict"].items()},
@@ -5963,7 +6236,7 @@ def main() -> int:
         "chunkwise_fw": ("chunkwise_fw.cu", "chunkwise_v2.py:245",
                          launches + val_launches + loop["chunkwise_fw"] + ms["chunkwise_fw"]
                          + serve["launches"] + facade["launches"]["chunkwise_fw"]
-                         + tasks["launches"],
+                         + tasks["launches"] + task_train["chunkwise_fw"],
                          worst["bfloat16"]),
         "chunkwise_fw_train": ("chunkwise_fw.cu", "chunkwise_v2.py:238"),
         "chunkwise_bw": ("chunkwise_bw.cu", "chunkwise_v2.py:446"),
@@ -5986,7 +6259,7 @@ def main() -> int:
     launches_all = {**train_launches, **v1_launches, **exp_launches, **par_launches,
                     "mlstm_step": decode["launches"], "chunkwise_fw_ln": ln_launches}
     for name in KERNELS:
-        launches_all[name] += loop[name] + ms[name]
+        launches_all[name] += loop[name] + ms[name] + task_train[name]
     for name, n in facade["launches"].items():
         if name != "chunkwise_fw":
             launches_all[name] += n
@@ -6058,6 +6331,11 @@ def main() -> int:
                         f"{TASK_N} images each at batch {B}, the segment mask check's "
                         "forward and the OBB NMS timing's"}
         if name == "chunkwise_fw" or name in KERNELS:
+            row["task_train"] = {
+                "launches": task_train[name],
+                "note": "phase task_train: train() of the segment, pose, OBB and classify heads "
+                        "on vil-det-192's width, 3 steps of batch 8 each (training kernels), "
+                        "and two val passes over 16 images each (the inference kernel)"}
             row["launches_train_loop"] = loop[name]
             row["multiscale"] = {
                 "launches": ms[name], "max_abs_err": ms["worst"][f"{name}_bfloat16"][0],

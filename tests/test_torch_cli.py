@@ -74,13 +74,22 @@ def test_settings_match_jax(tmp_path, monkeypatch):
     assert port_utils.SettingsManager(tmp_path / "s.json")["sync"] is False
 
 
-def test_refusals_name_their_items():
+def test_refusals_name_their_items(tmp_path):
+    """Item 12's refusals; item 10's task training, once refused, runs from
+    the command line: ``segment train`` of the tiny segment model for an
+    epoch on a written polygon set."""
+    from test_instance_augment import _write_seg_dataset
+
     with pytest.raises(NotImplementedError, match="item 12"):
         entrypoint(["solutions"])
     with pytest.raises(NotImplementedError, match="item 12"):
         YOLO("vil-det-tiny.yaml", device="cpu").track("x")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        YOLO("vil-det-tiny-seg.yaml", task="segment", device="cpu").train(data="set.yaml")
+    data = _write_seg_dataset(tmp_path / "seg", n=4)
+    metrics = entrypoint(["segment", "train", "model=vil-det-tiny-seg.yaml", f"data={data}",
+                          "device=cpu", "imgsz=64", "batch=2", "nbs=2", "epochs=1", "workers=0",
+                          "amp=False", "plots=False", f"project={tmp_path}", "name=cli"])
+    assert "metrics/mAP50(M)" in metrics
+    assert (tmp_path / "cli" / "weights" / "last.pt").is_file()
     with pytest.raises(NotImplementedError, match="not ported"):
         YOLO("vil-det-tiny.yaml", task="caption", device="cpu")
     for argv in (["model=vil-det-tiny.yaml"], ["detect", "predicts"]):

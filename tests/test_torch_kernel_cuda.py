@@ -16,7 +16,9 @@ validation path: device and CPU letterboxed val pixels byte-equal,
 ``vil-det-tiny``'s self-labelled val on the card, and a ``.pt`` checkpoint
 of ``vil-det-192`` loaded back; the v2 kernels at the lengths of other
 input sizes (S 9216, and 144 with a ragged chunk) and ``utils/resize.py``
-on the card against its CPU result.  This
+on the card against its CPU result; and the task train batches: a classify
+batch and a segment mosaic batch composed on the card byte-equal to the
+CPU's.  This
 file imports neither JAX nor the JAX package, so it
 runs on the GPU machine:
 
@@ -1627,3 +1629,88 @@ def test_engine_capture_failure_raises_on_gpu():
     batches = [np.ones((1, 8, 8, 3), np.uint8) for _ in range(2)]
     with pytest.raises(RuntimeError):
         list(ThroughputEngine(host_read, scan=2)(batches))
+
+
+def write_task_train_set(root, seed, classify: bool = False):
+    """PNG images of mixed shapes (gradients plus noise): classify, three
+    class folders under root/train; else images/train with two random
+    polygon rows an image (a 448 x 448 image gives the classify crop's exact
+    2x downscale)."""
+    import yaml
+
+    from xlstm_yolo_tpu_torch.data.imread import imwrite_png
+
+    rng = np.random.default_rng(seed)
+    shapes = [(448, 448), (300, 200), (160, 240), (97, 211), (640, 480), (224, 224)]
+    paths = []
+    for j, (h, w) in enumerate(shapes * 2):
+        d = root / "train" / f"c{j % 3}" if classify else root / "images" / "train"
+        d.mkdir(parents=True, exist_ok=True)
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) % 256], -1)
+        im = (base + rng.integers(-40, 40, (h, w, 3))).clip(0, 255).astype(np.uint8)
+        imwrite_png(d / f"im{j:02d}.png", im, level=1)
+        paths.append(d / f"im{j:02d}.png")
+    if classify:
+        return root / "train"
+    (root / "labels" / "train").mkdir(parents=True)
+    for p in paths:
+        rows = []
+        for _ in range(2):
+            c = rng.uniform(0.25, 0.75, 2)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+            pts = c + 0.2 * rng.uniform(0.3, 1.0, (7, 1)) * np.stack([np.cos(ang), np.sin(ang)], 1)
+            rows.append("0 " + " ".join(f"{v:.5f}" for v in pts.clip(0, 1).ravel()))
+        (root / "labels" / "train" / f"{p.stem}.txt").write_text("\n".join(rows))
+    data = root / "data.yaml"
+    data.write_text(yaml.safe_dump({"path": str(root), "train": "images/train",
+                                    "val": "images/train", "names": ["blob"]}))
+    return data
+
+
+@pytest.mark.cuda
+def test_classify_train_batch_on_gpu_equals_cpu(tmp_path):
+    """ClassificationDataset's train recipes (crop with the 2x case, flips,
+    HSV, erasing) composed on the card give the CPU's bytes (which equal
+    JAX's OpenCV ClassifyAugment: tests/test_torch_task_train_augment.py)."""
+    needs_cuda()
+    import random
+    from types import SimpleNamespace
+
+    from xlstm_yolo_tpu_torch.data.dataset import ClassificationDataset
+
+    hyp = SimpleNamespace(scale=0.5, fliplr=0.5, flipud=0.3, hsv_h=0.015, hsv_s=0.7,
+                          hsv_v=0.4, erasing=0.6)
+    ds = ClassificationDataset(str(write_task_train_set(tmp_path, 5, classify=True)),
+                               imgsz=224, augment=True, hyp=hyp)
+    rng = random.Random(3)
+    batch = ds.collate([ds.get_sample(i, rng) for i in range(len(ds))])
+    on_gpu = ds.images(batch, "cuda")
+    assert on_gpu.is_cuda and on_gpu.shape == (len(ds), 224, 224, 3)
+    assert torch.equal(on_gpu.cpu(), ds.images(batch, "cpu"))
+    assert any(rc["erase"] is not None for rc in batch["recipe"])
+
+
+@pytest.mark.cuda
+def test_segment_mosaic_train_batch_on_gpu_equals_cpu(tmp_path):
+    """A segment dataset's mosaic batch (rotation, shear, copy-paste, mixup,
+    flips) composed on the card gives the CPU's bytes; its masks are made
+    on the host from the transformed polygons."""
+    needs_cuda()
+    import random
+    from types import SimpleNamespace
+
+    from xlstm_yolo_tpu_torch.data.build import build_yolo_dataset
+    from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
+
+    data = check_det_dataset(str(write_task_train_set(tmp_path, 6)))
+    hyp = SimpleNamespace(imgsz=320, mosaic=1.0, mixup=0.5, degrees=10.0, shear=3.0,
+                          copy_paste=0.5, flipud=0.3, max_targets=32)
+    ds = build_yolo_dataset(hyp, data["train"], mode="train", task="segment")
+    rng = random.Random(4)
+    batch = ds.collate([ds.get_sample(i, rng) for i in range(8)])
+    on_gpu = ds.images(batch, "cuda")
+    assert on_gpu.is_cuda and on_gpu.shape == (8, 320, 320, 3)
+    assert torch.equal(on_gpu.cpu(), ds.images(batch, "cpu"))
+    assert batch["masks"].shape == (8, 32, 80, 80) and batch["masks"].any()
+    assert all(len(rc["canvas"]["tiles"]) > 1 for rc in batch["recipe"])

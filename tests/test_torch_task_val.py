@@ -319,10 +319,29 @@ def test_facade_predicts_and_validates_every_task(sets, task):
 
 
 @pytest.mark.parametrize("task", ["segment", "pose", "obb", "classify"])
-def test_facade_trains_detect_only(task):
+def test_facade_trains_detect_only(sets, tmp_path, task):
+    """Once a refusal of every task but detect, now ``YOLO(..., task=t).train``
+    of each task: one epoch of the tiny task model on the CPU (classify on a
+    train/ and val/ copy of its folder set), its own validator on the EMA,
+    results.csv, the checkpoints, finite losses and the task's own terms."""
+    from shutil import copytree
+
     y = YOLO(PRED[task][0], task=task, device="cpu", compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 10 \\(training\\)"):
-        y.train(data="unused.yaml")
+    data = {"segment": sets.seg2, "pose": sets.pose, "obb": sets.obb}.get(task)
+    if task == "classify":
+        data = tmp_path / "cls"
+        copytree(sets.cls / "val", data / "val")
+        copytree(sets.cls / "val", data / "train")
+    m = y.train(data=str(data), imgsz=64 if task == "classify" else 160, batch=2, nbs=2,
+                epochs=1, workers=0, amp=False, plots=False, project=str(tmp_path), name=task)
+    t = y.trainer
+    want = {"segment": "SegmentationValidator", "pose": "PoseValidator", "obb": "OBBValidator",
+            "classify": "ClassificationValidator"}[task]
+    assert type(t.validator).__name__ == want and "fitness" in m
+    assert len((t.save_dir / "results.csv").read_text().splitlines()) == 2
+    assert (t.wdir / "last_stripped.pt").is_file() and (t.wdir / "best_stripped.pt").is_file()
+    assert all(np.isfinite(float(v)) for mt in t.losses for v in mt.values())
+    assert t.train_step.terms and all(float(v) > 0 for v in t.train_step.terms.values())
 
 
 # 3. export ------------------------------------------------------------------------------------

@@ -354,11 +354,19 @@ def test_droppath_masks_repeat_under_checkpoint():
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """end2end=False and device_aug stay refused; the task and kpt_shape
+    arguments build a step (tests/test_torch_task_train_step*.py run them
+    against JAX), an unknown task raises."""
     model = torch.nn.Linear(2, 2)
     tx = opt.chain()
-    for kw in (dict(end2end=False), dict(task="segment"), dict(kpt_shape=(17, 3)),
-               dict(device_aug={"fliplr": 0.5})):
+    for kw in (dict(end2end=False), dict(device_aug={"fliplr": 0.5})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             steps.make_train_step(model, tx, **kw)
+    for kw in (dict(task="segment"), dict(task="pose", kpt_shape=(17, 3)),
+               dict(kpt_shape=(17, 3))):
+        step = steps.make_train_step(model, tx, **kw)
+        assert callable(step) and step.terms == {}
+    with pytest.raises(ValueError, match="unknown task"):
+        steps.make_train_step(model, tx, task="caption")
     with pytest.raises(ValueError, match="unknown optimizer"):
         opt.build_optimizer([("kernel", 2)], name="Lion")

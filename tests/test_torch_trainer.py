@@ -233,6 +233,21 @@ def test_tiny_resume_ends_bit_equal(tiny_run):
     (dict(task="segment"), "item 10"), (dict(pretrained="weights_dir"), "item 7"),
     ("device_aug", "item 12")])
 def test_trainer_refusals_name_their_items(tiny_run, tmp_path, kw, item):
+    """device_aug and an orbax ``pretrained`` stay refused.  Item 10's case,
+    once a refusal, trains: the segment task on the tiny set's box rows
+    (each box's corners its polygon, as in JAX) for an epoch, validated by
+    the segment validator."""
+    if item == "item 10":
+        t = DetectionTrainer(overrides={"data": str(tiny_run["data"]), "project": str(tmp_path),
+                                        "name": "seg", **TINY, **kw, "epochs": 1},
+                             model_cfg="vil-det-tiny-seg.yaml", device="cpu")
+        metrics = t.train()
+        assert type(t.eval_model.model[-1]).__name__ == "Segment"
+        assert "metrics/mAP50(M)" in metrics and t.state.step == 2
+        assert np.isfinite([m["loss"].item() for m in t.losses]).all()
+        assert t.train_step.terms["seg"].item() > 0
+        assert (t.wdir / "best_stripped.pt").is_file()
+        return
     if kw == "device_aug":
         t = trainer(tiny_run["data"], tmp_path, "r")
         t.args = SimpleNamespace(**{**vars(t.args), "device_aug": True})

@@ -24,10 +24,18 @@ the pixels equal OpenCV's exactly:
 
 The train transforms (``Mosaic`` 4 and 9, ``RandomPerspective``,
 ``RandomHSV``, ``RandomFlip``, ``CopyPaste``, mixup and
-``TrainTransforms``) are JAX's, on the host in numpy, for the detect
-task's labels (``cls`` and xyxy pixel ``bboxes``; no segments or
-keypoints).  They draw from the sample's ``random.Random`` exactly as
-JAX's do, draw for draw, and move the labels with JAX's arithmetic; where
+``TrainTransforms``) are JAX's, on the host in numpy, for every task's
+labels: ``cls``, xyxy pixel ``bboxes``, the (n, SEGMENT_RESAMPLE, 2)
+pixel ``segments`` of segment and OBB datasets ((n, 0, 2) otherwise) and
+the (n, K, 3) pixel ``keypoints`` of pose datasets (None otherwise).  The
+warp moves the polygons point by point and takes the boxes from them
+(``segments_to_boxes``; its candidate filter then keeps 1% of the area,
+not 10%), and moves the keypoints, those off the canvas made invisible
+(as ``clip_labels`` does); the flips mirror them, a horizontal flip
+swapping the keypoints by ``flip_idx``; copy-paste mirrors the polygon and
+pastes nothing for keypoint datasets.  They draw from the sample's
+``random.Random`` exactly as JAX's do, draw for draw, and move the labels
+with JAX's arithmetic; where
 JAX calls OpenCV on pixels they record what to do instead: a per-sample
 *recipe* that ``pixels.compose_batch`` carries out on the device, with
 the decoded images (*tiles*) it refers to.  A recipe is a dict:
@@ -40,6 +48,12 @@ the decoded images (*tiles*) it refers to.  A recipe is a dict:
 - ``mixup``: None or ``{"canvas", "warp", "r"}``;
 - ``paste``: copy-paste rectangles ``(y1, y2, x1, x2, nx1, nx2)``;
 - ``hsv``: None or the (3, 256) uint8 LUTs; ``flipud``, ``fliplr``.
+
+``ClassifyAugment`` (classify's train transform: a random resized crop
+drawn as torchvision's, with Python's ``round``, the flips, HSV and random
+erasing with value 0) is a recipe too: ``{"crop": (top, left, h, w),
+"size", "fliplr", "flipud", "hsv", "erase": (top, left, h, w) or None}``
+(``pixels.compose_classify``).
 
 Mixup's ratio is JAX's ``np.random.beta(32, 32)`` from numpy's global
 state, which nothing can hold against JAX; :func:`mixup_ratio` draws it
@@ -122,9 +136,7 @@ def resample_segments(segments, n: int = SEGMENT_RESAMPLE) -> np.ndarray:
 
 
 def scale_labels(labels: dict, r: float) -> dict:
-    out = {**labels, "bboxes": labels["bboxes"] * r}
-    if "segments" in labels:
-        out["segments"] = labels["segments"] * r
+    out = {**labels, "bboxes": labels["bboxes"] * r, "segments": labels["segments"] * r}
     if labels.get("keypoints") is not None:
         k = labels["keypoints"].copy()
         k[..., :2] *= r
@@ -137,12 +149,11 @@ def offset_labels(labels: dict, dx: int, dy: int) -> dict:
     b[:, [0, 2]] += dx
     b[:, [1, 3]] += dy
     out = {**labels, "bboxes": b}
-    if "segments" in labels:
-        s = labels["segments"].copy()
-        if s.size:
-            s[..., 0] += dx
-            s[..., 1] += dy
-        out["segments"] = s
+    s = labels["segments"].copy()
+    if s.size:
+        s[..., 0] += dx
+        s[..., 1] += dy
+    out["segments"] = s
     if labels.get("keypoints") is not None:
         k = labels["keypoints"].copy()
         k[..., 0] += dx
@@ -208,19 +219,49 @@ class LetterBox:
 
 
 def _index_labels(labels: dict, keep) -> dict:
-    return {**labels, "cls": labels["cls"][keep], "bboxes": labels["bboxes"][keep]}
+    k = labels.get("keypoints")
+    return {**labels, "cls": labels["cls"][keep], "bboxes": labels["bboxes"][keep],
+            "segments": labels["segments"][keep], "keypoints": None if k is None else k[keep]}
 
 
 def _cat_labels(parts: list[dict]) -> dict:
-    return {"cls": np.concatenate([p["cls"] for p in parts], 0),
-            "bboxes": np.concatenate([p["bboxes"] for p in parts], 0)}
+    out = {k: np.concatenate([p[k] for p in parts], 0) for k in ("cls", "bboxes", "segments")}
+    out["keypoints"] = (np.concatenate([p["keypoints"] for p in parts], 0)
+                        if parts[0].get("keypoints") is not None else None)
+    return out
+
+
+def _invisible_outside(k: np.ndarray, w: float, h: float) -> np.ndarray:
+    """Keypoints (..., 3) with the visibility of those outside [0, w] x [0, h]
+    set to 0 (their coordinates kept)."""
+    outside = (k[..., 0] < 0) | (k[..., 0] > w) | (k[..., 1] < 0) | (k[..., 1] > h)
+    k[..., 2] = np.where(outside, 0.0, k[..., 2])
+    return k
 
 
 def clip_labels(labels: dict, w: float, h: float) -> dict:
+    """Boxes and segments clipped to the canvas; keypoints outside it made
+    invisible."""
     b = labels["bboxes"].copy()
     b[:, [0, 2]] = b[:, [0, 2]].clip(0, w)
     b[:, [1, 3]] = b[:, [1, 3]].clip(0, h)
-    return {**labels, "bboxes": b}
+    s = labels["segments"].copy()
+    if s.size:
+        s[..., 0] = s[..., 0].clip(0, w)
+        s[..., 1] = s[..., 1].clip(0, h)
+    k = labels.get("keypoints")
+    return {**labels, "bboxes": b, "segments": s,
+            "keypoints": None if k is None else _invisible_outside(k.copy(), w, h)}
+
+
+def segments_to_boxes(segments: np.ndarray, w: float, h: float) -> np.ndarray:
+    """(N, P, 2) pixel polygons -> (N, 4) xyxy boxes of their points clipped
+    to the canvas."""
+    if not len(segments):
+        return np.zeros((0, 4), np.float32)
+    x = segments[..., 0].clip(0, w)
+    y = segments[..., 1].clip(0, h)
+    return np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1).astype(np.float32)
 
 
 def _box_candidates(box1, box2, wh_thr=2, ar_thr=100, area_thr=0.1, eps=1e-16):
@@ -314,14 +355,27 @@ class RandomPerspective:
         n = len(bboxes)
         if not n:
             return warp, (h, w), labels
-        xy = self._apply_points(bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n, 4, 2), M)
-        xy = xy.reshape(n, 8)
-        x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
-        new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
-        new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
-        new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
-        keep = _box_candidates(bboxes.T * s, new.T, area_thr=0.1)
-        return warp, (h, w), {**labels, "bboxes": new[keep], "cls": labels["cls"][keep]}
+        segments = labels["segments"]
+        use_segments = segments.size > 0
+        if use_segments:  # the boxes follow the warped polygons
+            segments = self._apply_points(segments, M)
+            new = segments_to_boxes(segments, w, h)
+        else:
+            xy = self._apply_points(bboxes[:, [0, 1, 2, 3, 0, 3, 2, 1]].reshape(n, 4, 2), M)
+            xy = xy.reshape(n, 8)
+            x, y = xy[:, [0, 2, 4, 6]], xy[:, [1, 3, 5, 7]]
+            new = np.stack([x.min(1), y.min(1), x.max(1), y.max(1)], axis=1)
+            new[:, [0, 2]] = new[:, [0, 2]].clip(0, w)
+            new[:, [1, 3]] = new[:, [1, 3]].clip(0, h)
+        k = labels.get("keypoints")
+        if k is not None:
+            k = k.copy()
+            k[..., :2] = self._apply_points(labels["keypoints"][..., :2], M)
+            k = _invisible_outside(k, w, h)
+        keep = _box_candidates(bboxes.T * s, new.T, area_thr=0.01 if use_segments else 0.1)
+        return warp, (h, w), {**labels, "bboxes": new[keep], "cls": labels["cls"][keep],
+                              "segments": segments[keep] if use_segments else segments,
+                              "keypoints": None if k is None else k[keep]}
 
 
 class Mosaic:
@@ -405,8 +459,9 @@ class Mosaic:
 
 class CopyPaste:
     """Instance copy-paste: each box's pixel rectangle, mirrored, at the
-    mirrored x position, unless it would cover a box by more than
-    ``iou_thres`` of that box's area."""
+    mirrored x position (its polygon mirrored about the canvas's centre
+    line), unless it would cover a box by more than ``iou_thres`` of that
+    box's area.  Keypoint datasets paste nothing."""
 
     def __init__(self, p: float = 0.5, iou_thres: float = 0.3):
         self.p, self.iou_thres = p, iou_thres
@@ -415,7 +470,7 @@ class CopyPaste:
         """-> (paste rectangles (y1, y2, x1, x2, nx1, nx2), labels)."""
         bboxes = labels["bboxes"]
         n = len(bboxes)
-        if not n or self.p <= 0:
+        if not n or self.p <= 0 or labels.get("keypoints") is not None:
             return [], labels
         W = shape[1]
         pastes, new_parts = [], []
@@ -440,7 +495,11 @@ class CopyPaste:
             if (inter / area).max() > self.iou_thres:
                 continue
             pastes.append(tuple(int(v) for v in (y1, y2, x1, x2, nx1, nx2)))
-            new_parts.append({"cls": labels["cls"][j:j + 1], "bboxes": cand[None]})
+            seg = labels["segments"][j:j + 1].copy()
+            if seg.size:  # the polygon mirrored with its rectangle
+                seg[..., 0] = W - seg[..., 0]
+            new_parts.append({"cls": labels["cls"][j:j + 1], "bboxes": cand[None],
+                              "segments": seg, "keypoints": None})
         if new_parts:
             labels = _cat_labels([labels] + new_parts)
         return pastes, labels
@@ -448,10 +507,13 @@ class CopyPaste:
 
 @dataclass
 class RandomFlip:
-    """Flip of the boxes; the recipe's flag flips the pixels."""
+    """Flip of the boxes, segments and keypoints (a horizontal flip swaps
+    the keypoints by ``flip_idx`` when it has one entry a keypoint); the
+    recipe's flag flips the pixels."""
 
     p: float = 0.5
     direction: str = "horizontal"
+    flip_idx: Any = None
 
     def __call__(self, shape: tuple[int, int], labels: dict, rng: random.Random):
         """-> (flipped, labels)."""
@@ -459,16 +521,29 @@ class RandomFlip:
         if rng.random() >= self.p:
             return False, labels
         b = labels["bboxes"].copy()
+        s = labels["segments"].copy()
+        k = labels["keypoints"].copy() if labels.get("keypoints") is not None else None
         if self.direction == "horizontal":
             if len(b):
                 x1 = b[:, 0].copy()
                 b[:, 0] = w - b[:, 2]
                 b[:, 2] = w - x1
-        elif len(b):
-            y1 = b[:, 1].copy()
-            b[:, 1] = h - b[:, 3]
-            b[:, 3] = h - y1
-        return True, {**labels, "bboxes": b}
+            if s.size:
+                s[..., 0] = w - s[..., 0]
+            if k is not None:
+                k[..., 0] = w - k[..., 0]
+                if self.flip_idx is not None and len(self.flip_idx) == k.shape[1]:
+                    k = np.ascontiguousarray(k[:, np.asarray(self.flip_idx, int), :])
+        else:
+            if len(b):
+                y1 = b[:, 1].copy()
+                b[:, 1] = h - b[:, 3]
+                b[:, 3] = h - y1
+            if s.size:
+                s[..., 1] = h - s[..., 1]
+            if k is not None:
+                k[..., 1] = h - k[..., 1]
+        return True, {**labels, "bboxes": b, "segments": s, "keypoints": k}
 
 
 @dataclass
@@ -511,6 +586,7 @@ class TrainTransforms:
     copy_paste: float = 0.0
     mosaic9: bool = False
     mosaic_enabled: bool = True
+    flip_idx: Any = None
 
     def __post_init__(self):
         if self.imgsz % 2:
@@ -534,7 +610,8 @@ class TrainTransforms:
         return canvas, warp, shape, labels
 
     def __call__(self, index: int, rng: random.Random):
-        """-> (recipe, tiles, labels {cls int64, bboxes float32 xyxy px})."""
+        """-> (recipe, tiles, labels {cls int64, bboxes float32 xyxy px,
+        segments (n, P, 2) px, keypoints (n, K, 3) px or None})."""
         tiles: list[np.ndarray] = []
         mix = None
         use_mosaic = self.mosaic_enabled and rng.random() < self.mosaic
@@ -559,11 +636,79 @@ class TrainTransforms:
             paste, labels = self._copy_paste(shape, labels, rng)
         hsv = self._hsv(rng)
         flipud, labels = RandomFlip(self.flipud, "vertical")(shape, labels, rng)
-        fliplr, labels = RandomFlip(self.fliplr, "horizontal")(shape, labels, rng)
+        fliplr, labels = RandomFlip(self.fliplr, "horizontal", self.flip_idx)(shape, labels, rng)
         if shape != (self.imgsz, self.imgsz):
             raise AssertionError(f"train image of shape {shape}, expected imgsz {self.imgsz}")
         recipe = {"canvas": canvas, "warp": warp, "mixup": mix, "paste": paste, "hsv": hsv,
                   "flipud": flipud, "fliplr": fliplr}
-        labels = {"cls": labels["cls"].astype(np.int64),
+        labels = {**labels, "cls": labels["cls"].astype(np.int64),
                   "bboxes": labels["bboxes"].astype(np.float32)}
         return recipe, tiles, labels
+
+
+@dataclass
+class ClassifyAugment:
+    """Classification train transform of one decoded image, drawn as JAX's
+    ``ClassifyAugment`` draws it: the crop of torchvision's
+    ``RandomResizedCrop`` (10 tries of an area fraction in ``scale`` and a
+    log-uniform aspect ratio in ``ratio``, sides by ``round``; then the
+    centre crop clamped to the ratio range) resized to ``size``, the flips,
+    the HSV gains and torchvision's ``RandomErasing(value=0)`` rectangle
+    (10 tries of an area fraction in [0.02, 0.33] and a log-uniform ratio
+    in [0.3, 3.3], strictly inside the image)."""
+
+    size: int = 224
+    scale: tuple = (0.08, 1.0)
+    ratio: tuple = (3.0 / 4.0, 4.0 / 3.0)
+    hflip: float = 0.5
+    vflip: float = 0.0
+    hsv_h: float = 0.015
+    hsv_s: float = 0.4
+    hsv_v: float = 0.4
+    erasing: float = 0.0
+
+    def __post_init__(self):
+        self._hsv = RandomHSV(self.hsv_h, self.hsv_s, self.hsv_v)
+
+    def _crop(self, h: int, w: int, rng: random.Random) -> tuple:
+        area = h * w
+        log_r = (math.log(self.ratio[0]), math.log(self.ratio[1]))
+        for _ in range(10):
+            target = area * rng.uniform(*self.scale)
+            ar = math.exp(rng.uniform(*log_r))
+            cw = round(math.sqrt(target * ar))
+            ch = round(math.sqrt(target / ar))
+            if 0 < cw <= w and 0 < ch <= h:
+                top = rng.randint(0, h - ch)
+                left = rng.randint(0, w - cw)
+                return top, left, ch, cw
+        in_ratio = w / h
+        if in_ratio < self.ratio[0]:
+            cw, ch = w, round(w / self.ratio[0])
+        elif in_ratio > self.ratio[1]:
+            cw, ch = round(h * self.ratio[1]), h
+        else:
+            cw, ch = w, h
+        return (h - ch) // 2, (w - cw) // 2, ch, cw
+
+    def _erase(self, rng: random.Random):
+        h = w = self.size
+        area = h * w
+        for _ in range(10):
+            target = area * rng.uniform(0.02, 0.33)
+            ar = math.exp(rng.uniform(math.log(0.3), math.log(3.3)))
+            ew = round(math.sqrt(target * ar))
+            eh = round(math.sqrt(target / ar))
+            if 0 < ew < w and 0 < eh < h:
+                return rng.randint(0, h - eh), rng.randint(0, w - ew), eh, ew
+        return None
+
+    def __call__(self, shape: tuple[int, int], rng: random.Random) -> dict:
+        """The recipe of an image of ``shape`` (h, w)."""
+        crop = self._crop(*shape, rng)
+        fliplr = self.hflip > 0.0 and rng.random() < self.hflip
+        flipud = self.vflip > 0.0 and rng.random() < self.vflip
+        hsv = self._hsv(rng)
+        erase = self._erase(rng) if self.erasing > 0.0 and rng.random() < self.erasing else None
+        return {"crop": crop, "size": self.size, "fliplr": fliplr, "flipud": flipud,
+                "hsv": hsv, "erase": erase}

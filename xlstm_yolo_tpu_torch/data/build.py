@@ -15,7 +15,9 @@ and batch ``bi`` draws all its samples, in order, from its own
 depend on which worker made it.  A batch is one item of the torch loader:
 the sampler yields ``(epoch, bi, indices, mosaic_enabled)``, so the
 trainer's ``close_mosaic`` switch reaches the persistent workers with the
-next epoch's batches.  Sharding over processes is not ported.
+next epoch's batches.  A batch holds what the task's samples carry (segment's
+masks, pose's keypoints, OBB's rotated boxes, classify's crops), pickled
+through the workers' queue.  Sharding over processes is not ported.
 """
 
 from __future__ import annotations
@@ -29,16 +31,17 @@ from xlstm_yolo_tpu_torch.data.dataset import YOLODataset
 
 
 def build_yolo_dataset(cfg, img_path: str, mode: str = "val", task: str = "detect",
-                       kpt_shape=None) -> YOLODataset:
+                       kpt_shape=None, flip_idx=None) -> YOLODataset:
     """The dataset of ``img_path``.  ``cfg`` is a dict with the val keys
     ``imgsz``, ``max_targets`` and ``single_cls`` (val), or the train config
     (a namespace; train: its augmentation keys, ``cache`` and ``fraction``
     too); ``task`` and ``kpt_shape`` (the dataset YAML's) select its label
-    rows."""
+    rows, ``flip_idx`` (the YAML's) swaps the keypoints of a left-right
+    flip."""
     get = cfg.get if isinstance(cfg, dict) else lambda k, d=None: getattr(cfg, k, d)
     train = mode == "train"
     return YOLODataset(img_path=img_path, imgsz=int(get("imgsz")), augment=train, task=task,
-                       kpt_shape=kpt_shape,
+                       kpt_shape=kpt_shape, flip_idx=flip_idx,
                        hyp=cfg if train else None,
                        max_targets=int(get("max_targets") or 128),
                        single_cls=bool(get("single_cls", False)),

@@ -21,8 +21,11 @@ In train mode (``augment=True`` with ``hyp``, the train config) a sample
 goes through ``augment.TrainTransforms`` with the ``random.Random`` the
 loader gives its batch: mosaic tiles are loaded with their long side
 resized to ``imgsz`` by ``round`` (``load_for_mosaic``, not val's ceil),
-and the labels move on the host.  ``fraction`` keeps the first
-``max(1, int(n * fraction))`` files; ``cache`` is False, True or ``"ram"``
+and the labels move on the host, the segments and keypoints with the
+boxes.  A pose dataset without a ``flip_idx`` (the dataset YAML's) does
+not flip left-right, as in JAX: the flip would swap the sides'
+keypoints.  ``fraction`` keeps the first ``max(1, int(n * fraction))``
+files; ``cache`` is False, True or ``"ram"``
 (decoded images kept in memory, in each worker process) or ``"disk"``
 (``.npy`` beside each image, memory-mapped).
 
@@ -44,8 +47,10 @@ each polygon row's points.  A val sample of these tasks also carries
 points and letterboxed, filled as OpenCV's ``fillPoly``: ``utils.cv``),
 the keypoints in letterboxed pixels (``kpts``) or the rotated boxes
 (``rboxes``, xywhr from OpenCV's ``minAreaRect`` of the polygon; a box
-row's polygon is its corners).  Only the detect task trains.
-:class:`ClassificationDataset` is JAX's folder dataset in val mode.
+row's polygon is its corners), made the same way from the transformed
+polygons and keypoints in train mode.  :class:`ClassificationDataset` is
+JAX's folder dataset, in val mode and in train mode (``augment.
+ClassifyAugment``'s recipes).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import yaml
 
 from xlstm_yolo_tpu_torch.data.augment import (
     SEGMENT_RESAMPLE,
+    ClassifyAugment,
     LetterBox,
     TrainTransforms,
     resample_segments,
@@ -112,10 +118,7 @@ class YOLODataset(torch.utils.data.Dataset):
 
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, hyp=None,
                  max_targets: int = 128, single_cls: bool = False, cache=False,
-                 fraction: float = 1.0, task: str = "detect", kpt_shape=None):
-        if augment and task != "detect":
-            raise NotImplementedError(f"the {task} task's train transforms are not ported "
-                                      "(ROADMAP Queue 1 item 10: training)")
+                 fraction: float = 1.0, task: str = "detect", kpt_shape=None, flip_idx=None):
         self.imgsz = imgsz
         self.max_targets = max_targets
         self.single_cls = single_cls
@@ -123,19 +126,22 @@ class YOLODataset(torch.utils.data.Dataset):
         self.use_keypoints = task == "pose"
         self.kpt_shape = (tuple(kpt_shape) if kpt_shape
                           else (17, 3) if self.use_keypoints else None)
+        self.flip_idx = list(flip_idx) if flip_idx else None
         self.im_files = self._scan_images(img_path, fraction)
         self.labels = self._load_labels()
         self.cache_mode = {True: "ram", False: None}.get(cache, cache) or None
         self._ims = [None] * len(self.im_files) if self.cache_mode == "ram" else None
         self.transforms = None
         if augment and hyp is not None:
+            fliplr = getattr(hyp, "fliplr", 0.5)
+            if self.use_keypoints and not self.flip_idx and fliplr > 0:
+                fliplr = 0.0
             self.transforms = TrainTransforms(
-                dataset=self, imgsz=imgsz,
+                dataset=self, imgsz=imgsz, fliplr=fliplr, flip_idx=self.flip_idx,
                 **{k: getattr(hyp, k, v) for k, v in (
                     ("mosaic", 1.0), ("mixup", 0.0), ("degrees", 0.0), ("translate", 0.1),
                     ("scale", 0.5), ("shear", 0.0), ("perspective", 0.0), ("hsv_h", 0.015),
-                    ("hsv_s", 0.7), ("hsv_v", 0.4), ("fliplr", 0.5), ("flipud", 0.0),
-                    ("copy_paste", 0.0))})
+                    ("hsv_s", 0.7), ("hsv_v", 0.4), ("flipud", 0.0), ("copy_paste", 0.0))})
         self.letterbox = LetterBox((imgsz, imgsz), auto=False, scaleup=True)
 
     @staticmethod
@@ -232,7 +238,8 @@ class YOLODataset(torch.utils.data.Dataset):
     def _px_labels(self, i: int, w: int, h: int) -> dict:
         """Image i's labels as xyxy pixels of the image scaled to (w, h); for
         segment and OBB its polygons (a box row's: its corners) resampled,
-        (n, SEGMENT_RESAMPLE, 2) pixels; for pose its keypoints (n, K, 3)."""
+        (n, SEGMENT_RESAMPLE, 2) pixels (other tasks: (n, 0, 2)); for pose
+        its keypoints (n, K, 3) (other tasks: None)."""
         lab = self.labels[i]
         b = lab["bboxes_n"]
         if len(b):
@@ -241,7 +248,8 @@ class YOLODataset(torch.utils.data.Dataset):
             boxes = np.concatenate([xy - wh / 2, xy + wh / 2], 1).astype(np.float32)
         else:
             boxes = np.zeros((0, 4), np.float32)
-        out = {"cls": lab["cls"].copy(), "bboxes": boxes}
+        out = {"cls": lab["cls"].copy(), "bboxes": boxes,
+               "segments": np.zeros((len(b), 0, 2), np.float32), "keypoints": None}
         if self.task in ("segment", "obb"):
             polys = []
             for j, seg in enumerate(lab["segments"]):
@@ -281,9 +289,10 @@ class YOLODataset(torch.utils.data.Dataset):
         if self.transforms is not None:
             recipe, tiles, labels = self.transforms(i, rng)
             cls_p, box_p, mask = self._padded(labels["cls"], labels["bboxes"])
-            return {"recipe": recipe, "tiles": tiles, "cls": cls_p, "bboxes": box_p,
-                    "mask": mask, "im_file": self.im_files[i],
-                    "orig_shape": (self.imgsz, self.imgsz), "ratio_pad": None}
+            sample = {"recipe": recipe, "tiles": tiles, "cls": cls_p, "bboxes": box_p,
+                      "mask": mask, "im_file": self.im_files[i],
+                      "orig_shape": (self.imgsz, self.imgsz), "ratio_pad": None}
+            return self._task_targets(sample, labels)
         im = self.load_image(i)
         h0, w0 = im.shape[:2]
         hr, wr = val_resized_shape((h0, w0), self.imgsz)
@@ -293,9 +302,16 @@ class YOLODataset(torch.utils.data.Dataset):
         sample = {"im0": im, "resized_shape": (hr, wr), "cls": cls_p, "bboxes": box_p,
                   "mask": mask, "im_file": self.im_files[i], "orig_shape": (h0, w0),
                   "ratio_pad": ((hr / h0, wr / w0), pad)}
-        M, n = self.max_targets, len(labels0["cls"])
+        return self._task_targets(sample, labels)
+
+    def _task_targets(self, sample: dict, labels: dict) -> dict:
+        """``sample`` with its task's padded targets from the final pixel
+        ``labels``: segment's masks at imgsz / 4 (each polygon's points / 4,
+        truncated to int32, filled), OBB's minAreaRect xywhr, pose's
+        keypoints."""
+        M, n = self.max_targets, len(labels["cls"])
         if self.task == "segment":
-            ms = self.imgsz // 4  # the prototypes' grid of the tiny models
+            ms = self.imgsz // 4  # the prototypes' grid
             masks = np.zeros((M, ms, ms), np.uint8)
             for j, seg in enumerate(labels["segments"][:min(n, M)]):
                 fill_poly(masks[j], (seg / 4.0).astype(np.int32), 1)
@@ -345,22 +361,34 @@ class YOLODataset(torch.utils.data.Dataset):
 
 
 class ClassificationDataset(torch.utils.data.Dataset):
-    """Folder dataset ``root/<class name>/*.<image>``, classes in sorted order,
-    val mode: the short side resized to ``int(imgsz / crop_fraction)``
+    """Folder dataset ``root/<class name>/*.<image>``, classes in sorted order.
+    Val mode: the short side resized to ``int(imgsz / crop_fraction)``
     (each side at least that, ``round``) with OpenCV's uint8 INTER_LINEAR,
-    then the centre ``imgsz`` x ``imgsz`` crop.  A sample is the decoded
-    image and its geometry; :meth:`images` makes the batch's pixels on the
-    device, as :class:`YOLODataset` does."""
+    then the centre ``imgsz`` x ``imgsz`` crop.  Train mode (``augment``):
+    ``augment.ClassifyAugment`` with the train config's keys as JAX maps
+    them (``scale`` -> the crop's area range (1 - scale, 1), ``fliplr``,
+    ``flipud``, ``hsv_h/s/v``, ``erasing``), drawn with the loader's
+    ``random.Random``; the worker cuts the crop.  A sample is the decoded
+    image (or crop) and its geometry; :meth:`images` makes the batch's
+    pixels on the device, as :class:`YOLODataset` does."""
+
+    transforms = None  # no mosaic for the train loader to switch
 
     def __init__(self, root: str, imgsz: int = 224, augment: bool = False, hyp=None,
                  fraction: float = 1.0):
-        if augment:
-            raise NotImplementedError("the classify train transforms are not ported "
-                                      "(ROADMAP Queue 1 item 10: training)")
         self.root = Path(root)
         self.imgsz = imgsz
         get = hyp.get if isinstance(hyp, dict) else lambda k, d=None: getattr(hyp, k, d)
         self.crop_fraction = float((get("crop_fraction", 1.0) if hyp is not None else 1.0) or 1.0)
+        self.transform = None
+        if augment:
+            def g(k, d):
+                return float(get(k, d) if hyp is not None else d)
+
+            self.transform = ClassifyAugment(
+                size=imgsz, scale=(1.0 - g("scale", 0.5), 1.0), hflip=g("fliplr", 0.5),
+                vflip=g("flipud", 0.0), hsv_h=g("hsv_h", 0.015), hsv_s=g("hsv_s", 0.4),
+                hsv_v=g("hsv_v", 0.4), erasing=g("erasing", 0.0))
         classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
         if not classes:
             raise FileNotFoundError(f"no class folders under {root}")
@@ -382,9 +410,17 @@ class ClassificationDataset(torch.utils.data.Dataset):
         return self.get_sample(i)
 
     def get_sample(self, i: int, rng: random.Random | None = None) -> dict:
+        """Val: dict(im0, resized_shape, crop (top, left), cls, im_file).
+        Train (``rng`` draws the augmentation): dict(recipe, tile (the crop,
+        BGR), cls, im_file)."""
         path, label = self.samples[i]
         im = imread(path)
         h, w = im.shape[:2]
+        if self.transform is not None:
+            recipe = self.transform((h, w), rng)
+            top, left, ch, cw = recipe["crop"]
+            tile = np.ascontiguousarray(im[top:top + ch, left:left + cw])
+            return {"recipe": recipe, "tile": tile, "cls": label, "im_file": path}
         size = int(self.imgsz / self.crop_fraction)
         s = size / min(h, w)
         wr, hr = max(size, round(w * s)), max(size, round(h * s))
@@ -393,14 +429,18 @@ class ClassificationDataset(torch.utils.data.Dataset):
 
     @staticmethod
     def collate(samples: list[dict]) -> dict:
-        return {"im0": [s["im0"] for s in samples],
-                "resized_shape": [s["resized_shape"] for s in samples],
-                "crop": [s["crop"] for s in samples],
+        per = ("recipe", "tile") if "recipe" in samples[0] else ("im0", "resized_shape", "crop")
+        return {**{k: [s[k] for s in samples] for k in per},
                 "cls": np.asarray([s["cls"] for s in samples], np.int32),
                 "im_file": [s["im_file"] for s in samples]}
 
     def images(self, batch: dict, device: str | torch.device) -> torch.Tensor:
-        """The batch's uint8 RGB (B, imgsz, imgsz, 3) crops on ``device``."""
+        """The batch's uint8 RGB (B, imgsz, imgsz, 3) images on ``device``:
+        val's resized centre crops, train's composed from their recipes."""
+        if "recipe" in batch:
+            from xlstm_yolo_tpu_torch.data.pixels import compose_classify
+
+            return compose_classify(batch["recipe"], batch["tile"], device)
         out = []
         for im0, (hr, wr), (top, left) in zip(batch["im0"], batch["resized_shape"],
                                                batch["crop"]):

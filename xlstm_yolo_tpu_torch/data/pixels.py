@@ -33,6 +33,10 @@ per-sample recipes (``augment.TrainTransforms``) and decoded tiles: each
 canvas (mosaic, or the letterboxed image) is pasted together on the
 device, then one warp gathers the whole batch, the mixup partners with it,
 then the copy-paste rectangles, one LUT gather, the flips and BGR -> RGB.
+:func:`compose_classify` builds a classify train batch from
+``augment.ClassifyAugment``'s recipes: each crop (cut by the loader's
+worker, so only its bytes move) resized by :func:`augment.resize_linear_u8`, the flips,
+one LUT gather for the HSV, the erased rectangles, BGR -> RGB.
 """
 
 from __future__ import annotations
@@ -276,14 +280,41 @@ def compose_batch(recipes: list[dict], tiles: list[list[np.ndarray]],
     shapes = {tuple(im.shape) for im in imgs}
     if len(shapes) != 1:
         raise ValueError(f"train images of different shapes in one batch: {sorted(shapes)}")
-    x = torch.stack(imgs)
-    if any(rc["hsv"] is not None for rc in recipes):
-        ident = np.stack([np.arange(256, dtype=np.uint8)] * 3)
-        luts = np.stack([ident if rc["hsv"] is None else rc["hsv"] for rc in recipes])
-        x = hsv_jitter_u8(x, torch.from_numpy(luts).to(dev))
+    x = _flip_where(_hsv_of(torch.stack(imgs), recipes), recipes)
+    return x.flip(-1).contiguous()  # BGR -> RGB
+
+
+
+def _flip_where(x: torch.Tensor, recipes: list[dict]) -> torch.Tensor:
+    """The recipes' up-down, then left-right flips of the (B, H, W, 3) batch."""
+    dev = x.device
     ud = torch.tensor([rc["flipud"] for rc in recipes], device=dev).view(-1, 1, 1, 1)
     lr = torch.tensor([rc["fliplr"] for rc in recipes], device=dev).view(-1, 1, 1, 1)
     x = torch.where(ud, x.flip(1), x)
-    x = torch.where(lr, x.flip(2), x)
-    return x.flip(-1).contiguous()  # BGR -> RGB
+    return torch.where(lr, x.flip(2), x)
 
+
+def _hsv_of(x: torch.Tensor, recipes: list[dict]) -> torch.Tensor:
+    """The recipes' HSV LUTs applied to the BGR batch (none drawn: as is)."""
+    if all(rc["hsv"] is None for rc in recipes):
+        return x
+    ident = np.stack([np.arange(256, dtype=np.uint8)] * 3)
+    luts = np.stack([ident if rc["hsv"] is None else rc["hsv"] for rc in recipes])
+    return hsv_jitter_u8(x, torch.from_numpy(luts).to(x.device))
+
+
+def compose_classify(recipes: list[dict], crops: list[np.ndarray],
+                     device: str | torch.device) -> torch.Tensor:
+    """The uint8 RGB (B, size, size, 3) pixels of a classify train batch on
+    ``device`` from ``augment.ClassifyAugment``'s recipes and their BGR
+    crops (cut from the decoded images by the recipes' ``crop``): the bytes
+    JAX's ``ClassifyAugment`` gives each sample."""
+    dev = torch.device(device)
+    crops = [resize_linear_u8(torch.from_numpy(np.ascontiguousarray(c)).to(dev), rc["size"],
+                              rc["size"]) for rc, c in zip(recipes, crops)]
+    x = _hsv_of(_flip_where(torch.stack(crops), recipes), recipes)
+    for j, rc in enumerate(recipes):
+        if rc["erase"] is not None:
+            top, left, eh, ew = rc["erase"]
+            x[j, top:top + eh, left:left + ew] = 0
+    return x.flip(-1).contiguous()  # BGR -> RGB

@@ -10,9 +10,9 @@ Counterpart of ``YOLO`` in ``xlstm_yolo_tpu/engine/model.py``: its
 (``engine/tuner.py``) and ``info``; ``track`` raises (ROADMAP Queue 1 item
 12).  ``task`` picks the predictor and validator of ``models.yolo.model.
 task_map`` (detect, segment, pose, obb, classify; the model YAML carries
-the head); ``train`` of a task but detect raises (item 10's training: its
-loss, assigner and train transforms).  The model runs on the GPU
-unless the caller passes ``device="cpu"``, its mLSTM cells on
+the head); ``train`` trains the facade's task (JAX's facade leaves the
+train config's ``task`` at detect unless the caller passes it).  The model
+runs on the GPU unless the caller passes ``device="cpu"``, its mLSTM cells on
 ``chunkwise_kernel`` (``"auto"``: the v2 kernels;
 ``nn.tasks.resolve_chunkwise_kernel``).  A model YAML is built with random weights from seed 0, as the JAX facade's
 ``PRNGKey(0)``.  A ``.pt`` checkpoint builds ``vil-det-192.yaml``, as the
@@ -67,7 +67,7 @@ def load_checkpoint_state(path: str | Path, model: torch.nn.Module) -> dict:
 
 
 class YOLO:
-    """User-facing facade: predict and val of every task, train of detect."""
+    """User-facing facade: predict, val and train of every task."""
 
     def __init__(self, model: str | Path = "vil-det-192.yaml", task: str = "detect",
                  device: str | torch.device = "cuda",
@@ -145,18 +145,15 @@ class YOLO:
         return cb
 
     def train(self, data=None, **kwargs) -> dict:
-        """Train a detector of this YAML (or, from a ``.pt``, vil-det-192
-        starting from its weights) on ``data`` with keys of the train
-        config (``cfg/default.yaml``), on this facade's device, through
-        ``engine.trainer.DetectionTrainer``.  Returns the final metrics;
-        ``self.trainer`` keeps the trainer."""
+        """Train a model of this YAML (or, from a ``.pt``, vil-det-192
+        starting from its weights) for the facade's task on ``data`` (a
+        dataset YAML; classify: the folder of ``train/`` and ``val/``) with
+        keys of the train config (``cfg/default.yaml``), on this facade's
+        device, through ``engine.trainer.DetectionTrainer``.  Returns the
+        final metrics; ``self.trainer`` keeps the trainer."""
         from xlstm_yolo_tpu_torch.engine.trainer import DetectionTrainer
 
-        if self.task != "detect":
-            raise NotImplementedError(f"training the {self.task} task is not ported: its loss, "
-                                      "assigner and train transforms are ROADMAP Queue 1 item "
-                                      "10 (training)")
-        overrides = {**self.overrides, **kwargs, "mode": "train"}
+        overrides = {"task": self.task, **self.overrides, **kwargs, "mode": "train"}
         if data:
             overrides["data"] = data
         if self.ckpt_path and "pretrained" not in overrides:

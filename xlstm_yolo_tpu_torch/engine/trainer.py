@@ -1,13 +1,23 @@
-"""The detector's trainer: epochs, warmup, accumulation, EMA validation,
+"""The trainer of every task: epochs, warmup, accumulation, EMA validation,
 checkpoints and resume.
 
 Counterpart of ``_prefetch``, ``EarlyStopping`` and ``DetectionTrainer``
-in ``xlstm_yolo_tpu/engine/trainer.py``, for the detect task, line by line
-where the two agree.  The layers of a step, from the host down:
+in ``xlstm_yolo_tpu/engine/trainer.py``, line by line where the two agree.
+The task (the train config's ``task``: detect, segment, pose, obb or
+classify) flows as in JAX: into the dataset (a YOLO-format set and its
+YAML, whose ``kpt_shape`` builds the pose head and whose ``flip_idx`` swaps
+the flipped keypoints; classify: the folder of ``train/`` and ``val/``
+class folders), the step's loss (``steps.make_train_step(task=...)``), the
+batch keys moved to the device (segment's ``masks``, pose's ``kpts``,
+OBB's ``rboxes``) and the validator (``DetectionValidator``,
+``SegmentationValidator``, ``PoseValidator``, ``OBBValidator`` or
+``ClassificationValidator``, whose ``fitness`` picks ``best.pt``).  The
+layers of a step, from the host down:
 
 - the loader's spawned workers (``data/build.TrainLoader``) decode the
-  PNG files, draw the augmentation and move the labels; each batch is a
-  list of recipes, the decoded tiles and the padded labels;
+  image files, draw the augmentation and move the labels; each batch is a
+  list of recipes, the decoded tiles (classify: the crops) and the padded
+  labels and task targets;
 - a thread (``_prefetch``) gathers ``accumulate`` loader batches per
   optimizer step;
 - the main process composes each batch's pixels on the device
@@ -16,7 +26,7 @@ where the two agree.  The layers of a step, from the host down:
   then one clip, update and EMA update);
 - each epoch the EMA parameters and the BatchNorm statistics are copied
   into an eval twin of the model (``training=False``) and validated with
-  ``DetectionValidator`` (the inference kernel); ``results.csv`` gets a
+  the task's validator (the inference kernel); ``results.csv`` gets a
   row, and ``weights/last.pt`` (and ``best.pt`` when the fitness is the
   best so far) a checkpoint (``utils/checkpoint``).
 
@@ -38,14 +48,12 @@ on the size.  ``multi_scale=True`` adds JAX's buckets: the sizes
 each a step that resizes the loader's ``imgsz`` batch on the device
 (``steps.make_train_step(imgsz_out=...)``), one drawn a step with
 ``random.Random(seed * 1000 + epoch).choice`` as JAX draws it
-(``self.buckets`` keeps the sequence); validation stays at ``imgsz``.
+(``self.buckets`` keeps the sequence; classify has none, as in JAX);
+validation stays at ``imgsz``.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-``device_aug`` (item 12), any task but detect (item 10's training: the
-task losses, the rotated assigner and the transforms of segments and
-keypoints), an orbax
-``pretrained`` checkpoint (item 7).  The trainer reads no environment
-variable.  A ``pretrained`` path or a ``cache`` mode given as an override
+``device_aug`` (item 12), an orbax ``pretrained`` checkpoint (item 7).  The
+trainer reads no environment variable.  A ``pretrained`` path or a ``cache`` mode given as an override
 is kept (JAX's ``get_cfg``, which the port's mirrors, coerces the string
 of a boolean key to False, so JAX's trainer never loads an override's
 ``pretrained`` file).  JAX's flat and hybrid optimizer states (``XY_FLAT_OPT``,
@@ -77,7 +85,7 @@ import torch
 from xlstm_yolo_tpu_torch import utils
 from xlstm_yolo_tpu_torch.cfg import VAL_DEFAULTS, get_cfg
 from xlstm_yolo_tpu_torch.data.build import TrainLoader, build_yolo_dataset
-from xlstm_yolo_tpu_torch.data.dataset import check_det_dataset
+from xlstm_yolo_tpu_torch.data.dataset import ClassificationDataset, check_det_dataset
 from xlstm_yolo_tpu_torch.engine import optimizers as opt_lib
 from xlstm_yolo_tpu_torch.engine.steps import TrainState, make_train_step, optimizer_leaves
 from xlstm_yolo_tpu_torch.engine.validator import DetectionValidator
@@ -93,7 +101,21 @@ from xlstm_yolo_tpu_torch.utils.checkpoint import (
 from xlstm_yolo_tpu_torch.utils.torch_utils import select_device
 
 _SENTINEL = object()
-_TRAIN_KEYS = ("img", "cls", "bboxes", "mask")
+_TASK_KEYS = ("masks", "kpts", "rboxes")  # segment's, pose's and OBB's targets
+
+
+def task_validator(task: str, cfg: dict):
+    """The validator of ``task`` on the val keys ``cfg``, its loader kept
+    between epochs (classify's reads its folder anew each call)."""
+    from xlstm_yolo_tpu_torch.models.yolo.classify.val import ClassificationValidator
+    from xlstm_yolo_tpu_torch.models.yolo.obb.val import OBBValidator
+    from xlstm_yolo_tpu_torch.models.yolo.pose.val import PoseValidator
+    from xlstm_yolo_tpu_torch.models.yolo.segment.val import SegmentationValidator
+
+    if task == "classify":
+        return ClassificationValidator(cfg)
+    return {"detect": DetectionValidator, "segment": SegmentationValidator,
+            "pose": PoseValidator, "obb": OBBValidator}[task](cfg, keep_loader=True)
 
 
 def _prefetch(gen, depth: int = 2):
@@ -143,8 +165,8 @@ def _refuse(what: str, item: str):
 
 
 class DetectionTrainer:
-    """Detect-task trainer on ``device`` (the GPU unless the caller asks
-    for the CPU).  ``self.timing`` holds, per epoch, the seconds the loop
+    """The trainer of ``args.task`` on ``device`` (the GPU unless the caller
+    asks for the CPU).  ``self.timing`` holds, per epoch, the seconds the loop
     waited on the loader, composed pixels and stepped, and the workers'
     seconds per image."""
 
@@ -194,31 +216,44 @@ class DetectionTrainer:
         args = self.args
         self.callbacks.run("on_pretrain_routine_start", self)
         task = str(getattr(args, "task", "detect") or "detect")
-        if task != "detect":
-            _refuse(f"task {task!r} (its loss, assigner and train transforms)", "10 (training)")
         if getattr(args, "device_aug", False):
             _refuse("device_aug", "12")
         if isinstance(args.pretrained, str) and Path(args.pretrained).suffix != ".pt":
             _refuse(f"pretrained {args.pretrained!r} (only .pt state dicts load; orbax "
                     "checkpoints)", "7")
-        data = check_det_dataset(args.data)
-        nc = data["nc"]
         imgsz = int(args.imgsz)
         batch = int(args.batch)
+        if task == "classify":  # a folder of train/ and val/ class folders
+            root = Path(args.data)
+            names = ClassificationDataset(str(root / "train"), imgsz=imgsz).names
+            data = {"train": str(root / "train"), "val": str(root / "val"), "nc": len(names),
+                    "names": names}
+        else:
+            data = check_det_dataset(args.data)
+        nc = data["nc"]
 
         # --- model (train + eval twins) ---
         dev = self.device
         compute_dtype = torch.bfloat16 if args.amp else None
         ck = str(getattr(args, "chunkwise_kernel", "auto") or "auto")
+        kpt = tuple(data["kpt_shape"]) if task == "pose" and data.get("kpt_shape") else None
         model_t, _ = build_detection_model(
             self.model_cfg, nc=nc, training=True, compute_dtype=compute_dtype, device=dev,
-            generator=torch.Generator().manual_seed(int(args.seed)), chunkwise_kernel=ck)
+            generator=torch.Generator().manual_seed(int(args.seed)), chunkwise_kernel=ck,
+            kpt_shape=kpt)
         model_e = copy.deepcopy(model_t).eval()  # its weights come from the EMA
         if args.pretrained and isinstance(args.pretrained, str):
             self._load_pretrained(model_t, args.pretrained)
 
         # --- data ---
-        trainset = build_yolo_dataset(args, data["train"], mode="train")
+        if task == "classify":
+            trainset = ClassificationDataset(
+                data["train"], imgsz=imgsz, augment=True, hyp=args,
+                fraction=float(getattr(args, "fraction", 1.0) or 1.0))
+        else:
+            trainset = build_yolo_dataset(args, data["train"], mode="train", task=task,
+                                          kpt_shape=data.get("kpt_shape"),
+                                          flip_idx=data.get("flip_idx"))
         loader = TrainLoader(trainset, batch, shuffle=True, workers=int(args.workers),
                              seed=int(args.seed))
         nb = max(len(loader), 1)  # batches per epoch
@@ -245,19 +280,22 @@ class DetectionTrainer:
         if args.resume:
             state, self.start_epoch, self.best_fitness = load_checkpoint(
                 self.wdir / "last.pt", state, self.generator)
-        train_step = make_train_step(model_t, tx, nc=nc, accumulate=accumulate)
+        step_kw = dict(nc=nc, accumulate=accumulate, task=task,
+                       kpt_shape=tuple(data.get("kpt_shape") or (17, 3)) if task == "pose"
+                       else None)
+        self.train_step = train_step = make_train_step(model_t, tx, **step_kw)
         self.accumulate = accumulate
         # multi-scale: one step per bucket of {0.8, 1.0, 1.2} x imgsz (stride-32
-        # aligned), each resizing the batch and its boxes on the device
+        # aligned), each resizing the batch and its geometry on the device
         ms_steps = {}
-        if getattr(args, "multi_scale", False):
+        if getattr(args, "multi_scale", False) and task != "classify":
             buckets = sorted({max(32, round(imgsz * s / 32) * 32) for s in (0.8, 1.0, 1.2)})
             ms_steps = {b: train_step if b == imgsz else make_train_step(
-                model_t, tx, nc=nc, accumulate=accumulate, imgsz_out=b) for b in buckets}
+                model_t, tx, **step_kw, imgsz_out=b) for b in buckets}
             print(f"multi-scale buckets: {buckets}")
         self.buckets: list[int] = []
 
-        validator = DetectionValidator(self._val_args(batch), keep_loader=True)
+        self.validator = validator = task_validator(task, self._val_args(batch))
         stopper = EarlyStopping(int(args.patience))
         self.wdir.mkdir(parents=True, exist_ok=True)
         (self.save_dir / "args.yaml").write_text(
@@ -281,7 +319,7 @@ class DetectionTrainer:
             for epoch in range(self.start_epoch, epochs):
                 self.epoch = epoch
                 self.callbacks.run("on_train_epoch_start", self)
-                if epoch == epochs - int(args.close_mosaic):
+                if epoch == epochs - int(args.close_mosaic) and trainset.transforms is not None:
                     trainset.transforms.mosaic_enabled = False
 
                 self.losses = losses = []
@@ -295,7 +333,7 @@ class DetectionTrainer:
                 for micro in _prefetch(epoch_batches(epoch)):
                     t0 = time.perf_counter()
                     tm["wait_s"] += t0 - t_wait
-                    dev_batch = self._device_batch(trainset, micro)
+                    dev_batch = self._device_batch(trainset, micro, task)
                     t1 = time.perf_counter()
                     step_fn = train_step
                     if ms_keys:
@@ -361,25 +399,26 @@ class DetectionTrainer:
                         strip_optimizer(self.wdir / p)
         finally:
             loader.close()
-            validator.close()
+            if hasattr(validator, "close"):
+                validator.close()
 
         self.callbacks.run("on_train_end", self)
         self.state, self.model, self.eval_model = state, model_t, model_e
         return self.metrics
 
     # ------------------------------------------------------------------
-    def _device_batch(self, trainset, micro: list[dict]) -> dict:
+    def _device_batch(self, trainset, micro: list[dict], task: str = "detect") -> dict:
         """The step's batch on the device: each microbatch's pixels composed
-        there, stacked on a leading microbatch dimension when there are
-        several."""
+        there and its task's label keys moved, stacked on a leading
+        microbatch dimension when there are several."""
         dev = self.device
-        mbs = []
-        for b in micro:
-            mbs.append({"img": trainset.images(b, dev),
-                        **{k: torch.from_numpy(b[k]).to(dev) for k in _TRAIN_KEYS[1:]}})
+        keys = ("cls",) if task == "classify" else ("cls", "bboxes", "mask") + tuple(
+            k for k in _TASK_KEYS if k in micro[0])
+        mbs = [{"img": trainset.images(b, dev),
+                **{k: torch.from_numpy(b[k]).to(dev) for k in keys}} for b in micro]
         if len(mbs) == 1:
             return mbs[0]
-        return {k: torch.stack([mb[k] for mb in mbs]) for k in _TRAIN_KEYS}
+        return {k: torch.stack([mb[k] for mb in mbs]) for k in mbs[0]}
 
     @staticmethod
     def _load_eval(model_e, params: dict, batch_stats: dict):

@@ -3,9 +3,9 @@
 Counterpart of ``task_map`` in ``xlstm_yolo_tpu/models/yolo/model.py``,
 entry for entry: the facade's ``val`` of segment and pose runs the detect
 validator (box metrics), as JAX's does; ``SegmentationValidator`` and
-``PoseValidator`` are reached directly.  Every trainer is the detect
-trainer, which trains the detect task only (the other tasks' losses and
-train transforms are ROADMAP Queue 1 item 10's training part).
+``PoseValidator`` are reached directly (the trainer validates each task
+with its own).  Every trainer is ``DetectionTrainer``, which trains the
+train config's ``task``.
 """
 
 from xlstm_yolo_tpu_torch.models.yolo.classify.predict import ClassificationPredictor

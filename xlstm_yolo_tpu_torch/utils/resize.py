@@ -1,11 +1,13 @@
 """Image resize with the JAX package's numbers: ``jax.image.resize``.
 
 The port's own copy of the formulation of ``jax.image.resize(x, shape,
-method, antialias=True, precision=HIGHEST)`` for the two methods the
+method, antialias=True, precision=HIGHEST)`` for the three methods the
 detectors use: ``"bicubic"`` (the pos-embed and PatchMerger query grids at
-another input size) and ``"bilinear"`` (the train step's multi-scale
-batch).  Only the axes whose size changes are resized.  Each such axis gets
-an (in, out) weight matrix, built as JAX's ``compute_weight_mat`` builds it:
+another input size), ``"bilinear"`` (the train step's multi-scale
+batch) and ``"nearest"`` (that batch's segment masks).  Only the axes
+whose size changes are resized; ``"nearest"`` gathers rows.  For the
+other two each such axis gets an (in, out) weight matrix, built as JAX's
+``compute_weight_mat`` builds it:
 
 - the Keys cubic kernel with a = -0.5, or the triangle kernel;
 - ``kernel_scale = max(in / out, 1)``: when downsampling the kernel
@@ -77,12 +79,26 @@ def weight_matrix(n_in: int, n_out: int, method: str, device: str = "cpu") -> to
     return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
 
 
+def nearest_indices(n_in: int, n_out: int, device="cpu") -> torch.Tensor:
+    """The input index of each output of JAX's ``"nearest"`` resize:
+    ``floor((j + 0.5) * in / out)``, each operation in float32 as JAX's
+    (``F.interpolate``'s ``"nearest"`` samples at ``floor(j * in / out)``)."""
+    j = torch.arange(n_out, dtype=torch.float32, device=device)
+    return torch.floor((j + 0.5) * n_in / n_out).long()
+
+
 def resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
     """``jax.image.resize(x, shape, method)`` (antialias on): ``x`` resized to
-    ``shape`` along every axis whose size differs."""
+    ``shape`` along every axis whose size differs; ``"nearest"`` gathers at
+    :func:`nearest_indices` and keeps the dtype."""
     shape = tuple(int(s) for s in shape)
     if len(shape) != x.ndim:
         raise ValueError(f"shape {shape} must have one size per axis of {tuple(x.shape)}")
+    if method == "nearest":
+        for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+            if n_in != n_out:
+                x = x.index_select(d, nearest_indices(n_in, n_out, x.device))
+        return x
     if not x.is_floating_point():
         x = x.float()
     for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):

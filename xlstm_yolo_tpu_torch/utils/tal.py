@@ -1,9 +1,10 @@
 """Anchor geometry and the task-aligned assigner (counterpart of
 ``make_anchors``, ``dist2bbox``, ``bbox2dist``, ``dist2rbox``,
-``xywhr2xyxyxyxy``, ``topk_select_mask``,
-``task_aligned_assign``, ``task_aligned_assign_pallas_metric`` and
-``_assign_from_metric`` in ``xlstm_yolo_tpu/utils/tal.py``): fixed shapes,
-padded gts, every step a masked dense computation over the (B, M, A) grid."""
+``xywhr2xyxyxyxy``, ``_candidates_in_rotated_gts``, ``topk_select_mask``,
+``task_aligned_assign`` (axis-aligned and rotated),
+``task_aligned_assign_pallas_metric`` and ``_assign_from_metric`` in
+``xlstm_yolo_tpu/utils/tal.py``): fixed shapes, padded gts, every step a
+masked dense computation over the (B, M, A) grid."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from xlstm_yolo_tpu_torch.ops.tal_metric import tal_metric
-from xlstm_yolo_tpu_torch.utils.metrics import bbox_iou
+from xlstm_yolo_tpu_torch.utils.metrics import bbox_iou, probiou
 from xlstm_yolo_tpu_torch.utils.torch_utils import acc_dtype
 
 f32 = torch.float32
@@ -75,6 +76,21 @@ def bbox2dist(anchor_points, bbox, reg_max: float):
     return d.clamp(0, reg_max - 0.01)
 
 
+def _candidates_in_rotated_gts(anc_points, gt_rboxes, eps: float = 1e-9):
+    """(A, 2) anchor centres inside (B, M, 5) xywhr gts -> (B, M, A) bool: the
+    anchor projected onto the box's edge frame (corners a, b, d), each
+    coordinate in [eps, the edge's squared length]."""
+    corners = xywhr2xyxyxyxy(gt_rboxes)  # (B, M, 4, 2)
+    a, b, d = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+    ab, ad = b - a, d - a
+    ap = anc_points[None, None] - a[..., None, :]  # (B, M, A, 2)
+    norm_ab = (ab * ab).sum(-1, keepdim=True)
+    norm_ad = (ad * ad).sum(-1, keepdim=True)
+    ap_ab = (ap * ab[..., None, :]).sum(-1)
+    ap_ad = (ap * ad[..., None, :]).sum(-1)
+    return (ap_ab >= eps) & (ap_ab <= norm_ab) & (ap_ad >= eps) & (ap_ad <= norm_ad)
+
+
 def topk_select_mask(metric: torch.Tensor, topk: int, k_arr=None) -> torch.Tensor:
     """(..., A) metric -> (..., A) bool mask of its ``topk`` largest
     entries, as ``topk`` masked-argmax rounds: value ties go to the lowest
@@ -108,7 +124,8 @@ class AssignResult(NamedTuple):
 
 def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt,
                         topk: int = 10, num_classes: int = 80, alpha: float = 0.5,
-                        beta: float = 6.0, eps: float = 1e-9, topk_arr=None) -> AssignResult:
+                        beta: float = 6.0, eps: float = 1e-9, rotated: bool = False,
+                        topk_arr=None) -> AssignResult:
     """Assign padded gts to anchors by s^alpha * CIoU^beta, masked dense over
     the (B, M, A) grid.
 
@@ -117,18 +134,28 @@ def task_aligned_assign(pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, 
     units; gt_labels (B, M) ints; mask_gt (B, M) validity; ``topk_arr`` an
     optional per-sample k (B,) <= ``topk`` (:func:`topk_select_mask`).  An
     in-box anchor of a valid gt stays a top-k candidate even at zero metric.
+    With ``rotated`` the boxes are xywhr (..., 5), an anchor's candidacy is
+    :func:`_candidates_in_rotated_gts` and the overlap is probiou.
     """
     B, A, nc = pd_scores.shape
     M = gt_bboxes.shape[1]
     mask_gt = mask_gt.bool()
-    lt, rb = gt_bboxes[..., None, :2], gt_bboxes[..., None, 2:]
-    deltas = torch.cat([anc_points[None, None] - lt, rb - anc_points[None, None]], dim=-1)
-    valid = (deltas.amin(-1) > eps) & mask_gt[..., None]  # (B, M, A)
+    if rotated:
+        inside = _candidates_in_rotated_gts(anc_points, gt_bboxes, eps)
+    else:
+        lt, rb = gt_bboxes[..., None, :2], gt_bboxes[..., None, 2:]
+        deltas = torch.cat([anc_points[None, None] - lt, rb - anc_points[None, None]], dim=-1)
+        inside = deltas.amin(-1) > eps
+    valid = inside & mask_gt[..., None]  # (B, M, A)
 
     cls_idx = gt_labels.long().clamp(0, nc - 1)
     bbox_scores = pd_scores.transpose(1, 2).gather(1, cls_idx[:, :, None].expand(B, M, A))
     bbox_scores = torch.where(valid, bbox_scores, torch.zeros_like(bbox_scores))
-    ious = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False, kind="ciou")
+    if rotated:
+        ious = probiou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :])
+    else:
+        ious = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False,
+                        kind="ciou")
     overlaps = torch.where(valid, ious.clamp(min=0.0), torch.zeros_like(ious))
     acc = acc_dtype(overlaps.dtype)
     align_metric = bbox_scores.to(acc) ** alpha * overlaps.to(acc) ** beta
@@ -156,7 +183,8 @@ def task_aligned_assign_pallas_metric(pd_scores, pd_bboxes, anc_points, gt_label
 def _assign_from_metric(align_metric, overlaps, mask_pos, gt_labels, gt_bboxes,
                         fg_eps: float, num_classes: int) -> AssignResult:
     """Resolve anchors claimed by several gts (highest IoU wins), gather the
-    targets and scale the one-hot scores by the per-gt normalised metric."""
+    targets ((B, A, 4) boxes, or (B, A, 5) rotated ones) and scale the
+    one-hot scores by the per-gt normalised metric."""
     B, M, A = mask_pos.shape
     multi = mask_pos.sum(-2) > 1  # (B, A)
     max_iou_gt = torch.where(mask_pos, overlaps, torch.full_like(overlaps, -1.0)).argmax(-2)
@@ -167,7 +195,8 @@ def _assign_from_metric(align_metric, overlaps, mask_pos, gt_labels, gt_bboxes,
 
     tl = gt_labels.long().gather(1, target_gt_idx)
     target_labels = torch.where(fg_mask, tl, torch.full_like(tl, num_classes)).to(torch.int32)
-    target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(B, A, 4))
+    target_bboxes = gt_bboxes.gather(
+        1, target_gt_idx[..., None].expand(B, A, gt_bboxes.shape[-1]))
     # one-hot as jax.nn.one_hot: a label outside [0, nc) gives a zero row
     classes = torch.arange(num_classes, device=tl.device)
     onehot = (tl.clamp(min=0)[..., None] == classes).to(align_metric.dtype)
